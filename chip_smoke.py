@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (tpu_bfs_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py                 # the full run: RMAT scale 21, 8192 lanes
+    python3 chip_smoke.py --scale 16      # a quicker flagship (cut stated in output)
+
+Phases, one JSON line each:
+ 1. device: the card and its power limit (nvidia-smi);
+ 2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc;
+ 3. parity: each kernel against its plain PyTorch twin, bit-exact, at small
+    ragged shapes (K1 ell_expand: or/min/minplus, w 8 and 256, k 1/7/64,
+    gated tiles; K2 tile_spmm: w 8 and 256, empty row tiles);
+ 4. wide: WidePackedMsBfsEngine, RMAT scale 18, 4096 lanes, 3 lanes
+    validated against the SciPy oracle, K1 launches counted;
+ 5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1), 8192 lanes,
+    the bench protocol (hub pilot as warm-up, sources from default_rng(7)
+    among traversable vertices, one timed batch, 7 lanes validated), with
+    both kernels' launch counts and summed CUDA-event times;
+ 6. kernels: each kernel at the flagship's shapes against its twin
+    (bit-exact), its time, the twin's time and its device-memory bound.
+The last line is {"ok": true, "device": {...}}. Any failed check raises and
+the script exits non-zero; it also exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def reset_counts(k1, k2) -> None:
+    k1.ell_expand.launches = 0
+    k2.tile_spmm.launches = 0
+
+
+def phase_parity(dev, k1, k2) -> None:
+    rng = np.random.default_rng(0)
+
+    def i32(x):
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+
+    checks = 0
+    for op in ("or", "min", "minplus"):
+        for w in (8, 256):
+            for k in (1, 7, 64):
+                nb, rows = 5, 1000 + 37  # a ragged frontier height
+                need = (rng.random(nb) < 0.6).astype(np.int32)
+                need[0], need[-1] = 1, 0
+                gt = rng.integers(0, rows, size=(k, nb * 128)).astype(np.int32)
+                fw = rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+                wt = None
+                if op == "minplus":
+                    fw = (fw >> np.uint32(12)).view(np.int32)
+                    wt = i32(rng.integers(0, 9, size=(k, nb * 128)).astype(np.int32))
+                args = (i32(need), i32(gt), i32(fw), wt)
+                got = k1.ell_expand(*args, op=op)
+                torch.cuda.synchronize()
+                want = k1.ell_expand_plain(*args, op=op)
+                require(torch.equal(got, want), f"ell_expand {op} w={w} k={k} != twin")
+                checks += 1
+    for w in (8, 256):
+        # Row tile 0 takes every column tile and row tile 2 takes 33 (both
+        # split over blocks, K2's atomicOr path); row tile 3 takes exactly 32
+        # (one block); row tiles 1 and 4 are empty.
+        vt = 40
+        row_start, col_tile = [0], []
+        for j in range(vt):
+            n = {0: vt, 1: 0, 2: 33, 3: 32, 4: 0}.get(j, 3)
+            col_tile += sorted(int(c) for c in rng.choice(vt, size=n, replace=False))
+            row_start.append(len(col_tile))
+        a = rng.integers(0, 2**32, size=(len(col_tile), 4, 128), dtype=np.uint32)
+        a &= rng.integers(0, 2**32, size=a.shape, dtype=np.uint32)
+        a &= rng.integers(0, 2**32, size=a.shape, dtype=np.uint32)
+        fw = rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32)
+        fw &= rng.integers(0, 2**32, size=fw.shape, dtype=np.uint32)
+        args = [i32(np.array(row_start, np.int32)), i32(np.array(col_tile, np.int32)),
+                i32(a), i32(fw)]
+        got = k2.tile_spmm(*args, num_row_tiles=vt)
+        torch.cuda.synchronize()
+        want = k2.tile_spmm_plain(*args, num_row_tiles=vt)
+        require(torch.equal(got, want), f"tile_spmm w={w} != twin")
+        require(not got[128:256].any() and not got[512:640].any(), "empty row tile not zero")
+        checks += 1
+    # The twins' own time at one small shape (labelled: the twin, not the kernel).
+    need = i32(np.ones(5, np.int32))
+    gt = i32(rng.integers(0, 1000, size=(64, 640)).astype(np.int32))
+    fw = i32(rng.integers(0, 2**32, size=(1000, 256), dtype=np.uint32))
+    twin_k1 = cuda_ms(lambda: k1.ell_expand_plain(need, gt, fw), 3)
+    twin_k2 = cuda_ms(lambda: k2.tile_spmm_plain(*args, num_row_tiles=vt), 3)
+    emit({"phase": "parity", "checks": checks, "exact": True,
+          "twin_ms_small": {"ell_expand_plain[k=64,n=640,w=256]": twin_k1,
+                            "tile_spmm_plain[NT=219,vt=40,w=256]": twin_k2}})
+
+
+def hub_component_sources(eng, lanes: int, *, seed: int, with_component: bool = False):
+    """The bench protocol's sources: a pilot BFS from the highest-degree vertex
+    (also the warm-up), then ``lanes`` draws from ``default_rng(seed)`` among
+    the vertices it reached (Graph500 samples in the traversable component)."""
+    from tpu_bfs_torch.algorithms.msbfs_packed import UNREACHED
+
+    in_degree = eng.hg.in_degree if hasattr(eng, "hg") else eng.ell.in_degree
+    pilot = eng.run(np.array([int(np.argmax(in_degree))]))
+    traversable = np.flatnonzero(pilot.distance_u8_lane(0) != UNREACHED)
+    sources = np.random.default_rng(seed).choice(
+        traversable, size=lanes, replace=len(traversable) < lanes)
+    return (sources, traversable) if with_component else sources
+
+
+def validate_lanes(g, res, sources, picks) -> None:
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.validate import check_distances
+
+    csr = g.to_scipy()
+    for i in picks:
+        check_distances(res.distances_int32(i), bfs_scipy(g, int(sources[i]), csr=csr))
+
+
+def phase_wide(dev, k1, k2, scale: int) -> None:
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.graph.generate import rmat_graph
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale, 16, seed=1)
+    eng = WidePackedMsBfsEngine(g, lanes=4096, device=dev)
+    build_s = time.perf_counter() - t0
+    sources = hub_component_sources(eng, 4096, seed=3)  # the run doubles as warm-up
+    reset_counts(k1, k2)
+    res = eng.run(sources, time_it=True)
+    launches = k1.ell_expand.launches
+    require(launches > 0, "wide engine launched no ell_expand kernel")
+    require(k2.tile_spmm.launches == 0, "wide engine launched tile_spmm")
+    picks = [0, 2048, 4095]
+    validate_lanes(g, res, sources, picks)
+    emit({"phase": "wide", "scale": scale, "edge_factor": 16, "lanes": 4096,
+          "host_build_s": build_s, "levels": res.num_levels,
+          "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
+          "ell_expand_launches": launches, "validated_lanes": picks})
+
+
+def flagship_graph(scale: int):
+    """RMAT scale/ef16/seed1 (numpy generator), cached as .npz under build/."""
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.graph.io import load_npz, save_npz
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+
+    path = BUILD_DIR / f"rmat{scale}_ef16_seed1.npz"
+    if path.is_file():
+        return load_npz(str(path)), True
+    g = rmat_graph(scale, 16, seed=1)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.stem + ".tmp.npz")
+    save_npz(str(tmp), g)
+    tmp.replace(path)
+    return g, False
+
+
+def phase_flagship(dev, k1, k2, scale: int, lanes: int):
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+
+    t0 = time.perf_counter()
+    g, cached = flagship_graph(scale)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = HybridMsBfsEngine(g, max_lanes=lanes, device=dev)
+    engine_s = time.perf_counter() - t0
+    require(eng.lanes == lanes, f"auto sizing chose {eng.lanes} lanes, not {lanes}")
+    hg = eng.hg
+
+    t0 = time.perf_counter()
+    sources, traversable = hub_component_sources(eng, lanes, seed=7, with_component=True)
+    pilot_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(k1, k2)
+    res = eng.run(sources, time_it=True)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    t0 = time.perf_counter()
+    picks = sorted({0, lanes // 2, lanes - 1}
+                   | {int(x) for x in np.linspace(0, lanes - 1, 4).round()})
+    validate_lanes(g, res, sources, picks)
+    validate_s = time.perf_counter() - t0
+
+    # A second, identical batch with CUDA events around every launch: each
+    # kernel's summed device time over one batch (events cost a little, so
+    # the batch time above comes from the un-instrumented run).
+    k1.ell_expand.timings, k2.tile_spmm.timings = [], []
+    eng.run(sources)
+    torch.cuda.synchronize()
+    ev_ms = {name: sum(a.elapsed_time(b) for a, b in fn.timings)
+             for name, fn in (("ell_expand", k1.ell_expand), ("tile_spmm", k2.tile_spmm))}
+    ev_n = {"ell_expand": len(k1.ell_expand.timings), "tile_spmm": len(k2.tile_spmm.timings)}
+    k1.ell_expand.timings = k2.tile_spmm.timings = None
+
+    w = eng.w
+    k1_bytes = sum(
+        k1.ell_expand_hbm_bytes(k, n, w)
+        for k, n in ([(hg.kcap, hg.res_num_virtual)] if hg.res_heavy else [])
+        + [(b.k, b.n) for b in hg.res_light]
+    )
+    k1_per_level = (1 if hg.res_heavy else 0) + len(hg.res_light)
+    k2_bytes = k2.tile_spmm_hbm_bytes(hg.num_tiles, hg.vt, w)
+    bodies = launches["tile_spmm"]
+    emit({
+        "phase": "flagship", "graph": f"RMAT scale {scale}, ef 16, seed 1 (numpy)",
+        "scale_cut": None if scale == 21 else f"scale {scale} instead of 21 (--scale)",
+        "V": g.num_vertices, "edge_slots": g.num_edges, "active": hg.num_active,
+        "dense_tiles": hg.num_tiles, "dense_edges": hg.num_dense_edges,
+        "residual_buckets": k1_per_level, "lanes": lanes, "planes": eng.num_planes,
+        "graph_s": graph_s, "graph_cached": cached, "engine_build_s": engine_s,
+        "pilot_s": pilot_s, "traversable": int(len(traversable)),
+        "levels": res.num_levels, "level_bodies": bodies,
+        "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "validated_lanes": picks, "validate_s": validate_s,
+        "event_ms_per_batch": ev_ms, "event_launches": ev_n,
+        "ms_per_launch": {k: ev_ms[k] / max(ev_n[k], 1) for k in ev_ms},
+        # The kernels' streamed-bytes models (ell_expand_hbm_bytes; K2: each
+        # dense tile's bit tile and frontier slab, plus the output) over 3.35 TB/s.
+        "model_ms_per_launch": {
+            "ell_expand": k1_bytes / k1_per_level / HBM_BYTES_PER_S * 1e3,
+            "tile_spmm": k2_bytes / HBM_BYTES_PER_S * 1e3,
+        },
+    })
+    return eng, res, launches
+
+
+def phase_kernels(eng, res, launches, k1, k2):
+    """Each kernel at the flagship's shapes, on a frontier-sized table from
+    the run (its visited table): against the twin, then timed. K1's unit is
+    one level's residual pass (every bucket); K2's is its one launch. The
+    bound reads each input once (only the frontier rows the indices name)
+    and writes each output once, over 3.35 TB/s."""
+    arrs, hg, w = eng.arrs, eng.hg, eng.w
+    fw = res._vis
+    row_bytes = w * 4
+    names = (["virtual"] if hg.res_heavy else []) + [f"light{i}" for i in range(len(hg.res_light))]
+
+    def k1_level(fn):
+        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw) for n in names]
+
+    def k2_pass(fn):
+        return fn(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                  num_row_tiles=hg.vt)
+
+    k1_rows = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
+    k1_bytes = k1_rows * row_bytes + sum(  # + each bucket's gate, indices and output
+        arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * row_bytes
+        for n in names)
+    k2_slabs = int(torch.unique(arrs["col_tile"]).numel())
+    k2_bytes = (arrs["row_start"].nbytes + arrs["col_tile"].nbytes + arrs["a_tiles"].nbytes
+                + k2_slabs * 128 * row_bytes + hg.vt * 128 * row_bytes)
+    saved = (k1.ell_expand.launches, k2.tile_spmm.launches)
+    got1, want1 = k1_level(k1.ell_expand), k1_level(k1.ell_expand_plain)
+    got2, want2 = k2_pass(k2.tile_spmm), k2_pass(k2.tile_spmm_plain)
+    torch.cuda.synchronize()
+    err1 = max(max_abs_err(a, b) for a, b in zip(got1, want1))
+    err2 = max_abs_err(got2, want2)
+    require(all(torch.equal(a, b) for a, b in zip(got1, want1)),
+            "ell_expand != twin at flagship shapes")
+    require(torch.equal(got2, want2), "tile_spmm != twin at flagship shapes")
+    del got1, want1, got2, want2
+    rows = [
+        ("ell_expand", "tpu_bfs_torch/csrc/ell_expand.cu", "tpu_bfs/ops/ell_expand.py:225",
+         err1, cuda_ms(lambda: k1_level(k1.ell_expand), 5),
+         cuda_ms(lambda: k1_level(k1.ell_expand_plain), 2), k1_bytes),
+        ("tile_spmm", "tpu_bfs_torch/csrc/tile_spmm.cu", "tpu_bfs/ops/tile_spmm.py:184",
+         err2, cuda_ms(lambda: k2_pass(k2.tile_spmm), 5),
+         cuda_ms(lambda: k2_pass(k2.tile_spmm_plain), 1), k2_bytes),
+    ]
+    k1.ell_expand.launches, k2.tile_spmm.launches = saved  # comparisons do not count
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None}
+        for name, src, rep, err, ms, plain, nbytes in rows
+    ]
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
+    ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
+    ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    import tpu_bfs_torch
+    from tpu_bfs_torch.ops import _build
+    from tpu_bfs_torch.ops import ell_expand as k1
+    from tpu_bfs_torch.ops import tile_spmm as k2
+
+    here = Path(__file__).resolve().parent
+    require(Path(tpu_bfs_torch.__file__).resolve().parent == here / "tpu_bfs_torch",
+            "tpu_bfs_torch must come from this checkout")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    log = []
+    _build.build(force=True, log=log.append)
+    _build.load_library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc": _build.find_nvcc()})
+    print("\n".join(log), file=sys.stderr, flush=True)
+
+    phase_parity(dev, k1, k2)
+    phase_wide(dev, k1, k2, args.wide_scale)
+    eng, res, launches = phase_flagship(dev, k1, k2, args.scale, args.lanes)
+    kernels = phase_kernels(eng, res, launches, k1, k2)
+
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
