@@ -8,16 +8,21 @@ Phases, one JSON line each:
  1. device: the card and its power limit (nvidia-smi);
  2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc;
  3. parity: each kernel against its plain PyTorch twin, bit-exact, at small
-    ragged shapes (K1 ell_expand: or/min/minplus, w 8 and 256, k 1/7/64,
-    gated tiles; K2 tile_spmm: w 8 and 256, empty row tiles);
+    ragged shapes (K1 ell_expand: or/min/minplus, w 1/8/33/256, k 1/7/64/70,
+    gated tiles; K2 tile_spmm: w 1/8/33/64/256, every compiled shape, fresh
+    and accumulating into a prior table, empty and split row tiles);
  4. wide: WidePackedMsBfsEngine, RMAT scale 18, 4096 lanes, 3 lanes
     validated against the SciPy oracle, K1 launches counted;
  5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1), 8192 lanes,
     the bench protocol (hub pilot as warm-up, sources from default_rng(7)
     among traversable vertices, one timed batch, 7 lanes validated), with
     both kernels' launch counts and summed CUDA-event times;
- 6. kernels: each kernel at the flagship's shapes against its twin
-    (bit-exact), its time, the twin's time and its device-memory bound.
+ 6. k1_strips, k2_shapes: every K1 strip width and every K2 shape (chunk
+    words, ring stages, warps, grid order) at the flagship's operands,
+    bit-exact against the twin, timed in turns;
+ 7. kernels: each kernel at the flagship's shapes against its twin
+    (bit-exact), its time, the twin's time, its device-memory bound, its
+    streamed-bytes model and nvcc's register and shared-memory report.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,8 +81,8 @@ def phase_parity(dev, k1, k2) -> None:
 
     checks = 0
     for op in ("or", "min", "minplus"):
-        for w in (8, 256):
-            for k in (1, 7, 64):
+        for w in (1, 8, 33, 256):
+            for k in (1, 7, 64, 70):
                 nb, rows = 5, 1000 + 37  # a ragged frontier height
                 need = (rng.random(nb) < 0.6).astype(np.int32)
                 need[0], need[-1] = 1, 0
@@ -87,12 +93,16 @@ def phase_parity(dev, k1, k2) -> None:
                     fw = (fw >> np.uint32(12)).view(np.int32)
                     wt = i32(rng.integers(0, 9, size=(k, nb * 128)).astype(np.int32))
                 args = (i32(need), i32(gt), i32(fw), wt)
-                got = k1.ell_expand(*args, op=op)
-                torch.cuda.synchronize()
                 want = k1.ell_expand_plain(*args, op=op)
-                require(torch.equal(got, want), f"ell_expand {op} w={w} k={k} != twin")
-                checks += 1
-    for w in (8, 256):
+                for strip in k1.STRIPS:
+                    k1.ell_expand.strip = strip
+                    got = k1.ell_expand(*args, op=op)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want),
+                            f"ell_expand {op} w={w} k={k} strip={strip} != twin")
+                    checks += 1
+                k1.ell_expand.strip = k1.STRIPS[0]
+    for w in (1, 8, 33, 64, 256):
         # Row tile 0 takes every column tile and row tile 2 takes 33 (both
         # split over blocks, K2's atomicOr path); row tile 3 takes exactly 32
         # (one block); row tiles 1 and 4 are empty.
@@ -109,12 +119,23 @@ def phase_parity(dev, k1, k2) -> None:
         fw &= rng.integers(0, 2**32, size=fw.shape, dtype=np.uint32)
         args = [i32(np.array(row_start, np.int32)), i32(np.array(col_tile, np.int32)),
                 i32(a), i32(fw)]
-        got = k2.tile_spmm(*args, num_row_tiles=vt)
-        torch.cuda.synchronize()
         want = k2.tile_spmm_plain(*args, num_row_tiles=vt)
-        require(torch.equal(got, want), f"tile_spmm w={w} != twin")
-        require(not got[128:256].any() and not got[512:640].any(), "empty row tile not zero")
-        checks += 1
+        prior = i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32)
+                    & rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32))
+        masks = k2.row_masks(args[2])
+        for shape in k2.SHAPES:
+            k2.tile_spmm.shape = shape
+            got = k2.tile_spmm(*args, num_row_tiles=vt)
+            acc = k2.tile_spmm(*args, num_row_tiles=vt, masks=masks, out=prior.clone())
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"tile_spmm w={w} shape={shape} != twin")
+            require(not got[128:256].any() and not got[512:640].any(),
+                    "empty row tile not zero")
+            require(torch.equal(acc, prior | want),
+                    f"tile_spmm out= w={w} shape={shape} != prior | twin")
+            require(torch.equal(acc[128:256], prior[128:256]), "empty row tile touched")
+            checks += 2
+        k2.tile_spmm.shape = k2.SHAPES[0]
     # The twins' own time at one small shape (labelled: the twin, not the kernel).
     need = i32(np.ones(5, np.int32))
     gt = i32(rng.integers(0, 1000, size=(64, 640)).astype(np.int32))
@@ -261,56 +282,179 @@ def phase_flagship(dev, k1, k2, scale: int, lanes: int):
     return eng, res, launches
 
 
-def phase_kernels(eng, res, launches, k1, k2):
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel template instance (integer and
+    bool arguments), else the mangled name."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+
+
+def ptxas_report(log) -> dict:
+    """Each compiled kernel's registers, static shared memory and spill
+    bytes, from nvcc's ``-Xptxas -v`` output, keyed by source file."""
+    report = {}
+    for chunk in log:
+        head = re.match(r"\[nvcc (\S+)\]", chunk)
+        if not head:
+            continue
+        entries, cur = [], None
+        for line in chunk.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                cur = {"entry": kernel_name(m.group(1))}
+                entries.append(cur)
+            elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                     r"spill loads", line)):
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+                cur["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+        report[head.group(1)] = entries
+    return report
+
+
+def flagship_operands(eng, res):
+    """The flagship's kernel operands: its visited table as the frontier and
+    the residual hit table K2 accumulates into (``make_hit``'s first half)."""
+    from tpu_bfs_torch.algorithms._packed_common import make_expand
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import expand_spec
+
+    arrs, hg = eng.arrs, eng.hg
+    fw = res._vis
+    prior = make_expand(expand_spec(hg), eng.w)(arrs, fw).index_select(0, arrs["inv_perm_ext"])
+    return fw, prior
+
+
+def phase_k1_strips(k1_level, arrs, names, fw, want, k1) -> None:
+    """Every K1 strip width on one flagship level: bit-exact against the
+    twin, then timed in turns (each strip, then in reverse); then each
+    bucket's launch alone, in the default strip."""
+    default = k1.ell_expand.strip
+    times = {strip: [] for strip in k1.STRIPS}
+    for strip in k1.STRIPS:
+        k1.ell_expand.strip = strip
+        got = k1_level(k1.ell_expand)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"ell_expand strip {strip} != twin at flagship shapes")
+    for strip in list(k1.STRIPS) + list(reversed(k1.STRIPS)):
+        k1.ell_expand.strip = strip
+        times[strip].append(cuda_ms(lambda: k1_level(k1.ell_expand), 3))
+    k1.ell_expand.strip = default
+    buckets = [{"bucket": n, "k": arrs[f"{n}_gt"].shape[0], "rows": arrs[f"{n}_gt"].shape[1],
+                "ms": cuda_ms(lambda n=n: k1.ell_expand(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw),
+                              5)}
+               for n in names]
+    emit({"phase": "k1_strips", "unit": "ms per level (every bucket), two turns",
+          "default": default,
+          "strips": [{"words": strip, "ms": t, "mean_ms": sum(t) / len(t)}
+                     for strip, t in times.items()],
+          "buckets": buckets})
+
+
+def phase_k2_shapes(eng, fw, prior, want, k2) -> None:
+    """Every compiled K2 shape on the flagship's operands: bit-exact against
+    the twin's hits, then timed in turns (each shape, then in reverse)."""
+    arrs, hg = eng.arrs, eng.hg
+    default = k2.tile_spmm.shape
+    buf = prior.clone()
+
+    def run():
+        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                            num_row_tiles=hg.vt, masks=arrs["a_masks"], out=buf)
+
+    times = {shape: [] for shape in k2.SHAPES}
+    for shape in k2.SHAPES:
+        k2.tile_spmm.shape = shape
+        buf.copy_(prior)
+        run()
+        torch.cuda.synchronize()
+        require(torch.equal(buf, want), f"tile_spmm shape {shape} != twin at flagship shapes")
+    for shape in list(k2.SHAPES) + list(reversed(k2.SHAPES)):
+        k2.tile_spmm.shape = shape
+        times[shape].append(cuda_ms(run, 3))
+    k2.tile_spmm.shape = default
+    emit({"phase": "k2_shapes", "unit": "ms per launch, out= form, two turns",
+          "default": list(default),
+          "shapes": [{"chunk_words": c, "stages": st, "warps": wp, "chunk_major": cm,
+                      "dynamic_smem_bytes": st * (2048 + 512 * c),
+                      "ms": t, "mean_ms": sum(t) / len(t)}
+                     for (c, st, wp, cm), t in times.items()]})
+
+
+def phase_kernels(eng, res, launches, k1, k2, ptxas):
     """Each kernel at the flagship's shapes, on a frontier-sized table from
     the run (its visited table): against the twin, then timed. K1's unit is
-    one level's residual pass (every bucket); K2's is its one launch. The
-    bound reads each input once (only the frontier rows the indices name)
-    and writes each output once, over 3.35 TB/s."""
+    one level's residual pass (every bucket); K2's is its one launch, ORing
+    into the residual hits as the engine does. The bound reads each input
+    once (only the frontier rows the indices name; for K2 only the touched
+    output rows, read and written) and writes each output once, over
+    3.35 TB/s. The model is the streamed-bytes formula of each wrapper
+    module (every gathered row, every tile's slab) over the same rate."""
     arrs, hg, w = eng.arrs, eng.hg, eng.w
-    fw = res._vis
     row_bytes = w * 4
     names = (["virtual"] if hg.res_heavy else []) + [f"light{i}" for i in range(len(hg.res_light))]
+    saved = (k1.ell_expand.launches, k2.tile_spmm.launches)
+    fw, prior = flagship_operands(eng, res)
 
     def k1_level(fn):
         return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw) for n in names]
 
-    def k2_pass(fn):
-        return fn(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
-                  num_row_tiles=hg.vt)
+    buf = prior.clone()
+
+    def k2_pass():
+        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                            num_row_tiles=hg.vt, masks=arrs["a_masks"], out=buf)
+
+    def k2_plain():
+        return k2.tile_spmm_plain(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                                  num_row_tiles=hg.vt)
 
     k1_rows = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
     k1_bytes = k1_rows * row_bytes + sum(  # + each bucket's gate, indices and output
         arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * row_bytes
         for n in names)
+    k1_model = sum(k1.ell_expand_hbm_bytes(arrs[f"{n}_gt"].shape[0], arrs[f"{n}_gt"].shape[1], w)
+                   for n in names)
     k2_slabs = int(torch.unique(arrs["col_tile"]).numel())
-    k2_bytes = (arrs["row_start"].nbytes + arrs["col_tile"].nbytes + arrs["a_tiles"].nbytes
-                + k2_slabs * 128 * row_bytes + hg.vt * 128 * row_bytes)
-    saved = (k1.ell_expand.launches, k2.tile_spmm.launches)
+    touched = int((arrs["row_start"][1:] > arrs["row_start"][:-1]).sum())
+    k2_bytes = (arrs["row_start"].nbytes + arrs["col_tile"].nbytes + arrs["a_masks"].nbytes
+                + k2_slabs * 128 * row_bytes + 2 * touched * 128 * row_bytes)
+    k2_model = k2.tile_spmm_hbm_bytes(hg.num_tiles, hg.vt, w)
+
     got1, want1 = k1_level(k1.ell_expand), k1_level(k1.ell_expand_plain)
-    got2, want2 = k2_pass(k2.tile_spmm), k2_pass(k2.tile_spmm_plain)
+    k2_pass()
+    want2 = prior | k2_plain()
     torch.cuda.synchronize()
     err1 = max(max_abs_err(a, b) for a, b in zip(got1, want1))
-    err2 = max_abs_err(got2, want2)
+    err2 = max_abs_err(buf, want2)
     require(all(torch.equal(a, b) for a, b in zip(got1, want1)),
             "ell_expand != twin at flagship shapes")
-    require(torch.equal(got2, want2), "tile_spmm != twin at flagship shapes")
-    del got1, want1, got2, want2
+    require(torch.equal(buf, want2), "tile_spmm out= != prior | twin at flagship shapes")
+    del got1
+    phase_k1_strips(k1_level, arrs, names, fw, want1, k1)
+    del want1
+    phase_k2_shapes(eng, fw, prior, want2, k2)
+    del want2
     rows = [
         ("ell_expand", "tpu_bfs_torch/csrc/ell_expand.cu", "tpu_bfs/ops/ell_expand.py:225",
          err1, cuda_ms(lambda: k1_level(k1.ell_expand), 5),
-         cuda_ms(lambda: k1_level(k1.ell_expand_plain), 2), k1_bytes),
+         cuda_ms(lambda: k1_level(k1.ell_expand_plain), 2), k1_bytes, k1_model,
+         "one level: every bucket"),
         ("tile_spmm", "tpu_bfs_torch/csrc/tile_spmm.cu", "tpu_bfs/ops/tile_spmm.py:184",
-         err2, cuda_ms(lambda: k2_pass(k2.tile_spmm), 5),
-         cuda_ms(lambda: k2_pass(k2.tile_spmm_plain), 1), k2_bytes),
+         err2, cuda_ms(k2_pass, 5), cuda_ms(k2_plain, 1), k2_bytes, k2_model,
+         "one launch, out= form"),
     ]
     k1.ell_expand.launches, k2.tile_spmm.launches = saved  # comparisons do not count
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None}
-        for name, src, rep, err, ms, plain, nbytes in rows
+         "library_ms": None, "model_ms": model / HBM_BYTES_PER_S * 1e3, "unit": unit,
+         "ptxas": ptxas.get(Path(src).name, [])}
+        for name, src, rep, err, ms, plain, nbytes, model, unit in rows
     ]
     return kernels
 
@@ -320,6 +464,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -347,14 +493,17 @@ def main(argv=None) -> int:
     log = []
     _build.build(force=True, log=log.append)
     _build.load_library()
+    ptxas = ptxas_report(log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc": _build.find_nvcc()})
+          "nvcc": _build.find_nvcc(), "ptxas": ptxas})
     print("\n".join(log), file=sys.stderr, flush=True)
 
     phase_parity(dev, k1, k2)
+    if args.parity_only:
+        return 0
     phase_wide(dev, k1, k2, args.wide_scale)
     eng, res, launches = phase_flagship(dev, k1, k2, args.scale, args.lanes)
-    kernels = phase_kernels(eng, res, launches, k1, k2)
+    kernels = phase_kernels(eng, res, launches, k1, k2, ptxas)
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

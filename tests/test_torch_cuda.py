@@ -29,9 +29,23 @@ def i32(x, dev):
     return torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (the kernels' 4-byte-load path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+# (w, k): scalar loads at w = 1, 33; one 128-word strip at w = 8, 64; two
+# strips at 256; k = 70 takes two slot passes (three for minplus).
+@pytest.mark.parametrize("strip", k1.STRIPS)
 @pytest.mark.parametrize("op", ["or", "min", "minplus"])
-@pytest.mark.parametrize("w,k", [(8, 1), (256, 7), (33, 64), (1, 3)])
-def test_ell_expand_kernel_equals_twin(cuda, op, w, k):
+@pytest.mark.parametrize("w,k", [(8, 1), (256, 7), (33, 64), (1, 3), (64, 70), (256, 70)])
+def test_ell_expand_kernel_equals_twin(cuda, op, w, k, strip, monkeypatch):
+    monkeypatch.setattr(k1.ell_expand, "strip", strip)
     rng = np.random.default_rng(k * 100 + w)
     nb, rows = 5, 1037
     need = (rng.random(nb) < 0.6).astype(np.int32)
@@ -50,10 +64,20 @@ def test_ell_expand_kernel_equals_twin(cuda, op, w, k):
     assert torch.equal(got, k1.ell_expand_plain(*args, op=op))
 
 
-@pytest.mark.parametrize("vt", [5, 40])  # at 40, row tiles of > SEG tiles span blocks
-@pytest.mark.parametrize("w", [8, 33, 256])
-def test_tile_spmm_kernel_equals_twin(cuda, w, vt):
-    rng = np.random.default_rng(w + vt)
+def test_ell_expand_misaligned_fw_equals_twin(cuda):
+    rng = np.random.default_rng(4)
+    gt = i32(rng.integers(0, 300, size=(9, 256)).astype(np.int32), cuda)
+    fw = misaligned(i32(rng.integers(0, 2**32, size=(300, 256), dtype=np.uint32), cuda))
+    need = torch.ones(2, dtype=torch.int32, device=cuda)
+    for op in ("or", "min"):
+        got = k1.ell_expand(need, gt, fw, op=op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k1.ell_expand_plain(need, gt, fw, op=op))
+
+
+def tile_inputs(rng, vt, w, dev):
+    """Row tile 0 takes every column tile (> SEG at vt = 40: split over
+    blocks, merged with atomicOr), row tile 2 none; the rest 1..vt."""
     row_start, col_tile = [0], []
     for j in range(vt):
         n = {0: vt, 2: 0}.get(j, int(rng.integers(1, vt + 1)))
@@ -63,12 +87,49 @@ def test_tile_spmm_kernel_equals_twin(cuda, w, vt):
     a &= rng.integers(0, 2**32, size=a.shape, dtype=np.uint32)
     a &= rng.integers(0, 2**32, size=a.shape, dtype=np.uint32)
     fw = rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32)
-    args = [i32(np.array(row_start, np.int32), cuda), i32(np.array(col_tile, np.int32), cuda),
-            i32(a, cuda), i32(fw, cuda)]
+    return [i32(np.array(row_start, np.int32), dev), i32(np.array(col_tile, np.int32), dev),
+            i32(a, dev), i32(fw, dev)]
+
+
+@pytest.mark.parametrize("vt", [5, 40])  # at 40, row tiles of > SEG tiles span blocks
+@pytest.mark.parametrize("w", [1, 8, 33, 64, 256])
+def test_tile_spmm_kernel_equals_twin(cuda, w, vt):
+    args = tile_inputs(np.random.default_rng(w + vt), vt, w, cuda)
     got = k2.tile_spmm(*args, num_row_tiles=vt)
     torch.cuda.synchronize()
     assert torch.equal(got, k2.tile_spmm_plain(*args, num_row_tiles=vt))
     assert not got[256:384].any()  # the empty row tile
+
+
+@pytest.mark.parametrize("shape", k2.SHAPES)
+@pytest.mark.parametrize("w", [1, 33, 64, 256])
+def test_tile_spmm_accumulate_equals_twin(cuda, w, shape, monkeypatch):
+    # out= with row masks kept by the caller, in every compiled shape: the
+    # kernel ORs into the prior table and leaves the empty row tile alone.
+    monkeypatch.setattr(k2.tile_spmm, "shape", shape)
+    rng = np.random.default_rng(w * 7)
+    vt = 40
+    args = tile_inputs(rng, vt, w, cuda)
+    prior = i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32), cuda)
+    prior &= i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32), cuda)
+    masks = k2.row_masks(args[2])
+    out = prior.clone()
+    before = k2.tile_spmm.launches
+    res = k2.tile_spmm(*args, num_row_tiles=vt, masks=masks, out=out)
+    torch.cuda.synchronize()
+    assert res is out and k2.tile_spmm.launches == before + 1
+    assert torch.equal(out, prior | k2.tile_spmm_plain(*args, num_row_tiles=vt))
+    assert torch.equal(out[256:384], prior[256:384])
+
+
+def test_tile_spmm_misaligned_operands_equal_twin(cuda):
+    vt, w = 6, 64
+    args = tile_inputs(np.random.default_rng(9), vt, w, cuda)
+    args[3] = misaligned(args[3])
+    out = misaligned(torch.zeros((vt * 128, w), dtype=torch.int32, device=cuda))
+    k2.tile_spmm(*args, num_row_tiles=vt, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k2.tile_spmm_plain(*args, num_row_tiles=vt))
 
 
 @pytest.mark.parametrize("engine", ["wide", "hybrid"])

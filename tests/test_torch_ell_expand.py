@@ -2,7 +2,7 @@
 
 On the CPU the port's wrapper runs its plain twin; the twin must equal the
 Pallas kernel under interpret=True and its NumPy oracle, bit for bit, for
-all three ops, gated and ungated, at w in {1, 8, 128}.
+all three ops, gated and ungated, at w in {1, 8, 33, 128, 256}.
 The CUDA kernel itself is held against the twin in test_torch_cuda.py.
 """
 
@@ -52,6 +52,19 @@ def test_twin_equals_pallas_interpret_and_oracle(op, w, gated):
     got = got.numpy().view(fw.dtype)
     ref = jk.ell_expand_reference(need, gt, fw, wt, w=w, op=op)
     np.testing.assert_array_equal(got, ref)
+    pal = jk.ell_expand(need, gt, fw, wt, w=w, op=op, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pal))
+
+
+@pytest.mark.parametrize("op", ["or", "min", "minplus"])
+@pytest.mark.parametrize("w", [1, 33, 256])
+def test_twin_equals_pallas_at_kernel_widths(op, w):
+    # The CUDA kernel's paths: scalar loads (w = 1, 33) and 16-byte loads in
+    # two strips of a row (w = 256); k = 5 leaves an odd slot at the end.
+    need, gt, fw, wt = make_inputs(op, w, 5, 400, 2, gated=True, seed=300 + w)
+    got = tk.ell_expand(torch_of(need), torch_of(gt), torch_of(fw), torch_of(wt), op=op)
+    got = got.numpy().view(fw.dtype)
+    np.testing.assert_array_equal(got, jk.ell_expand_reference(need, gt, fw, wt, w=w, op=op))
     pal = jk.ell_expand(need, gt, fw, wt, w=w, op=op, interpret=True)
     np.testing.assert_array_equal(got, np.asarray(pal))
 

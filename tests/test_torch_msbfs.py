@@ -187,6 +187,39 @@ def test_auto_sizing_and_lifted_lane_quantum():
         np.testing.assert_array_equal(res.distances_int32(i), bfs_python(tg, i)[0])
 
 
+def test_make_hit_ors_dense_pass_into_residual_hits():
+    # The hit table is the permuted residual expansion, with K2's hits ORed
+    # into it in place (no separate zero-filled table).
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import expand_spec, make_hit
+    from tpu_bfs_torch.ops.tile_spmm import tile_spmm_plain
+
+    eng = port_engine("rmat10", "hybrid", False)
+    hg, arrs = eng.hg, eng.arrs
+    rng = np.random.default_rng(8)
+    fw = rng.integers(0, 2**32, size=(hg.vt * 128, eng.w), dtype=np.uint32)
+    fw[rng.random(fw.shape[0]) < 0.5] = 0
+    fw[-1] = 0  # the residual's pad sentinel row
+    fw = torch.from_numpy(fw.view(np.int32))
+    hit = make_hit(hg, eng.w)(arrs, fw)
+    residual = tpc.make_expand(expand_spec(hg), eng.w)(arrs, fw).index_select(
+        0, arrs["inv_perm_ext"])
+    dense = tile_spmm_plain(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                            num_row_tiles=hg.vt)
+    assert torch.equal(hit, residual | dense)
+    assert dense.any() and (residual & ~dense).any()
+
+
+def test_hybrid_odd_width_bit_identical_to_jax():
+    # 96 lanes (w = 3): the width that takes the kernels' scalar paths.
+    jg, tg = graphs("random_sparse")
+    src = np.random.default_rng(6).integers(0, tg.num_vertices, size=96)
+    want = JHybrid(jg, lanes=96, kcap=KCAP, tile_thr=TILE_THR, num_planes=PLANES,
+                   expand_impl="pallas", interpret=True).run(src)
+    res = HybridMsBfsEngine(tg, lanes=96, kcap=KCAP, tile_thr=TILE_THR, num_planes=PLANES,
+                            device="cpu").run(src)
+    assert_same_result(res, want)
+
+
 def test_residual_sentinel_row_stays_zero_and_no_cpu_launches():
     _, tg = graphs("rmat10")
     hg = build_hybrid(tg, kcap=KCAP, tile_thr=TILE_THR)

@@ -2,7 +2,8 @@
 
 On the CPU the port's wrapper runs its plain twin; the twin must equal the
 Pallas kernel under interpret=True and its NumPy oracle bit for bit,
-including empty row tiles. The CUDA kernel itself is held against the twin
+including empty row tiles and the accumulating form (``out=``). The CUDA
+kernel's row masks must hold the JAX layout's bits. The CUDA kernel itself is held against the twin
 in test_torch_cuda.py.
 """
 
@@ -62,6 +63,41 @@ def test_twin_empty_row_tiles(empty_rows):
                                                                num_row_tiles=4, w=3))
 
 
+@pytest.mark.parametrize("w", [1, 8, 33])
+def test_accumulate_into_out(w):
+    # out= ORs into the caller's table in place: every prior bit stays, and
+    # the result is prior | tile_spmm(...) | the Pallas kernel's hits.
+    vt = 3
+    rs, ct, a, fw = make_inputs(vt, w, density=0.01, seed=20 + w, empty_rows=(2,))
+    prior = np.random.default_rng(w).integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32)
+    prior &= np.random.default_rng(w + 1).integers(0, 2**32, size=prior.shape, dtype=np.uint32)
+    out = torch_of(prior).clone()
+    args = (torch_of(rs), torch_of(ct), torch_of(a), torch_of(fw))
+    res = tk.tile_spmm(*args, num_row_tiles=vt, out=out)
+    assert res is out
+    got = res.numpy().view(np.uint32)
+    assert np.array_equal(got & prior, prior)
+    fresh = tk.tile_spmm(*args, num_row_tiles=vt).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, prior | fresh)
+    np.testing.assert_array_equal(got[256:], prior[256:])  # the empty row tile
+    pal = np.asarray(jk.tile_spmm(rs, ct, a, fw, num_row_tiles=vt, w=w, interpret=True))
+    np.testing.assert_array_equal(got, prior | pal)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 1.0])
+def test_row_masks_match_jax_layout(density):
+    # Word q of masks[t, r] holds A[r, 32q .. 32q+31], A from the JAX layout.
+    rng = np.random.default_rng(int(density * 100))
+    dense = (rng.random((5, 128, 128)) < density).astype(np.int8)
+    packed = jk.pack_a_tiles(dense)
+    masks = tk.row_masks(torch_of(packed), chunk=2).numpy().view(np.uint32)
+    assert masks.shape == (5, 128, 4)
+    bits = (masks[..., None] >> np.arange(32, dtype=np.uint32)) & 1  # [t, r, q, c % 32]
+    for t in range(5):
+        np.testing.assert_array_equal(bits[t].reshape(128, 128), jk.unpack_a_tile(packed[t]))
+    np.testing.assert_array_equal(bits.reshape(5, 128, 128), dense)
+
+
 def test_dense_entries_match_unpacked_tiles():
     rs, ct, a, _ = make_inputs(3, 1, density=0.01, seed=4)
     out_row, in_row = tk.dense_entries(torch_of(rs), torch_of(ct), torch_of(a), chunk=2)
@@ -96,6 +132,12 @@ def test_wrapper_rejects_bad_operands():
         tk.tile_spmm(r, c, at, f[:100].contiguous(), num_row_tiles=2)
     with pytest.raises(ValueError, match="no kernel for device"):
         tk.tile_spmm(r.to("meta"), c.to("meta"), at.to("meta"), f.to("meta"), num_row_tiles=2)
+    with pytest.raises(ValueError, match="masks"):
+        tk.tile_spmm(r, c, at, f, num_row_tiles=2, masks=at)
+    with pytest.raises(TypeError, match="out must be"):
+        tk.tile_spmm(r, c, at, f, num_row_tiles=2, out=torch.zeros(256, 2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="out"):
+        tk.tile_spmm(r, c, at, f, num_row_tiles=2, out=torch.zeros(256, 3, dtype=torch.int32))
 
 
 def test_hbm_bytes_model():

@@ -45,7 +45,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
 )
 from tpu_bfs_torch.graph.csr import Graph, _lexsort_pairs
 from tpu_bfs_torch.graph.ell import EllBucket, bucketize_rows, rank_vertices
-from tpu_bfs_torch.ops.tile_spmm import AW, TILE, tile_spmm
+from tpu_bfs_torch.ops.tile_spmm import AW, TILE, row_masks, tile_spmm
 
 W = 128
 LANES = 32 * W
@@ -238,15 +238,16 @@ def expand_spec(hg: HybridGraph) -> ExpandSpec:
 
 def make_hit(hg: HybridGraph, w: int):
     """One level's hit table: the residual expansion (K1 per bucket)
-    permuted back to rank0 rows, OR the dense-tile pass (K2)."""
+    permuted back to rank0 rows, which the dense-tile pass (K2) ORs into
+    in place."""
     expand_residual = make_expand(expand_spec(hg), w)
 
     def hit_of(arrs, fw):
         hit = expand_residual(arrs, fw).index_select(0, arrs["inv_perm_ext"])
         if hg.num_tiles:
-            hit |= tile_spmm(
+            tile_spmm(
                 arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
-                num_row_tiles=hg.vt,
+                num_row_tiles=hg.vt, masks=arrs["a_masks"], out=hit,
             )
         return hit
 
@@ -286,8 +287,8 @@ class HybridMsBfsEngine(PackedRunProtocol):
         rows = hg.vt * TILE
         sentinel = rows - 1
         host_tables = pallas_expand_arrays(hg, sentinel)
-        fixed_bytes = (
-            arrs_nbytes(host_tables) + hg.a_tiles.nbytes + hg.inv_perm_ext.size * 8
+        fixed_bytes = (  # the tiles twice: JAX layout and K2's row masks
+            arrs_nbytes(host_tables) + 2 * hg.a_tiles.nbytes + hg.inv_perm_ext.size * 8
         )
         sizing = dict(fixed_bytes=fixed_bytes, hbm_budget_bytes=hbm_budget_bytes)
         if num_planes == "auto" and lanes == "auto":
@@ -320,6 +321,7 @@ class HybridMsBfsEngine(PackedRunProtocol):
             arrs["a_tiles"] = torch.from_numpy(
                 np.ascontiguousarray(hg.a_tiles).view(np.int32)
             ).to(dev)
+            arrs["a_masks"] = row_masks(arrs["a_tiles"])
         self.arrs = arrs
         self._act = hg.num_active
         self._table_rows = rows

@@ -8,25 +8,35 @@
 // gated-out tile writes the op identity. Words are 32-bit; the tensors
 // arrive as int32 and are read as uint32 here.
 //
-// What bounds it on an H100: device-memory bytes. Every computed tile
-// reads its [k, 128] index slab and k * 128 frontier rows of w words
-// (random rows, each a contiguous w-word run) and writes 128 rows of w
-// words once; there is one combine per word read, far below the card's
-// operation rate (tpu_bfs/ops/ell_expand.py:ell_expand_hbm_bytes counts
-// the same bytes).
+// What bounds it on an H100: memory bytes. Every computed tile reads its
+// [k, 128] index slab and k * 128 frontier rows of w words (random rows,
+// each a contiguous w-word run) and writes 128 rows of w words once;
+// there is one combine per word read, far below the card's operation
+// rate (tpu_bfs/ops/ell_expand.py:ell_expand_hbm_bytes counts the same
+// bytes). Hub rows repeat across the table, so most gathers can be L2
+// hits, and the L2's capacity and rate, not device memory, set the pace:
+// the flagship gathers about 41 GB a level from a 1.27 GB table.
 //
 // What the design does about it:
-// - one block per (128-row tile, 32-word chunk of the row): the 32 lanes
-//   of a warp read 32 neighbouring words of one gathered row, so every
-//   gather is a coalesced 128-byte transaction;
-// - each of the 8 warps owns 16 output rows and keeps their accumulators
-//   in registers for all k slots, so each output word is stored once
-//   (the Pallas kernel's VMEM-resident accumulator);
-// - the index (and weight) slab is staged through shared memory 32 slots
-//   at a time, so any k fits a fixed 16 KB (32 KB for minplus) and every
-//   warp reads its row ids as shared-memory broadcasts;
-// - the 16 gathers of one slot are independent loads, unrolled, so a warp
-//   keeps 16 row reads in flight to hide the gather latency.
+// - one block per (128-row tile, strip of the row's words), the strip the
+//   slow grid axis: all tiles gather one strip of their rows before the
+//   next strip starts, so the L2 holds the hub rows' pieces of one strip
+//   instead of whole rows. On the flagship a 32-word strip takes 5.5 ms a
+//   level, 128 words 7.4 ms and whole 256-word rows 8.5 ms; 16- and
+//   8-word strips lose again (8.3 and 16.1 ms) to sector-sized gathers
+//   and a re-staged index slab per strip;
+// - 16-byte loads: in a 32-word strip 8 lanes gather one row's 128 bytes,
+//   so one warp instruction moves pieces of 4 rows;
+// - the [kc, 128] index slab (and weight slab for minplus) is staged in
+//   shared memory once per (tile, strip), kKc slots a pass;
+// - each warp owns 16 output rows, gathers U slots of all of them at once
+//   (16 row pieces of 128 bytes per slot in flight per warp in the 32-word
+//   strip), and keeps its accumulators in registers, so each output word
+//   is stored once (the Pallas kernel's VMEM-resident accumulator). A
+//   table with more than kKc slots takes several passes, the later ones
+//   folding into the stored rows;
+// - a width that is not a multiple of 4 words, or an unaligned fw or out,
+//   takes the same kernel with 4-byte loads.
 // Block order is free: unlike the TPU grid nothing carries between tiles.
 
 #include <cuda_runtime.h>
@@ -34,11 +44,10 @@
 
 namespace {
 
-constexpr int kTile = 128;         // output rows per tile (== the gate tile)
-constexpr int kWarps = 8;          // warps per block
+constexpr int kTile = 128;  // output rows per tile (== the gate tile)
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kTile / kWarps;
-constexpr int kChunkWords = 32;    // words per block: one per lane
-constexpr int kSlotChunk = 32;     // index-slab slots staged per pass
 
 enum Op { kOr = 0, kMin = 1, kMinPlus = 2 };
 
@@ -59,104 +68,208 @@ __device__ __forceinline__ uint32_t combine(uint32_t acc, uint32_t v, int32_t wt
   return (uint32_t)(cand < a ? cand : a);
 }
 
-template <int OP>
-__global__ void __launch_bounds__(kWarps * 32)
+// A lane's words of one row: NV vectors of VW words. LPR lanes share a row
+// (32 / LPR rows a warp instruction); lane l works on row sub-index
+// l / LPR and words col0 + v * LPR * VW + (l % LPR) * VW + t.
+template <int VW, int NV>
+struct Words {
+  uint32_t x[NV][VW];
+};
+
+template <int VW, int LPR>
+__device__ __forceinline__ int word_of(int col0, int li, int v) {
+  return col0 + v * LPR * VW + li * VW;
+}
+
+// NC: through the read-only path (fw, which no block writes); otherwise a
+// plain load (out, which this kernel wrote).
+template <bool NC, int VW, int LPR, int NV>
+__device__ __forceinline__ void load_row(Words<VW, NV>& r, const uint32_t* __restrict__ row,
+                                         int col0, int li, int w, uint32_t fill) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int word = word_of<VW, LPR>(col0, li, v);
+    if constexpr (VW == 4) {
+      // w % 4 == 0: a lane's 4 words are all live or all dead.
+      uint4 q = make_uint4(fill, fill, fill, fill);
+      if (word < w) {
+        const uint4* p = reinterpret_cast<const uint4*>(row + word);
+        q = NC ? __ldg(p) : *p;
+      }
+      r.x[v][0] = q.x; r.x[v][1] = q.y; r.x[v][2] = q.z; r.x[v][3] = q.w;
+    } else {
+      r.x[v][0] = word < w ? (NC ? __ldg(row + word) : row[word]) : fill;
+    }
+  }
+}
+
+template <int VW, int LPR, int NV>
+__device__ __forceinline__ void store_row(const Words<VW, NV>& r, uint32_t* row, int col0,
+                                          int li, int w) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int word = word_of<VW, LPR>(col0, li, v);
+    if (word >= w) continue;
+    if constexpr (VW == 4) {
+      *reinterpret_cast<uint4*>(row + word) =
+          make_uint4(r.x[v][0], r.x[v][1], r.x[v][2], r.x[v][3]);
+    } else {
+      row[word] = r.x[v][0];
+    }
+  }
+}
+
+// One block per (128-row tile, strip of LPR * VW * NV words); a warp
+// gathers U slots of G row slots (G * 32 / LPR rows) together.
+template <int OP, int VW, int LPR, int NV, int G, int U>
+__global__ void __launch_bounds__(kThreads, 2)
 ell_expand_kernel(const int32_t* __restrict__ need_blk,
                   const int32_t* __restrict__ gt,
                   const uint32_t* __restrict__ fw,
                   const int32_t* __restrict__ wt,
                   uint32_t* __restrict__ out,
                   int k, int ncols, int w) {
-  __shared__ int32_t s_idx[kSlotChunk][kTile];
-  __shared__ int32_t s_wt[OP == kMinPlus ? kSlotChunk : 1][kTile];
+  constexpr int kKc = OP == kMinPlus ? 32 : 64;  // slots a pass: 32 KB of shared memory
+  constexpr int kRpi = 32 / LPR;                 // rows a warp instruction
+  constexpr int kGroups = kRowsPerWarp / (G * kRpi);
+  static_assert(kGroups * G * kRpi == kRowsPerWarp, "bad ell_expand shape");
+  __shared__ int32_t s_idx[kKc][kTile];
+  __shared__ int32_t s_wt[OP == kMinPlus ? kKc : 1][kTile];
 
   const int j = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int word = blockIdx.y * kChunkWords + lane;
-  const bool live = word < w;
+  const int col0 = blockIdx.y * (LPR * VW * NV);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int li = lane % LPR;
   const size_t row0 = (size_t)j * kTile;
+  const int rbase = (tid >> 5) * kRowsPerWarp + lane / LPR;  // + m * kRpi
   const uint32_t ident = identity<OP>();
 
   if (need_blk[j] == 0) {  // uniform over the block: no barrier is skipped
-    if (live) {
+    Words<VW, NV> id;
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        out[(row0 + warp + i * kWarps) * (size_t)w + word] = ident;
-      }
+    for (int v = 0; v < NV; ++v) {
+#pragma unroll
+      for (int t = 0; t < VW; ++t) id.x[v][t] = ident;
+    }
+    for (int m = 0; m < kRowsPerWarp / kRpi; ++m) {
+      store_row<VW, LPR>(id, out + (row0 + rbase + m * kRpi) * (size_t)w, col0, li, w);
     }
     return;
   }
 
-  uint32_t acc[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) acc[i] = ident;
-
-  const int tid = warp * 32 + lane;
-  for (int k0 = 0; k0 < k; k0 += kSlotChunk) {
-    const int kc = min(kSlotChunk, k - k0);
-    __syncthreads();  // the previous pass is done reading the slab
-    for (int e = tid; e < kc * kTile; e += kWarps * 32) {
+  for (int k0 = 0; k0 < k; k0 += kKc) {
+    const int kc = min(kKc, k - k0);
+    if (k0) __syncthreads();  // the previous pass is done reading the slab
+    for (int e = tid; e < kc * kTile; e += kThreads) {
       const int kk = e / kTile;
       const int r = e - kk * kTile;
       const size_t src = (size_t)(k0 + kk) * ncols + row0 + r;
       s_idx[kk][r] = gt[src];
-      if (OP == kMinPlus) s_wt[kk][r] = wt[src];
+      if constexpr (OP == kMinPlus) s_wt[kk][r] = wt[src];
     }
     __syncthreads();
-    if (live) {
-      for (int kk = 0; kk < kc; ++kk) {
-        uint32_t v[kRowsPerWarp];
+    for (int g = 0; g < kGroups; ++g) {
+      const int rg = rbase + g * G * kRpi;  // row slot i is rg + i * kRpi
+      Words<VW, NV> acc[G];
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          v[i] = __ldg(&fw[(size_t)s_idx[kk][warp + i * kWarps] * w + word]);
+      for (int i = 0; i < G; ++i) {
+        if (k0 == 0) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+#pragma unroll
+            for (int t = 0; t < VW; ++t) acc[i].x[v][t] = ident;
+          }
+        } else {  // this lane's own store of the previous pass
+          load_row<false, VW, LPR>(acc[i], out + (row0 + rg + i * kRpi) * (size_t)w, col0, li,
+                                   w, ident);
+        }
+      }
+      for (int kk = 0; kk < kc; kk += U) {
+        Words<VW, NV> got[U][G];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            if (kk + u < kc) {
+              const int idx = s_idx[kk + u][rg + i * kRpi];
+              load_row<true, VW, LPR>(got[u][i], fw + (size_t)idx * w, col0, li, w, ident);
+            }
+          }
         }
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const int32_t wv = OP == kMinPlus ? s_wt[kk][warp + i * kWarps] : 0;
-          acc[i] = combine<OP>(acc[i], v[i], wv);
+        for (int u = 0; u < U; ++u) {
+          if (kk + u >= kc) break;
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            const int32_t wv = OP == kMinPlus ? s_wt[kk + u][rg + i * kRpi] : 0;
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+#pragma unroll
+              for (int t = 0; t < VW; ++t) {
+                acc[i].x[v][t] = combine<OP>(acc[i].x[v][t], got[u][i].x[v][t], wv);
+              }
+            }
+          }
         }
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        store_row<VW, LPR>(acc[i], out + (row0 + rg + i * kRpi) * (size_t)w, col0, li, w);
       }
     }
   }
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      out[(row0 + warp + i * kWarps) * (size_t)w + word] = acc[i];
-    }
+}
+
+template <int OP, int VW, int LPR, int NV, int G, int U>
+int launch(const void* need_blk, const void* gt, const void* fw, const void* wt, void* out,
+           int k, int ncols, int w, cudaStream_t stream) {
+  constexpr int strip = LPR * VW * NV;
+  dim3 grid(ncols / kTile, (w + strip - 1) / strip);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  ell_expand_kernel<OP, VW, LPR, NV, G, U><<<grid, kThreads, 0, stream>>>(
+      (const int32_t*)need_blk, (const int32_t*)gt, (const uint32_t*)fw, (const int32_t*)wt,
+      (uint32_t*)out, k, ncols, w);
+  return (int)cudaGetLastError();
+}
+
+// strip: the words a block covers with 16-byte loads, strip / 4 lanes a
+// row (8 to 256 words: 16 rows to 1 row a warp instruction). vec == 0
+// takes 4-byte loads, 64 words a block.
+template <int OP>
+int launch_op(const void* need_blk, const void* gt, const void* fw, const void* wt, void* out,
+              int k, int ncols, int w, int vec, int strip, cudaStream_t s) {
+  if (!vec) return launch<OP, 1, 32, 2, 4, 2>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+  switch (strip) {
+    case 8: return launch<OP, 4, 2, 1, 1, 16>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+    case 16: return launch<OP, 4, 4, 1, 2, 8>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+    case 32: return launch<OP, 4, 8, 1, 4, 4>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+    case 128: return launch<OP, 4, 32, 1, 4, 4>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+    case 256: return launch<OP, 4, 32, 2, 4, 2>(need_blk, gt, fw, wt, out, k, ncols, w, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched). The caller
-// allocates `out` [ncols, w]; `wt` is read only for op 2 (minplus).
+// Launch on `stream`; returns a cudaError_t (0 = launched). The caller
+// allocates `out` [ncols, w]; `wt` is read only for op 2 (minplus). `vec`
+// asks for 16-byte loads and stores (w % 4 == 0 and fw, out 16-byte
+// aligned) over strips of `strip` words: 8, 16, 32, 128 or 256.
 extern "C" int tpubfs_ell_expand(const void* need_blk, const void* gt,
                                  const void* fw, const void* wt, void* out,
-                                 int k, int ncols, int w, int op,
+                                 int k, int ncols, int w, int op, int vec, int strip,
                                  void* stream) {
-  const int nb = ncols / kTile;
-  if (nb == 0) return (int)cudaGetLastError();
-  dim3 grid(nb, (w + kChunkWords - 1) / kChunkWords);
-  dim3 block(32, kWarps);
+  if (ncols / kTile == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int32_t* n = (const int32_t*)need_blk;
-  const int32_t* g = (const int32_t*)gt;
-  const uint32_t* f = (const uint32_t*)fw;
-  const int32_t* t = (const int32_t*)wt;
-  uint32_t* o = (uint32_t*)out;
   switch (op) {
     case kOr:
-      ell_expand_kernel<kOr><<<grid, block, 0, s>>>(n, g, f, t, o, k, ncols, w);
-      break;
+      return launch_op<kOr>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
     case kMin:
-      ell_expand_kernel<kMin><<<grid, block, 0, s>>>(n, g, f, t, o, k, ncols, w);
-      break;
+      return launch_op<kMin>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
     case kMinPlus:
-      ell_expand_kernel<kMinPlus><<<grid, block, 0, s>>>(n, g, f, t, o, k, ncols, w);
-      break;
+      return launch_op<kMinPlus>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -3,38 +3,48 @@
 // Replaces the Pallas TPU kernel tpu_bfs/ops/tile_spmm.py:tile_spmm
 // (body _tile_spmm_kernel, pallas_call at tile_spmm.py:184).
 //
-// What it computes: for row tile j, output row r (of 128) is the OR, over
-// the dense tiles b in [row_start[j], row_start[j+1]) and the columns c
-// with A_b[r, c] = 1, of frontier row col_tile[b] * 128 + c (w words).
-// A_b[r, c] is bit r / 4 of a_tiles[b, r % 4, c] (the JAX layout, kept at
-// the public function). Empty row tiles write zeros.
+// What it computes: for row tile j, output row r (of 128) is ORed with the
+// OR, over the dense tiles b in [row_start[j], row_start[j+1]) and the
+// columns c with A_b[r, c] = 1, of frontier row col_tile[b] * 128 + c
+// (w words). The kernel reads A as row masks: word q of masks[b, r] holds
+// columns 32q .. 32q+31 of row r (ops/tile_spmm.py:row_masks builds them
+// once from the JAX layout). The output accumulates: the caller passes
+// either zeros or a table to OR into (the hybrid engine's residual hits).
+// Row tiles without dense tiles are not touched.
 //
-// What bounds it on an H100: device-memory bytes. Each dense tile reads its
-// 2 KB bit tile and a 128-row frontier slab of w words; each row tile
-// writes 128 rows once. The TPU kernel unpacks both operands to int8 and
-// runs a 128x128x(32w) matrix product per tile on the MXU; walked bit by
-// bit that is 128 * 128 * w word operations per tile (4.2 M at w = 256,
-// some 4e11 a level at the flagship's ~98k tiles) - far too slow. A dense
-// tile holds only >= tile_thr (64) of its 16,384 entries, so this kernel
-// walks the set bits of A instead: one OR of w words per edge.
+// What bounds it on an H100: device-memory bytes. Each dense tile needs
+// its 2 KB of masks and a 128-row frontier slab of w words (128 KB at
+// w = 256); a touched row tile is read and written once. The TPU kernel
+// unpacks both operands to int8 and multiplies on the MXU: as an int8
+// wgmma that is 2 * 128 * 128 * 32w operations a tile, about 13 ms a
+// flagship level at the card's int8 peak, no better than streaming. A
+// dense tile holds only about 2 % of its bits, so this kernel walks the
+// set bits instead: one OR of a lane's words per edge, some 45x fewer
+// operations.
 //
 // What the design does about it:
-// - one block per (segment, 32-word chunk): a segment is at most kSeg (32)
-//   consecutive dense tiles of one row tile. On a power-law graph the hub
-//   row tiles hold thousands of dense tiles (up to ~vt at RMAT scale 21),
-//   and one block per row tile walked them serially: measured 48 ms per
-//   launch on the flagship against a 4 ms streamed-bytes model. A row
-//   tile of more than kSeg tiles spreads over several blocks, which merge
-//   with atomicOr into the zeroed output (OR is order-free, so the result
-//   stays deterministic); a row tile of one segment stores plainly;
-// - 8 warps of a block own 16 output rows each, accumulators in registers;
-// - per dense tile, the block stages the 2 KB A tile and the [128, 32]
-//   frontier slab chunk in shared memory with coalesced 128-byte loads;
-// - a warp turns row r's 128 column bits into four 32-bit masks with
-//   __ballot_sync (lane c tests bit r / 4 of A word [r % 4, c]) and walks
-//   their set bits with __ffs; the mask is warp-uniform, so there is no
-//   divergence, and each set bit costs one conflict-free shared read.
-// Tensor-core forms (mma.sync int8, or b1 AND+POPC) are later work.
+// - one block per (segment, chunk of C words). A segment is at most kSeg
+//   consecutive dense tiles of one row tile: hub row tiles hold thousands
+//   of tiles and spread over many blocks, which merge with atomicOr (OR is
+//   order-free, so the result is deterministic); a row tile of one segment
+//   does a plain read-OR-write. The grid runs chunk-major (all segments of
+//   chunk 0, then chunk 1) or chunk-minor; on the flagship chunk-major is
+//   about 1 % faster at C = 128, chunk-minor about 8 % at C = 64;
+// - a ring of STAGES shared-memory stages, each one tile's masks and its
+//   [128, C] slab, filled with 16-byte cp.async. Every thread's copies
+//   arrive on the stage's "full" mbarrier (cp.async.mbarrier.arrive), and
+//   every thread arrives on its "empty" mbarrier once it has walked the
+//   stage, so tiles b+1 .. b+STAGES-1 land while tile b is walked and a
+//   warp may run a tile ahead of the others without a block barrier;
+// - each warp owns 128 / WARPS output rows with their accumulators in
+//   registers (C = 128, 3 stages and 16 warps is the measured best: 4.7 ms
+//   on the flagship against the 4.3 ms the streamed bytes take at full
+//   rate). It reads a row's four mask words with one broadcast shared
+//   load and walks their set bits with __ffs (uniform over the warp, so no
+//   divergence); a lane owns C / 32 words of the chunk, so one edge is one
+//   vector shared load (uint2 or uint4) and C / 32 ORs;
+// - a width that is not a multiple of 4 words, or an unaligned operand,
+//   takes the same kernel with 4-byte copies and scalar stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,25 +52,99 @@
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kAW = kTile / 32;    // u32 words per packed A row group
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = kTile / kWarps;
-constexpr int kChunkWords = 32;
-constexpr int kSeg = 32;  // dense tiles per block at most
+constexpr int kMaskWords = kTile * 4;  // [128 rows][4 words] per tile
+constexpr int kSeg = 32;               // dense tiles per segment at most
 
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued so far has landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.b32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// acc |= the N (2 or 4) words at p, one vector load.
+template <int N>
+__device__ __forceinline__ void or_words(uint32_t (&acc)[N], const uint32_t* p) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 words of a chunk");
+  if constexpr (N == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    acc[0] |= v.x; acc[1] |= v.y; acc[2] |= v.z; acc[3] |= v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    acc[0] |= v.x; acc[1] |= v.y;
+  }
+}
+
+// Dynamic shared memory of one block: STAGES x (masks + [128, C] slab).
+template <int C, int STAGES>
+__host__ __device__ constexpr int ring_bytes() {
+  return STAGES * (kMaskWords + kTile * C) * 4;
+}
+
+// VEC: w % 4 == 0 and fw, out 16-byte aligned (16-byte copies, vector
+// stores); otherwise 4-byte copies and scalar stores.
+template <int C, int STAGES, int WARPS, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
 tile_spmm_kernel(const int32_t* __restrict__ row_start,
                  const int32_t* __restrict__ seg_end,
                  const int32_t* __restrict__ col_tile,
-                 const uint32_t* __restrict__ a_tiles,
+                 const uint32_t* __restrict__ masks,
                  const uint32_t* __restrict__ fw,
-                 uint32_t* __restrict__ out, int num_row_tiles, int w) {
-  __shared__ uint32_t s_a[kAW][kTile];
-  __shared__ uint32_t s_f[kTile][kChunkWords];
+                 uint32_t* __restrict__ out, int num_row_tiles, int w,
+                 int chunk_major) {
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kRows = kTile / WARPS;  // output rows per warp
+  constexpr int kWpl = C / 32;          // chunk words per lane
+  constexpr int kStageWords = kMaskWords + kTile * C;
+  static_assert(C % 32 == 0 && kTile % WARPS == 0, "bad tile_spmm shape");
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
 
-  // Segment -> (row tile j, its s-th run of kSeg tiles); seg_end is the
-  // inclusive prefix sum of max(1, ceil(tiles_j / kSeg)) over row tiles.
-  const int seg = blockIdx.x;
+  // Block -> (segment, chunk), chunk fastest, or slowest with chunk_major
+  // (then one pass over all tiles per chunk). Segment -> (row tile j, its
+  // s-th run of kSeg tiles): seg_end is the inclusive prefix sum of
+  // ceil(tiles_j / kSeg) over row tiles (0 for a row tile without tiles).
+  const int nchunk = (w + C - 1) / C;
+  const int nseg = gridDim.x / nchunk;
+  const int seg = chunk_major ? blockIdx.x % nseg : blockIdx.x / nchunk;
+  const int chunk = chunk_major ? blockIdx.x / nseg : blockIdx.x % nchunk;
   if (seg >= seg_end[num_row_tiles - 1]) return;  // uniform: grid is a bound
   int lo = 0, hi = num_row_tiles - 1;
   while (lo < hi) {
@@ -70,80 +154,169 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
   const int j = lo;
   const int s = seg - (j ? seg_end[j - 1] : 0);
   const int b0 = row_start[j] + s * kSeg;
-  const int b1 = min(b0 + kSeg, row_start[j + 1]);
+  const int n = min(kSeg, row_start[j + 1] - b0);
   const bool split = row_start[j + 1] - row_start[j] > kSeg;
 
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int word = blockIdx.y * kChunkWords + lane;
-  const bool live = word < w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int col0 = chunk * C;
 
-  uint32_t acc[kRowsPerWarp];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) acc[i] = 0u;
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], kThreads);
+      mbar_init(&empty[st], kThreads);
+    }
+  }
+  __syncthreads();
 
-  for (int b = b0; b < b1; ++b) {
-    __syncthreads();  // the previous tile is done with the staged slabs
-    const uint32_t* a = a_tiles + (size_t)b * (kAW * kTile);
-    for (int e = tid; e < kAW * kTile; e += kWarps * 32) {
-      s_a[e / kTile][e % kTile] = a[e];
+  // Issue tile i's copies into stage i % STAGES; every thread arrives on
+  // the stage's full barrier when its own copies have landed.
+  auto fill = [&](int i) {
+    const int st = i % STAGES;
+    uint32_t* dst = smem + st * kStageWords;
+    const int b = b0 + i;
+    const uint32_t* msrc = masks + (size_t)b * kMaskWords;
+    for (int g = tid; g < kMaskWords / 4; g += kThreads) cp_async16(dst + 4 * g, msrc + 4 * g);
+    const uint32_t* slab = fw + (size_t)col_tile[b] * kTile * w;
+    dst += kMaskWords;
+    if constexpr (VEC) {
+      constexpr int kGran = C / 4;  // 16-byte granules per slab row
+#pragma unroll 4
+      for (int e = tid; e < kTile * kGran; e += kThreads) {
+        const int c = e / kGran;
+        const int word = col0 + 4 * (e - c * kGran);
+        if (word < w) cp_async16(dst + c * C + (word - col0), slab + (size_t)c * w + word);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < kTile * C; e += kThreads) {
+        const int c = e / C;
+        const int word = col0 + (e - c * C);
+        if (word < w) cp_async4(dst + c * C + (word - col0), slab + (size_t)c * w + word);
+      }
     }
-    const size_t base = (size_t)col_tile[b] * kTile;
+    mbar_arrive_cp_async(&full[st]);
+  };
+
+  uint32_t acc[kRows][kWpl];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int c = warp + i * kWarps;
-      s_f[c][lane] = live ? fw[(base + c) * (size_t)w + word] : 0u;
-    }
-    __syncthreads();
+  for (int rr = 0; rr < kRows; ++rr) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + i * kWarps;
-      const int aw = r % kAW;
-      const int bit = r / kAW;
-      uint32_t h = acc[i];
+    for (int t = 0; t < kWpl; ++t) acc[rr][t] = 0u;
+  }
+
+  for (int i = 0; i < min(STAGES - 1, n); ++i) fill(i);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint32_t* stage = smem + st * kStageWords;
+    const uint4* mrow = reinterpret_cast<const uint4*>(stage);
+    const uint32_t* slab = stage + kMaskWords + lane * kWpl;
 #pragma unroll
-      for (int q = 0; q < kTile / 32; ++q) {
-        uint32_t m = __ballot_sync(0xFFFFFFFFu, (s_a[aw][q * 32 + lane] >> bit) & 1u);
+    for (int rr = 0; rr < kRows; ++rr) {
+      const uint4 mk = mrow[warp * kRows + rr];
+      const uint32_t mw[4] = {mk.x, mk.y, mk.z, mk.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t m = mw[q];
+        const uint32_t* sq = slab + q * 32 * C;
         while (m) {
           const int c = __ffs(m) - 1;
           m &= m - 1;
-          h |= s_f[q * 32 + c][lane];
+          or_words<kWpl>(acc[rr], sq + c * C);
         }
       }
-      acc[i] = h;
+    }
+    mbar_arrive(&empty[st]);
+    // Refill the stage tile i-1 used, once every thread has walked it.
+    const int nx = i + STAGES - 1;
+    if (nx < n) {
+      if (nx >= STAGES) mbar_wait(&empty[nx % STAGES], (nx / STAGES - 1) & 1);
+      fill(nx);
     }
   }
-  if (live) {
-    const size_t row0 = (size_t)j * kTile;
+
+  const size_t row0 = (size_t)j * kTile;
+  const int word0 = col0 + lane * kWpl;
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      uint32_t* dst = &out[(row0 + warp + i * kWarps) * (size_t)w + word];
+  for (int rr = 0; rr < kRows; ++rr) {
+    uint32_t* dst = out + (row0 + warp * kRows + rr) * (size_t)w + word0;
+    if constexpr (VEC) {
+      // w % 4 == 0, so a lane's kWpl (2 or 4) words are all live or all dead.
+      if (word0 >= w) continue;
       if (!split) {
-        *dst = acc[i];
-      } else if (acc[i]) {
-        atomicOr(dst, acc[i]);
+        if constexpr (kWpl == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(dst);
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v.x | acc[rr][0], v.y | acc[rr][1],
+                                                      v.z | acc[rr][2], v.w | acc[rr][3]);
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(dst);
+          *reinterpret_cast<uint2*>(dst) = make_uint2(v.x | acc[rr][0], v.y | acc[rr][1]);
+        }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kWpl; ++t) {
+      if (word0 + t >= w) break;
+      if (!split) {
+        dst[t] |= acc[rr][t];
+      } else if (acc[rr][t]) {
+        atomicOr(dst + t, acc[rr][t]);
       }
     }
   }
 }
 
+template <int C, int STAGES, int WARPS, bool VEC>
+int launch(const void* row_start, const void* seg_end, const void* col_tile,
+           const void* masks, const void* fw, void* out, int num_row_tiles,
+           int num_segments_bound, int w, int chunk_major, cudaStream_t stream) {
+  auto kernel = tile_spmm_kernel<C, STAGES, WARPS, VEC>;
+  constexpr int smem = ring_bytes<C, STAGES>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)num_segments_bound * ((w + C - 1) / C);
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(
+      (const int32_t*)row_start, (const int32_t*)seg_end, (const int32_t*)col_tile,
+      (const uint32_t*)masks, (const uint32_t*)fw, (uint32_t*)out, num_row_tiles, w,
+      chunk_major);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched). The caller
-// passes `seg_end` (see the kernel) and `num_segments_bound` >= its last
-// entry, and allocates `out` [num_row_tiles * 128, w] zeroed: split row
-// tiles merge into it with atomicOr.
+// Launch on `stream`; returns a cudaError_t (0 = launched). The caller
+// passes `seg_end` (see the kernel), `num_segments_bound` >= its last
+// entry, `masks` [NT, 128, 4] (16-byte aligned) and `out` [num_row_tiles *
+// 128, w], which the kernel ORs into. (chunk, stages, warps) names one of
+// the compiled shapes below and `chunk_major` the grid order; `vec` picks
+// 16-byte copies (w % 4 == 0, fw and out 16-byte aligned) or 4-byte ones.
 extern "C" int tpubfs_tile_spmm(const void* row_start, const void* seg_end,
-                                const void* col_tile, const void* a_tiles,
+                                const void* col_tile, const void* masks,
                                 const void* fw, void* out, int num_row_tiles,
-                                int num_segments_bound, int w, void* stream) {
-  if (num_row_tiles == 0) return (int)cudaGetLastError();
-  dim3 grid(num_segments_bound, (w + kChunkWords - 1) / kChunkWords);
-  dim3 block(32, kWarps);
-  tile_spmm_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)row_start, (const int32_t*)seg_end,
-      (const int32_t*)col_tile, (const uint32_t*)a_tiles, (const uint32_t*)fw,
-      (uint32_t*)out, num_row_tiles, w);
-  return (int)cudaGetLastError();
+                                int num_segments_bound, int w, int chunk, int stages,
+                                int warps, int chunk_major, int vec, void* stream) {
+  if (num_row_tiles == 0 || num_segments_bound == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define TPUBFS_SHAPE(C_, S_, W_)                                                         \
+  if (chunk == C_ && stages == S_ && warps == W_) {                                      \
+    return vec ? launch<C_, S_, W_, true>(row_start, seg_end, col_tile, masks, fw, out, \
+                                          num_row_tiles, num_segments_bound, w,          \
+                                          chunk_major, s)                                \
+               : launch<C_, S_, W_, false>(row_start, seg_end, col_tile, masks, fw, out, \
+                                           num_row_tiles, num_segments_bound, w,         \
+                                           chunk_major, s);                              \
+  }
+  TPUBFS_SHAPE(64, 3, 8)
+  TPUBFS_SHAPE(64, 2, 8)
+  TPUBFS_SHAPE(128, 3, 16)
+  TPUBFS_SHAPE(128, 2, 16)
+  TPUBFS_SHAPE(64, 3, 16)
+#undef TPUBFS_SHAPE
+  return (int)cudaErrorInvalidValue;
 }

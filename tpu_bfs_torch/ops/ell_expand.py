@@ -21,10 +21,21 @@ import torch
 TILE = 128  # output rows per gate block, as in the Pallas kernel
 MINPLUS_IDENT = 1 << 29
 SIGN_BIT = -(1 << 31)  # int32 0x80000000
-MAX_W = 65535 * 32  # words: 32 per block along the grid's y axis (<= 65535)
+MAX_W = 65535 * 32  # words: at least 32 per block along a grid's y axis (<= 65535)
+
+#: The kernel's strips of 16-byte loads, in words a block: strip / 4 lanes
+#: share a row (8 words: 16 rows a warp instruction; 128, 256: one row).
+#: The first is the default.
+STRIPS = (32, 8, 16, 128, 256)
 
 #: op name -> (identity as int32, C op id)
 KERNEL_OPS = {"or": (0, 0), "min": (-1, 1), "minplus": (MINPLUS_IDENT, 2)}
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """True when every tensor's data starts on a 16-byte boundary (the
+    kernels' vector loads need it; fresh allocations always do)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,7 +86,8 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
     ``fw`` [rows, w] and ``wt`` [k, nb*128], all int32 and contiguous. Every
     index in ``gt`` must be a row of ``fw``. Each CUDA launch adds one to
     ``ell_expand.launches``; when ``ell_expand.timings`` is a list, the launch
-    appends its (start, end) CUDA events to it."""
+    appends its (start, end) CUDA events to it. ``ell_expand.strip`` picks
+    one of ``STRIPS``."""
     _check(need_blk, gt, fw, wt, op)
     if fw.device.type == "cpu":
         return ell_expand_plain(need_blk, gt, fw, wt, op=op)
@@ -87,6 +99,7 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
     k, ncols = gt.shape
     w = fw.shape[1]
     out = torch.empty((ncols, w), dtype=torch.int32, device=fw.device)
+    vec = w % 4 == 0 and aligned16(fw, out)
     stream = torch.cuda.current_stream(fw.device)
     timings = ell_expand.timings
     if timings is not None:
@@ -95,7 +108,7 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
     rc = lib.tpubfs_ell_expand(
         need_blk.data_ptr(), gt.data_ptr(), fw.data_ptr(),
         None if wt is None else wt.data_ptr(), out.data_ptr(),
-        k, ncols, w, KERNEL_OPS[op][1], stream.cuda_stream,
+        k, ncols, w, KERNEL_OPS[op][1], int(vec), ell_expand.strip, stream.cuda_stream,
     )
     check_launch(rc, "ell_expand")
     ell_expand.launches += 1
@@ -107,6 +120,7 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
 
 ell_expand.launches = 0
 ell_expand.timings = None
+ell_expand.strip = STRIPS[0]
 
 
 def ell_expand_plain(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:

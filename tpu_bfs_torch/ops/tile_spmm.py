@@ -9,7 +9,9 @@ For row tile j, output row r is the OR over the dense tiles b in
 ``[row_start[j], row_start[j+1])`` and the columns c with ``A_b[r, c] = 1``
 of frontier row ``col_tile[b] * 128 + c``. The public layout is the JAX
 one: ``a_tiles`` [NT, 4, 128], with A[r, c] at ``[t, r % 4, c]`` bit
-``r // 4`` (``pack_a_tiles``). Words travel as int32 (see ops/ell_expand.py).
+``r // 4`` (``pack_a_tiles``). The CUDA kernel reads the same bits as row
+masks (``row_masks``), which a caller that launches often builds once.
+Words travel as int32 (see ops/ell_expand.py).
 """
 
 from __future__ import annotations
@@ -17,18 +19,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_bfs_torch.ops.ell_expand import MAX_W
+from tpu_bfs_torch.ops.ell_expand import MAX_W, aligned16
 
 TILE = 128
 AW = TILE // 32  # u32 words per packed A row group
 SEG = 32  # dense tiles per CUDA block at most (kSeg in csrc/tile_spmm.cu)
+#: The kernel's shapes: (words per block C, ring stages, warps, chunk-major
+#: grid order); the first is the default.
+SHAPES = (
+    (128, 3, 16, True), (128, 3, 16, False), (64, 3, 16, False), (64, 3, 16, True),
+    (64, 2, 8, False), (64, 3, 8, False), (128, 2, 16, False),
+)
 
 #: int32 value of each single bit (bit 31 is the sign bit)
 _BIT = [(1 << b) if b < 31 else -(1 << 31) for b in range(32)]
 
 
-def _check(row_start, col_tile, a_tiles, fw, num_row_tiles):
+def _check(row_start, col_tile, a_tiles, fw, num_row_tiles, masks, out):
     named = {"row_start": row_start, "col_tile": col_tile, "a_tiles": a_tiles, "fw": fw}
+    if masks is not None:
+        named["masks"] = masks
+    if out is not None:
+        named["out"] = out
     for name, t in named.items():
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
             raise TypeError(f"tile_spmm: {name} must be an int32 tensor")
@@ -43,36 +55,56 @@ def _check(row_start, col_tile, a_tiles, fw, num_row_tiles):
         )
     if a_tiles.shape != (nt, AW, TILE):
         raise ValueError(f"tile_spmm: a_tiles {tuple(a_tiles.shape)} != ({nt}, {AW}, {TILE})")
+    if masks is not None and masks.shape != (nt, TILE, AW):
+        raise ValueError(f"tile_spmm: masks {tuple(masks.shape)} != ({nt}, {TILE}, {AW})")
     if fw.dim() != 2 or fw.shape[1] < 1 or fw.shape[0] % TILE:
         raise ValueError(f"tile_spmm: fw must be [vt*{TILE}, w], got {tuple(fw.shape)}")
-    if num_row_tiles + nt // SEG >= 1 << 31 or fw.shape[1] > MAX_W:
+    if out is not None and out.shape != (num_row_tiles * TILE, fw.shape[1]):
+        raise ValueError(f"tile_spmm: out {tuple(out.shape)} != "
+                         f"({num_row_tiles * TILE}, {fw.shape[1]})")
+    blocks = (num_row_tiles + nt // SEG) * -(-fw.shape[1] // min(s[0] for s in SHAPES))
+    if blocks >= 1 << 31 or fw.shape[1] > MAX_W:
         raise ValueError(f"tile_spmm: too many tiles for one grid, or w > {MAX_W}")
 
 
-def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int) -> torch.Tensor:
+def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
+              masks=None, out=None) -> torch.Tensor:
     """[num_row_tiles*128, w] int32 hit words of all dense tiles.
 
     Every ``col_tile`` entry must name a 128-row slab of ``fw`` and
-    ``row_start`` must be non-decreasing with ``row_start[-1] == NT``. Each
-    CUDA launch adds one to ``tile_spmm.launches``; when
+    ``row_start`` must be non-decreasing with ``row_start[-1] == NT``.
+    ``masks`` is ``row_masks(a_tiles)`` where the caller keeps it (else the
+    CUDA path builds it). With ``out`` the hits are ORed into it, in place,
+    and ``out`` is returned; without, they land in a fresh zeroed table.
+    Each CUDA launch adds one to ``tile_spmm.launches``; when
     ``tile_spmm.timings`` is a list, the launch appends its (start, end)
-    CUDA events to it."""
-    _check(row_start, col_tile, a_tiles, fw, num_row_tiles)
+    CUDA events to it. ``tile_spmm.shape`` picks one of ``SHAPES``."""
+    _check(row_start, col_tile, a_tiles, fw, num_row_tiles, masks, out)
     if fw.device.type == "cpu":
-        return tile_spmm_plain(row_start, col_tile, a_tiles, fw, num_row_tiles=num_row_tiles)
+        hit = tile_spmm_plain(row_start, col_tile, a_tiles, fw, num_row_tiles=num_row_tiles)
+        if out is None:
+            return hit
+        out |= hit
+        return out
     if fw.device.type != "cuda":
         raise ValueError(f"tile_spmm: no kernel for device {fw.device}")
     from tpu_bfs_torch.ops._build import check_launch, load_library
 
     lib = load_library()
     w = fw.shape[1]
-    # Split row tiles merge with atomicOr, so the output starts zeroed.
-    out = torch.zeros((num_row_tiles * TILE, w), dtype=torch.int32, device=fw.device)
-    # Segments of <= SEG tiles per row tile (at least one, which writes an
-    # empty row tile's zeros); their count is bounded by vt + NT // SEG
-    # without reading the prefix sum back to the host.
-    segs = torch.clamp((row_start[1:] - row_start[:-1] + SEG - 1) // SEG, min=1)
+    if masks is None:
+        masks = row_masks(a_tiles)
+    if not aligned16(masks):
+        raise ValueError("tile_spmm: masks must start on a 16-byte boundary")
+    if out is None:
+        out = torch.zeros((num_row_tiles * TILE, w), dtype=torch.int32, device=fw.device)
+    # Segments of <= SEG tiles per row tile (none for a row tile without
+    # tiles, which the kernel leaves untouched); their count is bounded by
+    # vt + NT // SEG without reading the prefix sum back to the host.
+    segs = (row_start[1:] - row_start[:-1] + SEG - 1) // SEG
     seg_end = torch.cumsum(segs, 0, dtype=torch.int32)
+    chunk, stages, warps, chunk_major = tile_spmm.shape
+    vec = w % 4 == 0 and aligned16(fw, out)
     stream = torch.cuda.current_stream(fw.device)
     timings = tile_spmm.timings
     if timings is not None:
@@ -80,8 +112,10 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int) -> torch.
         ev[0].record(stream)
     rc = lib.tpubfs_tile_spmm(
         row_start.data_ptr(), seg_end.data_ptr(), col_tile.data_ptr(),
-        a_tiles.data_ptr(), fw.data_ptr(), out.data_ptr(), num_row_tiles,
-        num_row_tiles + col_tile.shape[0] // SEG, w, stream.cuda_stream,
+        masks.data_ptr(), fw.data_ptr(), out.data_ptr(), num_row_tiles,
+        num_row_tiles + col_tile.shape[0] // SEG, w, chunk, stages, warps, int(chunk_major),
+        int(vec),
+        stream.cuda_stream,
     )
     check_launch(rc, "tile_spmm")
     tile_spmm.launches += 1
@@ -93,6 +127,27 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int) -> torch.
 
 tile_spmm.launches = 0
 tile_spmm.timings = None
+tile_spmm.shape = SHAPES[0]
+
+
+def row_masks(a_tiles: torch.Tensor, *, chunk: int = 2048) -> torch.Tensor:
+    """[NT, 128, 4] int32 row masks of JAX-layout tiles [NT, 4, 128]: bit
+    ``c % 32`` of word ``c // 32`` of row r is A[r, c], which the JAX layout
+    keeps at ``a_tiles[t, r % 4, c]`` bit ``r // 4``."""
+    nt = a_tiles.shape[0]
+    dev = a_tiles.device
+    out = torch.empty((nt, TILE, AW), dtype=torch.int32, device=dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    weights = torch.tensor(_BIT, dtype=torch.int64, device=dev)
+    for t0 in range(0, nt, chunk):
+        a = a_tiles[t0 : t0 + chunk]
+        n = a.shape[0]
+        # [n, aw, bit, c] -> rows r = bit * AW + aw -> [n, r, q, c % 32]
+        bits = (a[:, :, None, :] >> shifts[:, None]) & 1
+        bits = bits.permute(0, 2, 1, 3).reshape(n, TILE, AW, 32)
+        # Distinct signed bit values: the int64 sum is the int32 word exactly.
+        out[t0 : t0 + n] = (bits * weights).sum(-1).to(torch.int32)
+    return out
 
 
 def dense_entries(row_start, col_tile, a_tiles, *, chunk: int = 2048):
