@@ -9,18 +9,15 @@ Phases, one JSON line each:
  2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc;
  3. parity: each kernel against its plain PyTorch twin, bit-exact, at small
     ragged shapes (K1 ell_expand: or/min/minplus, w 1/8/33/256, k 1/7/64/70,
-    gated tiles; K2 tile_spmm: w 1/8/33/64/256, every compiled shape, fresh
-    and accumulating into a prior table, empty and split row tiles);
+    gated tiles; K2 tile_spmm: w 1/8/33/64/256, fresh and accumulating into
+    a prior table from the row masks alone, empty and split row tiles);
  4. wide: WidePackedMsBfsEngine, RMAT scale 18, 4096 lanes, 3 lanes
     validated against the SciPy oracle, K1 launches counted;
  5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1), 8192 lanes,
     the bench protocol (hub pilot as warm-up, sources from default_rng(7)
     among traversable vertices, one timed batch, 7 lanes validated), with
     both kernels' launch counts and summed CUDA-event times;
- 6. k1_strips, k2_shapes: every K1 strip width and every K2 shape (chunk
-    words, ring stages, warps, grid order) at the flagship's operands,
-    bit-exact against the twin, timed in turns;
- 7. kernels: each kernel at the flagship's shapes against its twin
+ 6. kernels: each kernel at the flagship's shapes against its twin
     (bit-exact), its time, the twin's time, its device-memory bound, its
     streamed-bytes model and nvcc's register and shared-memory report.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
@@ -93,15 +90,11 @@ def phase_parity(dev, k1, k2) -> None:
                     fw = (fw >> np.uint32(12)).view(np.int32)
                     wt = i32(rng.integers(0, 9, size=(k, nb * 128)).astype(np.int32))
                 args = (i32(need), i32(gt), i32(fw), wt)
-                want = k1.ell_expand_plain(*args, op=op)
-                for strip in k1.STRIPS:
-                    k1.ell_expand.strip = strip
-                    got = k1.ell_expand(*args, op=op)
-                    torch.cuda.synchronize()
-                    require(torch.equal(got, want),
-                            f"ell_expand {op} w={w} k={k} strip={strip} != twin")
-                    checks += 1
-                k1.ell_expand.strip = k1.STRIPS[0]
+                got = k1.ell_expand(*args, op=op)
+                torch.cuda.synchronize()
+                require(torch.equal(got, k1.ell_expand_plain(*args, op=op)),
+                        f"ell_expand {op} w={w} k={k} != twin")
+                checks += 1
     for w in (1, 8, 33, 64, 256):
         # Row tile 0 takes every column tile and row tile 2 takes 33 (both
         # split over blocks, K2's atomicOr path); row tile 3 takes exactly 32
@@ -123,19 +116,15 @@ def phase_parity(dev, k1, k2) -> None:
         prior = i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32)
                     & rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32))
         masks = k2.row_masks(args[2])
-        for shape in k2.SHAPES:
-            k2.tile_spmm.shape = shape
-            got = k2.tile_spmm(*args, num_row_tiles=vt)
-            acc = k2.tile_spmm(*args, num_row_tiles=vt, masks=masks, out=prior.clone())
-            torch.cuda.synchronize()
-            require(torch.equal(got, want), f"tile_spmm w={w} shape={shape} != twin")
-            require(not got[128:256].any() and not got[512:640].any(),
-                    "empty row tile not zero")
-            require(torch.equal(acc, prior | want),
-                    f"tile_spmm out= w={w} shape={shape} != prior | twin")
-            require(torch.equal(acc[128:256], prior[128:256]), "empty row tile touched")
-            checks += 2
-        k2.tile_spmm.shape = k2.SHAPES[0]
+        got = k2.tile_spmm(*args, num_row_tiles=vt)
+        acc = k2.tile_spmm(args[0], args[1], None, args[3], num_row_tiles=vt, masks=masks,
+                           out=prior.clone())
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"tile_spmm w={w} != twin")
+        require(not got[128:256].any() and not got[512:640].any(), "empty row tile not zero")
+        require(torch.equal(acc, prior | want), f"tile_spmm out= w={w} != prior | twin")
+        require(torch.equal(acc[128:256], prior[128:256]), "empty row tile touched")
+        checks += 2
     # The twins' own time at one small shape (labelled: the twin, not the kernel).
     need = i32(np.ones(5, np.int32))
     gt = i32(rng.integers(0, 1000, size=(64, 640)).astype(np.int32))
@@ -327,63 +316,6 @@ def flagship_operands(eng, res):
     return fw, prior
 
 
-def phase_k1_strips(k1_level, arrs, names, fw, want, k1) -> None:
-    """Every K1 strip width on one flagship level: bit-exact against the
-    twin, then timed in turns (each strip, then in reverse); then each
-    bucket's launch alone, in the default strip."""
-    default = k1.ell_expand.strip
-    times = {strip: [] for strip in k1.STRIPS}
-    for strip in k1.STRIPS:
-        k1.ell_expand.strip = strip
-        got = k1_level(k1.ell_expand)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                f"ell_expand strip {strip} != twin at flagship shapes")
-    for strip in list(k1.STRIPS) + list(reversed(k1.STRIPS)):
-        k1.ell_expand.strip = strip
-        times[strip].append(cuda_ms(lambda: k1_level(k1.ell_expand), 3))
-    k1.ell_expand.strip = default
-    buckets = [{"bucket": n, "k": arrs[f"{n}_gt"].shape[0], "rows": arrs[f"{n}_gt"].shape[1],
-                "ms": cuda_ms(lambda n=n: k1.ell_expand(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw),
-                              5)}
-               for n in names]
-    emit({"phase": "k1_strips", "unit": "ms per level (every bucket), two turns",
-          "default": default,
-          "strips": [{"words": strip, "ms": t, "mean_ms": sum(t) / len(t)}
-                     for strip, t in times.items()],
-          "buckets": buckets})
-
-
-def phase_k2_shapes(eng, fw, prior, want, k2) -> None:
-    """Every compiled K2 shape on the flagship's operands: bit-exact against
-    the twin's hits, then timed in turns (each shape, then in reverse)."""
-    arrs, hg = eng.arrs, eng.hg
-    default = k2.tile_spmm.shape
-    buf = prior.clone()
-
-    def run():
-        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
-                            num_row_tiles=hg.vt, masks=arrs["a_masks"], out=buf)
-
-    times = {shape: [] for shape in k2.SHAPES}
-    for shape in k2.SHAPES:
-        k2.tile_spmm.shape = shape
-        buf.copy_(prior)
-        run()
-        torch.cuda.synchronize()
-        require(torch.equal(buf, want), f"tile_spmm shape {shape} != twin at flagship shapes")
-    for shape in list(k2.SHAPES) + list(reversed(k2.SHAPES)):
-        k2.tile_spmm.shape = shape
-        times[shape].append(cuda_ms(run, 3))
-    k2.tile_spmm.shape = default
-    emit({"phase": "k2_shapes", "unit": "ms per launch, out= form, two turns",
-          "default": list(default),
-          "shapes": [{"chunk_words": c, "stages": st, "warps": wp, "chunk_major": cm,
-                      "dynamic_smem_bytes": st * (2048 + 512 * c),
-                      "ms": t, "mean_ms": sum(t) / len(t)}
-                     for (c, st, wp, cm), t in times.items()]})
-
-
 def phase_kernels(eng, res, launches, k1, k2, ptxas):
     """Each kernel at the flagship's shapes, on a frontier-sized table from
     the run (its visited table): against the twin, then timed. K1's unit is
@@ -405,12 +337,12 @@ def phase_kernels(eng, res, launches, k1, k2, ptxas):
     buf = prior.clone()
 
     def k2_pass():
-        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], None, fw,
                             num_row_tiles=hg.vt, masks=arrs["a_masks"], out=buf)
 
     def k2_plain():
-        return k2.tile_spmm_plain(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
-                                  num_row_tiles=hg.vt)
+        return k2.tile_spmm_plain(arrs["row_start"], arrs["col_tile"], None, fw,
+                                  num_row_tiles=hg.vt, masks=arrs["a_masks"])
 
     k1_rows = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
     k1_bytes = k1_rows * row_bytes + sum(  # + each bucket's gate, indices and output
@@ -433,11 +365,7 @@ def phase_kernels(eng, res, launches, k1, k2, ptxas):
     require(all(torch.equal(a, b) for a, b in zip(got1, want1)),
             "ell_expand != twin at flagship shapes")
     require(torch.equal(buf, want2), "tile_spmm out= != prior | twin at flagship shapes")
-    del got1
-    phase_k1_strips(k1_level, arrs, names, fw, want1, k1)
-    del want1
-    phase_k2_shapes(eng, fw, prior, want2, k2)
-    del want2
+    del got1, want1, want2
     rows = [
         ("ell_expand", "tpu_bfs_torch/csrc/ell_expand.cu", "tpu_bfs/ops/ell_expand.py:225",
          err1, cuda_ms(lambda: k1_level(k1.ell_expand), 5),

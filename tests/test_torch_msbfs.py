@@ -203,8 +203,9 @@ def test_make_hit_ors_dense_pass_into_residual_hits():
     hit = make_hit(hg, eng.w)(arrs, fw)
     residual = tpc.make_expand(expand_spec(hg), eng.w)(arrs, fw).index_select(
         0, arrs["inv_perm_ext"])
-    dense = tile_spmm_plain(arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
-                            num_row_tiles=hg.vt)
+    assert "a_tiles" not in arrs  # one resident layout: the row masks
+    dense = tile_spmm_plain(arrs["row_start"], arrs["col_tile"], None, fw,
+                            num_row_tiles=hg.vt, masks=arrs["a_masks"])
     assert torch.equal(hit, residual | dense)
     assert dense.any() and (residual & ~dense).any()
 

@@ -3,8 +3,9 @@
 On the CPU the port's wrapper runs its plain twin; the twin must equal the
 Pallas kernel under interpret=True and its NumPy oracle bit for bit,
 including empty row tiles and the accumulating form (``out=``). The CUDA
-kernel's row masks must hold the JAX layout's bits. The CUDA kernel itself is held against the twin
-in test_torch_cuda.py.
+row masks, which the kernel and the twin read, must hold the JAX layout's
+bits. The CUDA kernel itself is held against the twin in
+test_torch_cuda.py.
 """
 
 import numpy as np
@@ -84,6 +85,26 @@ def test_accumulate_into_out(w):
     np.testing.assert_array_equal(got, prior | pal)
 
 
+@pytest.mark.parametrize("w", [1, 33])
+def test_masks_in_place_of_a_tiles(w):
+    # The row masks alone (a_tiles=None), as the hybrid engine keeps them,
+    # give the Pallas kernel's hits, fresh and accumulating.
+    vt = 3
+    rs, ct, a, fw = make_inputs(vt, w, density=0.02, seed=40 + w, empty_rows=(0,))
+    r, c, f = torch_of(rs), torch_of(ct), torch_of(fw)
+    masks = tk.row_masks(torch_of(a))
+    pal = np.asarray(jk.tile_spmm(rs, ct, a, fw, num_row_tiles=vt, w=w, interpret=True))
+    got = tk.tile_spmm(r, c, None, f, num_row_tiles=vt, masks=masks)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), pal)
+    twin = tk.tile_spmm_plain(r, c, None, f, num_row_tiles=vt, masks=masks)
+    np.testing.assert_array_equal(twin.numpy().view(np.uint32), pal)
+    prior = torch_of(np.random.default_rng(w).integers(0, 2**32, size=(vt * 128, w),
+                                                       dtype=np.uint32))
+    acc = tk.tile_spmm(r, c, None, f, num_row_tiles=vt, masks=masks, out=prior.clone())
+    np.testing.assert_array_equal(acc.numpy().view(np.uint32),
+                                  prior.numpy().view(np.uint32) | pal)
+
+
 @pytest.mark.parametrize("density", [0.0, 0.02, 1.0])
 def test_row_masks_match_jax_layout(density):
     # Word q of masks[t, r] holds A[r, 32q .. 32q+31], A from the JAX layout.
@@ -100,7 +121,8 @@ def test_row_masks_match_jax_layout(density):
 
 def test_dense_entries_match_unpacked_tiles():
     rs, ct, a, _ = make_inputs(3, 1, density=0.01, seed=4)
-    out_row, in_row = tk.dense_entries(torch_of(rs), torch_of(ct), torch_of(a), chunk=2)
+    masks = tk.row_masks(torch_of(a))
+    out_row, in_row = tk.dense_entries(torch_of(rs), torch_of(ct), masks, chunk=2)
     want = set()
     row_tile = np.repeat(np.arange(3), np.diff(rs))
     for t in range(len(ct)):
@@ -132,8 +154,12 @@ def test_wrapper_rejects_bad_operands():
         tk.tile_spmm(r, c, at, f[:100].contiguous(), num_row_tiles=2)
     with pytest.raises(ValueError, match="no kernel for device"):
         tk.tile_spmm(r.to("meta"), c.to("meta"), at.to("meta"), f.to("meta"), num_row_tiles=2)
+    with pytest.raises(ValueError, match="not both"):
+        tk.tile_spmm(r, c, at, f, num_row_tiles=2, masks=tk.row_masks(at))
+    with pytest.raises(ValueError, match="neither"):
+        tk.tile_spmm(r, c, None, f, num_row_tiles=2)
     with pytest.raises(ValueError, match="masks"):
-        tk.tile_spmm(r, c, at, f, num_row_tiles=2, masks=at)
+        tk.tile_spmm(r, c, None, f, num_row_tiles=2, masks=at)
     with pytest.raises(TypeError, match="out must be"):
         tk.tile_spmm(r, c, at, f, num_row_tiles=2, out=torch.zeros(256, 2, dtype=torch.int64))
     with pytest.raises(ValueError, match="out"):

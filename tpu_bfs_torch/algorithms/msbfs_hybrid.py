@@ -246,7 +246,7 @@ def make_hit(hg: HybridGraph, w: int):
         hit = expand_residual(arrs, fw).index_select(0, arrs["inv_perm_ext"])
         if hg.num_tiles:
             tile_spmm(
-                arrs["row_start"], arrs["col_tile"], arrs["a_tiles"], fw,
+                arrs["row_start"], arrs["col_tile"], None, fw,
                 num_row_tiles=hg.vt, masks=arrs["a_masks"], out=hit,
             )
         return hit
@@ -287,8 +287,8 @@ class HybridMsBfsEngine(PackedRunProtocol):
         rows = hg.vt * TILE
         sentinel = rows - 1
         host_tables = pallas_expand_arrays(hg, sentinel)
-        fixed_bytes = (  # the tiles twice: JAX layout and K2's row masks
-            arrs_nbytes(host_tables) + 2 * hg.a_tiles.nbytes + hg.inv_perm_ext.size * 8
+        fixed_bytes = (  # the tiles as K2's row masks, as large as the JAX layout
+            arrs_nbytes(host_tables) + hg.a_tiles.nbytes + hg.inv_perm_ext.size * 8
         )
         sizing = dict(fixed_bytes=fixed_bytes, hbm_budget_bytes=hbm_budget_bytes)
         if num_planes == "auto" and lanes == "auto":
@@ -318,10 +318,10 @@ class HybridMsBfsEngine(PackedRunProtocol):
         if hg.num_tiles:
             arrs["row_start"] = torch.from_numpy(hg.row_start).to(dev)
             arrs["col_tile"] = torch.from_numpy(hg.col_tile).to(dev)
-            arrs["a_tiles"] = torch.from_numpy(
-                np.ascontiguousarray(hg.a_tiles).view(np.int32)
-            ).to(dev)
-            arrs["a_masks"] = row_masks(arrs["a_tiles"])
+            # Only the row masks stay resident: the kernel and the twin read them.
+            arrs["a_masks"] = row_masks(
+                torch.from_numpy(np.ascontiguousarray(hg.a_tiles).view(np.int32)).to(dev)
+            )
         self.arrs = arrs
         self._act = hg.num_active
         self._table_rows = rows

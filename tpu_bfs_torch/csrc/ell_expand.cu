@@ -18,13 +18,13 @@
 // the flagship gathers about 41 GB a level from a 1.27 GB table.
 //
 // What the design does about it:
-// - one block per (128-row tile, strip of the row's words), the strip the
-//   slow grid axis: all tiles gather one strip of their rows before the
-//   next strip starts, so the L2 holds the hub rows' pieces of one strip
-//   instead of whole rows. On the flagship a 32-word strip takes 5.5 ms a
-//   level, 128 words 7.4 ms and whole 256-word rows 8.5 ms; 16- and
-//   8-word strips lose again (8.3 and 16.1 ms) to sector-sized gathers
-//   and a re-staged index slab per strip;
+// - one block per (128-row tile, 32-word strip of the row's words), the
+//   strip the slow grid axis: all tiles gather one strip of their rows
+//   before the next strip starts. Of the strips measured on the flagship,
+//   32 words was the fastest at 5.5 ms a level; 128 words took 7.4 ms and
+//   whole 256-word rows 8.5 ms, and 16- and 8-word strips lost again
+//   (8.3 and 16.1 ms) to sector-sized gathers and a re-staged index slab
+//   per strip;
 // - 16-byte loads: in a 32-word strip 8 lanes gather one row's 128 bytes,
 //   so one warp instruction moves pieces of 4 rows;
 // - the [kc, 128] index slab (and weight slab for minplus) is staged in
@@ -233,21 +233,13 @@ int launch(const void* need_blk, const void* gt, const void* fw, const void* wt,
   return (int)cudaGetLastError();
 }
 
-// strip: the words a block covers with 16-byte loads, strip / 4 lanes a
-// row (8 to 256 words: 16 rows to 1 row a warp instruction). vec == 0
-// takes 4-byte loads, 64 words a block.
+// vec: 16-byte loads over 32-word strips, 8 lanes a row (4 rows a warp
+// instruction); otherwise 4-byte loads, 64 words a block.
 template <int OP>
 int launch_op(const void* need_blk, const void* gt, const void* fw, const void* wt, void* out,
-              int k, int ncols, int w, int vec, int strip, cudaStream_t s) {
+              int k, int ncols, int w, int vec, cudaStream_t s) {
   if (!vec) return launch<OP, 1, 32, 2, 4, 2>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-  switch (strip) {
-    case 8: return launch<OP, 4, 2, 1, 1, 16>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-    case 16: return launch<OP, 4, 4, 1, 2, 8>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-    case 32: return launch<OP, 4, 8, 1, 4, 4>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-    case 128: return launch<OP, 4, 32, 1, 4, 4>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-    case 256: return launch<OP, 4, 32, 2, 4, 2>(need_blk, gt, fw, wt, out, k, ncols, w, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<OP, 4, 8, 1, 4, 4>(need_blk, gt, fw, wt, out, k, ncols, w, s);
 }
 
 }  // namespace
@@ -255,20 +247,19 @@ int launch_op(const void* need_blk, const void* gt, const void* fw, const void* 
 // Launch on `stream`; returns a cudaError_t (0 = launched). The caller
 // allocates `out` [ncols, w]; `wt` is read only for op 2 (minplus). `vec`
 // asks for 16-byte loads and stores (w % 4 == 0 and fw, out 16-byte
-// aligned) over strips of `strip` words: 8, 16, 32, 128 or 256.
+// aligned).
 extern "C" int tpubfs_ell_expand(const void* need_blk, const void* gt,
                                  const void* fw, const void* wt, void* out,
-                                 int k, int ncols, int w, int op, int vec, int strip,
-                                 void* stream) {
+                                 int k, int ncols, int w, int op, int vec, void* stream) {
   if (ncols / kTile == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (op) {
     case kOr:
-      return launch_op<kOr>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
+      return launch_op<kOr>(need_blk, gt, fw, wt, out, k, ncols, w, vec, s);
     case kMin:
-      return launch_op<kMin>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
+      return launch_op<kMin>(need_blk, gt, fw, wt, out, k, ncols, w, vec, s);
     case kMinPlus:
-      return launch_op<kMinPlus>(need_blk, gt, fw, wt, out, k, ncols, w, vec, strip, s);
+      return launch_op<kMinPlus>(need_blk, gt, fw, wt, out, k, ncols, w, vec, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

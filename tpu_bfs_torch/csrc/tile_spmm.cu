@@ -23,26 +23,27 @@
 // operations.
 //
 // What the design does about it:
-// - one block per (segment, chunk of C words). A segment is at most kSeg
-//   consecutive dense tiles of one row tile: hub row tiles hold thousands
-//   of tiles and spread over many blocks, which merge with atomicOr (OR is
-//   order-free, so the result is deterministic); a row tile of one segment
-//   does a plain read-OR-write. The grid runs chunk-major (all segments of
-//   chunk 0, then chunk 1) or chunk-minor; on the flagship chunk-major is
-//   about 1 % faster at C = 128, chunk-minor about 8 % at C = 64;
-// - a ring of STAGES shared-memory stages, each one tile's masks and its
-//   [128, C] slab, filled with 16-byte cp.async. Every thread's copies
+// - one block per (segment, chunk of kC = 128 words). A segment is at most
+//   kSeg consecutive dense tiles of one row tile: hub row tiles hold
+//   thousands of tiles and spread over many blocks, which merge with
+//   atomicOr (OR is order-free, so the result is deterministic); a row tile
+//   of one segment does a plain read-OR-write. The grid runs chunk-major:
+//   all segments of chunk 0, then chunk 1;
+// - a ring of kStages = 3 shared-memory stages, each one tile's masks and
+//   its [128, kC] slab, filled with 16-byte cp.async. Every thread's copies
 //   arrive on the stage's "full" mbarrier (cp.async.mbarrier.arrive), and
 //   every thread arrives on its "empty" mbarrier once it has walked the
-//   stage, so tiles b+1 .. b+STAGES-1 land while tile b is walked and a
-//   warp may run a tile ahead of the others without a block barrier;
-// - each warp owns 128 / WARPS output rows with their accumulators in
-//   registers (C = 128, 3 stages and 16 warps is the measured best: 4.7 ms
-//   on the flagship against the 4.3 ms the streamed bytes take at full
-//   rate). It reads a row's four mask words with one broadcast shared
-//   load and walks their set bits with __ffs (uniform over the warp, so no
-//   divergence); a lane owns C / 32 words of the chunk, so one edge is one
-//   vector shared load (uint2 or uint4) and C / 32 ORs;
+//   stage, so tiles b+1 and b+2 land while tile b is walked and a warp may
+//   run a tile ahead of the others without a block barrier;
+// - each of kWarps = 16 warps owns 8 output rows with their accumulators
+//   in registers. It reads a row's four mask words with one broadcast
+//   shared load and walks their set bits with __ffs (uniform over the
+//   warp, so no divergence); a lane owns 4 words of the chunk, so one edge
+//   is one 16-byte shared load and 4 ORs;
+// - (kC, kStages, kWarps) = (128, 3, 16) with chunk-major order is the
+//   fastest of the shapes measured on the flagship: 4.7 ms a launch against
+//   the 4.3 ms its streamed bytes take at full rate; 64-word chunks, two
+//   stages, 8 warps or chunk-minor order were 1 % to 60 % slower;
 // - a width that is not a multiple of 4 words, or an unaligned operand,
 //   takes the same kernel with 4-byte copies and scalar stores.
 
@@ -54,6 +55,15 @@ namespace {
 constexpr int kTile = 128;
 constexpr int kMaskWords = kTile * 4;  // [128 rows][4 words] per tile
 constexpr int kSeg = 32;               // dense tiles per segment at most
+constexpr int kC = 128;                // frontier words per block
+constexpr int kStages = 3;             // ring stages
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kTile / kWarps;  // output rows per warp
+constexpr int kWpl = kC / 32;          // chunk words per lane: one uint4
+constexpr int kStageWords = kMaskWords + kTile * kC;
+constexpr int kRingBytes = kStages * kStageWords * 4;  // dynamic shared memory
+static_assert(kWpl == 4 && kTile % kWarps == 0, "bad tile_spmm shape");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -98,53 +108,33 @@ __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
                : "memory");
 }
 
-// acc |= the N (2 or 4) words at p, one vector load.
-template <int N>
-__device__ __forceinline__ void or_words(uint32_t (&acc)[N], const uint32_t* p) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 words of a chunk");
-  if constexpr (N == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    acc[0] |= v.x; acc[1] |= v.y; acc[2] |= v.z; acc[3] |= v.w;
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    acc[0] |= v.x; acc[1] |= v.y;
-  }
-}
-
-// Dynamic shared memory of one block: STAGES x (masks + [128, C] slab).
-template <int C, int STAGES>
-__host__ __device__ constexpr int ring_bytes() {
-  return STAGES * (kMaskWords + kTile * C) * 4;
+// acc |= the 4 words at p, one 16-byte shared load.
+__device__ __forceinline__ void or_words(uint32_t (&acc)[kWpl], const uint32_t* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  acc[0] |= v.x; acc[1] |= v.y; acc[2] |= v.z; acc[3] |= v.w;
 }
 
 // VEC: w % 4 == 0 and fw, out 16-byte aligned (16-byte copies, vector
 // stores); otherwise 4-byte copies and scalar stores.
-template <int C, int STAGES, int WARPS, bool VEC>
-__global__ void __launch_bounds__(WARPS * 32)
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
 tile_spmm_kernel(const int32_t* __restrict__ row_start,
                  const int32_t* __restrict__ seg_end,
                  const int32_t* __restrict__ col_tile,
                  const uint32_t* __restrict__ masks,
                  const uint32_t* __restrict__ fw,
-                 uint32_t* __restrict__ out, int num_row_tiles, int w,
-                 int chunk_major) {
-  constexpr int kThreads = WARPS * 32;
-  constexpr int kRows = kTile / WARPS;  // output rows per warp
-  constexpr int kWpl = C / 32;          // chunk words per lane
-  constexpr int kStageWords = kMaskWords + kTile * C;
-  static_assert(C % 32 == 0 && kTile % WARPS == 0, "bad tile_spmm shape");
+                 uint32_t* __restrict__ out, int num_row_tiles, int w) {
   extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ __align__(8) uint64_t full[STAGES];
-  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
 
-  // Block -> (segment, chunk), chunk fastest, or slowest with chunk_major
-  // (then one pass over all tiles per chunk). Segment -> (row tile j, its
-  // s-th run of kSeg tiles): seg_end is the inclusive prefix sum of
-  // ceil(tiles_j / kSeg) over row tiles (0 for a row tile without tiles).
-  const int nchunk = (w + C - 1) / C;
-  const int nseg = gridDim.x / nchunk;
-  const int seg = chunk_major ? blockIdx.x % nseg : blockIdx.x / nchunk;
-  const int chunk = chunk_major ? blockIdx.x / nseg : blockIdx.x % nchunk;
+  // Block -> (segment, chunk), chunk slowest: one pass over all tiles per
+  // chunk. Segment -> (row tile j, its s-th run of kSeg tiles): seg_end is
+  // the inclusive prefix sum of ceil(tiles_j / kSeg) over row tiles (0 for
+  // a row tile without tiles).
+  const int nseg = gridDim.x / ((w + kC - 1) / kC);
+  const int seg = blockIdx.x % nseg;
+  const int chunk = blockIdx.x / nseg;
   if (seg >= seg_end[num_row_tiles - 1]) return;  // uniform: grid is a bound
   int lo = 0, hi = num_row_tiles - 1;
   while (lo < hi) {
@@ -160,21 +150,21 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col0 = chunk * C;
+  const int col0 = chunk * kC;
 
   if (tid == 0) {
 #pragma unroll
-    for (int st = 0; st < STAGES; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(&full[st], kThreads);
       mbar_init(&empty[st], kThreads);
     }
   }
   __syncthreads();
 
-  // Issue tile i's copies into stage i % STAGES; every thread arrives on
+  // Start tile i's copies into stage i % kStages; every thread arrives on
   // the stage's full barrier when its own copies have landed.
   auto fill = [&](int i) {
-    const int st = i % STAGES;
+    const int st = i % kStages;
     uint32_t* dst = smem + st * kStageWords;
     const int b = b0 + i;
     const uint32_t* msrc = masks + (size_t)b * kMaskWords;
@@ -182,19 +172,19 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
     const uint32_t* slab = fw + (size_t)col_tile[b] * kTile * w;
     dst += kMaskWords;
     if constexpr (VEC) {
-      constexpr int kGran = C / 4;  // 16-byte granules per slab row
+      constexpr int kGran = kC / 4;  // 16-byte granules per slab row
 #pragma unroll 4
       for (int e = tid; e < kTile * kGran; e += kThreads) {
         const int c = e / kGran;
         const int word = col0 + 4 * (e - c * kGran);
-        if (word < w) cp_async16(dst + c * C + (word - col0), slab + (size_t)c * w + word);
+        if (word < w) cp_async16(dst + c * kC + (word - col0), slab + (size_t)c * w + word);
       }
     } else {
 #pragma unroll 4
-      for (int e = tid; e < kTile * C; e += kThreads) {
-        const int c = e / C;
-        const int word = col0 + (e - c * C);
-        if (word < w) cp_async4(dst + c * C + (word - col0), slab + (size_t)c * w + word);
+      for (int e = tid; e < kTile * kC; e += kThreads) {
+        const int c = e / kC;
+        const int word = col0 + (e - c * kC);
+        if (word < w) cp_async4(dst + c * kC + (word - col0), slab + (size_t)c * w + word);
       }
     }
     mbar_arrive_cp_async(&full[st]);
@@ -207,10 +197,10 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
     for (int t = 0; t < kWpl; ++t) acc[rr][t] = 0u;
   }
 
-  for (int i = 0; i < min(STAGES - 1, n); ++i) fill(i);
+  for (int i = 0; i < min(kStages - 1, n); ++i) fill(i);
   for (int i = 0; i < n; ++i) {
-    const int st = i % STAGES;
-    mbar_wait(&full[st], (i / STAGES) & 1);
+    const int st = i % kStages;
+    mbar_wait(&full[st], (i / kStages) & 1);
     const uint32_t* stage = smem + st * kStageWords;
     const uint4* mrow = reinterpret_cast<const uint4*>(stage);
     const uint32_t* slab = stage + kMaskWords + lane * kWpl;
@@ -221,19 +211,19 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         uint32_t m = mw[q];
-        const uint32_t* sq = slab + q * 32 * C;
+        const uint32_t* sq = slab + q * 32 * kC;
         while (m) {
           const int c = __ffs(m) - 1;
           m &= m - 1;
-          or_words<kWpl>(acc[rr], sq + c * C);
+          or_words(acc[rr], sq + c * kC);
         }
       }
     }
     mbar_arrive(&empty[st]);
     // Refill the stage tile i-1 used, once every thread has walked it.
-    const int nx = i + STAGES - 1;
+    const int nx = i + kStages - 1;
     if (nx < n) {
-      if (nx >= STAGES) mbar_wait(&empty[nx % STAGES], (nx / STAGES - 1) & 1);
+      if (nx >= kStages) mbar_wait(&empty[nx % kStages], (nx / kStages - 1) & 1);
       fill(nx);
     }
   }
@@ -244,17 +234,12 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
   for (int rr = 0; rr < kRows; ++rr) {
     uint32_t* dst = out + (row0 + warp * kRows + rr) * (size_t)w + word0;
     if constexpr (VEC) {
-      // w % 4 == 0, so a lane's kWpl (2 or 4) words are all live or all dead.
+      // w % 4 == 0, so a lane's 4 words are all live or all dead.
       if (word0 >= w) continue;
       if (!split) {
-        if constexpr (kWpl == 4) {
-          const uint4 v = *reinterpret_cast<const uint4*>(dst);
-          *reinterpret_cast<uint4*>(dst) = make_uint4(v.x | acc[rr][0], v.y | acc[rr][1],
-                                                      v.z | acc[rr][2], v.w | acc[rr][3]);
-        } else {
-          const uint2 v = *reinterpret_cast<const uint2*>(dst);
-          *reinterpret_cast<uint2*>(dst) = make_uint2(v.x | acc[rr][0], v.y | acc[rr][1]);
-        }
+        const uint4 v = *reinterpret_cast<const uint4*>(dst);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v.x | acc[rr][0], v.y | acc[rr][1],
+                                                    v.z | acc[rr][2], v.w | acc[rr][3]);
         continue;
       }
     }
@@ -270,21 +255,19 @@ tile_spmm_kernel(const int32_t* __restrict__ row_start,
   }
 }
 
-template <int C, int STAGES, int WARPS, bool VEC>
+template <bool VEC>
 int launch(const void* row_start, const void* seg_end, const void* col_tile,
            const void* masks, const void* fw, void* out, int num_row_tiles,
-           int num_segments_bound, int w, int chunk_major, cudaStream_t stream) {
-  auto kernel = tile_spmm_kernel<C, STAGES, WARPS, VEC>;
-  constexpr int smem = ring_bytes<C, STAGES>();
+           int num_segments_bound, int w, cudaStream_t stream) {
+  auto kernel = tile_spmm_kernel<VEC>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)num_segments_bound * ((w + C - 1) / C);
+  const long long blocks = (long long)num_segments_bound * ((w + kC - 1) / kC);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, kRingBytes, stream>>>(
       (const int32_t*)row_start, (const int32_t*)seg_end, (const int32_t*)col_tile,
-      (const uint32_t*)masks, (const uint32_t*)fw, (uint32_t*)out, num_row_tiles, w,
-      chunk_major);
+      (const uint32_t*)masks, (const uint32_t*)fw, (uint32_t*)out, num_row_tiles, w);
   return (int)cudaGetLastError();
 }
 
@@ -293,30 +276,16 @@ int launch(const void* row_start, const void* seg_end, const void* col_tile,
 // Launch on `stream`; returns a cudaError_t (0 = launched). The caller
 // passes `seg_end` (see the kernel), `num_segments_bound` >= its last
 // entry, `masks` [NT, 128, 4] (16-byte aligned) and `out` [num_row_tiles *
-// 128, w], which the kernel ORs into. (chunk, stages, warps) names one of
-// the compiled shapes below and `chunk_major` the grid order; `vec` picks
-// 16-byte copies (w % 4 == 0, fw and out 16-byte aligned) or 4-byte ones.
+// 128, w], which the kernel ORs into. `vec` picks 16-byte copies (w % 4 ==
+// 0, fw and out 16-byte aligned) or 4-byte ones.
 extern "C" int tpubfs_tile_spmm(const void* row_start, const void* seg_end,
                                 const void* col_tile, const void* masks,
                                 const void* fw, void* out, int num_row_tiles,
-                                int num_segments_bound, int w, int chunk, int stages,
-                                int warps, int chunk_major, int vec, void* stream) {
+                                int num_segments_bound, int w, int vec, void* stream) {
   if (num_row_tiles == 0 || num_segments_bound == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-#define TPUBFS_SHAPE(C_, S_, W_)                                                         \
-  if (chunk == C_ && stages == S_ && warps == W_) {                                      \
-    return vec ? launch<C_, S_, W_, true>(row_start, seg_end, col_tile, masks, fw, out, \
-                                          num_row_tiles, num_segments_bound, w,          \
-                                          chunk_major, s)                                \
-               : launch<C_, S_, W_, false>(row_start, seg_end, col_tile, masks, fw, out, \
-                                           num_row_tiles, num_segments_bound, w,         \
-                                           chunk_major, s);                              \
-  }
-  TPUBFS_SHAPE(64, 3, 8)
-  TPUBFS_SHAPE(64, 2, 8)
-  TPUBFS_SHAPE(128, 3, 16)
-  TPUBFS_SHAPE(128, 2, 16)
-  TPUBFS_SHAPE(64, 3, 16)
-#undef TPUBFS_SHAPE
-  return (int)cudaErrorInvalidValue;
+  return vec ? launch<true>(row_start, seg_end, col_tile, masks, fw, out, num_row_tiles,
+                            num_segments_bound, w, s)
+             : launch<false>(row_start, seg_end, col_tile, masks, fw, out, num_row_tiles,
+                             num_segments_bound, w, s);
 }

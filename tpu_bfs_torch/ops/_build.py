@@ -108,9 +108,9 @@ def load_library() -> ctypes.CDLL:
     the stream as c_void_p, so ctypes never truncates them to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpubfs_ell_expand.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.tpubfs_ell_expand.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.tpubfs_ell_expand.restype = i
-    lib.tpubfs_tile_spmm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.tpubfs_tile_spmm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.tpubfs_tile_spmm.restype = i
     return lib
 

@@ -23,11 +23,6 @@ MINPLUS_IDENT = 1 << 29
 SIGN_BIT = -(1 << 31)  # int32 0x80000000
 MAX_W = 65535 * 32  # words: at least 32 per block along a grid's y axis (<= 65535)
 
-#: The kernel's strips of 16-byte loads, in words a block: strip / 4 lanes
-#: share a row (8 words: 16 rows a warp instruction; 128, 256: one row).
-#: The first is the default.
-STRIPS = (32, 8, 16, 128, 256)
-
 #: op name -> (identity as int32, C op id)
 KERNEL_OPS = {"or": (0, 0), "min": (-1, 1), "minplus": (MINPLUS_IDENT, 2)}
 
@@ -86,8 +81,7 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
     ``fw`` [rows, w] and ``wt`` [k, nb*128], all int32 and contiguous. Every
     index in ``gt`` must be a row of ``fw``. Each CUDA launch adds one to
     ``ell_expand.launches``; when ``ell_expand.timings`` is a list, the launch
-    appends its (start, end) CUDA events to it. ``ell_expand.strip`` picks
-    one of ``STRIPS``."""
+    appends its (start, end) CUDA events to it."""
     _check(need_blk, gt, fw, wt, op)
     if fw.device.type == "cpu":
         return ell_expand_plain(need_blk, gt, fw, wt, op=op)
@@ -108,7 +102,7 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
     rc = lib.tpubfs_ell_expand(
         need_blk.data_ptr(), gt.data_ptr(), fw.data_ptr(),
         None if wt is None else wt.data_ptr(), out.data_ptr(),
-        k, ncols, w, KERNEL_OPS[op][1], int(vec), ell_expand.strip, stream.cuda_stream,
+        k, ncols, w, KERNEL_OPS[op][1], int(vec), stream.cuda_stream,
     )
     check_launch(rc, "ell_expand")
     ell_expand.launches += 1
@@ -120,7 +114,6 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
 
 ell_expand.launches = 0
 ell_expand.timings = None
-ell_expand.strip = STRIPS[0]
 
 
 def ell_expand_plain(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:

@@ -7,11 +7,12 @@ tensors; it raises for anything else.
 
 For row tile j, output row r is the OR over the dense tiles b in
 ``[row_start[j], row_start[j+1])`` and the columns c with ``A_b[r, c] = 1``
-of frontier row ``col_tile[b] * 128 + c``. The public layout is the JAX
-one: ``a_tiles`` [NT, 4, 128], with A[r, c] at ``[t, r % 4, c]`` bit
-``r // 4`` (``pack_a_tiles``). The CUDA kernel reads the same bits as row
-masks (``row_masks``), which a caller that launches often builds once.
-Words travel as int32 (see ops/ell_expand.py).
+of frontier row ``col_tile[b] * 128 + c``. The tiles come in the JAX
+layout, ``a_tiles`` [NT, 4, 128] with A[r, c] at ``[t, r % 4, c]`` bit
+``r // 4`` (``pack_a_tiles``), or as their row masks [NT, 128, 4]
+(``row_masks``), the layout the kernel and the twin read, which a caller
+that launches often keeps instead. Words travel as int32 (see
+ops/ell_expand.py).
 """
 
 from __future__ import annotations
@@ -24,45 +25,40 @@ from tpu_bfs_torch.ops.ell_expand import MAX_W, aligned16
 TILE = 128
 AW = TILE // 32  # u32 words per packed A row group
 SEG = 32  # dense tiles per CUDA block at most (kSeg in csrc/tile_spmm.cu)
-#: The kernel's shapes: (words per block C, ring stages, warps, chunk-major
-#: grid order); the first is the default.
-SHAPES = (
-    (128, 3, 16, True), (128, 3, 16, False), (64, 3, 16, False), (64, 3, 16, True),
-    (64, 2, 8, False), (64, 3, 8, False), (128, 2, 16, False),
-)
+CHUNK = 128  # frontier words per CUDA block (kC in csrc/tile_spmm.cu)
 
 #: int32 value of each single bit (bit 31 is the sign bit)
 _BIT = [(1 << b) if b < 31 else -(1 << 31) for b in range(32)]
 
 
-def _check(row_start, col_tile, a_tiles, fw, num_row_tiles, masks, out):
-    named = {"row_start": row_start, "col_tile": col_tile, "a_tiles": a_tiles, "fw": fw}
-    if masks is not None:
-        named["masks"] = masks
+def _check(row_start, col_tile, a_tiles, masks, fw, num_row_tiles, out):
+    if (a_tiles is None) == (masks is None):
+        raise ValueError("tile_spmm: give a_tiles or masks, not both or neither")
+    tiles, name, shape = ((a_tiles, "a_tiles", (AW, TILE)) if masks is None
+                          else (masks, "masks", (TILE, AW)))
+    named = {"row_start": row_start, "col_tile": col_tile, name: tiles, "fw": fw}
     if out is not None:
         named["out"] = out
-    for name, t in named.items():
+    for key, t in named.items():
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
-            raise TypeError(f"tile_spmm: {name} must be an int32 tensor")
+            raise TypeError(f"tile_spmm: {key} must be an int32 tensor")
         if t.device != fw.device:
-            raise ValueError(f"tile_spmm: {name} is on {t.device}, fw on {fw.device}")
+            raise ValueError(f"tile_spmm: {key} is on {t.device}, fw on {fw.device}")
         if not t.is_contiguous():
-            raise ValueError(f"tile_spmm: {name} must be contiguous")
+            raise ValueError(f"tile_spmm: {key} must be contiguous")
     nt = col_tile.shape[0] if col_tile.dim() == 1 else -1
     if row_start.shape != (num_row_tiles + 1,) or nt < 0:
         raise ValueError(
             f"tile_spmm: row_start must be [{num_row_tiles + 1}] and col_tile [NT]"
         )
-    if a_tiles.shape != (nt, AW, TILE):
-        raise ValueError(f"tile_spmm: a_tiles {tuple(a_tiles.shape)} != ({nt}, {AW}, {TILE})")
-    if masks is not None and masks.shape != (nt, TILE, AW):
-        raise ValueError(f"tile_spmm: masks {tuple(masks.shape)} != ({nt}, {TILE}, {AW})")
+    if tiles.shape != (nt, *shape):
+        raise ValueError(f"tile_spmm: {name} {tuple(tiles.shape)} != {(nt, *shape)}")
     if fw.dim() != 2 or fw.shape[1] < 1 or fw.shape[0] % TILE:
         raise ValueError(f"tile_spmm: fw must be [vt*{TILE}, w], got {tuple(fw.shape)}")
     if out is not None and out.shape != (num_row_tiles * TILE, fw.shape[1]):
         raise ValueError(f"tile_spmm: out {tuple(out.shape)} != "
                          f"({num_row_tiles * TILE}, {fw.shape[1]})")
-    blocks = (num_row_tiles + nt // SEG) * -(-fw.shape[1] // min(s[0] for s in SHAPES))
+    blocks = (num_row_tiles + nt // SEG) * -(-fw.shape[1] // CHUNK)
     if blocks >= 1 << 31 or fw.shape[1] > MAX_W:
         raise ValueError(f"tile_spmm: too many tiles for one grid, or w > {MAX_W}")
 
@@ -72,16 +68,19 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
     """[num_row_tiles*128, w] int32 hit words of all dense tiles.
 
     Every ``col_tile`` entry must name a 128-row slab of ``fw`` and
-    ``row_start`` must be non-decreasing with ``row_start[-1] == NT``.
-    ``masks`` is ``row_masks(a_tiles)`` where the caller keeps it (else the
-    CUDA path builds it). With ``out`` the hits are ORed into it, in place,
-    and ``out`` is returned; without, they land in a fresh zeroed table.
-    Each CUDA launch adds one to ``tile_spmm.launches``; when
-    ``tile_spmm.timings`` is a list, the launch appends its (start, end)
-    CUDA events to it. ``tile_spmm.shape`` picks one of ``SHAPES``."""
-    _check(row_start, col_tile, a_tiles, fw, num_row_tiles, masks, out)
+    ``row_start`` must be non-decreasing with ``row_start[-1] == NT``. The
+    tiles come as ``a_tiles`` (JAX layout, turned into row masks on every
+    call) or as ``masks`` = ``row_masks(a_tiles)`` with ``a_tiles=None``.
+    With ``out`` the hits are ORed into it, in place, and ``out`` is
+    returned; without, they land in a fresh zeroed table. Each CUDA launch
+    adds one to ``tile_spmm.launches``; when ``tile_spmm.timings`` is a
+    list, the launch appends its (start, end) CUDA events to it."""
+    _check(row_start, col_tile, a_tiles, masks, fw, num_row_tiles, out)
+    if masks is None:
+        masks = row_masks(a_tiles)
     if fw.device.type == "cpu":
-        hit = tile_spmm_plain(row_start, col_tile, a_tiles, fw, num_row_tiles=num_row_tiles)
+        hit = tile_spmm_plain(row_start, col_tile, None, fw, num_row_tiles=num_row_tiles,
+                              masks=masks)
         if out is None:
             return hit
         out |= hit
@@ -92,8 +91,6 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
 
     lib = load_library()
     w = fw.shape[1]
-    if masks is None:
-        masks = row_masks(a_tiles)
     if not aligned16(masks):
         raise ValueError("tile_spmm: masks must start on a 16-byte boundary")
     if out is None:
@@ -103,7 +100,6 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
     # vt + NT // SEG without reading the prefix sum back to the host.
     segs = (row_start[1:] - row_start[:-1] + SEG - 1) // SEG
     seg_end = torch.cumsum(segs, 0, dtype=torch.int32)
-    chunk, stages, warps, chunk_major = tile_spmm.shape
     vec = w % 4 == 0 and aligned16(fw, out)
     stream = torch.cuda.current_stream(fw.device)
     timings = tile_spmm.timings
@@ -113,9 +109,7 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
     rc = lib.tpubfs_tile_spmm(
         row_start.data_ptr(), seg_end.data_ptr(), col_tile.data_ptr(),
         masks.data_ptr(), fw.data_ptr(), out.data_ptr(), num_row_tiles,
-        num_row_tiles + col_tile.shape[0] // SEG, w, chunk, stages, warps, int(chunk_major),
-        int(vec),
-        stream.cuda_stream,
+        num_row_tiles + col_tile.shape[0] // SEG, w, int(vec), stream.cuda_stream,
     )
     check_launch(rc, "tile_spmm")
     tile_spmm.launches += 1
@@ -127,7 +121,6 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
 
 tile_spmm.launches = 0
 tile_spmm.timings = None
-tile_spmm.shape = SHAPES[0]
 
 
 def row_masks(a_tiles: torch.Tensor, *, chunk: int = 2048) -> torch.Tensor:
@@ -150,33 +143,38 @@ def row_masks(a_tiles: torch.Tensor, *, chunk: int = 2048) -> torch.Tensor:
     return out
 
 
-def dense_entries(row_start, col_tile, a_tiles, *, chunk: int = 2048):
+def dense_entries(row_start, col_tile, masks, *, chunk: int = 2048):
     """(out_row, in_row) int64 coordinates of every set bit of the dense
-    tiles: out_row = row_tile * 128 + r, in_row = col_tile * 128 + c."""
-    dev = a_tiles.device
+    tiles' row masks: out_row = row_tile * 128 + r, in_row = col_tile * 128
+    + c."""
+    dev = masks.device
     nt = col_tile.shape[0]
     counts = (row_start[1:] - row_start[:-1]).long()
     row_tile = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
     outs, ins = [], []
     for t0 in range(0, nt, chunk):
-        a = a_tiles[t0 : t0 + chunk]
-        t, aw, c, bit = torch.nonzero((a[..., None] >> shifts) & 1, as_tuple=True)
-        outs.append(row_tile[t0 + t] * TILE + bit * AW + aw)
-        ins.append(col_tile[t0 + t].long() * TILE + c)
+        m = masks[t0 : t0 + chunk]
+        t, r, q, bit = torch.nonzero((m[..., None] >> shifts) & 1, as_tuple=True)
+        outs.append(row_tile[t0 + t] * TILE + r)
+        ins.append(col_tile[t0 + t].long() * TILE + q * 32 + bit)
     if not outs:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
         return z, z
     return torch.cat(outs), torch.cat(ins)
 
 
-def tile_spmm_plain(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`tile_spmm` (same signature and result):
-    per lane bit, a sparse 0/1 product over the tiles' set bits, then
-    ``count > 0``. Counts stay below 2**24, so float32 sums are exact."""
+def tile_spmm_plain(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
+                    masks=None) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`tile_spmm` (same tiles and result, no
+    ``out``): per lane bit, a sparse 0/1 product over the set bits of the
+    row masks, then ``count > 0``. Counts stay below 2**24, so float32 sums
+    are exact."""
+    if masks is None:
+        masks = row_masks(a_tiles)
     rows = num_row_tiles * TILE
     out = torch.zeros((rows, fw.shape[1]), dtype=torch.int32, device=fw.device)
-    out_row, in_row = dense_entries(row_start, col_tile, a_tiles)
+    out_row, in_row = dense_entries(row_start, col_tile, masks)
     if out_row.numel() == 0:
         return out
     a = torch.sparse_coo_tensor(

@@ -10,8 +10,8 @@ probe builds the flagship hybrid engine and times one level's residual pass
 table, with and without an L2 access-policy window that marks the table's
 leading bytes as persisting, in turns. It also prints what share of the
 level's gather slots fall in the leading rows. Prints one JSON line per
-measurement. Needs one CUDA device; the window is set through the CUDA
-driver API (libcuda) on a stream of its own.
+measurement. Needs one CUDA device; the window is set through libcuda,
+the CUDA low-level API, on a stream of its own.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import time
 
 import torch
 
-# CUDA driver API enums (cuda.h, CUDA 12)
+# libcuda enums (cuda.h, CUDA 12)
 CU_DEVICE_ATTRIBUTE_L2_CACHE_SIZE = 38
 CU_DEVICE_ATTRIBUTE_MAX_PERSISTING_L2_CACHE_SIZE = 108
 CU_DEVICE_ATTRIBUTE_MAX_ACCESS_POLICY_WINDOW_SIZE = 109
@@ -45,7 +45,7 @@ class StreamAttrValue(ctypes.Union):
     _fields_ = [("pad", ctypes.c_char * 64), ("accessPolicyWindow", AccessPolicyWindow)]
 
 
-class Driver:
+class LibCuda:
     """The few libcuda calls the window needs; every call is checked."""
 
     def __init__(self):
@@ -114,7 +114,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21)
     ap.add_argument("--lanes", type=int, default=8192)
-    ap.add_argument("--strips", default="32,256", help="K1 strips to compare")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -134,7 +133,7 @@ def main(argv=None) -> int:
     fw = torch.randint(-(2**31), 2**31 - 1, (hg.vt * 128, w), dtype=torch.int32, device=dev)
     row_bytes = w * 4
 
-    drv = Driver()
+    drv = LibCuda()
     l2 = drv.device_attr(CU_DEVICE_ATTRIBUTE_L2_CACHE_SIZE)
     persist_max = drv.device_attr(CU_DEVICE_ATTRIBUTE_MAX_PERSISTING_L2_CACHE_SIZE)
     window_max = drv.device_attr(CU_DEVICE_ATTRIBUTE_MAX_ACCESS_POLICY_WINDOW_SIZE)
@@ -155,36 +154,30 @@ def main(argv=None) -> int:
 
     stream = torch.cuda.Stream(dev)
     windows = [0, limit // 2, limit, min(2 * limit, window_max)]
-    strips = [int(s) for s in args.strips.split(",")]
 
     def ratio(wb):  # a window larger than the set-aside persists a sample of it
         return 1.0 if wb <= limit else limit / wb
 
-    configs = [(s, wb) for s in strips for wb in windows]
-    times = {c: [] for c in configs}
+    def level():  # one level's residual pass: every bucket
+        return [k1.ell_expand(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw) for n in names]
+
+    times = {wb: [] for wb in windows}
     with torch.cuda.stream(stream):
-        k1.ell_expand.strip = strips[0]
         drv.window(stream.cuda_stream, 0, 0, 1.0)
-        want = [k1.ell_expand(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw) for n in names]
-        for strip, wb in configs + configs[::-1]:
-            k1.ell_expand.strip = strip
+        want = level()
+        for wb in windows + windows[::-1]:
             back = drv.window(stream.cuda_stream, fw.data_ptr(), wb, ratio(wb))
             if back != wb:
                 raise RuntimeError(f"window of {wb} bytes read back as {back}")
-
-            def level():
-                return [k1.ell_expand(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw) for n in names]
-
             got = level()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"strip {strip} window {wb}: output differs")
+                raise AssertionError(f"window {wb}: output differs")
             del got
-            times[(strip, wb)].append(cuda_ms(level, args.reps))
+            times[wb].append(cuda_ms(level, args.reps))
         drv.window(stream.cuda_stream, 0, 0, 1.0)
-    for (strip, wb), t in times.items():
-        emit({"phase": "k1_level", "strip_words": strip, "window_bytes": wb,
-              "hit_ratio": ratio(wb),
+    for wb, t in times.items():
+        emit({"phase": "k1_level", "window_bytes": wb, "hit_ratio": ratio(wb),
               "window_rows": wb // row_bytes, "ms": t, "mean_ms": sum(t) / len(t)})
     emit({"ok": True})
     return 0
