@@ -9,17 +9,29 @@ Phases, one JSON line each:
  2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc;
  3. parity: each kernel against its plain PyTorch twin, bit-exact, at small
     ragged shapes (K1 ell_expand: or/min/minplus, w 1/8/33/256, k 1/7/64/70,
-    gated tiles; K2 tile_spmm: w 1/8/33/64/256, fresh and accumulating into
-    a prior table from the row masks alone, empty and split row tiles);
+    gated tiles, and min at w 128 over keys with bit 31 set and an all-ones
+    sentinel row; K2 tile_spmm: w 1/8/33/64/256, fresh and accumulating into
+    a prior table from the row masks alone, empty and split row tiles); and
+    a ParentScanner on RMAT scale 12, on the card, on CPU tensors and as
+    validate.min_parent_from_dist, all equal;
  4. wide: WidePackedMsBfsEngine, RMAT scale 18, 4096 lanes, 3 lanes
     validated against the SciPy oracle, K1 launches counted;
  5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1), 8192 lanes,
     the bench protocol (hub pilot as warm-up, sources from default_rng(7)
-    among traversable vertices, one timed batch, 7 lanes validated), with
+    among traversable vertices, one timed batch, 5 lanes validated), with
     both kernels' launch counts and summed CUDA-event times;
  6. kernels: each kernel at the flagship's shapes against its twin
     (bit-exact), its time, the twin's time, its device-memory bound, its
-    streamed-bytes model and nvcc's register and shared-memory report.
+    streamed-bytes model and nvcc's register and shared-memory report;
+ 7. parents: the flagship batch's BFS trees through the device parent scan
+    (K1 op=min over a full ELL, 64 passes of 128 lanes), each pass timed on
+    the device, copied to the host and decoded there; the 5 validated lanes
+    equal validate.min_parent_from_dist and pass certify_bfs; then the
+    public parents_into(device="device") on a 256-lane batch. The K1 min
+    entry of the kernels line is timed here, at the scan's shape;
+ 8. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
+    4 validated) on the card: scale 20, not 21, keeps the whole script near
+    8 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -27,6 +39,7 @@ the script exits non-zero; it also exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -38,9 +51,15 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# Parent-scan passes whose 128 lanes are all decoded on the host (timed);
+# the rest decode only the validated lanes (a whole pass takes seconds).
+DECODE_PASSES = 2
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj["at_s"] = time.perf_counter() - T0  # since the script started
     print(json.dumps(obj), flush=True)
 
 
@@ -95,6 +114,24 @@ def phase_parity(dev, k1, k2) -> None:
                 require(torch.equal(got, k1.ell_expand_plain(*args, op=op)),
                         f"ell_expand {op} w={w} k={k} != twin")
                 checks += 1
+    # The parent scan's shape: min over w = 128 words of keys, most with bit
+    # 31 set, and the all-ones sentinel row (every pad slot gathers it).
+    for k in (1, 64, 70):
+        rows = 2001
+        keys = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32) | np.uint32(1 << 31)
+        keys[rng.random(rows) < 0.3] &= np.uint32(0x7FFFFFFF)
+        keys[-1] = 0xFFFFFFFF
+        gt = rng.integers(0, rows, size=(k, 5 * 128)).astype(np.int32)
+        gt[rng.random(gt.shape) < 0.2] = rows - 1
+        args = (i32(np.ones(5, np.int32)), i32(gt), i32(keys))
+        got = k1.ell_expand(*args, op="min")
+        torch.cuda.synchronize()
+        require(torch.equal(got, k1.ell_expand_plain(*args, op="min")),
+                f"ell_expand min w=128 k={k} high-bit keys != twin")
+        require(np.array_equal(got.cpu().numpy().view(np.uint32), keys[gt].min(axis=0)),
+                f"ell_expand min w=128 k={k} != unsigned numpy min")
+        checks += 1
+    checks += parity_parent_scan(dev)
     for w in (1, 8, 33, 64, 256):
         # Row tile 0 takes every column tile and row tile 2 takes 33 (both
         # split over blocks, K2's atomicOr path); row tile 3 takes exactly 32
@@ -134,6 +171,35 @@ def phase_parity(dev, k1, k2) -> None:
     emit({"phase": "parity", "checks": checks, "exact": True,
           "twin_ms_small": {"ell_expand_plain[k=64,n=640,w=256]": twin_k1,
                             "tile_spmm_plain[NT=219,vt=40,w=256]": twin_k2}})
+
+
+def parity_parent_scan(dev) -> int:
+    """A ParentScanner over RMAT scale 12 (ef 16, seed 11; kcap 16, so the
+    heavy fold pyramid runs) on 100 SciPy-BFS lanes: the CUDA scan, the same
+    scanner on CPU tensors and validate.min_parent_from_dist, all equal."""
+    from tpu_bfs_torch.algorithms.parent_scan import ParentScanner
+    from tpu_bfs_torch.graph.ell import build_ell
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.validate import min_parent_from_dist
+
+    g = rmat_graph(12, 16, seed=11)
+    ell = build_ell(g, kcap=16)
+    act = ell.num_active
+    rows = ell.old_of_new[:act]
+    sources = np.random.default_rng(2).choice(g.num_vertices, size=100, replace=False)
+    cols = np.full((act, 128), 255, np.uint8)
+    want = np.full((act, 128), -1, np.int32)
+    for j, s in enumerate(sources):
+        d = bfs_scipy(g, int(s))
+        cols[:, j] = np.minimum(d, 255)[rows]
+        want[:, j] = min_parent_from_dist(g, int(s), d)[rows]
+    got = ParentScanner(ell, device=dev).scan(torch.from_numpy(cols).to(dev))
+    torch.cuda.synchronize()
+    twin = ParentScanner(ell, device="cpu").scan(torch.from_numpy(cols))
+    require(torch.equal(got.cpu(), twin), "parent scan on the card != on CPU tensors")
+    require(np.array_equal(twin.numpy(), want), "parent scan != min_parent_from_dist")
+    return 1
 
 
 def hub_component_sources(eng, lanes: int, *, seed: int, with_component: bool = False):
@@ -268,7 +334,7 @@ def phase_flagship(dev, k1, k2, scale: int, lanes: int):
             "tile_spmm": k2_bytes / HBM_BYTES_PER_S * 1e3,
         },
     })
-    return eng, res, launches
+    return g, eng, res, sources, picks, launches
 
 
 def kernel_name(mangled: str) -> str:
@@ -387,11 +453,172 @@ def phase_kernels(eng, res, launches, k1, k2, ptxas):
     return kernels
 
 
+def _check_trees(g, res, sources, lanes, trees) -> None:
+    """Each lane's tree equals validate.min_parent_from_dist and passes
+    validate.certify_bfs."""
+    from tpu_bfs_torch.validate import certify_bfs, min_parent_from_dist
+
+    for i in lanes:
+        s, d = int(sources[i]), res.distances_int32(i)
+        require(np.array_equal(trees[i], min_parent_from_dist(g, s, d)),
+                f"lane {i}: scanned tree != min_parent_from_dist")
+        certify_bfs(g, s, d, trees[i])
+
+
+def k1_min_entry(k1, scanner, keys, launches: int, ptxas) -> dict:
+    """The kernels-line entry of K1 op=min at the parent scan's shape: one
+    pass, every bucket of the full ELL, over a pass's real key table. The
+    bound reads the key rows the indices name, each bucket's gate and index
+    slab, and writes each output, once, over 3.35 TB/s; the model is
+    ell_expand_hbm_bytes."""
+    arrs, ell = scanner.arrs, scanner.ell
+    lpp = keys.shape[1]
+    names = (["virtual"] if ell.num_heavy else []) + [f"light{i}" for i in range(len(ell.light))]
+
+    def k1_pass(fn):
+        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], keys, op="min") for n in names]
+
+    got, want = k1_pass(k1.ell_expand), k1_pass(k1.ell_expand_plain)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "ell_expand min != twin at the parent scan's shape")
+    del got, want
+    named = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
+    nbytes = named * lpp * 4 + sum(
+        arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * lpp * 4
+        for n in names)
+    model = sum(k1.ell_expand_hbm_bytes(*arrs[f"{n}_gt"].shape, lpp) for n in names)
+    return {
+        "name": "ell_expand_min", "route": "cuda", "source": "tpu_bfs_torch/csrc/ell_expand.cu",
+        "replaces": "tpu_bfs/ops/ell_expand.py:225", "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: k1_pass(k1.ell_expand), 5),
+        "plain_ms": cuda_ms(lambda: k1_pass(k1.ell_expand_plain), 1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        "model_ms": model / HBM_BYTES_PER_S * 1e3,
+        "unit": f"one parent-scan pass: every bucket of the full ELL, w {lpp}",
+        "ptxas": ptxas.get("ell_expand.cu", []),
+    }
+
+
+def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
+    """The flagship batch's BFS trees through the device parent scan, pass
+    by pass (the body of PackedBatchResult._parents_into_scan, with the
+    host half decoding into one reused [128, V] buffer instead of a
+    [S, V] array: every lane in the first DECODE_PASSES passes, only the
+    validated lanes after), then the public parents_into on a 256-lane
+    batch. Returns the K1 min entry of the kernels line."""
+    from tpu_bfs_torch.algorithms._packed_common import _decode_pass, acquire_parent_scanner
+
+    require(res._iso is None, "flagship sources are traversable: none isolated")
+    t0 = time.perf_counter()
+    scanner = acquire_parent_scanner(eng, "device")  # builds and moves a full ELL
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ell = scanner.ell
+    lpp, n = scanner.lanes_per_pass, len(sources)
+    perm = res._scan_row_map(scanner)
+    id_of_row = ell.old_of_new[: ell.num_active]
+    buf = np.empty((lpp, g.num_vertices), np.int32)
+    trees = {}
+    pass_ms, k1_ms, d2h_ms, decode_ms = [], [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts(k1, k2)
+    k1.ell_expand.timings = []
+    t_scan = time.perf_counter()
+    for lane0 in range(0, n, lpp):
+        m = min(lpp, n - lane0)
+        ev0 = len(k1.ell_expand.timings)
+        start.record()
+        pc = res._scan_pass(scanner, lane0 // 32, -(-m // 32), perm)
+        end.record()
+        torch.cuda.synchronize()
+        pass_ms.append(start.elapsed_time(end))
+        k1_ms.append(sum(a.elapsed_time(b) for a, b in k1.ell_expand.timings[ev0:]))
+        t0 = time.perf_counter()
+        host = pc.cpu().numpy()
+        d2h_ms.append((time.perf_counter() - t0) * 1e3)
+        mine = [i for i in picks if lane0 <= i < lane0 + m]
+        if len(decode_ms) < DECODE_PASSES:  # every lane: the export's host cost
+            t0 = time.perf_counter()
+            _decode_pass(buf[:m], host, id_of_row)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            trees.update({i: buf[i - lane0].copy() for i in mine})
+        else:  # only the lanes to validate
+            _decode_pass(buf[: len(mine)], host[:, [i - lane0 for i in mine]], id_of_row)
+            trees.update({i: buf[j].copy() for j, i in enumerate(mine)})
+        del pc, host
+    scan_s = time.perf_counter() - t_scan
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    k1.ell_expand.timings = None
+    buckets = (ell.num_heavy > 0) + len(ell.light)
+    require(launches["ell_expand"] == len(pass_ms) * buckets,
+            f"parent scan launched {launches['ell_expand']} K1, not {len(pass_ms)} x {buckets}")
+    require(launches["tile_spmm"] == 0, "the parent scan launched tile_spmm")
+    t0 = time.perf_counter()
+    _check_trees(g, res, sources, picks, trees)
+    validate_s = time.perf_counter() - t0
+    entry = k1_min_entry(k1, scanner, scanner.keys(res._scan_cols(scanner, 0, lpp // 32, perm)),
+                         launches["ell_expand"], ptxas)
+    del scanner, buf, trees
+
+    # The public export on a 256-lane batch of the same engine; it builds
+    # its own scanner (the hybrid's is not cached) and a 2.1 GB [S, V] array.
+    res2 = eng.run(sources[:256])
+    out = np.empty((256, g.num_vertices), np.int32)
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    res2.parents_into(out, device="device")
+    export_s = time.perf_counter() - t0
+    export_launches = k1.ell_expand.launches
+    require(export_launches == 2 * buckets, f"parents_into launched {export_launches} K1")
+    checked = [0, 128, 255]
+    _check_trees(g, res2, sources, checked, out)
+    emit({
+        "phase": "parents", "lanes": n, "passes": len(pass_ms), "lanes_per_pass": lpp,
+        "full_ell": {"kcap": ell.kcap, "buckets": buckets, "slots": ell.total_slots,
+                     "active": ell.num_active},
+        "row_map": "identity" if perm is None else "permuted",
+        "scanner_build_s": build_s, "scan_s": scan_s, "launches": launches,
+        "device_ms_per_pass": sum(pass_ms) / len(pass_ms), "device_ms": sum(pass_ms),
+        "k1_min_ms_per_pass": sum(k1_ms) / len(k1_ms), "k1_min_ms": sum(k1_ms),
+        "d2h_ms_per_pass": sum(d2h_ms) / len(d2h_ms), "d2h_ms": sum(d2h_ms),
+        "d2h_bytes_per_pass": ell.num_active * lpp * 4,
+        "host_decode_ms_per_pass": sum(decode_ms) / len(decode_ms),
+        "host_decode_passes_timed": len(decode_ms),
+        "validated_lanes": sorted(picks), "validate_s": validate_s,
+        "parents_into_256": {"seconds": export_s, "ell_expand_launches": export_launches,
+                             "checked_lanes": checked, "host_bytes": out.nbytes},
+    })
+    return entry
+
+
+def phase_graph500(dev, k1, k2, scale: int) -> None:
+    from tpu_bfs_torch.graph500 import run_graph500
+
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    r = run_graph500(scale, 16, mode="hybrid", num_searches=64, validate_searches=4, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    require(r.validated, "graph500 validated no search")
+    emit({"phase": "graph500", "scale": scale, "edge_factor": 16,
+          "scale_cut": None if scale == 21 else f"scale {scale} instead of 21 (--graph500-scale)",
+          "mode": r.mode, "searches": r.num_searches, "validated_searches": 4,
+          "validated": r.validated, "hmean_gteps": r.harmonic_mean_teps / 1e9,
+          "launches": launches, "graph_s": r.graph_s, "engine_build_s": r.engine_s,
+          "total_s": total_s})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
+    ap.add_argument("--graph500-scale", type=int, default=20,
+                    help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
@@ -430,8 +657,13 @@ def main(argv=None) -> int:
     if args.parity_only:
         return 0
     phase_wide(dev, k1, k2, args.wide_scale)
-    eng, res, launches = phase_flagship(dev, k1, k2, args.scale, args.lanes)
+    g, eng, res, sources, picks, launches = phase_flagship(dev, k1, k2, args.scale, args.lanes)
     kernels = phase_kernels(eng, res, launches, k1, k2, ptxas)
+    kernels.append(phase_parents(k1, k2, g, eng, res, sources, picks, ptxas))
+    del g, eng, res  # free the flagship's device state before the next engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graph500(dev, k1, k2, args.graph500_scale)
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

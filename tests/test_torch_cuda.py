@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engines on a card, against their CPU forms.
 
-Every test needs a CUDA device and skips without one: a CUDA kernel has no
-CPU mode. This file imports neither jax nor tpu_bfs, so it also runs on a
+Every test needs a CUDA device (marker ``cuda``) and skips without one, as
+the ``cuda`` fixture decides at run time: a CUDA kernel has no CPU mode.
+This file imports neither jax nor tpu_bfs, so it also runs on a
 machine without them. There, skip the suite's conftest (it sets up JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -16,6 +17,8 @@ from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
 from tpu_bfs_torch.graph.generate import rmat_graph
 from tpu_bfs_torch.ops import ell_expand as k1
 from tpu_bfs_torch.ops import tile_spmm as k2
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -147,3 +150,94 @@ def test_engine_on_cuda_equals_cpu(cuda, engine):
     np.testing.assert_array_equal(res.ecc, want.ecc)
     for i in (0, 31, 32, 128, 255):
         np.testing.assert_array_equal(res.distances_int32(i), want.distances_int32(i))
+
+
+def test_ell_expand_min_w128_high_bit_keys(cuda):
+    # The parent scan's K1 shape: w = 128 words of uint32 keys, most with
+    # bit 31 set, and an all-ones sentinel row that every pad slot gathers.
+    rng = np.random.default_rng(12)
+    rows, k, nb = 3001, 64, 9
+    keys = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32) | np.uint32(1 << 31)
+    low = rng.random(rows) < 0.3
+    keys[low] &= np.uint32(0x7FFFFFFF)
+    keys[-1] = 0xFFFFFFFF
+    gt = rng.integers(0, rows, size=(k, nb * 128)).astype(np.int32)
+    gt[rng.random(gt.shape) < 0.2] = rows - 1
+    need = np.ones(nb, np.int32)
+    need[3] = 0
+    args = (i32(need, cuda), i32(gt, cuda), i32(keys, cuda))
+    got = k1.ell_expand(*args, op="min")
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.ell_expand_plain(*args, op="min"))
+    want = keys[gt].min(axis=0)  # unsigned
+    want[3 * 128:4 * 128] = 0xFFFFFFFF
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+
+
+def _dist_cols(g, ell, sources):
+    from tpu_bfs_torch.reference import bfs_scipy
+
+    act = ell.num_active
+    cols = np.full((act, 128), 255, np.uint8)
+    dists = []
+    for j, s in enumerate(sources):
+        d = bfs_scipy(g, int(s))
+        dists.append(d)
+        cols[:, j] = np.where(d == np.iinfo(np.int32).max, 255, d)[ell.old_of_new[:act]]
+    return cols, dists
+
+
+@pytest.mark.parametrize("high_ids", [False, True])
+def test_parent_scan_cuda_equals_twin_and_oracle(cuda, high_ids):
+    import dataclasses
+
+    from tpu_bfs_torch.algorithms.parent_scan import ParentScanner
+    from tpu_bfs_torch.graph.ell import build_ell
+    from tpu_bfs_torch.validate import min_parent_from_dist
+
+    g = rmat_graph(12, 16, seed=11)
+    ell = build_ell(g, kcap=16)
+    sources = np.random.default_rng(2).choice(g.num_vertices, size=100, replace=False)
+    cols, dists = _dist_cols(g, ell, sources)
+    idmap = np.arange(g.num_vertices, dtype=np.int32)
+    if high_ids:  # ids over [0, 2**24): keys of unreached rows set bit 31
+        idmap = np.sort(np.random.default_rng(1).choice(1 << 24, size=g.num_vertices,
+                                                        replace=False)).astype(np.int32)
+        ell = dataclasses.replace(ell, num_vertices=1 << 24, old_of_new=idmap[ell.old_of_new])
+    buckets = (ell.num_heavy > 0) + len(ell.light)
+    before = k1.ell_expand.launches
+    got = ParentScanner(ell, device=cuda).scan(torch.from_numpy(cols).to(cuda))
+    torch.cuda.synchronize()
+    assert k1.ell_expand.launches == before + buckets
+    twin = ParentScanner(ell, device="cpu").scan(torch.from_numpy(cols))
+    assert torch.equal(got.cpu(), twin)
+    rows = ell.old_of_new[: ell.num_active]
+    for j in (0, 1, 50, 99):
+        tree = min_parent_from_dist(g, int(sources[j]), dists[j])
+        want = np.where(tree >= 0, idmap[np.maximum(tree, 0)], -1)
+        np.testing.assert_array_equal(got[:, j].cpu().numpy(), want[np.searchsorted(idmap, rows)])
+
+
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_parents_into_device_on_cuda(cuda, engine):
+    from tpu_bfs_torch.validate import certify_bfs, min_parent_from_dist
+
+    g = rmat_graph(12, 16, seed=11)
+    kw = dict(lanes=256, kcap=8, num_planes=5)
+    if engine == "hybrid":
+        kw["tile_thr"] = 4
+    make = WidePackedMsBfsEngine if engine == "wide" else HybridMsBfsEngine
+    src = np.random.default_rng(5).integers(0, g.num_vertices, size=160)  # two passes
+    want = np.empty((160, g.num_vertices), np.int32)
+    make(g, device="cpu", **kw).run(src).parents_into(want, device="device")
+    res = make(g, device=cuda, **kw).run(src)
+    before = k1.ell_expand.launches
+    out = np.empty_like(want)
+    res.parents_into(out, device="device")
+    assert k1.ell_expand.launches > before
+    np.testing.assert_array_equal(out, want)
+    for i in (0, 127, 128, 159):
+        d = res.distances_int32(i)
+        np.testing.assert_array_equal(out[i], min_parent_from_dist(g, int(src[i]), d))
+        certify_bfs(g, int(src[i]), d, out[i])
+    np.testing.assert_array_equal(res.parents_int32(3), want[3])

@@ -11,15 +11,21 @@ on the device; distances decode lazily, one 32-lane word at a time.
 The JAX ``lax.while_loop`` becomes a host loop with exactly one
 device-to-host sync per level (the ``alive`` flag).
 
+Parent trees are derived after the loop (``PackedBatchResult.parents_*``):
+the device parent scan of ``parent_scan.py`` over the engine's full ELL,
+or one host scatter-min per lane.
+
 Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 ``max_levels_cap``, ``num_planes``, ``undirected``, ``device``, ``_rank``,
-``_act``, ``_warmed``, ``num_vertices`` and the callables ``_core``,
-``_seed_dev``, ``_lane_stats``, ``_extract_word``, ``_lane_ecc``.
+``_act``, ``_warmed``, ``num_vertices``, ``host_graph`` and the callables
+``_core``, ``_seed_dev``, ``_lane_stats``, ``_extract_word``, ``_lane_ecc``,
+``_full_parent_ell``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import NamedTuple
 
@@ -28,8 +34,9 @@ import torch
 
 from tpu_bfs_torch.algorithms.msbfs_packed import UNREACHED, ripple_increment_
 from tpu_bfs_torch.graph.csr import INF_DIST
-from tpu_bfs_torch.graph.ell import pad_gate_blocks
+from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
 from tpu_bfs_torch.ops.ell_expand import COMBINE, KERNEL_OPS, TILE, ell_expand
+from tpu_bfs_torch.validate import min_parent_from_dist
 
 #: Default device-memory budget of the packed state: an 80 GB H100 less
 #: 16 GB of headroom for the allocator's fragmentation and CUDA context.
@@ -330,7 +337,8 @@ def make_state_kernels(v: int, rows: int, w: int, num_planes: int, *,
 class PackedBatchResult:
     """Batch result with lazy per-word distance extraction: distances stay
     bit-sliced on the device, and ``distances_int32(i)`` decodes (and caches)
-    only the 32-lane word holding lane i."""
+    only the 32-lane word holding lane i. Parent trees come from the device
+    parent scan (``parent_scan.py``) or the host scatter-min."""
 
     sources: np.ndarray  # [S] int32
     num_levels: int  # max distance over all lanes
@@ -345,6 +353,9 @@ class PackedBatchResult:
     _iso: np.ndarray | None = None
     _ecc_cache: np.ndarray | None = None
     _word_cache: dict = dataclasses.field(default_factory=dict)
+    _parent_cache: dict = dataclasses.field(default_factory=dict)
+    # Decoded parent columns of ONE word (32 lanes), see _parent_lane_scan.
+    _pword_cache: dict = dataclasses.field(default_factory=dict)
 
     @property
     def teps(self) -> float | None:
@@ -389,6 +400,294 @@ class PackedBatchResult:
     def distances_int32(self, i: int) -> np.ndarray:
         d8 = self.distance_u8_lane(i)
         return np.where(d8 == UNREACHED, INF_DIST, d8.astype(np.int32))
+
+    def parents_int32(self, i: int) -> np.ndarray:
+        """BFS tree of batch entry i: [V] int32 parents (the source maps to
+        itself, unreached vertices to NO_PARENT), the deterministic
+        min-parent tree of ``validate.min_parent_from_dist``. Lazy and
+        cached per lane, so querying a few lanes never pays for the batch."""
+        if not (0 <= i < len(self.sources)):
+            raise IndexError(i)
+        if i not in self._parent_cache:
+            self._parent_cache[i] = self._parent_lane(i)
+        return self._parent_cache[i]
+
+    def _parent_lane(self, i: int) -> np.ndarray:
+        """One lane's tree: through an already-cached scanner when there is
+        one, else the host scatter-min. A device OOM in the scan falls back
+        to the host path whenever the host can serve the result."""
+        scanner = self._cached_scanner()
+        if scanner is not None:
+            try:
+                return self._parent_lane_scan(i, scanner)
+            except torch.cuda.OutOfMemoryError:
+                if getattr(self._engine, "host_graph", None) is None:
+                    raise
+        return self._parent_lane_host(i)
+
+    def _parent_lane_host(self, i: int) -> np.ndarray:
+        """The device-free O(E) host scatter-min, where every OOM fallback
+        bottoms out."""
+        return min_parents_lane(
+            getattr(self._engine, "host_graph", None),
+            int(self.sources[i]),
+            self.distances_int32(i),
+        )
+
+    def _cached_scanner(self):
+        """An already-cached scanner built from the engine's own ELL (the
+        same row space), or None. A single-lane query never builds one: a
+        build may move a full ELL to the device."""
+        scanner = getattr(self._engine, "_parent_scanner_cache", None) or None
+        if scanner is not None and scanner.ell is not getattr(self._engine, "ell", None):
+            return None
+        return scanner
+
+    def _parent_lane_scan(self, i: int, scanner) -> np.ndarray:
+        """One lane's tree through the cached scanner: one pass over the
+        lane's 32-lane word (UNREACHED-padded), bit-equal to the host
+        scatter-min. The word's decoded columns are cached, one word at a
+        time, so 32 lanes of one word cost one pass."""
+        ell = scanner.ell
+        src = int(self.sources[i])
+        out = np.full(self._engine.num_vertices, -1, np.int32)
+        if self._iso is not None and self._iso[i]:
+            out[src] = src
+            return out
+        wi, col = divmod(i, 32)
+        pc = self._pword_cache.get(wi)
+        if pc is None:
+            pc = self._scan_pass(scanner, wi, 1, None).cpu().numpy()[:, :32]
+            self._pword_cache.clear()  # one word resident at a time
+            self._pword_cache[wi] = pc
+        out[ell.old_of_new[: ell.num_active]] = pc[:, col]
+        return out
+
+    def parents_into(self, out: np.ndarray, *, device: str = "auto") -> np.ndarray:
+        """Fill ``out[i]`` ([S, V] int32) with every lane's parent tree.
+
+        ``device='auto'`` runs the device min-key scan when the engine can
+        supply a full-coverage ELL (one ``min`` expansion per 128 lanes),
+        and the per-lane host path otherwise; a CUDA out-of-memory error in
+        the scan falls back to the host, loudly for big exports, and only
+        when the host can serve the result. ``'host'`` forces the host path;
+        ``'device'`` never falls back: it raises when the scan is
+        unavailable or fails."""
+        n = len(self.sources)
+        v = self._engine.num_vertices
+        if out.shape != (n, v):
+            raise ValueError(f"out is {out.shape}, need ({n}, {v})")
+        host_serves = getattr(self._engine, "host_graph", None) is not None
+        # Above ~1e5 lanes x vertices a host fallback stops being interactive
+        # (hours for the flagship batch), so it must be loud.
+        work_desc = f"{n} lanes x {v} vertices" if n * v > 100_000 else None
+        scanner = acquire_parent_scanner(
+            self._engine, device, host_serves=host_serves, work_desc=work_desc
+        )
+        if scanner is not None:
+            return parents_scan_with_fallback(
+                lambda: self._parents_into_scan(out, scanner),
+                lambda: self._parents_into_host(out),
+                device,
+                host_serves=host_serves,
+                work_desc=work_desc,
+            )
+        return self._parents_into_host(out)
+
+    def _parents_into_host(self, out: np.ndarray) -> np.ndarray:
+        """Per-lane host extraction, the device-free path (it never
+        re-enters the scan), evicting each 32-lane distance word once its
+        lanes are done: peak host memory is ``out`` plus one word."""
+        prev_word = None
+        for i in range(len(self.sources)):
+            cached = self._parent_cache.pop(i, None)
+            out[i] = cached if cached is not None else self._parent_lane_host(i)
+            wi = i // 32
+            if prev_word is not None and wi != prev_word:
+                self._word_cache.pop(prev_word, None)
+            prev_word = wi
+        if prev_word is not None:
+            self._word_cache.pop(prev_word, None)
+        return out
+
+    def _parents_into_scan(self, out: np.ndarray, scanner) -> np.ndarray:
+        """The device scan, ``lanes_per_pass`` lanes a pass: device pass,
+        one copy to the host, host decode."""
+        n = len(self.sources)
+        perm = self._scan_row_map(scanner)
+        id_of_row = scanner.ell.old_of_new[: scanner.ell.num_active]
+        lpp = scanner.lanes_per_pass
+        for lane0 in range(0, n, lpp):
+            nw = -(-min(lpp, n - lane0) // 32)
+            pc = self._scan_pass(scanner, lane0 // 32, nw, perm).cpu().numpy()
+            _decode_pass(out[lane0 : lane0 + lpp], pc, id_of_row)
+        if self._iso is not None:
+            # Isolated sources never reach the device: their component is
+            # {source} (as in distance_u8_lane).
+            for lane in np.flatnonzero(self._iso[:n]):
+                out[lane].fill(-1)
+                out[lane][self.sources[lane]] = self.sources[lane]
+        return out
+
+    def _scan_row_map(self, scanner) -> torch.Tensor | None:
+        """Engine extraction rows of the scanner's rows, through original
+        ids, as an int64 index on the device; None when both row spaces are
+        the same (the single-device engines' active-first rank)."""
+        eng, ell = self._engine, scanner.ell
+        act = ell.num_active
+        if eng._act == act and np.array_equal(eng._rank, ell.rank):
+            return None
+        perm = np.asarray(eng._rank)[ell.old_of_new[:act]].astype(np.int64)
+        if len(perm) and (perm.min() < 0 or perm.max() >= eng._act):
+            raise RuntimeError(
+                "engine row map does not cover the scanner's active vertices "
+                f"(rows [{perm.min()}, {perm.max()}] vs {eng._act} extraction rows)"
+            )
+        return torch.from_numpy(perm).to(scanner.device)
+
+    def _scan_pass(self, scanner, w0: int, nw: int, perm) -> torch.Tensor:
+        """One device pass of the parent scan over the 32-lane words
+        [w0, w0 + nw): [act, lanes_per_pass] int32 parents on the device."""
+        return scanner.scan(self._scan_cols(scanner, w0, nw, perm))
+
+    def _scan_cols(self, scanner, w0: int, nw: int, perm) -> torch.Tensor:
+        """A pass's input: the distances of words [w0, w0 + nw), re-rowed by
+        ``perm`` (see :meth:`_scan_row_map`) and UNREACHED-padded to
+        [act, lanes_per_pass] uint8."""
+        eng = self._engine
+        cols = [eng._extract_word(self._planes, self._vis, self._src_bits, wi)
+                for wi in range(w0, w0 + nw)]
+        dist_cols = torch.cat(cols, dim=1) if nw > 1 else cols[0]
+        if perm is not None:
+            dist_cols = dist_cols.index_select(0, perm)
+        pad = scanner.lanes_per_pass - 32 * nw
+        if pad:
+            dist_cols = torch.cat([dist_cols, torch.full(
+                (dist_cols.shape[0], pad), int(UNREACHED), dtype=torch.uint8,
+                device=dist_cols.device)], dim=1)
+        return dist_cols
+
+
+def _decode_pass(dest: np.ndarray, pc: np.ndarray, id_of_row: np.ndarray) -> None:
+    """Host half of a scan pass: row j of ``dest`` becomes lane j's tree in
+    original-id order, from column j of the pass's [act, L] host parents."""
+    for j, row in enumerate(dest):
+        row.fill(-1)
+        row[id_of_row] = pc[:, j]
+
+
+def parent_scanner_of(engine):
+    """The engine's ParentScanner, or None when there is none (no
+    full-coverage ELL, or V too large for the 32-bit key at the engine's
+    level cap).
+
+    A scanner that borrows the engine's own ELL tables (the wide engine: no
+    extra device memory) is cached on the engine. One that built and moved
+    its own full ELL (the hybrid, whose dense tiles exist to avoid holding
+    one) is returned uncached, so its device memory goes with it after the
+    export. Unavailability is cached either way."""
+    cached = getattr(engine, "_parent_scanner_cache", None)
+    if cached is not None:
+        return cached or None  # False marks a probed-and-unavailable engine
+    from tpu_bfs_torch.algorithms.parent_scan import ParentScanner, ParentScanUnavailable
+
+    scanner = None
+    borrowed = False
+    get = getattr(engine, "_full_parent_ell", None)
+    if get is not None:
+        ell, arrs = get()
+        borrowed = arrs is not None
+        if ell is not None:
+            try:
+                scanner = ParentScanner(ell, arrs=arrs, max_dist=engine.max_levels_cap,
+                                        device=engine.device)
+            except ParentScanUnavailable:
+                scanner = None
+    if scanner is None:
+        engine._parent_scanner_cache = False
+    elif borrowed:
+        engine._parent_scanner_cache = scanner
+    return scanner
+
+
+def _warn_host_fallback(stage: str, work_desc: str | None) -> None:
+    """Loud notice of an OOM fallback to the host path, which can take
+    hours at flagship scale; only when the caller judged the work big
+    enough to matter (``work_desc`` set)."""
+    if work_desc:
+        print(
+            f"WARNING: device parent scan unavailable ({stage}: CUDA out of "
+            f"memory); falling back to the per-lane host scatter-min for "
+            f"{work_desc}, potentially hours at flagship scale. Pass "
+            f"device='host' to choose the host path explicitly, or "
+            f"device='device' to fail fast.",
+            file=sys.stderr,
+            flush=True,
+        )
+
+
+def acquire_parent_scanner(engine, device: str, *, host_serves: bool = True,
+                           work_desc: str | None = None):
+    """The scanner-acquisition policy: check ``device``, return the engine's
+    scanner or None for the host path, raise when ``'device'`` is forced but
+    no scanner exists. A CUDA OOM during the scanner build (it may move a
+    full ELL to the device) falls back in ``'auto'`` mode only, and only
+    when the host can serve the result (``host_serves``): otherwise the
+    host path's "needs the edge list" error would hide the real cause."""
+    if device not in ("auto", "host", "device"):
+        raise ValueError(f"device must be auto|host|device, got {device!r}")
+    scanner = None
+    if device != "host" and engine is not None:
+        try:
+            scanner = parent_scanner_of(engine)
+        except torch.cuda.OutOfMemoryError:
+            if device == "device" or not host_serves:
+                raise
+            _warn_host_fallback("scanner build", work_desc)
+    if scanner is None and device == "device":
+        raise ValueError(
+            "device parent scan unavailable for this engine (needs a "
+            "full-coverage ELL or a retained host graph, and V small "
+            "enough for the 32-bit key encoding)"
+        )
+    return scanner
+
+
+def parents_scan_with_fallback(scan_fn, host_fn, device: str, *,
+                               host_serves: bool = True, work_desc: str | None = None):
+    """The scan-time OOM policy: run the device scan; in ``'auto'`` mode a
+    CUDA out-of-memory error falls back to the host path when the host can
+    serve the result. ``'device'`` mode and every other error propagate."""
+    try:
+        return scan_fn()
+    except torch.cuda.OutOfMemoryError:
+        if device == "device" or not host_serves:
+            raise
+        _warn_host_fallback("scan", work_desc)
+    # A partial scan output is harmless: the host path writes every row.
+    return host_fn()
+
+
+def lazy_full_parent_ell(host_graph, kcap: int = 64):
+    """``_full_parent_ell`` of engines whose own tables cannot serve the
+    scan (the hybrid's residual misses the dense-tile edges): a fresh full
+    in-neighbor ELL of the retained host graph, with tables the scanner
+    owns; ``(None, None)`` without a host graph."""
+    if host_graph is None:
+        return None, None
+    return build_ell(host_graph, kcap=kcap), None
+
+
+def min_parents_lane(graph, source: int, dist: np.ndarray) -> np.ndarray:
+    """One lane's min-parent tree from its distances on the host. ``graph``
+    is the engine's ``host_graph``; None means the engine was built from a
+    prebuilt structure that no longer has the edge list."""
+    if graph is None:
+        raise ValueError(
+            "parent extraction needs the edge list: construct the engine "
+            "from a Graph (a prebuilt ELL or hybrid graph does not retain it)"
+        )
+    return min_parent_from_dist(graph, source, dist)
 
 
 def _check_batch_sources(engine, sources) -> np.ndarray:

@@ -37,6 +37,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     auto_planes,
     expand_arrays,
     floor_lanes,
+    lazy_full_parent_ell,
     make_expand,
     make_packed_loop,
     make_state_kernels,
@@ -284,6 +285,8 @@ class HybridMsBfsEngine(PackedRunProtocol):
             if isinstance(graph, Graph) else graph
         )
         hg = self.hg
+        # The edge list for the parent scan's full ELL and the host path.
+        self.host_graph = graph if isinstance(graph, Graph) else None
         rows = hg.vt * TILE
         sentinel = rows - 1
         host_tables = pallas_expand_arrays(hg, sentinel)
@@ -337,3 +340,10 @@ class HybridMsBfsEngine(PackedRunProtocol):
     @property
     def num_vertices(self) -> int:
         return self.hg.num_vertices
+
+    def _full_parent_ell(self):
+        """The parent scan's structure. The residual ELL misses the
+        dense-tile edges, so this builds a full in-neighbor ELL of the
+        retained host graph (the same rank order by construction), with
+        tables the scanner owns and frees after the export."""
+        return lazy_full_parent_ell(self.host_graph, self.hg.kcap)

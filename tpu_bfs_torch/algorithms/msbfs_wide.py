@@ -75,6 +75,8 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         # p planes label distances up to 2**p; 254 keeps them below UNREACHED.
         self.max_levels_cap = min(1 << num_planes, 254)
         self.ell = build_ell(graph, kcap=kcap) if isinstance(graph, Graph) else graph
+        # The edge list for the host parent path; a prebuilt ELL has none.
+        self.host_graph = graph if isinstance(graph, Graph) else None
         ell = self.ell
         self._act = ell.num_active
         host_tables = pallas_expand_arrays(ell, self._act)
@@ -89,7 +91,8 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         self.w = lanes // 32
         self.lanes = lanes
         self.undirected = ell.undirected
-        # Pad slots gather the all-zero sentinel row act.
+        # Pad slots gather the all-zero sentinel row act, which is also the
+        # parent scan's all-ones sentinel row: the scan borrows these tables.
         self.arrs = expand_arrays(ell, self._act, self.device)
         self._table_rows = self._act + 1
         self._core, self._core_from = make_packed_loop(
@@ -106,3 +109,9 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
     @property
     def num_vertices(self) -> int:
         return self.ell.num_vertices
+
+    def _full_parent_ell(self):
+        """The parent scan's full-coverage ELL and device tables: this
+        engine's own, lent (so a prebuilt-ELL engine, which has no edge
+        list for the host path, still exports parents)."""
+        return self.ell, self.arrs

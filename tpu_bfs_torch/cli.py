@@ -2,10 +2,13 @@
 
 Keeps the reference's argument order, ``<source> <graph>`` (README.md:13),
 and the flow of ``tpu_bfs/cli.py``'s ``--multi-source`` path: load the
-graph, run the CPU golden BFS, run one packed batch, validate lane 0.
+graph, run the CPU golden BFS, run one packed batch, validate lane 0's
+distances and BFS tree (or certify lane 0 with ``--certify``), and save
+every lane's distances or trees on request.
 
     python -m tpu_bfs_torch 0 rmat:scale=14,ef=16 --multi-source 1,2,3
     python -m tpu_bfs_torch 2 graph.txt --multi-source 5,9 --engine wide --device cpu
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --certify --save-parent p.npy
 
 Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 / ``random:n=..,m=..,seed=..``. Only the multi-source engines are ported;
@@ -75,6 +78,17 @@ def main(argv=None) -> int:
                     help="bit planes; caps the traversal depth at 2**P levels")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
+    ap.add_argument("--certify", action="store_true",
+                    help="validate lane 0 with the oracle-free BFS certificate (two "
+                    "O(E) host passes, validate.certify_bfs) instead of the CPU "
+                    "golden rerun")
+    ap.add_argument("--no-parents", action="store_true",
+                    help="skip lane 0's BFS-tree check after the distance check")
+    ap.add_argument("--save-dist", default=None, metavar="PATH",
+                    help="save every lane's distances to .npy, [S, V] int32")
+    ap.add_argument("--save-parent", default=None, metavar="PATH",
+                    help="save every lane's BFS tree to .npy, [S, V] int32 (the device "
+                    "parent scan where the engine can serve it)")
     args = ap.parse_args(argv)
 
     if args.multi_source is None:
@@ -98,7 +112,8 @@ def main(argv=None) -> int:
         raise SystemExit(
             f"--multi-source vertices {bad.tolist()} out of range [0, {g.num_vertices})"
         )
-    golden = bfs_golden(g, int(sources[0]))
+    # The certificate replaces the golden rerun.
+    golden = None if args.certify else bfs_golden(g, int(sources[0]))
     engine = _make_engine(args, g)
     try:
         res = engine.run(sources, time_it=True)
@@ -113,6 +128,20 @@ def main(argv=None) -> int:
               f"traversed edges {int(res.edges_traversed[i])}")
     if res.teps:
         print(f"Harmonic-mean GTEPS/source: {res.teps / 1e9:.4f}")
-    validate.check_distances(res.distances_int32(0), golden)
-    print("Output OK")
+    if args.certify:
+        validate.certify_bfs(g, int(sources[0]), res.distances_int32(0), res.parents_int32(0))
+        print(f"Output certified (oracle-free, lane 0 of {len(sources)})")
+    else:
+        validate.check_distances(res.distances_int32(0), golden)
+        if not args.no_parents:
+            # The engine's BFS tree too, which the reference never checks
+            # (bfs.cu:940; checkOutput compares distances only).
+            validate.check_parents(g, int(sources[0]), res.distances_int32(0),
+                                   res.parents_int32(0))
+        print("Output OK")
+    if args.save_dist:
+        np.save(args.save_dist, np.stack([res.distances_int32(i) for i in range(len(sources))]))
+    if args.save_parent:
+        out = np.empty((len(sources), g.num_vertices), np.int32)
+        np.save(args.save_parent, res.parents_into(out))
     return 0
