@@ -30,7 +30,9 @@ Phases, one JSON line each:
     public parents_into(device="device") on a 256-lane batch. The K1 min
     entry of the kernels line is timed here, at the scan's shape;
  8. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
-    4 validated) on the card: scale 20, not 21, keeps the whole script near
+    4 validated) on the card, its trees from the device scan through the
+    default parents_int32 (the host scatter-min is made to raise while it
+    runs): scale 20, not 21, keeps the whole script near
     8 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
@@ -595,11 +597,21 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
 
 
 def phase_graph500(dev, k1, k2, scale: int) -> None:
+    from tpu_bfs_torch.algorithms import _packed_common
     from tpu_bfs_torch.graph500 import run_graph500
 
+    def host_tree(*args):
+        raise AssertionError("graph500: a validated tree came from the host scatter-min")
+
+    # The validated trees must come from the device scan (K1 min), not the host.
+    host_lane, _packed_common.min_parents_lane = _packed_common.min_parents_lane, host_tree
     reset_counts(k1, k2)
     t0 = time.perf_counter()
-    r = run_graph500(scale, 16, mode="hybrid", num_searches=64, validate_searches=4, device=dev)
+    try:
+        r = run_graph500(scale, 16, mode="hybrid", num_searches=64, validate_searches=4,
+                         device=dev)
+    finally:
+        _packed_common.min_parents_lane = host_lane
     total_s = time.perf_counter() - t0
     launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
     require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")

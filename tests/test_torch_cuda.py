@@ -241,3 +241,33 @@ def test_parents_into_device_on_cuda(cuda, engine):
         np.testing.assert_array_equal(out[i], min_parent_from_dist(g, int(src[i]), d))
         certify_bfs(g, int(src[i]), d, out[i])
     np.testing.assert_array_equal(res.parents_int32(3), want[3])
+
+
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_parents_int32_on_cuda_runs_the_scan(cuda, engine, monkeypatch):
+    # A fresh result's single-lane trees and its default export come from K1
+    # min on the card; the host scatter-min is never reached.
+    from tpu_bfs_torch.algorithms import _packed_common as tpc
+    from tpu_bfs_torch.validate import min_parent_from_dist
+
+    g = rmat_graph(12, 16, seed=11)
+    kw = dict(lanes=64, kcap=8, num_planes=5)
+    if engine == "hybrid":
+        kw["tile_thr"] = 4
+    make = WidePackedMsBfsEngine if engine == "wide" else HybridMsBfsEngine
+    src = np.random.default_rng(6).integers(0, g.num_vertices, size=40)
+    res = make(g, device=cuda, **kw).run(src)
+
+    def host(*args):
+        raise AssertionError("the host scatter-min ran on the card")
+
+    monkeypatch.setattr(tpc, "min_parents_lane", host)
+    before = k1.ell_expand.launches
+    for i in (0, 33):
+        d = res.distances_int32(i)
+        np.testing.assert_array_equal(res.parents_int32(i),
+                                      min_parent_from_dist(g, int(src[i]), d))
+    assert k1.ell_expand.launches > before
+    out = np.empty((40, g.num_vertices), np.int32)
+    res.parents_into(out)
+    np.testing.assert_array_equal(out[33], res.parents_int32(33))

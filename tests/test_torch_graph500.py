@@ -60,11 +60,26 @@ def test_run_graph500_hybrid_lanes_and_engine_cls():
     ({"mode": "single"}, "item 8"),
     ({"mode": "batched"}, "item 8"),
     ({"mode": "hybrid", "devices": 2}, "item 10"),
-    ({"mode": "single", "mesh2d": (2, 4), "backend": "dopt"}, "item 10"),
+    ({"mode": "single", "mesh2d": (2, 4)}, "item 10"),
 ])
 def test_unported_modes_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         graph500.run_graph500(8, 4, num_searches=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"backend": "dopt"}, {"exchange": "ring"}, {"verbose": True}])
+def test_unported_knobs_are_not_accepted(kw):
+    # The single-source backend, the mesh exchange and the progress log come
+    # with the runs that read them: no option is taken and then ignored.
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        graph500.run_graph500(8, 4, mode="hybrid", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flag", [["--backend", "dopt"], ["--exchange", "ring"]])
+def test_main_rejects_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit):
+        graph500.main(["--scale", "8", "--mode", "hybrid", "--device", "cpu"] + flag)
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_bad_arguments_raise():

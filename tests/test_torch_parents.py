@@ -5,8 +5,9 @@ parents_int32 / parents_into (device scan and host path) run on the same
 seeded graphs and sources as their tpu_bfs counterparts, the port on
 device="cpu" (the kernel's plain twin, op="min"). Trees must be equal
 exactly; the validators must raise the same error on the same corrupted
-tree, or pass on both sides. The OOM-fallback contract, the scanner cache
-policy and the row-space map are pinned on the port alone.
+tree, or pass on both sides. The card's path policy (the scan, never a
+host fallback; errors, out of memory included, propagate), the scanner
+cache policy and the row-space map are pinned on the port alone.
 """
 
 import dataclasses
@@ -374,53 +375,91 @@ def test_single_lane_rides_the_cached_scanner(monkeypatch):
     sources = np.asarray([0, 17, 255, 499])
     res = _port_engine(tg, "wide").run(sources)
     res.parents_into(np.empty((4, tg.num_vertices), np.int32), device="device")
-    assert res._cached_scanner() is not None
+    assert res._engine._parent_scanner_cache  # the borrowed scanner is cached
     monkeypatch.setattr(tpc, "min_parents_lane", _oom)  # the host path is not taken
     for i in range(4):
         np.testing.assert_array_equal(res.parents_int32(i), _oracle(tg, sources, res)[i])
     assert list(res._pword_cache) == [0]
 
 
-def test_scan_oom_falls_back_to_the_host(monkeypatch, capsys):
+def _on_card(monkeypatch):
+    """Give CPU results the card's policy (the engine's device is CUDA)."""
+    monkeypatch.setattr(tpc.PackedBatchResult, "_on_card", lambda self: True)
+
+
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_card_trees_always_take_the_scan(engine, monkeypatch):
+    # On the card, parents_int32 and parents_into('auto') run the device scan
+    # and never the host scatter-min. A result's lanes share one scanner; the
+    # hybrid's builds its own full ELL, here in another row order than the
+    # engine's, so the single-lane pass goes through the row map too.
+    _, tg = graphs("rmat_small")
+    sources = _sources("rmat_small")
+    want = _jax_parents("rmat_small", engine, sources)
+    res = _port_engine(tg, engine).run(sources)
+    _on_card(monkeypatch)
+    monkeypatch.setattr(tpc, "min_parents_lane", _oom)
+    monkeypatch.setattr(tell, "rank_vertices", _rank_vertices_reversed_ties)
+    builds, init = [], ParentScanner.__init__
+
+    def counted(self, *args, **kwargs):
+        builds.append(1)
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(ParentScanner, "__init__", counted)
+    for i in (0, 1, 33, 39):
+        np.testing.assert_array_equal(res.parents_int32(i), want[i], err_msg=f"lane {i}")
+    if engine == "hybrid":
+        assert not np.array_equal(res._scanner.ell.rank, res._engine._rank)
+    out = np.empty_like(want)
+    res.parents_into(out)
+    np.testing.assert_array_equal(out, want)
+    assert len(builds) == 1
+
+
+def test_card_auto_raises_where_the_scan_is_unavailable(monkeypatch):
+    # The key encoding cannot hold this level cap: on the CPU 'auto' serves
+    # the trees from the host; on the card only an explicit 'host' does.
+    _, tg = graphs("random_small")
+    sources = np.asarray([0, 17])
+    res = _port_engine(tg, "wide").run(sources)
+    res._engine.max_levels_cap = 2**28
+    want = _oracle(tg, sources, res)
+    out = np.empty_like(want)
+    np.testing.assert_array_equal(res.parents_into(out), want)
+    _on_card(monkeypatch)
+    for call in (lambda: res.parents_into(out), lambda: res.parents_int32(1)):
+        with pytest.raises(ValueError, match="unavailable.*device='host'"):
+            call()
+    np.testing.assert_array_equal(res.parents_into(out, device="host"), want)
+
+
+@pytest.mark.parametrize("device", ["auto", "device"])
+def test_scan_oom_propagates(device, monkeypatch):
+    # Out of memory is an error like any other: no mode moves the work to
+    # the host behind the caller's back.
     _, tg = graphs("random_small")
     sources = np.asarray([0, 17, 499])
     res = _port_engine(tg, "wide").run(sources)
-    want = _oracle(tg, sources, res)
     monkeypatch.setattr(ParentScanner, "scan", _oom)
-    out = np.empty((3, tg.num_vertices), np.int32)
-    res.parents_into(out, device="auto")
-    np.testing.assert_array_equal(out, want)
-    assert "WARNING" not in capsys.readouterr().err  # 3 x 500 is small: quiet
-    assert res._cached_scanner() is not None
-    np.testing.assert_array_equal(res.parents_int32(1), want[1])  # single lane too
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        res.parents_into(out, device="device")
+    monkeypatch.setattr(tpc, "min_parents_lane", _oom)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="Tried to allocate"):
+        res.parents_into(np.empty((3, tg.num_vertices), np.int32), device=device)
+    _on_card(monkeypatch)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="Tried to allocate"):
+        res.parents_int32(1)
 
 
-def test_scan_oom_fallback_is_loud_for_big_exports(monkeypatch, capsys):
-    _, tg = graphs("random_small")
-    sources = np.arange(256)  # 256 lanes x 500 vertices > 1e5
-    res = _port_engine(tg, "wide", lanes=256).run(sources)
-    monkeypatch.setattr(tpc.PackedBatchResult, "_parents_into_scan", _oom)
-    out = np.empty((256, tg.num_vertices), np.int32)
-    res.parents_into(out, device="auto")
-    err = capsys.readouterr().err
-    assert "WARNING" in err and "host scatter-min" in err and "256 lanes" in err
-    for i in (0, 255):
-        tval.check_parents(tg, int(sources[i]), res.distances_int32(i), out[i])
-
-
-def test_scanner_build_oom(monkeypatch, capsys):
+def test_scanner_build_oom(monkeypatch):
     _, tg = graphs("rmat_small")
-    sources = np.arange(128)  # 128 lanes x 1024 vertices > 1e5: loud
-    res = _port_engine(tg, "hybrid", lanes=128).run(sources)
+    res = _port_engine(tg, "hybrid", lanes=128).run(np.arange(128))
     monkeypatch.setattr(ParentScanner, "__init__", _oom)
     out = np.empty((128, tg.num_vertices), np.int32)
-    res.parents_into(out, device="auto")
-    assert "scanner build" in capsys.readouterr().err
-    np.testing.assert_array_equal(out, _oracle(tg, sources, res))
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        res.parents_into(out, device="device")
+    for device in ("auto", "device"):
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            res.parents_into(out, device=device)
+    np.testing.assert_array_equal(res.parents_into(out, device="host"),
+                                  _oracle(tg, np.arange(128), res))
 
 
 def test_oom_propagates_when_the_host_cannot_serve(monkeypatch):

@@ -13,7 +13,7 @@ device-to-host sync per level (the ``alive`` flag).
 
 Parent trees are derived after the loop (``PackedBatchResult.parents_*``):
 the device parent scan of ``parent_scan.py`` over the engine's full ELL,
-or one host scatter-min per lane.
+or, on the CPU or when asked for, one host scatter-min per lane.
 
 Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 ``max_levels_cap``, ``num_planes``, ``undirected``, ``device``, ``_rank``,
@@ -25,7 +25,6 @@ Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 from __future__ import annotations
 
 import dataclasses
-import sys
 import time
 from typing import NamedTuple
 
@@ -356,6 +355,8 @@ class PackedBatchResult:
     _parent_cache: dict = dataclasses.field(default_factory=dict)
     # Decoded parent columns of ONE word (32 lanes), see _parent_lane_scan.
     _pword_cache: dict = dataclasses.field(default_factory=dict)
+    # The card's single-lane scanner, see _lane_scanner.
+    _scanner: object = None
 
     @property
     def teps(self) -> float | None:
@@ -412,42 +413,45 @@ class PackedBatchResult:
             self._parent_cache[i] = self._parent_lane(i)
         return self._parent_cache[i]
 
+    def _on_card(self) -> bool:
+        """Whether the engine's tensors are on a CUDA device: there every
+        tree comes from the device scan, and no path moves to the host."""
+        return self._engine.device.type == "cuda"
+
     def _parent_lane(self, i: int) -> np.ndarray:
-        """One lane's tree: through an already-cached scanner when there is
-        one, else the host scatter-min. A device OOM in the scan falls back
-        to the host path whenever the host can serve the result."""
-        scanner = self._cached_scanner()
+        """One lane's tree. On the card, always the device scan through the
+        result's scanner (:meth:`_lane_scanner`); every error, out of memory
+        included, propagates. On the CPU, the scan rides a scanner that the
+        engine already caches, else the host scatter-min."""
+        if self._on_card():
+            return self._parent_lane_scan(i, self._lane_scanner())
+        scanner = getattr(self._engine, "_parent_scanner_cache", None) or None
         if scanner is not None:
-            try:
-                return self._parent_lane_scan(i, scanner)
-            except torch.cuda.OutOfMemoryError:
-                if getattr(self._engine, "host_graph", None) is None:
-                    raise
+            return self._parent_lane_scan(i, scanner)
         return self._parent_lane_host(i)
 
+    def _lane_scanner(self):
+        """The scanner of this result's single-lane queries on the card,
+        acquired on first use and held by the result: the wide engine's
+        cached one, or the hybrid's own full-ELL scanner, whose device
+        memory goes with the result, so its lanes pay one ELL build."""
+        if self._scanner is None:
+            self._scanner = acquire_parent_scanner(self._engine, "device")
+        return self._scanner
+
     def _parent_lane_host(self, i: int) -> np.ndarray:
-        """The device-free O(E) host scatter-min, where every OOM fallback
-        bottoms out."""
+        """The device-free O(E) host scatter-min of one lane."""
         return min_parents_lane(
             getattr(self._engine, "host_graph", None),
             int(self.sources[i]),
             self.distances_int32(i),
         )
 
-    def _cached_scanner(self):
-        """An already-cached scanner built from the engine's own ELL (the
-        same row space), or None. A single-lane query never builds one: a
-        build may move a full ELL to the device."""
-        scanner = getattr(self._engine, "_parent_scanner_cache", None) or None
-        if scanner is not None and scanner.ell is not getattr(self._engine, "ell", None):
-            return None
-        return scanner
-
     def _parent_lane_scan(self, i: int, scanner) -> np.ndarray:
-        """One lane's tree through the cached scanner: one pass over the
-        lane's 32-lane word (UNREACHED-padded), bit-equal to the host
-        scatter-min. The word's decoded columns are cached, one word at a
-        time, so 32 lanes of one word cost one pass."""
+        """One lane's tree through ``scanner``: one pass over the lane's
+        32-lane word (UNREACHED-padded), bit-equal to the host scatter-min.
+        The word's decoded columns are cached, one word at a time, so 32
+        lanes of one word cost one pass."""
         ell = scanner.ell
         src = int(self.sources[i])
         out = np.full(self._engine.num_vertices, -1, np.int32)
@@ -457,7 +461,8 @@ class PackedBatchResult:
         wi, col = divmod(i, 32)
         pc = self._pword_cache.get(wi)
         if pc is None:
-            pc = self._scan_pass(scanner, wi, 1, None).cpu().numpy()[:, :32]
+            perm = self._scan_row_map(scanner)
+            pc = self._scan_pass(scanner, wi, 1, perm).cpu().numpy()[:, :32]
             self._pword_cache.clear()  # one word resident at a time
             self._pword_cache[wi] = pc
         out[ell.old_of_new[: ell.num_active]] = pc[:, col]
@@ -466,33 +471,25 @@ class PackedBatchResult:
     def parents_into(self, out: np.ndarray, *, device: str = "auto") -> np.ndarray:
         """Fill ``out[i]`` ([S, V] int32) with every lane's parent tree.
 
-        ``device='auto'`` runs the device min-key scan when the engine can
-        supply a full-coverage ELL (one ``min`` expansion per 128 lanes),
-        and the per-lane host path otherwise; a CUDA out-of-memory error in
-        the scan falls back to the host, loudly for big exports, and only
-        when the host can serve the result. ``'host'`` forces the host path;
-        ``'device'`` never falls back: it raises when the scan is
-        unavailable or fails."""
+        ``device='auto'`` runs the device min-key scan (one ``min``
+        expansion per 128 lanes). On the card that is the only automatic
+        path: when the scan is unavailable it raises, and its errors, out
+        of memory included, propagate. On the CPU, ``auto`` takes the
+        per-lane host path where the engine has no scanner. ``'host'``
+        forces the host path; ``'device'`` runs the scan or raises."""
         n = len(self.sources)
         v = self._engine.num_vertices
         if out.shape != (n, v):
             raise ValueError(f"out is {out.shape}, need ({n}, {v})")
-        host_serves = getattr(self._engine, "host_graph", None) is not None
-        # Above ~1e5 lanes x vertices a host fallback stops being interactive
-        # (hours for the flagship batch), so it must be loud.
-        work_desc = f"{n} lanes x {v} vertices" if n * v > 100_000 else None
-        scanner = acquire_parent_scanner(
-            self._engine, device, host_serves=host_serves, work_desc=work_desc
-        )
-        if scanner is not None:
-            return parents_scan_with_fallback(
-                lambda: self._parents_into_scan(out, scanner),
-                lambda: self._parents_into_host(out),
-                device,
-                host_serves=host_serves,
-                work_desc=work_desc,
-            )
-        return self._parents_into_host(out)
+        _check_parent_device(device)
+        if device == "host":
+            return self._parents_into_host(out)
+        if self._on_card():
+            device = "device"
+        scanner = self._scanner or acquire_parent_scanner(self._engine, device)
+        if scanner is None:  # 'auto' on the CPU, and the engine has no scanner
+            return self._parents_into_host(out)
+        return self._parents_into_scan(out, scanner)
 
     def _parents_into_host(self, out: np.ndarray) -> np.ndarray:
         """Per-lane host extraction, the device-free path (it never
@@ -610,62 +607,25 @@ def parent_scanner_of(engine):
     return scanner
 
 
-def _warn_host_fallback(stage: str, work_desc: str | None) -> None:
-    """Loud notice of an OOM fallback to the host path, which can take
-    hours at flagship scale; only when the caller judged the work big
-    enough to matter (``work_desc`` set)."""
-    if work_desc:
-        print(
-            f"WARNING: device parent scan unavailable ({stage}: CUDA out of "
-            f"memory); falling back to the per-lane host scatter-min for "
-            f"{work_desc}, potentially hours at flagship scale. Pass "
-            f"device='host' to choose the host path explicitly, or "
-            f"device='device' to fail fast.",
-            file=sys.stderr,
-            flush=True,
-        )
-
-
-def acquire_parent_scanner(engine, device: str, *, host_serves: bool = True,
-                           work_desc: str | None = None):
-    """The scanner-acquisition policy: check ``device``, return the engine's
-    scanner or None for the host path, raise when ``'device'`` is forced but
-    no scanner exists. A CUDA OOM during the scanner build (it may move a
-    full ELL to the device) falls back in ``'auto'`` mode only, and only
-    when the host can serve the result (``host_serves``): otherwise the
-    host path's "needs the edge list" error would hide the real cause."""
+def _check_parent_device(device: str) -> None:
     if device not in ("auto", "host", "device"):
         raise ValueError(f"device must be auto|host|device, got {device!r}")
-    scanner = None
-    if device != "host" and engine is not None:
-        try:
-            scanner = parent_scanner_of(engine)
-        except torch.cuda.OutOfMemoryError:
-            if device == "device" or not host_serves:
-                raise
-            _warn_host_fallback("scanner build", work_desc)
+
+
+def acquire_parent_scanner(engine, device: str):
+    """The engine's scanner, or None for the host path (``'host'``, or
+    ``'auto'`` without a scanner). ``'device'`` raises when no scanner
+    exists; errors of the build, out of memory included, propagate."""
+    _check_parent_device(device)
+    scanner = parent_scanner_of(engine) if device != "host" else None
     if scanner is None and device == "device":
         raise ValueError(
             "device parent scan unavailable for this engine (needs a "
             "full-coverage ELL or a retained host graph, and V small "
-            "enough for the 32-bit key encoding)"
+            "enough for the 32-bit key encoding); pass device='host' for "
+            "the per-lane host scatter-min"
         )
     return scanner
-
-
-def parents_scan_with_fallback(scan_fn, host_fn, device: str, *,
-                               host_serves: bool = True, work_desc: str | None = None):
-    """The scan-time OOM policy: run the device scan; in ``'auto'`` mode a
-    CUDA out-of-memory error falls back to the host path when the host can
-    serve the result. ``'device'`` mode and every other error propagate."""
-    try:
-        return scan_fn()
-    except torch.cuda.OutOfMemoryError:
-        if device == "device" or not host_serves:
-            raise
-        _warn_host_fallback("scan", work_desc)
-    # A partial scan output is harmless: the host path writes every row.
-    return host_fn()
 
 
 def lazy_full_parent_ell(host_graph, kcap: int = 64):

@@ -48,7 +48,9 @@ LANES_PER_PASS = 128
 
 class ParentScanUnavailable(ValueError):
     """The key encoding cannot represent this graph (id field too wide for
-    the distance field). Callers fall back to the host path."""
+    the distance field). The engine then has no scanner: on the CPU,
+    ``parents_into(device='auto')`` takes the host path; on the card, only
+    ``device='host'`` serves the trees."""
 
 
 class ParentScanner:

@@ -87,8 +87,8 @@ def main(argv=None) -> int:
     ap.add_argument("--save-dist", default=None, metavar="PATH",
                     help="save every lane's distances to .npy, [S, V] int32")
     ap.add_argument("--save-parent", default=None, metavar="PATH",
-                    help="save every lane's BFS tree to .npy, [S, V] int32 (the device "
-                    "parent scan where the engine can serve it)")
+                    help="save every lane's BFS tree to .npy, [S, V] int32 (on the "
+                    "card, always the device parent scan)")
     args = ap.parse_args(argv)
 
     if args.multi_source is None:

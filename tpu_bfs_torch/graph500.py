@@ -76,11 +76,8 @@ def run_graph500(
     num_planes: int = 5,
     lanes: int | None = None,
     engine_cls=None,
-    verbose: bool = False,
     devices: int = 1,
     mesh2d: tuple[int, int] | None = None,
-    backend: str = "scan",
-    exchange: str | None = None,
     device=None,
 ) -> Graph500Result:
     """Generate, run, validate and score a Graph500-style BFS benchmark.
@@ -89,8 +86,8 @@ def run_graph500(
     (``engine_cls``, default ``HybridMsBfsEngine``, built as
     ``engine_cls(g, device=device)``); per-search TEPS divides the batch
     time evenly, and ``num_planes`` caps depth at 2**planes levels.
-    ``device`` is CUDA unless named. ``verbose``, ``backend`` and
-    ``exchange`` belong to the unported single-source and mesh runs."""
+    ``device`` is CUDA unless named. The single-source run's expansion
+    backend and the mesh runs' frontier exchange come with those runs."""
     if mode not in ("single", "batched", "hybrid"):
         raise ValueError(f"unknown mode {mode!r}; have 'single', 'batched', 'hybrid'")
     if validate_mode not in ("oracle", "certify"):
@@ -175,11 +172,6 @@ def main(argv=None) -> int:
                     help="shard over N devices (not ported: N > 1 exits with an error)")
     ap.add_argument("--mesh", default=None, metavar="RxC",
                     help="2D mesh (not ported: exits with an error)")
-    ap.add_argument("--backend", default="scan", choices=["scan", "segment", "scatter", "dopt"],
-                    help="single mode's expansion backend (not ported)")
-    ap.add_argument("--exchange", default=None,
-                    choices=["ring", "allreduce", "sparse", "dense", "sliced"],
-                    help="distributed frontier exchange (not ported)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
     args = ap.parse_args(argv)
@@ -202,11 +194,8 @@ def main(argv=None) -> int:
             validate_mode=args.validate_mode,
             num_planes=args.planes,
             lanes=args.lanes,
-            verbose=True,
             devices=args.devices,
             mesh2d=mesh2d,
-            backend=args.backend,
-            exchange=args.exchange,
             device=args.device,
         )
     except NotImplementedError as exc:
