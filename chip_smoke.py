@@ -29,11 +29,29 @@ Phases, one JSON line each:
     equal validate.min_parent_from_dist and pass certify_bfs; then the
     public parents_into(device="device") on a 256-lane batch. The K1 min
     entry of the kernels line is timed here, at the scan's shape;
- 8. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
+ 8. single: the reference's single-source BFS on the flagship graph,
+    through BfsEngine with each of the scan, segment, scatter, delta and
+    dopt backends and through TiledBfsEngine: 4 sources (the hub and 3
+    drawn with default_rng(7) among the traversable vertices), each run
+    once to warm and once timed; every distance array equals SciPy's and
+    every tree equals the first engine's, which passes check_parents. Per
+    backend: ms per BFS, levels, GTEPS, host syncs and peak memory. These
+    engines are plain PyTorch: no kernel launches;
+ 9. packed: the 512-lane PackedMsBfsEngine on the flagship graph, one
+    build_ell shared by a 256-lane (w 8) and a 32-lane (w 1) engine, each
+    with the single phase's sources in lanes 0-2 (checked against SciPy)
+    and lane 0's tree from parents_int32 (the device scan), equal to the
+    single phase's checked tree; K1 launches counted, and K1 held
+    against its twin bit for bit at both widths on the run's own tables
+    (the "K1 or, packed w 8" and "K1 or, packed w 1" kernel entries);
+10. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
     4 validated) on the card, its trees from the device scan through the
     default parents_int32 (the host scatter-min is made to raise while it
     runs): scale 20, not 21, keeps the whole script near
-    8 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
+    10 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
+    Then mode="single" (16 searches, 4 validated) and mode="batched" (64
+    searches) at scale 18 (--graph500-small-scale; the single phase runs the
+    single-source path at the flagship's scale 21).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -336,7 +354,7 @@ def phase_flagship(dev, k1, k2, scale: int, lanes: int):
             "tile_spmm": k2_bytes / HBM_BYTES_PER_S * 1e3,
         },
     })
-    return g, eng, res, sources, picks, launches
+    return g, eng, res, sources, picks, launches, traversable
 
 
 def kernel_name(mangled: str) -> str:
@@ -467,40 +485,44 @@ def _check_trees(g, res, sources, lanes, trees) -> None:
         certify_bfs(g, s, d, trees[i])
 
 
-def k1_min_entry(k1, scanner, keys, launches: int, ptxas) -> dict:
-    """The kernels-line entry of K1 op=min at the parent scan's shape: one
-    pass, every bucket of the full ELL, over a pass's real key table. The
-    bound reads the key rows the indices name, each bucket's gate and index
-    slab, and writes each output, once, over 3.35 TB/s; the model is
-    ell_expand_hbm_bytes."""
-    arrs, ell = scanner.arrs, scanner.ell
-    lpp = keys.shape[1]
-    names = (["virtual"] if ell.num_heavy else []) + [f"light{i}" for i in range(len(ell.light))]
+def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
+             unit: str, plain_reps: int = 1) -> dict:
+    """A kernels-line entry of K1 over one pass of every bucket ``names`` of
+    ``arrs`` with frontier (or key) table ``fw``: the kernel against its
+    twin, bit for bit, then both timed. The bound reads the rows the
+    indices name, each bucket's gate and index slab, and writes each
+    output, once, over 3.35 TB/s; the model is ell_expand_hbm_bytes."""
+    w = fw.shape[1]
 
     def k1_pass(fn):
-        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], keys, op="min") for n in names]
+        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw, op=op) for n in names]
 
+    saved = k1.ell_expand.launches
     got, want = k1_pass(k1.ell_expand), k1_pass(k1.ell_expand_plain)
     torch.cuda.synchronize()
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    require(all(torch.equal(a, b) for a, b in zip(got, want)),
-            "ell_expand min != twin at the parent scan's shape")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}: ell_expand != twin")
     del got, want
     named = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
-    nbytes = named * lpp * 4 + sum(
-        arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * lpp * 4
+    nbytes = named * w * 4 + sum(
+        arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * w * 4
         for n in names)
-    model = sum(k1.ell_expand_hbm_bytes(*arrs[f"{n}_gt"].shape, lpp) for n in names)
-    return {
-        "name": "ell_expand_min", "route": "cuda", "source": "tpu_bfs_torch/csrc/ell_expand.cu",
+    model = sum(k1.ell_expand_hbm_bytes(*arrs[f"{n}_gt"].shape, w) for n in names)
+    entry = {
+        "name": name, "route": "cuda", "source": "tpu_bfs_torch/csrc/ell_expand.cu",
         "replaces": "tpu_bfs/ops/ell_expand.py:225", "launches": launches, "max_abs_err": err,
         "ms": cuda_ms(lambda: k1_pass(k1.ell_expand), 5),
-        "plain_ms": cuda_ms(lambda: k1_pass(k1.ell_expand_plain), 1),
+        "plain_ms": cuda_ms(lambda: k1_pass(k1.ell_expand_plain), plain_reps),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
-        "model_ms": model / HBM_BYTES_PER_S * 1e3,
-        "unit": f"one parent-scan pass: every bucket of the full ELL, w {lpp}",
+        "model_ms": model / HBM_BYTES_PER_S * 1e3, "unit": unit,
         "ptxas": ptxas.get("ell_expand.cu", []),
     }
+    k1.ell_expand.launches = saved  # comparisons do not count
+    return entry
+
+
+def bucket_names(ell) -> list:
+    return (["virtual"] if ell.num_heavy else []) + [f"light{i}" for i in range(len(ell.light))]
 
 
 def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
@@ -554,15 +576,18 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     scan_s = time.perf_counter() - t_scan
     launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
     k1.ell_expand.timings = None
-    buckets = (ell.num_heavy > 0) + len(ell.light)
+    buckets = len(bucket_names(ell))
     require(launches["ell_expand"] == len(pass_ms) * buckets,
             f"parent scan launched {launches['ell_expand']} K1, not {len(pass_ms)} x {buckets}")
     require(launches["tile_spmm"] == 0, "the parent scan launched tile_spmm")
     t0 = time.perf_counter()
     _check_trees(g, res, sources, picks, trees)
     validate_s = time.perf_counter() - t0
-    entry = k1_min_entry(k1, scanner, scanner.keys(res._scan_cols(scanner, 0, lpp // 32, perm)),
-                         launches["ell_expand"], ptxas)
+    # K1 op=min at the scan's shape: one pass over a pass's real key table.
+    entry = k1_entry(k1, scanner.arrs, bucket_names(ell), scanner.keys(res._scan_cols(
+        scanner, 0, lpp // 32, perm)), "min", launches["ell_expand"], ptxas,
+        name="ell_expand_min",
+        unit=f"one parent-scan pass: every bucket of the full ELL, w {lpp}")
     del scanner, buf, trees
 
     # The public export on a 256-lane batch of the same engine; it builds
@@ -596,7 +621,122 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     return entry
 
 
-def phase_graph500(dev, k1, k2, scale: int) -> None:
+def phase_single(dev, k1, k2, g, traversable):
+    """The reference's run, one source at a time, on the flagship graph:
+    each single-source backend from 4 sources, warm then timed, every
+    distance array against SciPy and every tree checked. Returns the
+    sources, their SciPy distances and their checked trees."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
+    from tpu_bfs_torch.graph.csr import DeviceGraph
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.validate import check_distances, check_parents
+
+    hub = int(np.argmax(g.degrees))
+    draws = np.random.default_rng(7).choice(traversable, size=3, replace=False)
+    sources = [hub] + [int(x) for x in draws]
+    t0 = time.perf_counter()
+    csr = g.to_scipy()
+    golden = {s: bfs_scipy(g, s, csr=csr) for s in sources}
+    golden_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dg = DeviceGraph.from_graph(g)
+    dg_s = time.perf_counter() - t0
+    trees, backends = {}, {}
+    reset_counts(k1, k2)
+    for backend in ("scan", "segment", "scatter", "delta", "dopt", "tiled"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        eng = (TiledBfsEngine(g, device=dev) if backend == "tiled"
+               else BfsEngine(dg, backend=backend, device=dev))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        runs = []
+        for s in sources:
+            eng.run(s, with_parents=False, time_it=True)  # warm (the first also warms inside)
+            r = eng.run(s, time_it=True)
+            check_distances(r.distance, golden[s])
+            if s not in trees:
+                check_parents(g, s, r.distance, r.parent)
+                trees[s] = r.parent
+            require(np.array_equal(r.parent, trees[s]), f"{backend}: tree of {s} differs")
+            runs.append({"source": s, "ms": r.elapsed_s * 1e3, "levels": r.num_levels,
+                         "gteps": r.teps / 1e9, "host_syncs": eng.last_host_syncs,
+                         "reached": r.reached, "edges_traversed": r.edges_traversed})
+        ms = [x["ms"] for x in runs]
+        backends[backend] = {
+            "engine": type(eng).__name__, "build_s": build_s, "runs": runs,
+            "mean_ms": sum(ms) / len(ms),
+            "hmean_gteps": len(runs) / sum(1 / x["gteps"] for x in runs),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "peak_above_resident_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+        }
+        if backend == "tiled":
+            backends[backend].update(tiles=eng.num_tiles, dense_edges=eng.num_dense_edges)
+        del eng
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(launches == {"ell_expand": 0, "tile_spmm": 0},
+            f"the single-source engines are plain PyTorch, yet launched {launches}")
+    emit({"phase": "single", "graph": "the flagship graph", "V": g.num_vertices,
+          "edge_slots": g.num_edges, "vp": dg.vp, "ep": dg.ep, "sources": sources,
+          "golden_s": golden_s, "device_graph_s": dg_s, "validated": "every run",
+          "launches": launches, "backends": backends})
+    return sources, golden, trees
+
+
+def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> list:
+    """The 512-lane packed engine on the flagship graph at w 8 and w 1,
+    sharing one ELL. Returns the two K1 entries of the kernels line."""
+    from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
+    from tpu_bfs_torch.graph.ell import build_ell
+    from tpu_bfs_torch.validate import check_distances
+
+    t0 = time.perf_counter()
+    ell = build_ell(g)
+    ell_s = time.perf_counter() - t0
+    names = bucket_names(ell)
+    rest = np.random.default_rng(7).choice(traversable, size=256, replace=False)
+    batch = np.concatenate([np.asarray(sources[:3]), rest])[:256]
+    out, entries = {}, []
+    for lanes in (256, 32):
+        t0 = time.perf_counter()
+        eng = PackedMsBfsEngine(ell, lanes=lanes, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        src = batch[:lanes]
+        eng.run(src, time_it=True)  # warm
+        reset_counts(k1, k2)
+        res = eng.run(src, time_it=True)
+        launches = k1.ell_expand.launches
+        require(launches == len(names) * (res.num_levels + 1),
+                f"packed w {eng.w}: {launches} K1 launches, not {len(names)} per level")
+        require(k2.tile_spmm.launches == 0, "the packed engine launched tile_spmm")
+        for i in range(3):
+            check_distances(res.distances_int32(i), golden[int(src[i])])
+        t0 = time.perf_counter()
+        tree = res.parents_int32(0)  # the device scan (K1 min) over the engine's tables
+        tree_s = time.perf_counter() - t0
+        require(np.array_equal(tree, trees[int(src[0])]),
+                f"packed w {eng.w}: lane 0's tree != the single phase's checked tree")
+        out[f"w{eng.w}"] = {"lanes": lanes, "build_s": build_s, "levels": res.num_levels,
+                            "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
+                            "k1_launches": launches, "tree_s": tree_s,
+                            "validated_lanes": [0, 1, 2]}
+        entries.append(k1_entry(
+            k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2,
+            name=f"K1 or, packed w {eng.w}",
+            unit=f"one level of the packed engine: every bucket of the full ELL, w {eng.w}"))
+        del eng, res
+    emit({"phase": "packed", "graph": "the flagship graph", "kcap": ell.kcap,
+          "buckets": len(names), "slots": ell.total_slots, "active": ell.num_active,
+          "build_ell_s": ell_s, "engines": out})
+    return entries
+
+
+def phase_graph500(dev, k1, k2, scale: int, small_scale: int) -> None:
     from tpu_bfs_torch.algorithms import _packed_common
     from tpu_bfs_torch.graph500 import run_graph500
 
@@ -622,6 +762,21 @@ def phase_graph500(dev, k1, k2, scale: int) -> None:
           "validated": r.validated, "hmean_gteps": r.harmonic_mean_teps / 1e9,
           "launches": launches, "graph_s": r.graph_s, "engine_build_s": r.engine_s,
           "total_s": total_s})
+    cut = f"scale {small_scale}, not the flagship's 21: the single phase runs this path at 21"
+    for mode, n, checked in (("single", 16, 4), ("batched", 64, 4)):
+        reset_counts(k1, k2)
+        t0 = time.perf_counter()
+        r = run_graph500(small_scale, 16, mode=mode, num_searches=n, validate_searches=checked,
+                         device=dev)
+        total_s = time.perf_counter() - t0
+        launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+        require(r.validated, f"graph500 {mode} validated no search")
+        emit({"phase": "graph500", "scale": small_scale, "edge_factor": 16, "scale_cut": cut,
+              "mode": mode, "backend": "scan" if mode == "single" else None,
+              "searches": r.num_searches, "validated_searches": checked,
+              "validated": r.validated, "hmean_gteps": r.harmonic_mean_teps / 1e9,
+              "launches": launches, "graph_s": r.graph_s, "engine_build_s": r.engine_s,
+              "total_s": total_s})
 
 
 def main(argv=None) -> int:
@@ -631,6 +786,8 @@ def main(argv=None) -> int:
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
     ap.add_argument("--graph500-scale", type=int, default=20,
                     help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
+    ap.add_argument("--graph500-small-scale", type=int, default=18,
+                    help="RMAT scale of the graph500 single and batched runs (18)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
@@ -669,13 +826,19 @@ def main(argv=None) -> int:
     if args.parity_only:
         return 0
     phase_wide(dev, k1, k2, args.wide_scale)
-    g, eng, res, sources, picks, launches = phase_flagship(dev, k1, k2, args.scale, args.lanes)
+    g, eng, res, sources, picks, launches, traversable = phase_flagship(
+        dev, k1, k2, args.scale, args.lanes)
     kernels = phase_kernels(eng, res, launches, k1, k2, ptxas)
     kernels.append(phase_parents(k1, k2, g, eng, res, sources, picks, ptxas))
-    del g, eng, res  # free the flagship's device state before the next engine
+    del eng, res  # free the flagship's device state; its graph stays
     gc.collect()
     torch.cuda.empty_cache()
-    phase_graph500(dev, k1, k2, args.graph500_scale)
+    single_sources, golden, trees = phase_single(dev, k1, k2, g, traversable)
+    kernels += phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
+    del g, golden, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

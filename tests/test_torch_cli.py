@@ -1,11 +1,13 @@
 """Front door and import purity of the PyTorch port.
 
-The CLI validates lane 0's distances and BFS tree against the CPU oracle
-like tpu_bfs's --multi-source path (or certifies lane 0 with --certify), and
-its --save-dist / --save-parent arrays equal those tpu_bfs's CLI writes;
-without --multi-source it refuses. The port and
-chip_smoke.py import neither jax nor anything of tpu_bfs: shown by a clean
-subprocess import and by an AST scan of every source file.
+The CLI runs the reference's single-source BFS with each backend, and a
+--multi-source batch on the engine tpu_bfs's CLI would pick (packed for
+512 sources or fewer, hybrid above). It validates the distances and BFS
+tree against the CPU oracle (lane 0 of a batch), or certifies them with
+--certify; its --save-dist / --save-parent arrays and --stats lines equal
+those tpu_bfs's CLI writes. The port and chip_smoke.py import neither jax
+nor anything of tpu_bfs: shown by a clean subprocess import and by an AST
+scan of every source file.
 """
 
 import ast
@@ -58,7 +60,7 @@ def _jax_cli_npy(tmp_path_factory, spec, sources):
     return _jax_cli_files[key]
 
 
-@pytest.mark.parametrize("engine", ["hybrid", "wide"])
+@pytest.mark.parametrize("engine", ["hybrid", "wide", "packed"])
 @pytest.mark.parametrize("spec,sources", [
     ("rmat:scale=8,ef=8,seed=2", "3,1,2,200,77,5"),
     ("random:n=300,m=150,seed=7", "0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,"
@@ -104,13 +106,155 @@ def test_cli_certify_lane0(monkeypatch, capsys):
 
 
 def test_cli_without_multi_source_refuses():
-    with pytest.raises(SystemExit, match="single-source backends are not ported yet"):
-        cli.main(["0", "rmat:scale=6", "--device", "cpu"])
+    # The batch flags would be read by nothing in a single-source run.
+    for flags in (["--engine", "wide"], ["--lanes", "64"], ["--planes", "8"]):
+        with pytest.raises(SystemExit, match="apply to --multi-source batches"):
+            cli.main(["0", "rmat:scale=6", "--device", "cpu"] + flags)
+
+
+_jax_single = {}
+
+
+def _jax_single_run(tmp_path_factory, backend, spec):
+    """(stdout lines, dist, parent) of tpu_bfs's CLI, single-source."""
+    key = (backend, spec)
+    if key not in _jax_single:
+        import contextlib
+        import io
+
+        from tpu_bfs import cli as jcli
+
+        d = tmp_path_factory.mktemp("jax_single")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert jcli.main(["0", spec, "--backend", backend, "--stats",
+                              "--save-dist", str(d / "dist.npy"),
+                              "--save-parent", str(d / "parent.npy")]) == 0
+        _jax_single[key] = (buf.getvalue().splitlines(), np.load(d / "dist.npy"),
+                            np.load(d / "parent.npy"))
+    return _jax_single[key]
+
+
+def _stats_lines(lines):
+    return [ln for ln in lines if ln.startswith('{"level"')]
+
+
+@pytest.mark.parametrize("backend", ["scan", "segment", "scatter", "delta", "dopt", "tiled"])
+def test_cli_single_source_equals_jax(backend, tmp_path, tmp_path_factory, capsys):
+    spec = "rmat:scale=10"
+    jlines, jdist, jparent = _jax_single_run(tmp_path_factory, backend, spec)
+    rc = cli.main(["0", spec, "--backend", backend, "--device", "cpu", "--stats",
+                   "--save-dist", str(tmp_path / "d.npy"),
+                   "--save-parent", str(tmp_path / "p.npy")])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0 and "Output OK" in lines
+    for prefix in ("Number of vertices", "Number of edges", "Reached ", "Traversed edges: "):
+        mine = [ln for ln in lines if ln.startswith(prefix)]
+        theirs = [ln for ln in jlines if ln.startswith(prefix)]
+        assert len(mine) == 1 and len(theirs) == 1
+        if prefix != "Traversed edges: ":  # then the GTEPS, a time
+            assert mine == theirs
+    assert any(ln.startswith("Elapsed time in milliseconds (cpu): ") for ln in lines)
+    assert _stats_lines(lines) == _stats_lines(jlines) and len(_stats_lines(lines)) > 2
+    dist, parent = np.load(tmp_path / "d.npy"), np.load(tmp_path / "p.npy")
+    assert dist.dtype == parent.dtype == np.int32
+    np.testing.assert_array_equal(dist, jdist)
+    np.testing.assert_array_equal(parent, jparent)
+
+
+def test_cli_single_source_flags(tmp_path, capsys):
+    argv = ["2", "random:n=300,m=150,seed=7", "--device", "cpu"]
+    assert cli.main(argv + ["--repeat", "3", "--backend", "dopt"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("Elapsed time in milliseconds (cpu): ") == 3 and "Output OK" in out
+    assert cli.main(argv + ["--skip-cpu", "--no-parents", "--save-parent",
+                            str(tmp_path / "p.npy")]) == 0
+    out = capsys.readouterr().out
+    assert "Output OK" not in out and "(CPU)" not in out and not (tmp_path / "p.npy").exists()
+    assert cli.main(argv + ["--certify", "--backend", "tiled"]) == 0
+    out = capsys.readouterr().out
+    assert "Output certified (oracle-free)" in out and "(CPU)" not in out
+    from tpu_bfs_torch.validate import ValidationError
+
+    # A cut run is checked against the full golden, so it fails.
+    with pytest.raises(ValidationError):
+        cli.main(["0", "random:n=50,m=300,seed=1", "--max-levels", "1", "--device", "cpu"])
+
+
+def test_cli_isolated_single_source(capsys):
+    # Vertex 5 has no edge here: no device run, no time, one vertex reached.
+    assert cli.main(["5", "random:n=300,m=150,seed=7", "--backend", "tiled",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Reached 1 vertices in 0 levels" in out and "Output OK" in out
+    assert "(cpu)" not in out
+
+
+class _Recorder:
+    """Stands in for an engine class: records (kind, lanes) of each build."""
+
+    def __init__(self, kind, log):
+        self.kind, self.log = kind, log
+
+    def __call__(self, g, **kw):
+        self.log.append((self.kind, kw.get("lanes")))
+        return self
+
+
+@pytest.mark.parametrize("n_sources", [3, 512, 513])
+def test_cli_default_engine_rule_equals_jax(n_sources, monkeypatch):
+    import argparse
+
+    from tpu_bfs import cli as jcli
+    from tpu_bfs.algorithms import msbfs_hybrid as jhyb
+    from tpu_bfs.algorithms import msbfs_packed as jpk
+    from tpu_bfs_torch.algorithms import msbfs_hybrid as thyb
+    from tpu_bfs_torch.algorithms import msbfs_packed as tpk
+
+    jlog, tlog = [], []
+    for mod, log in ((jpk, jlog), (tpk, tlog)):
+        monkeypatch.setattr(mod, "PackedMsBfsEngine", _Recorder("packed", log))
+    for mod, log in ((jhyb, jlog), (thyb, tlog)):
+        monkeypatch.setattr(mod, "HybridMsBfsEngine", _Recorder("hybrid", log))
+    jargs = argparse.Namespace(
+        engine=None, planes=None, lanes=None, pull_gate=False, expand_impl="xla",
+        devices=1, wire_pack=False, sparse_delta=False, ckpt=None, resume=None,
+        adaptive_push=None)
+    targs = argparse.Namespace(engine=None, planes=None, lanes=None, device="cpu")
+    jcli._make_ms_engine(jargs, None, n_sources)
+    cli._make_ms_engine(targs, None, n_sources)
+    assert tlog == jlog
+    want_packed = n_sources <= 512
+    assert tlog[0][0] == ("packed" if want_packed else "hybrid")
+    if want_packed:
+        assert tlog[0][1] == max(32, -(-n_sources // 32) * 32)
+
+
+def test_cli_packed_is_the_default_for_small_batches(monkeypatch, capsys):
+    from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
+
+    built = []
+    real_init = PackedMsBfsEngine.__init__
+    monkeypatch.setattr(PackedMsBfsEngine, "__init__",
+                        lambda self, *a, **kw: built.append(kw["lanes"]) or real_init(
+                            self, *a, **kw))
+    assert cli.main(["3", "rmat:scale=8,ef=8,seed=2", "--multi-source", "1,2,200",
+                     "--stats", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert built == [32] and "Output OK" in out and '{"level": 0,' in out
+    with pytest.raises(SystemExit, match="--planes applies to the wide and hybrid"):
+        cli.main(["3", "rmat:scale=8", "--multi-source", "1", "--planes", "8",
+                  "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--backend picks the single-source engine"):
+        cli.main(["3", "rmat:scale=8", "--multi-source", "1", "--backend", "dopt",
+                  "--device", "cpu"])
 
 
 def test_cli_rejects_out_of_range_source():
     with pytest.raises(SystemExit, match="out of range"):
         cli.main(["0", "random:n=50,m=100", "--multi-source", "50", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="out of range"):
+        cli.main(["50", "random:n=50,m=100", "--device", "cpu"])
 
 
 def test_port_imports_no_jax():

@@ -271,3 +271,71 @@ def test_parents_int32_on_cuda_runs_the_scan(cuda, engine, monkeypatch):
     out = np.empty((40, g.num_vertices), np.int32)
     res.parents_into(out)
     np.testing.assert_array_equal(out[33], res.parents_int32(33))
+
+
+def _path_graph(n=200):
+    from tpu_bfs_torch.graph.io import from_edges
+
+    u = np.arange(n - 1)
+    return from_edges(u, u + 1, num_vertices=n)
+
+
+@pytest.mark.parametrize("backend", ["scan", "segment", "scatter", "delta", "dopt", "tiled"])
+def test_single_source_on_cuda_equals_cpu(cuda, backend):
+    # Each backend's level loop on the card against the same engine on CPU
+    # tensors: RMAT 12 (hub and a seeded source) and the 200-vertex path.
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
+
+    def make(g, dev):
+        if backend == "tiled":
+            return TiledBfsEngine(g, tile_thr=4, device=dev)
+        return BfsEngine(g, backend=backend, device=dev)
+
+    for g, sources in ((rmat_graph(12, 16, seed=11), None), (_path_graph(), [0, 150])):
+        if sources is None:
+            sources = [int(np.argmax(g.degrees)), 7]
+        on_card, on_cpu = make(g, cuda), make(g, "cpu")
+        for s in sources:
+            got, want = on_card.run(s, time_it=True), on_cpu.run(s)
+            np.testing.assert_array_equal(got.distance, want.distance)
+            np.testing.assert_array_equal(got.parent, want.parent)
+            assert (got.num_levels, got.reached, got.edges_traversed) == (
+                want.num_levels, want.reached, want.edges_traversed)
+            assert got.elapsed_s > 0
+
+
+@pytest.mark.parametrize("backend", ["scan", "segment", "scatter", "delta"])
+def test_msbfs_on_cuda_equals_cpu(cuda, backend):
+    from tpu_bfs_torch.algorithms.msbfs import MsBfsEngine
+
+    g = rmat_graph(11, 16, seed=4)
+    src = np.random.default_rng(3).integers(0, g.num_vertices, size=40)
+    got = MsBfsEngine(g, backend=backend, device=cuda).run(src, with_parents=True)
+    want = MsBfsEngine(g, backend=backend, device="cpu").run(src, with_parents=True)
+    np.testing.assert_array_equal(got.distance, want.distance)
+    np.testing.assert_array_equal(got.parent, want.parent)
+
+
+@pytest.mark.parametrize("lanes", [32, 256])  # K1 at w = 1 and w = 8
+def test_packed_engine_on_cuda_equals_cpu(cuda, lanes):
+    from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
+    from tpu_bfs_torch.graph.ell import build_ell
+
+    g = rmat_graph(12, 16, seed=11)
+    ell = build_ell(g, kcap=8)
+    src = np.random.default_rng(7).integers(0, g.num_vertices, size=lanes - 5)
+    want = PackedMsBfsEngine(ell, lanes=lanes, device="cpu").run(src)
+    eng = PackedMsBfsEngine(ell, lanes=lanes, device=cuda)
+    buckets = (ell.num_heavy > 0) + len(ell.light)
+    before = k1.ell_expand.launches
+    got = eng.run(src)
+    assert k1.ell_expand.launches - before == buckets * (got.num_levels + 1)
+    np.testing.assert_array_equal(got.distance_u8, want.distance_u8)
+    np.testing.assert_array_equal(got.reached, want.reached)
+    np.testing.assert_array_equal(got.edges_traversed, want.edges_traversed)
+    np.testing.assert_array_equal(got.ecc, want.ecc)
+    out = np.empty((len(src), g.num_vertices), np.int32)
+    ref = np.empty_like(out)
+    np.testing.assert_array_equal(got.parents_into(out),
+                                  want.parents_into(ref, device="device"))

@@ -1,8 +1,9 @@
 """The port's Graph500 harness against tpu_bfs.graph500.
 
 Search keys and the TEPS numerator must equal the JAX package's on the same
-seeded graphs; the hybrid mode runs on device="cpu" and validates (oracle
-and certificate); the modes whose engines are not ported raise instead of
+seeded graphs; every mode runs on device="cpu" and validates (oracle and
+certificate), and the single and batched modes find the JAX package's
+distances for every search; the mesh runs, not ported, raise instead of
 running another engine.
 """
 
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 
 from tpu_bfs import graph500 as jg500
+from tpu_bfs import validate as jval
 from tpu_bfs.graph import generate as jgen
 
 from tpu_bfs_torch import graph500
+from tpu_bfs_torch import validate as tval
 from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.reference import bfs_scipy
 
@@ -56,9 +59,51 @@ def test_run_graph500_hybrid_lanes_and_engine_cls():
     assert r.validated
 
 
+def _searches(pkg, val, monkeypatch, **kw):
+    """{key: distances} of every search a run_graph500 call validates,
+    captured at its certify_bfs call."""
+    seen = {}
+    real = val.certify_bfs
+
+    def spy(g, s, dist, parent):
+        seen[int(s)] = np.array(dist)
+        return real(g, s, dist, parent)
+
+    monkeypatch.setattr(val, "certify_bfs", spy)
+    r = pkg.run_graph500(10, 8, num_searches=12, validate_searches=12, **kw)
+    monkeypatch.setattr(val, "certify_bfs", real)
+    return r, seen
+
+
+@pytest.mark.parametrize("mode,backend", [("single", "scan"), ("single", "dopt"),
+                                          ("batched", "scan")])
+def test_run_graph500_single_and_batched_equal_jax(mode, backend, monkeypatch):
+    want_r, want = _searches(jg500, jval, monkeypatch, mode=mode, backend=backend)
+    got_r, got = _searches(graph500, tval, monkeypatch, mode=mode, backend=backend,
+                           device="cpu")
+    assert got_r.validated and got_r.mode == mode and got_r.num_searches == 12
+    assert len(got_r.teps) == 12 and got_r.harmonic_mean_teps > 0
+    assert got.keys() == want.keys() and len(got) == 12
+    for s in want:
+        np.testing.assert_array_equal(got[s], want[s])
+
+
+def test_run_graph500_backend_and_engine_cls():
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+
+    for b in ("segment", "scatter", "delta"):
+        assert graph500.run_graph500(8, 4, num_searches=3, backend=b, device="cpu").validated
+    with pytest.raises(KeyError, match="unknown expansion backend"):
+        graph500.run_graph500(8, 4, num_searches=3, backend="tiled", device="cpu")
+    r = graph500.run_graph500(
+        8, 4, num_searches=3, validate_searches=3, device="cpu",
+        engine_cls=lambda g, device: BfsEngine(g, backend="dopt", device=device))
+    assert r.validated and r.mode == "single"
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"mode": "single"}, "item 8"),
-    ({"mode": "batched"}, "item 8"),
+    ({"mode": "single", "devices": 2}, "item 10"),
+    ({"mode": "batched", "devices": 4}, "item 10"),
     ({"mode": "hybrid", "devices": 2}, "item 10"),
     ({"mode": "single", "mesh2d": (2, 4)}, "item 10"),
 ])
@@ -67,15 +112,15 @@ def test_unported_modes_raise(kw, item):
         graph500.run_graph500(8, 4, num_searches=2, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw", [{"backend": "dopt"}, {"exchange": "ring"}, {"verbose": True}])
+@pytest.mark.parametrize("kw", [{"exchange": "ring"}, {"verbose": True}])
 def test_unported_knobs_are_not_accepted(kw):
-    # The single-source backend, the mesh exchange and the progress log come
-    # with the runs that read them: no option is taken and then ignored.
+    # The mesh exchange and the progress log come with the runs that read
+    # them: no option is taken and then ignored.
     with pytest.raises(TypeError, match="unexpected keyword"):
         graph500.run_graph500(8, 4, mode="hybrid", device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--backend", "dopt"], ["--exchange", "ring"]])
+@pytest.mark.parametrize("flag", [["--exchange", "ring"], ["--exchange", "sliced"]])
 def test_main_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         graph500.main(["--scale", "8", "--mode", "hybrid", "--device", "cpu"] + flag)
@@ -95,5 +140,8 @@ def test_main_hybrid_and_unported(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "mode=hybrid searches=8 validated=True harmonic_mean_GTEPS=" in out
+    assert graph500.main(["--scale", "8", "--ef", "4", "--searches", "4", "--backend", "dopt",
+                          "--device", "cpu"]) == 0  # the default mode: single
+    assert "mode=single searches=4 validated=True" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not ported"):
-        graph500.main(["--scale", "8", "--device", "cpu"])  # the default mode: single
+        graph500.main(["--scale", "8", "--devices", "2", "--device", "cpu"])

@@ -31,11 +31,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_bfs_torch.algorithms.msbfs_packed import UNREACHED, ripple_increment_
 from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
 from tpu_bfs_torch.ops.ell_expand import COMBINE, KERNEL_OPS, TILE, ell_expand
 from tpu_bfs_torch.validate import min_parent_from_dist
+
+UNREACHED = np.uint8(255)  # uint8 distance sentinel; see distances_int32()
+
+
+def ripple_increment_(planes, carry_bits) -> None:
+    """Bit-sliced ripple-carry: planes + 1 wherever carry_bits is set. The
+    JAX ``ripple_increment`` (``msbfs_packed.py``) returns new planes; this
+    one updates each plane tensor in place (one carry transient instead of a
+    second set of planes)."""
+    for p in planes:
+        nxt = p & carry_bits
+        p ^= carry_bits
+        carry_bits = nxt
+
 
 #: Default device-memory budget of the packed state: an 80 GB H100 less
 #: 16 GB of headroom for the allocator's fragmentation and CUDA context.
@@ -674,7 +687,7 @@ def _assemble_packed_result(engine, sources, planes, vis, src_bits, levels, aliv
         edges[iso] = 0
     else:
         iso = None
-    return PackedBatchResult(
+    return engine.result_cls(
         sources=sources.astype(np.int32),
         num_levels=levels - 1 if levels > 0 and not alive else levels,
         reached=reached,
@@ -750,7 +763,10 @@ def run_packed_batch(engine, sources, *, max_levels: int | None = None,
 
 class PackedRunProtocol:
     """``run`` / ``dispatch`` / ``fetch`` for every packed engine, plus the
-    shared seeding and lane-map hooks."""
+    shared seeding and lane-map hooks. ``result_cls`` is the class of a
+    batch's result."""
+
+    result_cls = PackedBatchResult
 
     def run(self, sources, *, max_levels=None, time_it=False, check_cap=True):
         return run_packed_batch(

@@ -44,7 +44,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     pallas_expand_arrays,
     resolve_device,
 )
-from tpu_bfs_torch.graph.csr import Graph, _lexsort_pairs
+from tpu_bfs_torch.graph.csr import Graph, _sorted_pairs
 from tpu_bfs_torch.graph.ell import EllBucket, bucketize_rows, rank_vertices
 from tpu_bfs_torch.ops.tile_spmm import AW, TILE, row_masks, tile_spmm
 
@@ -184,8 +184,8 @@ def build_hybrid(g: Graph, *, kcap: int = 64, tile_thr: int = 64,
     r_order = np.argsort(-res_deg_rank, kind="stable").astype(np.int64)
     bucket_pos = np.empty(v, dtype=np.int64)
     bucket_pos[r_order] = np.arange(v)
-    order_e = _lexsort_pairs(bucket_pos[res_dst_rank], res_src_rank)
-    nbrs = res_src_rank[order_e]
+    _, nbrs = _sorted_pairs(bucket_pos[res_dst_rank], res_src_rank, v)
+    nbrs = nbrs.astype(np.int32)
     lens = res_deg_rank[r_order]
     new_rp = np.zeros(v + 1, dtype=np.int64)
     np.cumsum(lens, out=new_rp[1:])

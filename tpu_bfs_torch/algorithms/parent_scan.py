@@ -33,11 +33,11 @@ import numpy as np
 import torch
 
 from tpu_bfs_torch.algorithms._packed_common import (
+    UNREACHED,
     expand_arrays,
     make_expand,
     resolve_device,
 )
-from tpu_bfs_torch.algorithms.msbfs_packed import UNREACHED
 from tpu_bfs_torch.algorithms.msbfs_wide import expand_spec
 from tpu_bfs_torch.graph.ell import EllGraph
 

@@ -1,23 +1,30 @@
 """Command-line entry point of the PyTorch port.
 
-Keeps the reference's argument order, ``<source> <graph>`` (README.md:13),
-and the flow of ``tpu_bfs/cli.py``'s ``--multi-source`` path: load the
-graph, run the CPU golden BFS, run one packed batch, validate lane 0's
-distances and BFS tree (or certify lane 0 with ``--certify``), and save
-every lane's distances or trees on request.
+Keeps the reference's argument order and flow, ``./a.out <source> <graph>``
+(README.md:13, bfs.cu:783-823): load the graph, run the CPU golden BFS, run
+the BFS on the device, validate the distances and the BFS tree (or certify
+them with ``--certify``), print the timings, and save the distances or the
+tree on request. ``--backend`` picks the single-source engine;
+``--multi-source`` runs a packed batch instead, validating lane 0, as
+``tpu_bfs/cli.py`` does.
 
+    python -m tpu_bfs_torch 0 rmat:scale=14,ef=16
+    python -m tpu_bfs_torch 0 rmat:scale=14 --backend dopt --stats --repeat 3
+    python -m tpu_bfs_torch 2 graph.txt --backend tiled --device cpu
     python -m tpu_bfs_torch 0 rmat:scale=14,ef=16 --multi-source 1,2,3
     python -m tpu_bfs_torch 2 graph.txt --multi-source 5,9 --engine wide --device cpu
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --certify --save-parent p.npy
 
 Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
-/ ``random:n=..,m=..,seed=..``. Only the multi-source engines are ported;
-a run without ``--multi-source`` exits with an error.
+/ ``random:n=..,m=..,seed=..``. With no ``--engine``, a batch of 512
+sources or fewer runs the 512-lane packed engine and a larger one the
+hybrid, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -48,11 +55,35 @@ def load_graph(spec: str):
     return io.load_edge_list(spec)
 
 
-def _make_engine(args, g):
+#: The JAX CLI's default engine rule (``tpu_bfs/cli.py:207-208``): the
+#: 512-lane packed engine for this many sources or fewer, else the hybrid.
+PACKED_MAX_SOURCES = 512
+
+
+def default_engine(n_sources: int) -> str:
+    return "packed" if n_sources <= PACKED_MAX_SOURCES else "hybrid"
+
+
+def packed_lanes(n_sources: int) -> int:
+    """The packed engine's default width: the sources rounded up to whole
+    32-lane words, at least one (``tpu_bfs/cli.py:231-235``)."""
+    return max(32, -(-n_sources // 32) * 32)
+
+
+def _make_ms_engine(args, g, n_sources: int):
+    engine = args.engine or default_engine(n_sources)
     kw = {"device": args.device}
+    if engine == "packed":
+        from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
+
+        if args.planes is not None:
+            raise SystemExit("--planes applies to the wide and hybrid engines; the packed "
+                             "engine counts 8 planes (depth 254)")
+        lanes = args.lanes if args.lanes is not None else packed_lanes(n_sources)
+        return PackedMsBfsEngine(g, lanes=lanes, **kw)
     if args.lanes is not None:
         kw["lanes"] = args.lanes
-    if args.engine == "wide":
+    if engine == "wide":
         from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
 
         return WidePackedMsBfsEngine(g, num_planes=args.planes or 5, **kw)
@@ -61,77 +92,48 @@ def _make_engine(args, g):
     return HybridMsBfsEngine(g, num_planes=args.planes or "auto", **kw)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        prog="tpu_bfs_torch",
-        description="Multi-source BFS on an NVIDIA GPU (PyTorch + CUDA port of tpu_bfs).",
-    )
-    ap.add_argument("source", type=int, help="source vertex (reference argv[1])")
-    ap.add_argument("graph", help="graph file, '-' for stdin, or rmat:/random: spec")
-    ap.add_argument("--multi-source", default=None, metavar="V1,V2,...",
-                    help="run these sources concurrently with <source> in one packed batch")
-    ap.add_argument("--engine", default="hybrid", choices=["hybrid", "wide"],
-                    help="'hybrid' = dense tiles + gathers (flagship), 'wide' = gathers only")
-    ap.add_argument("--lanes", type=int, default=None, metavar="N",
-                    help="packed batch width (default: auto sizing, cap 8192)")
-    ap.add_argument("--planes", type=int, default=None, metavar="P", choices=range(1, 9),
-                    help="bit planes; caps the traversal depth at 2**P levels")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
-    ap.add_argument("--certify", action="store_true",
-                    help="validate lane 0 with the oracle-free BFS certificate (two "
-                    "O(E) host passes, validate.certify_bfs) instead of the CPU "
-                    "golden rerun")
-    ap.add_argument("--no-parents", action="store_true",
-                    help="skip lane 0's BFS-tree check after the distance check")
-    ap.add_argument("--save-dist", default=None, metavar="PATH",
-                    help="save every lane's distances to .npy, [S, V] int32")
-    ap.add_argument("--save-parent", default=None, metavar="PATH",
-                    help="save every lane's BFS tree to .npy, [S, V] int32 (on the "
-                    "card, always the device parent scan)")
-    args = ap.parse_args(argv)
+def _make_single_engine(args, g):
+    if args.backend == "tiled":
+        from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
 
-    if args.multi_source is None:
-        raise SystemExit(
-            "single-source backends are not ported yet: tpu_bfs_torch runs "
-            "--multi-source batches only (the wide and hybrid packed engines)"
-        )
-    try:
-        extra = [int(t) for t in args.multi_source.split(",") if t.strip()]
-    except ValueError:
-        raise SystemExit(f"--multi-source must be comma-separated ints, got "
-                         f"{args.multi_source!r}")
+        return TiledBfsEngine(g, device=args.device)
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
 
+    return BfsEngine(g, backend=args.backend, device=args.device)
+
+
+def _print_stats(distance, g) -> None:
+    from tpu_bfs_torch.utils.stats import level_stats
+
+    for line in level_stats(distance, g.degrees).json_lines():
+        print(line)
+
+
+def _run_multi_source(args, g, golden, sources) -> int:
+    """<source> plus the listed keys in one packed batch, lane 0 validated."""
     from tpu_bfs_torch import validate
-    from tpu_bfs_torch.reference import bfs_golden
 
-    g = load_graph(args.graph)
-    sources = np.asarray([args.source] + extra)
-    bad = sources[(sources < 0) | (sources >= g.num_vertices)]
-    if len(bad):
-        raise SystemExit(
-            f"--multi-source vertices {bad.tolist()} out of range [0, {g.num_vertices})"
-        )
-    # The certificate replaces the golden rerun.
-    golden = None if args.certify else bfs_golden(g, int(sources[0]))
-    engine = _make_engine(args, g)
+    engine = _make_ms_engine(args, g, len(sources))
     try:
-        res = engine.run(sources, time_it=True)
+        for _ in range(max(1, args.repeat)):
+            res = engine.run(sources, max_levels=args.max_levels, time_it=True)
+            print(f"Elapsed time in milliseconds ({engine.device}): "
+                  f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
     except RuntimeError as exc:
         if "truncated" not in str(exc):
             raise
-        raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254)")
-    print(f"Elapsed time in milliseconds ({engine.device}): "
-          f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
+        raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254) or --engine packed")
     for i, s in enumerate(sources):
         print(f"source {int(s)}: reached {int(res.reached[i])} vertices, "
               f"traversed edges {int(res.edges_traversed[i])}")
     if res.teps:
         print(f"Harmonic-mean GTEPS/source: {res.teps / 1e9:.4f}")
+    if args.stats:
+        _print_stats(res.distances_int32(0), g)
     if args.certify:
         validate.certify_bfs(g, int(sources[0]), res.distances_int32(0), res.parents_int32(0))
         print(f"Output certified (oracle-free, lane 0 of {len(sources)})")
-    else:
+    elif golden is not None:
         validate.check_distances(res.distances_int32(0), golden)
         if not args.no_parents:
             # The engine's BFS tree too, which the reference never checks
@@ -145,3 +147,128 @@ def main(argv=None) -> int:
         out = np.empty((len(sources), g.num_vertices), np.int32)
         np.save(args.save_parent, res.parents_into(out))
     return 0
+
+
+def _run_single_source(args, g, golden) -> int:
+    """The reference's own run: one BFS from <source>, timed on the device."""
+    from tpu_bfs_torch import validate
+
+    engine = _make_single_engine(args, g)
+    for _ in range(max(1, args.repeat)):
+        res = engine.run(args.source, max_levels=args.max_levels,
+                         with_parents=not args.no_parents, time_it=True)
+        # The reference prints the device time (bfs.cu:624-626); an isolated
+        # source needs no device run and has no time.
+        if res.elapsed_s is not None:
+            print(f"Elapsed time in milliseconds ({engine.device.type}): "
+                  f"{res.elapsed_s * 1e3:.3f}")
+    if res.teps:
+        print(f"Traversed edges: {res.edges_traversed}  GTEPS: {res.teps / 1e9:.4f}")
+    print(f"Reached {res.reached} vertices in {res.num_levels} levels")
+    if args.stats:
+        _print_stats(res.distance, g)
+    if args.certify:
+        parent = (res.parent if res.parent is not None
+                  else validate.min_parent_from_dist(g, res.source, res.distance))
+        validate.certify_bfs(g, res.source, res.distance, parent)
+        print("Output certified (oracle-free)")
+    elif golden is not None:
+        # checkOutput (bfs.cu:374-384), and the tree, which the reference
+        # never checks.
+        validate.check_distances(res.distance, golden)
+        if res.parent is not None:
+            validate.check_parents(g, res.source, res.distance, res.parent)
+        print("Output OK")
+    if args.save_dist:
+        np.save(args.save_dist, res.distance)
+    if args.save_parent and res.parent is not None:
+        np.save(args.save_parent, res.parent)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="tpu_bfs_torch",
+        description="BFS on an NVIDIA GPU (PyTorch + CUDA port of tpu_bfs).",
+    )
+    ap.add_argument("source", type=int, help="source vertex (reference argv[1])")
+    ap.add_argument("graph", help="graph file, '-' for stdin, or rmat:/random: spec")
+    ap.add_argument("--backend", default=None,
+                    choices=["scan", "segment", "scatter", "delta", "dopt", "tiled"],
+                    help="single-source frontier expansion (default 'scan'; 'dopt' = "
+                    "direction-optimizing top-down/bottom-up switch; 'tiled' adds the "
+                    "dense-tile bitset pass)")
+    ap.add_argument("--max-levels", type=int, default=None)
+    ap.add_argument("--skip-cpu", action="store_true",
+                    help="skip the CPU golden run and the validation (the reference "
+                    "always validates, bfs.cu:798-815)")
+    ap.add_argument("--repeat", type=int, default=1, help="timed repetitions")
+    ap.add_argument("--stats", action="store_true", help="print per-level JSON stats")
+    ap.add_argument("--multi-source", default=None, metavar="V1,V2,...",
+                    help="run these sources concurrently with <source> in one packed batch")
+    ap.add_argument("--engine", default=None, choices=["hybrid", "wide", "packed"],
+                    help="--multi-source engine: 'hybrid' = dense tiles + gathers "
+                    "(flagship), 'wide' = gathers only, 'packed' = up to 512 lanes "
+                    "(depth 254). Default: 'packed' for <= 512 sources, else 'hybrid'")
+    ap.add_argument("--lanes", type=int, default=None, metavar="N",
+                    help="--multi-source batch width (default: the sources rounded up to "
+                    "32 for 'packed', auto sizing with an 8192 cap otherwise)")
+    ap.add_argument("--planes", type=int, default=None, metavar="P", choices=range(1, 9),
+                    help="wide/hybrid bit planes; caps the traversal depth at 2**P levels")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
+    ap.add_argument("--certify", action="store_true",
+                    help="validate with the oracle-free BFS certificate (two O(E) host "
+                    "passes, validate.certify_bfs) instead of the CPU golden rerun; "
+                    "implies --skip-cpu")
+    ap.add_argument("--no-parents", action="store_true",
+                    help="skip the BFS tree (its extraction and its check)")
+    ap.add_argument("--save-dist", default=None, metavar="PATH",
+                    help="save the distances to .npy, [V] int32 ([S, V] with --multi-source)")
+    ap.add_argument("--save-parent", default=None, metavar="PATH",
+                    help="save the BFS tree to .npy, [V] int32 ([S, V] with --multi-source; "
+                    "on the card, always the device parent scan)")
+    args = ap.parse_args(argv)
+
+    sources = None
+    if args.multi_source is not None:
+        try:
+            extra = [int(t) for t in args.multi_source.split(",") if t.strip()]
+        except ValueError:
+            raise SystemExit(f"--multi-source must be comma-separated ints, got "
+                             f"{args.multi_source!r}")
+        sources = np.asarray([args.source] + extra)
+        if args.backend is not None:
+            raise SystemExit("--backend picks the single-source engine; a --multi-source "
+                             "batch picks its engine with --engine")
+    else:
+        args.backend = args.backend or "scan"
+        unread = [f for f, v in (("--engine", args.engine), ("--lanes", args.lanes),
+                                 ("--planes", args.planes)) if v is not None]
+        if unread:
+            raise SystemExit(f"{'/'.join(unread)} apply to --multi-source batches; a "
+                             "single-source run picks its engine with --backend")
+    if args.certify:
+        args.skip_cpu = True  # the certificate replaces the golden rerun
+
+    from tpu_bfs_torch.reference import bfs_golden
+
+    t0 = time.perf_counter()
+    g = load_graph(args.graph)
+    # The reference prints these (bfs.cu:789-790).
+    print(f"Number of vertices {g.num_vertices}")
+    print(f"Number of edges {g.num_edges}")
+    print(f"[load] {time.perf_counter() - t0:.3f}s")
+    check = sources if sources is not None else np.asarray([args.source])
+    bad = check[(check < 0) | (check >= g.num_vertices)]
+    if len(bad):
+        raise SystemExit(f"source vertices {bad.tolist()} out of range [0, {g.num_vertices})")
+    golden = None
+    if not args.skip_cpu:
+        t0 = time.perf_counter()
+        golden = bfs_golden(g, args.source)
+        # The reference prints the CPU time (runCpu, bfs.cu:211-219).
+        print(f"Elapsed time in milliseconds (CPU): {(time.perf_counter() - t0) * 1e3:.2f}")
+    if sources is not None:
+        return _run_multi_source(args, g, golden, sources)
+    return _run_single_source(args, g, golden)

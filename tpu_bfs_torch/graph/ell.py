@@ -19,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-from tpu_bfs_torch.graph.csr import Graph, _lexsort_pairs
+from tpu_bfs_torch.graph.csr import Graph, _sorted_pairs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,8 +184,7 @@ def build_ell(g: Graph, *, kcap: int = 64) -> EllGraph:
     ``num_active + 1`` rows (the last is the all-zero sentinel row)."""
     v_count = g.num_vertices
     src, dst = g.coo
-    order_ds = _lexsort_pairs(dst, src)
-    in_col = src[order_ds]
+    _, in_col = _sorted_pairs(dst, src, v_count)
     in_deg, num_active, rank_order, rank = rank_vertices(src, dst, v_count)
 
     in_rp = np.zeros(v_count + 1, dtype=np.int64)

@@ -5,14 +5,16 @@ degree > 0, per-search validation (Graph500 checks BFS-tree properties; the
 reference only reruns itself on the CPU, bfs.cu:798-815) and harmonic-mean
 TEPS.
 
-    python -m tpu_bfs_torch.graph500 --mode hybrid --scale 16
+    python -m tpu_bfs_torch.graph500 --scale 16
+    python -m tpu_bfs_torch.graph500 --mode batched --scale 16
     python -m tpu_bfs_torch.graph500 --mode hybrid --scale 8 --device cpu
 
-Only ``mode='hybrid'`` on one device is ported: the flagship
-``HybridMsBfsEngine`` runs every search in one packed batch. The
-single-source (``'single'``), ``MsBfsEngine`` (``'batched'``) and mesh
-(``devices > 1``, ``mesh2d``) runs need engines that are not ported yet and
-raise ``NotImplementedError``; they never fall back to another engine.
+Every mode runs on one device: ``'single'`` (the official kernel-2 shape,
+one ``BfsEngine`` traversal per search), ``'batched'`` (all searches in one
+``MsBfsEngine`` batch) and ``'hybrid'`` (all searches in one batch of the
+flagship ``HybridMsBfsEngine``). The mesh runs (``devices > 1``,
+``mesh2d``) need engines that are not ported yet and raise
+``NotImplementedError``; they never fall back to another engine.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def traversed_edges(g: Graph, dist: np.ndarray) -> int:
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tpu_bfs_torch yet (ROADMAP Queue 1 item {item}); "
-        "run mode='hybrid' on one device"
+        "run on one device"
     )
 
 
@@ -78,26 +80,29 @@ def run_graph500(
     engine_cls=None,
     devices: int = 1,
     mesh2d: tuple[int, int] | None = None,
+    backend: str = "scan",
     device=None,
 ) -> Graph500Result:
     """Generate, run, validate and score a Graph500-style BFS benchmark.
 
-    mode='hybrid': every search in one batch of the flagship engine
-    (``engine_cls``, default ``HybridMsBfsEngine``, built as
-    ``engine_cls(g, device=device)``); per-search TEPS divides the batch
-    time evenly, and ``num_planes`` caps depth at 2**planes levels.
-    ``device`` is CUDA unless named. The single-source run's expansion
-    backend and the mesh runs' frontier exchange come with those runs."""
+    mode='single': one traversal at a time through ``BfsEngine`` with the
+    expansion ``backend``, each search's TEPS over its own time (the
+    official kernel-2 shape).
+    mode='batched': every search in one ``MsBfsEngine`` batch; per-search
+    TEPS divides the batch time evenly (not comparable with single-stream
+    numbers, but the way to use the device when there are many sources).
+    mode='hybrid': every search in one batch of the flagship
+    ``HybridMsBfsEngine``, the same equal-share accounting; ``num_planes``
+    caps depth at 2**planes levels and ``lanes`` sets the batch width.
+    ``engine_cls`` replaces the mode's engine, built as
+    ``engine_cls(g, device=device)``. ``device`` is CUDA unless named. The
+    mesh runs' frontier exchange comes with those runs."""
     if mode not in ("single", "batched", "hybrid"):
         raise ValueError(f"unknown mode {mode!r}; have 'single', 'batched', 'hybrid'")
     if validate_mode not in ("oracle", "certify"):
         raise ValueError(f"unknown validate_mode {validate_mode!r}; have 'oracle', 'certify'")
     if devices > 1 or mesh2d is not None:
         raise _unported("a mesh run (devices > 1 or mesh2d)", "10")
-    if mode == "single":
-        raise _unported("mode='single' (the single-source BfsEngine)", "8")
-    if mode == "batched":
-        raise _unported("mode='batched' (MsBfsEngine)", "8")
 
     t0 = time.perf_counter()
     g = rmat_graph(scale, edge_factor, seed=seed)
@@ -105,27 +110,47 @@ def run_graph500(
     keys = sample_search_keys(g, num_searches)
 
     t0 = time.perf_counter()
-    if engine_cls is None:
+    if engine_cls is not None:
+        eng = engine_cls(g, device=device)
+    elif mode == "hybrid":
         from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
 
         lanes_kw = {} if lanes is None else {"lanes": lanes}
         eng = HybridMsBfsEngine(g, num_planes=num_planes, device=device, **lanes_kw)
+    elif mode == "batched":
+        from tpu_bfs_torch.algorithms.msbfs import MsBfsEngine
+
+        eng = MsBfsEngine(g, device=device)
     else:
-        eng = engine_cls(g, device=device)
+        from tpu_bfs_torch.algorithms.bfs import BfsEngine
+
+        eng = BfsEngine(g, backend=backend, device=device)
     engine_s = time.perf_counter() - t0
-    res = eng.run(keys, time_it=True)
-    per_search = res.elapsed_s / len(keys)
-    # One lane at a time, keeping only the lanes to validate: the whole
-    # [S, V] matrix would be some 17 GB at scale 26. Parents come from the
-    # engine's own result (PackedBatchResult.parents_int32), the BFS-tree
-    # artifact Graph500 asks for.
-    teps, dists, parents = [], [], []
-    for i in range(len(keys)):
-        d = res.distances_int32(i)
-        teps.append(traversed_edges(g, d) / per_search)
-        if i < validate_searches:
-            dists.append(d)
-            parents.append(res.parents_int32(i))
+    teps, dists, parents = [], [], None
+    if mode == "hybrid":
+        res = eng.run(keys, time_it=True)
+        per_search = res.elapsed_s / len(keys)
+        # One lane at a time, keeping only the lanes to validate: the whole
+        # [S, V] matrix would be some 17 GB at scale 26. Parents come from
+        # the engine's own result (PackedBatchResult.parents_int32), the
+        # BFS-tree artifact Graph500 asks for.
+        parents = []
+        for i in range(len(keys)):
+            d = res.distances_int32(i)
+            teps.append(traversed_edges(g, d) / per_search)
+            if i < validate_searches:
+                dists.append(d)
+                parents.append(res.parents_int32(i))
+    elif mode == "batched":
+        res = eng.run(keys, time_it=True)
+        per_search = res.elapsed_s / len(keys)  # an equal time share per search
+        teps = [traversed_edges(g, d) / per_search for d in res.distance]
+        dists = res.distance
+    else:
+        for s in keys:
+            r = eng.run(int(s), with_parents=False, time_it=True)
+            teps.append(r.edges_traversed / r.elapsed_s)
+            dists.append(r.distance)
 
     from tpu_bfs_torch.reference import bfs_scipy
 
@@ -134,9 +159,12 @@ def run_graph500(
         s = int(keys[i])
         if validate_mode == "oracle":
             validate.check_distances(dists[i], bfs_scipy(g, s))
-        # The oracle-free certificate (parent chains + edge levels); with
-        # validate_mode='certify' it is the whole validation.
-        validate.certify_bfs(g, s, dists[i], parents[i])
+        # The hybrid validates its result's own trees; the other modes the
+        # deterministic min-parent tree of their distances, as in the JAX
+        # package. The oracle-free certificate (parent chains + edge
+        # levels) is, with validate_mode='certify', the whole validation.
+        mp = parents[i] if parents is not None else validate.min_parent_from_dist(g, s, dists[i])
+        validate.certify_bfs(g, s, dists[i], mp)
     return Graph500Result(
         scale=scale,
         edge_factor=edge_factor,
@@ -156,8 +184,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=16)
     ap.add_argument("--ef", type=int, default=16)
     ap.add_argument("--searches", type=int, default=64)
-    ap.add_argument("--mode", choices=["single", "batched", "hybrid"], default="single",
-                    help="only 'hybrid' is ported; the others exit with an error")
+    ap.add_argument("--mode", choices=["single", "batched", "hybrid"], default="single")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--validate", type=int, default=4, metavar="N",
                     help="validate the first N searches (0 to skip)")
@@ -172,6 +199,8 @@ def main(argv=None) -> int:
                     help="shard over N devices (not ported: N > 1 exits with an error)")
     ap.add_argument("--mesh", default=None, metavar="RxC",
                     help="2D mesh (not ported: exits with an error)")
+    ap.add_argument("--backend", default="scan", choices=["scan", "segment", "scatter", "dopt"],
+                    help="single mode: frontier-expansion backend")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
     args = ap.parse_args(argv)
@@ -196,6 +225,7 @@ def main(argv=None) -> int:
             lanes=args.lanes,
             devices=args.devices,
             mesh2d=mesh2d,
+            backend=args.backend,
             device=args.device,
         )
     except NotImplementedError as exc:

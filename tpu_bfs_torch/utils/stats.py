@@ -1,0 +1,62 @@
+"""Per-level BFS statistics, the port of ``tpu_bfs/utils/stats.py``.
+
+The level structure is recovered exactly from the final distance array:
+frontier size by level is its histogram, and edges scanned by level the
+degree-weighted histogram. So the stats cost nothing in the level loop and
+hold for every engine. (The reference's only observability is printf,
+bfs.cu:53-96, 624-626.) The pull gate's per-level counts come with that
+gate (ROADMAP Queue 1 item 7), the recovery trailer with the serve tier
+(item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+
+from tpu_bfs_torch.graph.csr import INF_DIST
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelStats:
+    """Per-level traversal statistics of one BFS run."""
+
+    frontier_size: np.ndarray  # [L+1] vertices discovered at each level
+    edges_scanned: np.ndarray  # [L+1] sum of out-degrees of each level's frontier
+    reached: int
+    unreached: int
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.frontier_size) - 1
+
+    def json_lines(self) -> list[str]:
+        """One JSON object per level (the ``--stats`` output format)."""
+        return [
+            json.dumps({"level": lvl, "frontier": int(self.frontier_size[lvl]),
+                        "edges_scanned": int(self.edges_scanned[lvl])})
+            for lvl in range(len(self.frontier_size))
+        ]
+
+
+def level_stats(distance: np.ndarray, degrees: np.ndarray) -> LevelStats:
+    """LevelStats of a distance array (int32, INF_DIST where unreached).
+    ``edges_scanned[l]`` is the work a level-synchronous sweep does to
+    expand level l: the degree sum of that level's frontier."""
+    distance = np.asarray(distance)
+    reached_mask = distance != INF_DIST
+    reached = distance[reached_mask]
+    if reached.size == 0:
+        return LevelStats(frontier_size=np.zeros(1, np.int64),
+                          edges_scanned=np.zeros(1, np.int64), reached=0,
+                          unreached=int((~reached_mask).sum()))
+    n_out = int(reached.max()) + 1
+    frontier = np.bincount(reached, minlength=n_out).astype(np.int64)
+    edges = np.bincount(
+        reached, weights=np.asarray(degrees, np.float64)[reached_mask], minlength=n_out,
+    ).astype(np.int64)
+    return LevelStats(frontier_size=frontier, edges_scanned=edges,
+                      reached=int(reached_mask.sum()),
+                      unreached=int((~reached_mask).sum()))
