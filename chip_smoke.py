@@ -25,7 +25,8 @@ Phases, one JSON line each:
     streamed-bytes model and nvcc's register and shared-memory report;
  7. parents: the flagship batch's BFS trees through the device parent scan
     (K1 op=min over a full ELL, 64 passes of 128 lanes), each pass timed on
-    the device, copied to the host and decoded there; the 5 validated lanes
+    the device and copied to the host, every lane of the first pass decoded
+    there (timed), the validated lanes of the others; the 5 validated lanes
     equal validate.min_parent_from_dist and pass certify_bfs; then the
     public parents_into(device="device") on a 256-lane batch. The K1 min
     entry of the kernels line is timed here, at the scan's shape;
@@ -52,6 +53,22 @@ Phases, one JSON line each:
     Then mode="single" (16 searches, 4 validated) and mode="batched" (64
     searches) at scale 18 (--graph500-small-scale; the single phase runs the
     single-source path at the flagship's scale 21).
+11. pullgate (run after parents): HybridMsBfsEngine(pull_gate=True) on the
+    flagship's HybridGraph, a gated and an ungated batch on the flagship's
+    8192 sources: visited tables equal and plane bits equal on real rows of
+    active lanes (compared on the device), 3 lanes against SciPy; both batch
+    times, hmean GTEPS, the skipped blocks (gated_tiles), state blocks and
+    host reads per level, K1's time per level in each and peak memory; then
+    the wide engine at the wide phase's scale, gated against ungated. The
+    gated batch's K1 launches, replayed on their own masks, are the "K1 or,
+    gated" kernels entry. After the single phase, TiledBfsEngine(pull_gate=
+    True) from its sources, equal to SciPy and to its checked trees;
+12. ckpt (after packed): a 256-lane hybrid batch on the flagship graph in
+    chunks of --ckpt-every levels (4), each saved, loaded and resumed, the
+    chunks after the first on the wide engine, equal on every lane to an
+    uninterrupted run; ungated, then gated. Then a single-source BfsEngine
+    (scan) started, advanced to level 2, saved, loaded and finished, equal
+    to run.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -59,6 +76,7 @@ the script exits non-zero; it also exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -73,7 +91,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # Parent-scan passes whose 128 lanes are all decoded on the host (timed);
 # the rest decode only the validated lanes (a whole pass takes seconds).
-DECODE_PASSES = 2
+# One pass keeps the whole script near 9 minutes.
+DECODE_PASSES = 1
 T0 = time.perf_counter()
 
 
@@ -265,6 +284,7 @@ def phase_wide(dev, k1, k2, scale: int) -> None:
           "host_build_s": build_s, "levels": res.num_levels,
           "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
           "ell_expand_launches": launches, "validated_lanes": picks})
+    return g, eng, res, sources
 
 
 def flagship_graph(scale: int):
@@ -625,7 +645,8 @@ def phase_single(dev, k1, k2, g, traversable):
     """The reference's run, one source at a time, on the flagship graph:
     each single-source backend from 4 sources, warm then timed, every
     distance array against SciPy and every tree checked. Returns the
-    sources, their SciPy distances and their checked trees."""
+    sources, their SciPy distances, their checked trees and the
+    DeviceGraph."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
     from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
     from tpu_bfs_torch.graph.csr import DeviceGraph
@@ -684,12 +705,13 @@ def phase_single(dev, k1, k2, g, traversable):
           "edge_slots": g.num_edges, "vp": dg.vp, "ep": dg.ep, "sources": sources,
           "golden_s": golden_s, "device_graph_s": dg_s, "validated": "every run",
           "launches": launches, "backends": backends})
-    return sources, golden, trees
+    return sources, golden, trees, dg
 
 
 def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> list:
     """The 512-lane packed engine on the flagship graph at w 8 and w 1,
-    sharing one ELL. Returns the two K1 entries of the kernels line."""
+    sharing one ELL. Returns the two K1 entries of the kernels line and
+    the ELL."""
     from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
     from tpu_bfs_torch.graph.ell import build_ell
     from tpu_bfs_torch.validate import check_distances
@@ -733,7 +755,7 @@ def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> 
     emit({"phase": "packed", "graph": "the flagship graph", "kcap": ell.kcap,
           "buckets": len(names), "slots": ell.total_slots, "active": ell.num_active,
           "build_ell_s": ell_s, "engines": out})
-    return entries
+    return entries, ell
 
 
 def phase_graph500(dev, k1, k2, scale: int, small_scale: int) -> None:
@@ -779,6 +801,320 @@ def phase_graph500(dev, k1, k2, scale: int, small_scale: int) -> None:
               "total_s": total_s})
 
 
+def level_k1_ms(k1, k2, run):
+    """K1's summed CUDA-event time per level of one hybrid batch: K2 runs
+    once a level, after the level's K1 launches, so the K2 launches so far
+    tag each K1 launch with its level. Returns (ms per level, K1 launches)."""
+    k2_t = []
+
+    class Tagged(list):
+        def append(self, ev):
+            super().append((ev, len(k2_t)))
+
+    k1_t = Tagged()
+    k1.ell_expand.timings, k2.tile_spmm.timings = k1_t, k2_t
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        k1.ell_expand.timings = k2.tile_spmm.timings = None
+    per = {}
+    for (a, b), lvl in k1_t:
+        per[lvl] = per.get(lvl, 0.0) + a.elapsed_time(b)
+    return [per.get(i, 0.0) for i in range(max(per) + 1 if per else 0)], len(k1_t)
+
+
+@contextlib.contextmanager
+def captured_k1(pc):
+    """Record every K1 call of the packed loop (the gate mask, index table,
+    frontier and op), for the kernels line to replay on the same inputs."""
+    calls = []
+    real = pc.ell_expand
+
+    def record(need_blk, gt, fw, wt=None, *, op="or"):
+        calls.append((need_blk.clone(), gt, fw, op))
+        return real(need_blk, gt, fw, wt, op=op)
+
+    pc.ell_expand = record
+    try:
+        yield calls
+    finally:
+        pc.ell_expand = real
+
+
+def k1_gated_entry(k1, calls, launches: int, ptxas) -> dict:
+    """The kernels-line entry of K1 under the pull gate: every launch of one
+    gated flagship batch replayed on its own mask, index table and frontier,
+    against the twin bit for bit, then both timed over the whole batch. The
+    bound reads, per level (the launches that share one frontier), the
+    frontier rows that the active tiles' indices name, once, and per launch
+    the active tiles' index slabs and the mask, and writes every output
+    once (gated-out tiles write the identity), over 3.35 TB/s: the
+    convention of the other K1 entries, summed over the batch. The model is
+    ell_expand_hbm_bytes(..., active_tiles=)."""
+    saved = k1.ell_expand.launches
+    err = 0
+    for m, gt, fw, op in calls:
+        a, b = k1.ell_expand(m, gt, fw, op=op), k1.ell_expand_plain(m, gt, fw, op=op)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(a, b))
+        require(torch.equal(a, b), "gated ell_expand != twin on the batch's masks")
+    del a, b
+    nbytes = model = active = tiles = 0
+    levels = {}
+    for m, gt, fw, op in calls:
+        levels.setdefault(fw.data_ptr(), []).append((m, gt, fw))
+    for level in levels.values():
+        w = level[0][2].shape[1]
+        named = []
+        for m, gt, fw in level:
+            k, ncols = gt.shape
+            nb = ncols // 128
+            on = m != 0
+            at = int(on.sum())
+            named.append(gt.view(k, nb, 128)[:, on].reshape(-1))
+            nbytes += at * k * 128 * 4 + m.nbytes + ncols * w * 4
+            model += k1.ell_expand_hbm_bytes(k, ncols, w, active_tiles=at)
+            active, tiles = active + at, tiles + nb
+        nbytes += int(torch.unique(torch.cat(named)).numel()) * w * 4
+
+    def batch(fn):
+        for m, gt, fw, op in calls:
+            fn(m, gt, fw, op=op)
+
+    entry = {
+        "name": "K1 or, gated (pull gate), flagship residual", "route": "cuda",
+        "source": "tpu_bfs_torch/csrc/ell_expand.cu",
+        "replaces": "tpu_bfs/ops/ell_expand.py:225", "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: batch(k1.ell_expand), 3),
+        "plain_ms": cuda_ms(lambda: batch(k1.ell_expand_plain), 1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        "model_ms": model / HBM_BYTES_PER_S * 1e3,
+        "unit": f"one gated flagship batch: {len(calls)} launches, {active} of {tiles} tiles "
+                "active",
+        "ptxas": ptxas.get("ell_expand.cu", []),
+    }
+    k1.ell_expand.launches = saved  # comparisons do not count
+    return entry
+
+
+def compare_state(gated, plain, act: int, lane_mask) -> int:
+    """Require the gated batch's raw state to equal the ungated batch's on
+    the device: the visited tables whole, the counter planes on real rows of
+    active lanes. Returns the plane words that differ elsewhere (the ripples
+    the gate skipped on inactive lanes and pad rows)."""
+    require(torch.equal(gated._vis, plain._vis), "gated visited table != ungated")
+    m = lane_mask[None, :]
+    off = 0
+    for p, q in zip(gated._planes, plain._planes):
+        d = p ^ q
+        require(not (d[:act] & m).any().item(), "gated plane bits != ungated on active lanes")
+        off += int((d != 0).sum())
+    return off
+
+
+def phase_pullgate(dev, k1, k2, g, eng, sources, picks, wide, ptxas) -> dict:
+    """The pull gate on the flagship: HybridMsBfsEngine(pull_gate=True) on
+    the flagship's HybridGraph, a gated and an ungated batch on the same
+    sources (state compared on the device, lanes against SciPy), K1's time
+    per level in each, the gate's skipped blocks and host reads per level;
+    then the wide engine gated and ungated (the wide phase's batch). Returns
+    the gated K1 entry of the kernels line."""
+    from tpu_bfs_torch.algorithms import _packed_common as pc
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+
+    t0 = time.perf_counter()
+    geng = HybridMsBfsEngine(eng.hg, lanes=eng.lanes, num_planes=eng.num_planes,
+                             pull_gate=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    geng.run(sources)  # warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts(k1, k2)
+    rg = geng.run(sources, time_it=True)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(all(n > 0 for n in launches.values()), f"the gated batch skipped a kernel: {launches}")
+    gated_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    levels_run = len(geng.last_gate_active_blocks)
+    counts = geng.last_gate_level_counts.cpu().numpy()[:levels_run].tolist()
+    syncs = geng.last_host_syncs
+    require(syncs == levels_run == rg.num_levels + 1,
+            f"gated loop: {syncs} host reads over {levels_run} levels")
+    active_blocks = list(geng.last_gate_active_blocks)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts(k1, k2)
+    ru = eng.run(sources, time_it=True)
+    plain_launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    plain_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    hg = eng.hg
+    off_words = compare_state(rg, ru, hg.num_active, geng._lane_mask_dev)
+    require(rg.num_levels == ru.num_levels and np.array_equal(rg.reached, ru.reached),
+            "gated levels or reached counts != ungated")
+    t0 = time.perf_counter()
+    validate_lanes(g, rg, sources, picks)
+    validate_s = time.perf_counter() - t0
+    out = {
+        "gated_batch_ms": rg.elapsed_s * 1e3, "gated_hmean_gteps": rg.teps / 1e9,
+        "ungated_batch_ms": ru.elapsed_s * 1e3, "ungated_hmean_gteps": ru.teps / 1e9,
+        "levels": rg.num_levels, "levels_run": levels_run, "host_syncs": syncs,
+        "syncs_per_level": syncs / levels_run, "gated_tiles": counts,
+        "state_blocks_active": active_blocks, "state_blocks": geng._table_rows // 128,
+        "residual_blocks": sum(-(-b.n // 128) for b in hg.res_light)
+        + (-(-hg.res_num_virtual // 128) if hg.res_heavy else 0),
+        # Each batch's peak above what was allocated when it started (the
+        # ungated batch starts with the gated result held for the comparison).
+        "gated_peak_above_start_gb": gated_peak, "ungated_peak_above_start_gb": plain_peak,
+        "launches": launches, "ungated_launches": plain_launches,
+        "plane_words_differing_off_active_lanes": off_words,
+        "validated_lanes": picks, "validate_s": validate_s, "engine_build_s": build_s,
+    }
+    del rg, ru
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K1 per level, CUDA events around each launch, in a further batch of
+    # each; the gated one's launches are kept for the kernels line.
+    with captured_k1(pc) as calls:
+        out["k1_gated_ms_per_level"], n_gated = level_k1_ms(k1, k2, lambda: geng.run(sources))
+    out["k1_ungated_ms_per_level"], n_plain = level_k1_ms(k1, k2, lambda: eng.run(sources))
+    out["k1_gated_ms"] = sum(out["k1_gated_ms_per_level"])
+    out["k1_ungated_ms"] = sum(out["k1_ungated_ms_per_level"])
+    require(n_gated == len(calls) == launches["ell_expand"], "K1 launches differ between batches")
+    entry = k1_gated_entry(k1, calls, launches["ell_expand"], ptxas)
+    del calls, geng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The wide engine at the wide phase's scale, gated against ungated.
+    wg, weng, wres, wsrc = wide
+    gw = WidePackedMsBfsEngine(weng.ell, lanes=weng.lanes, num_planes=weng.num_planes,
+                               pull_gate=True, device=dev)
+    gw.run(wsrc)  # warm
+    reset_counts(k1, k2)
+    rgw = gw.run(wsrc, time_it=True)
+    wl = k1.ell_expand.launches
+    require(wl > 0 and k2.tile_spmm.launches == 0, "gated wide engine: K1 did not launch")
+    wn = len(gw.last_gate_active_blocks)
+    require(gw.last_host_syncs == wn == rgw.num_levels + 1, "gated wide loop: a level read twice")
+    off_w = compare_state(rgw, wres, weng.ell.num_active, gw._lane_mask_dev)
+    validate_lanes(wg, rgw, wsrc, [0, 2048, 4095])
+    out["wide"] = {
+        "scale": int(np.log2(wg.num_vertices)), "lanes": gw.lanes,
+        "gated_batch_ms": rgw.elapsed_s * 1e3, "ungated_batch_ms": wres.elapsed_s * 1e3,
+        "gated_hmean_gteps": rgw.teps / 1e9, "ungated_hmean_gteps": wres.teps / 1e9,
+        "levels": rgw.num_levels, "host_syncs": gw.last_host_syncs,
+        "gated_tiles": gw.last_gate_level_counts.cpu().numpy()[:wn].tolist(),
+        "state_blocks_active": list(gw.last_gate_active_blocks),
+        "state_blocks": gw._table_rows // 128, "ell_expand_launches": wl,
+        "plane_words_differing_off_active_lanes": off_w, "validated_lanes": [0, 2048, 4095],
+    }
+    emit({"phase": "pullgate", "graph": "the flagship graph", "lanes": eng.lanes, **out})
+    return entry
+
+
+def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees) -> None:
+    """TiledBfsEngine(pull_gate=True) from the single phase's sources:
+    distances equal SciPy's, trees the single phase's checked ones."""
+    from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
+
+    t0 = time.perf_counter()
+    eng = TiledBfsEngine(g, pull_gate=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_counts(k1, k2)
+    runs = []
+    for s in sources:
+        eng.run(s, with_parents=False, time_it=True)  # warm
+        r = eng.run(s, time_it=True)
+        np.testing.assert_array_equal(r.distance, golden[s])
+        require(np.array_equal(r.parent, trees[s]), f"gated tiled: tree of {s} differs")
+        runs.append({"source": s, "ms": r.elapsed_s * 1e3, "levels": r.num_levels,
+                     "gteps": r.teps / 1e9, "host_syncs": eng.last_host_syncs,
+                     "skipped_tiles": eng.last_gate_skipped_tiles})
+    require(k1.ell_expand.launches == k2.tile_spmm.launches == 0,
+            "the tiled engine is plain PyTorch, yet launched a kernel")
+    emit({"phase": "pullgate", "engine": "TiledBfsEngine(pull_gate=True)",
+          "graph": "the flagship graph", "tiles": eng.num_tiles, "build_s": build_s,
+          "validated": "every run", "runs": runs,
+          "mean_ms": sum(x["ms"] for x in runs) / len(runs)})
+
+
+def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> None:
+    """Checkpoint and resume on the flagship graph: a 256-lane hybrid batch
+    started, advanced ``every`` levels, saved, loaded and resumed on the
+    wide engine in chunks of ``every`` levels (each saved and loaded), its
+    finish equal to an uninterrupted hybrid run on every lane; ungated, then
+    gated. Then a single-source BfsEngine (scan): start, advance to level
+    2, save, load, advance, finish, equal to run."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.utils import checkpoint as ck
+
+    d = BUILD_DIR / "ckpt"
+    d.mkdir(parents=True, exist_ok=True)
+    path = str(d / "state.npz")
+    src = np.asarray(sources[:256])
+    out = {}
+    for gate in (False, True):
+        heng = HybridMsBfsEngine(hg, lanes=256, num_planes=5, pull_gate=gate, device=dev)
+        weng = WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, pull_gate=gate, device=dev)
+        full = heng.run(src)
+        save_s, load_s, sizes, levels = [], [], [], []
+        reset_counts(k1, k2)
+        st = heng.start(src)
+        eng_of_chunk = heng
+        t_all = time.perf_counter()
+        while not st.done:
+            st = eng_of_chunk.advance(st, every)
+            t0 = time.perf_counter()
+            ck.save_packed_checkpoint(path, st)
+            save_s.append(time.perf_counter() - t0)
+            sizes.append(Path(path).stat().st_size)
+            t0 = time.perf_counter()
+            st = ck.load_packed_checkpoint(path)
+            load_s.append(time.perf_counter() - t0)
+            levels.append(st.level)
+            eng_of_chunk = weng  # the rest resumes on the wide engine
+        res = weng.finish(st)
+        total_s = time.perf_counter() - t_all
+        launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+        require(launches["ell_expand"] > 0 and launches["tile_spmm"] > 0,
+                f"the chunked batch skipped a kernel: {launches}")
+        require(len(levels) >= 2, "the batch ended in its first chunk: nothing resumed")
+        require(res.num_levels == full.num_levels, "resumed levels != uninterrupted")
+        require(np.array_equal(res.reached, full.reached) and np.array_equal(res.ecc, full.ecc),
+                "resumed reached/ecc != uninterrupted")
+        for i in range(len(src)):
+            require(np.array_equal(res.distance_u8_lane(i), full.distance_u8_lane(i)),
+                    f"resumed lane {i} distances != uninterrupted")
+        out["gated" if gate else "ungated"] = {
+            "chunk_levels": levels, "save_s": save_s, "load_s": load_s, "file_bytes": sizes,
+            "table_bytes": int(st.frontier.nbytes) * (2 + len(st.planes)),
+            "chunked_total_s": total_s, "launches": launches, "levels": res.num_levels,
+            "lanes_equal": len(src)}
+        del heng, weng, full, res, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    beng = BfsEngine(dg, backend="scan", device=dev)
+    st = beng.advance(beng.start(single_source), 2)
+    ck.save_checkpoint(path, st)
+    st = beng.advance(ck.load_checkpoint(path))
+    r, want = beng.finish(st), beng.run(single_source)
+    require(np.array_equal(r.distance, want.distance) and np.array_equal(r.parent, want.parent),
+            "single-source resume != run")
+    Path(path).unlink()
+    emit({"phase": "ckpt", "graph": "the flagship graph", "lanes": 256, "every": every,
+          "packed": out, "single": {"backend": "scan", "source": int(single_source),
+                                    "resumed_at": 2, "levels": r.num_levels,
+                                    "equal_to_run": True}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
@@ -788,6 +1124,8 @@ def main(argv=None) -> int:
                     help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
     ap.add_argument("--graph500-small-scale", type=int, default=18,
                     help="RMAT scale of the graph500 single and batched runs (18)")
+    ap.add_argument("--ckpt-every", type=int, default=4,
+                    help="levels per checkpoint chunk in the ckpt phase (4)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
@@ -825,17 +1163,25 @@ def main(argv=None) -> int:
     phase_parity(dev, k1, k2)
     if args.parity_only:
         return 0
-    phase_wide(dev, k1, k2, args.wide_scale)
+    wide = phase_wide(dev, k1, k2, args.wide_scale)
     g, eng, res, sources, picks, launches, traversable = phase_flagship(
         dev, k1, k2, args.scale, args.lanes)
     kernels = phase_kernels(eng, res, launches, k1, k2, ptxas)
     kernels.append(phase_parents(k1, k2, g, eng, res, sources, picks, ptxas))
-    del eng, res  # free the flagship's device state; its graph stays
+    del res
     gc.collect()
     torch.cuda.empty_cache()
-    single_sources, golden, trees = phase_single(dev, k1, k2, g, traversable)
-    kernels += phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
-    del g, golden, trees
+    kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:3], wide, ptxas))
+    hg = eng.hg
+    del eng, wide  # free the flagship's device state; its graph stays
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_sources, golden, trees, dg = phase_single(dev, k1, k2, g, traversable)
+    phase_pullgate_tiled(dev, k1, k2, g, single_sources, golden, trees)
+    entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
+    kernels += entries
+    phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_sources[0], args.ckpt_every)
+    del g, golden, trees, dg, ell, hg
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)

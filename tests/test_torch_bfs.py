@@ -99,9 +99,14 @@ def test_errors():
     for s in (-1, tg.num_vertices):
         with pytest.raises(ValueError, match="out of range"):
             eng.run(s)
-    for call in (lambda: eng.start(0), lambda: eng.advance(None), lambda: eng.finish(None)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    # The checkpoint entry points check their input as JAX's do.
+    for s in (-1, tg.num_vertices):
+        with pytest.raises(ValueError, match="out of range"):
+            eng.start(s)
+    st = eng.start(0)
+    st.frontier, st.visited = st.frontier[:-1], st.visited[:-1]
+    with pytest.raises(ValueError, match="vertices, graph has"):
+        eng.advance(st)
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

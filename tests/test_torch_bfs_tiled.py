@@ -68,7 +68,12 @@ def test_time_it_max_levels_and_errors():
     assert_same_result(r, JTiled(jg).run(0, max_levels=50))
     with pytest.raises(ValueError, match="out of range"):
         teng.run(tg.num_vertices)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TiledBfsEngine(tg, pull_gate=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        teng.start(0)
+    # The gate and the checkpoint entry points, ported: a cut run through
+    # start/advance equals the cut run.
+    gated = TiledBfsEngine(tg, pull_gate=True, device="cpu")
+    assert gated.pull_gate and gated.last_gate_skipped_tiles is None
+    st = teng.advance(teng.start(0), 50)
+    assert st.level == 50 and not st.done
+    np.testing.assert_array_equal(teng.finish(st).distance, r.distance)
+    with pytest.raises(ValueError, match="out of range"):
+        teng.start(tg.num_vertices)

@@ -11,6 +11,7 @@ scan of every source file.
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -201,32 +202,42 @@ class _Recorder:
         return self
 
 
+@pytest.mark.parametrize("pull_gate,ckpt", [(False, None), (True, None), (False, "c.npz")])
 @pytest.mark.parametrize("n_sources", [3, 512, 513])
-def test_cli_default_engine_rule_equals_jax(n_sources, monkeypatch):
+def test_cli_default_engine_rule_equals_jax(n_sources, pull_gate, ckpt, monkeypatch):
     import argparse
 
     from tpu_bfs import cli as jcli
     from tpu_bfs.algorithms import msbfs_hybrid as jhyb
     from tpu_bfs.algorithms import msbfs_packed as jpk
+    from tpu_bfs.algorithms import msbfs_wide as jwide
     from tpu_bfs_torch.algorithms import msbfs_hybrid as thyb
     from tpu_bfs_torch.algorithms import msbfs_packed as tpk
+    from tpu_bfs_torch.algorithms import msbfs_wide as twide
 
     jlog, tlog = [], []
     for mod, log in ((jpk, jlog), (tpk, tlog)):
         monkeypatch.setattr(mod, "PackedMsBfsEngine", _Recorder("packed", log))
     for mod, log in ((jhyb, jlog), (thyb, tlog)):
         monkeypatch.setattr(mod, "HybridMsBfsEngine", _Recorder("hybrid", log))
-    jargs = argparse.Namespace(
-        engine=None, planes=None, lanes=None, pull_gate=False, expand_impl="xla",
-        devices=1, wire_pack=False, sparse_delta=False, ckpt=None, resume=None,
-        adaptive_push=None)
-    targs = argparse.Namespace(engine=None, planes=None, lanes=None, device="cpu")
+    for mod, log in ((jwide, jlog), (twide, tlog)):
+        monkeypatch.setattr(mod, "WidePackedMsBfsEngine", _Recorder("wide", log))
+    common = dict(engine=None, planes=None, lanes=None, pull_gate=pull_gate,
+                  ckpt=ckpt, resume=None)
+    jargs = argparse.Namespace(expand_impl="xla", devices=1, wire_pack=False,
+                               sparse_delta=False, adaptive_push=None, **common)
+    targs = argparse.Namespace(device="cpu", **common)
     jcli._make_ms_engine(jargs, None, n_sources)
     cli._make_ms_engine(targs, None, n_sources)
     assert tlog == jlog
     want_packed = n_sources <= 512
-    assert tlog[0][0] == ("packed" if want_packed else "hybrid")
-    if want_packed:
+    want = "packed" if want_packed else "hybrid"
+    if want_packed and ckpt:
+        want = "wide"
+    elif want_packed and pull_gate:
+        want = "hybrid"
+    assert tlog[0][0] == want
+    if want == "packed":
         assert tlog[0][1] == max(32, -(-n_sources // 32) * 32)
 
 
@@ -258,8 +269,16 @@ def test_cli_rejects_out_of_range_source():
 
 
 def test_port_imports_no_jax():
+    # Every module of the port, imported in a clean interpreter.
+    mods = sorted(
+        ".".join(f.relative_to(ROOT).with_suffix("").parts)
+        for f in (ROOT / "tpu_bfs_torch").rglob("*.py") if f.name != "__main__.py"
+    )
+    mods = [m.removesuffix(".__init__") for m in mods]
+    assert {"tpu_bfs_torch.utils.checkpoint", "tpu_bfs_torch.algorithms._packed_common",
+            "tpu_bfs_torch.algorithms.bfs_tiled", "tpu_bfs_torch.graph.ell"} <= set(mods)
     code = (
-        "import tpu_bfs_torch, tpu_bfs_torch.cli; import sys; "
+        f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_bfs.')) "
         "or m == 'tpu_bfs' for m in sys.modules), "
         "sorted(m for m in sys.modules if 'jax' in m or m.startswith('tpu_bfs.'))"
@@ -285,3 +304,100 @@ def test_ast_no_jax_or_tpu_bfs_imports():
         if mod.split(".")[0] in ("jax", "jaxlib", "tpu_bfs")
     ]
     assert bad == []
+
+
+def _run_cli(main, argv):
+    """stdout lines of ``main(argv)``, which must return 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue().splitlines()
+
+
+def _lines(lines, *prefixes):
+    return [ln for ln in lines if ln.startswith(prefixes)]
+
+
+_jax_gate_runs = {}
+
+
+@pytest.mark.parametrize("engine", ["hybrid", "wide"])
+def test_cli_pull_gate_equals_jax(engine):
+    from tpu_bfs import cli as jcli
+
+    argv = ["3", "rmat:scale=10,ef=16,seed=2", "--multi-source",
+            ",".join(str(x) for x in range(40, 100)), "--engine", engine, "--lanes", "64",
+            "--pull-gate", "--stats"]
+    if engine not in _jax_gate_runs:
+        _jax_gate_runs[engine] = _run_cli(jcli.main, argv)
+    jlines = _jax_gate_runs[engine]
+    lines = _run_cli(cli.main, argv + ["--device", "cpu"])
+    assert "Output OK" in lines
+    assert _lines(lines, "source ") == _lines(jlines, "source ") and len(_lines(lines, "source ")) == 61
+    stats = _lines(lines, '{"level"')
+    assert stats == _lines(jlines, '{"level"') and all('"gated_tiles"' in ln for ln in stats)
+    assert sum(json.loads(ln)["gated_tiles"] for ln in stats) > 0  # the gate skipped blocks
+    plain = _run_cli(cli.main, [a for a in argv if a != "--pull-gate"] + ["--device", "cpu"])
+    assert _lines(plain, "source ") == _lines(lines, "source ")
+    assert all('"gated_tiles"' not in ln for ln in _lines(plain, '{"level"'))
+
+
+def test_cli_pull_gate_rules():
+    with pytest.raises(SystemExit, match="--pull-gate applies to the wide/hybrid engines"):
+        cli.main(["3", "rmat:scale=8", "--multi-source", "1", "--engine", "packed",
+                  "--pull-gate", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # single source: only the tiled backend has a tile pass
+        cli.main(["3", "rmat:scale=8", "--pull-gate", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        cli.main(["3", "rmat:scale=8", "--multi-source", "1", "--engine", "packed",
+                  "--ckpt", "c.npz", "--device", "cpu"])
+
+
+def test_cli_tiled_pull_gate_equals_jax(tmp_path_factory):
+    from tpu_bfs import cli as jcli
+
+    argv = ["0", "rmat:scale=10", "--backend", "tiled", "--pull-gate", "--stats"]
+    jlines = _run_cli(jcli.main, argv)
+    lines = _run_cli(cli.main, argv + ["--device", "cpu"])
+    for prefix in ("Reached ", "Pull gate skipped ", '{"level"'):
+        assert _lines(lines, prefix) == _lines(jlines, prefix) and _lines(lines, prefix)
+    assert "Output OK" in lines
+
+
+def _ckpt_lines(lines, path):
+    return [ln.replace(str(path), "PATH") for ln in
+            _lines(lines, "checkpoint", "resumed ", "source ", "Reached ", '{"level"')]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_cli_checkpoint_and_resume_cross_jax(multi, tmp_path):
+    from tpu_bfs import cli as jcli
+
+    argv = ["3", "rmat:scale=10,ef=8,seed=2", "--stats"]
+    if multi:
+        argv += ["--multi-source", "1,2,200,77", "--engine", "wide", "--lanes", "32"]
+    jpath, tpath = tmp_path / "j.npz", tmp_path / "t.npz"
+    jlines = _run_cli(jcli.main, argv + ["--ckpt", str(jpath), "--ckpt-every", "2"])
+    lines = _run_cli(cli.main, argv + ["--ckpt", str(tpath), "--ckpt-every", "2",
+                                       "--device", "cpu"])
+    assert "Output OK" in lines and "Output OK" in jlines
+    assert _ckpt_lines(lines, tpath) == _ckpt_lines(jlines, jpath)
+    assert len(_lines(lines, "checkpoint")) >= 3
+    # Each package resumes the other's last checkpoint; a mid-run state too.
+    for main, path, other in ((cli.main, jpath, jcli.main), (jcli.main, tpath, cli.main)):
+        extra = ["--device", "cpu"] if main is cli.main else []
+        a = _run_cli(main, argv + ["--resume", str(path)] + extra)
+        b = _run_cli(other, argv + ["--resume", str(tpath if path == jpath else jpath)]
+                     + (["--device", "cpu"] if other is cli.main else []))
+        assert "Output OK" in a
+        assert _ckpt_lines(a, path) == _ckpt_lines(b, path)
+    mid = tmp_path / "mid.npz"
+    _run_cli(jcli.main, argv + ["--ckpt", str(mid), "--ckpt-every", "2", "--max-levels", "2",
+                                "--skip-cpu"])  # a cut run fails the full golden
+    resumed = _run_cli(cli.main, argv + ["--resume", str(mid), "--device", "cpu"])
+    assert "Output OK" in resumed and any(ln.startswith("resumed ") and "at level 2" in ln
+                                          for ln in resumed)
+    assert _lines(resumed, "source ", "Reached ") == _lines(jlines, "source ", "Reached ")

@@ -339,3 +339,86 @@ def test_packed_engine_on_cuda_equals_cpu(cuda, lanes):
     ref = np.empty_like(out)
     np.testing.assert_array_equal(got.parents_into(out),
                                   want.parents_into(ref, device="device"))
+
+
+@pytest.mark.parametrize("w", [1, 8, 256])
+@pytest.mark.parametrize("density", [0.05, 0.3])
+def test_ell_expand_sparse_gate_masks(cuda, w, density):
+    # The pull gate's masks: most tiles gated out, in random runs; a gated-
+    # out tile writes zeros and launches no gather.
+    rng = np.random.default_rng(int(w / density))
+    nb, rows, k = 40, 4001, 16
+    need = (rng.random(nb) < density).astype(np.int32)
+    need[rng.integers(0, nb)] = 1
+    gt = rng.integers(0, rows, size=(k, nb * 128)).astype(np.int32)
+    fw = rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+    args = (i32(need, cuda), i32(gt, cuda), i32(fw, cuda))
+    before = k1.ell_expand.launches
+    got = k1.ell_expand(*args)
+    torch.cuda.synchronize()
+    assert k1.ell_expand.launches == before + 1
+    assert torch.equal(got, k1.ell_expand_plain(*args))
+    off = np.repeat(need == 0, 128)
+    assert not got[torch.from_numpy(off).to(cuda)].any()
+
+
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_gated_engine_on_cuda_equals_cpu(cuda, engine):
+    # The gated loop on the card: raw state, skipped-block counts and host
+    # reads equal the same engine's on CPU tensors, and the distances the
+    # ungated engine's; K1 launches, never its twin.
+    g = rmat_graph(12, 16, seed=11)
+    kw = dict(lanes=256, kcap=8, num_planes=5, pull_gate=True)
+    if engine == "hybrid":
+        kw["tile_thr"] = 16
+    make = WidePackedMsBfsEngine if engine == "wide" else HybridMsBfsEngine
+    src = np.random.default_rng(5).choice(np.flatnonzero(g.degrees > 0), size=200,
+                                          replace=False)
+    cpu = make(g, device="cpu", **kw)
+    want = cpu.run(src)
+    eng = make(g, device=cuda, **kw)
+    before = k1.ell_expand.launches
+    res = eng.run(src)
+    assert k1.ell_expand.launches > before
+    assert torch.equal(res._vis.cpu(), want._vis)
+    for p, q in zip(res._planes, want._planes):
+        assert torch.equal(p.cpu(), q)
+    assert torch.equal(eng.last_gate_level_counts.cpu(), cpu.last_gate_level_counts)
+    assert eng.last_gate_level_counts.sum() > 0
+    assert eng.last_host_syncs == cpu.last_host_syncs == res.num_levels + 1
+    plain = make(g, device=cuda, **{**kw, "pull_gate": False}).run(src)
+    np.testing.assert_array_equal(res.reached, plain.reached)
+    np.testing.assert_array_equal(res.ecc, plain.ecc)
+    for i in (0, 31, 32, 199):
+        np.testing.assert_array_equal(res.distances_int32(i), plain.distances_int32(i))
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_checkpoint_resume_on_cuda(cuda, gate, tmp_path):
+    # Save, load and resume on the card: the chunked batch equals one run,
+    # and its checkpoints equal those of the same engine on CPU tensors.
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.utils import checkpoint as ck
+
+    g = rmat_graph(12, 16, seed=11)
+    kw = dict(lanes=64, kcap=8, num_planes=5, tile_thr=16, pull_gate=gate)
+    src = np.random.default_rng(4).integers(0, g.num_vertices, size=50)
+    eng, cpu = HybridMsBfsEngine(g, device=cuda, **kw), HybridMsBfsEngine(g, device="cpu", **kw)
+    st, cst = eng.start(src), cpu.start(src)
+    path = str(tmp_path / "c.npz")
+    while not st.done:
+        st, cst = eng.advance(st, 2), cpu.advance(cst, 2)
+        for name in ("frontier", "visited", "planes"):
+            np.testing.assert_array_equal(getattr(st, name), getattr(cst, name))
+        ck.save_packed_checkpoint(path, st)
+        st = ck.load_packed_checkpoint(path)
+    res, full = eng.finish(st), eng.run(src)
+    np.testing.assert_array_equal(res.reached, full.reached)
+    for i in (0, 33, 49):
+        np.testing.assert_array_equal(res.distances_int32(i), full.distances_int32(i))
+    single = BfsEngine(g, backend="scan", device=cuda)
+    s = int(np.argmax(g.degrees))
+    sst = single.advance(single.start(s), 2)
+    ck.save_checkpoint(path, sst)
+    out = single.finish(single.advance(ck.load_checkpoint(path)))
+    np.testing.assert_array_equal(out.distance, single.run(s).distance)

@@ -9,7 +9,14 @@ the levels each row stays unvisited. Reached counts and degree sums reduce
 on the device; distances decode lazily, one 32-lane word at a time.
 
 The JAX ``lax.while_loop`` becomes a host loop with exactly one
-device-to-host sync per level (the ``alive`` flag).
+device-to-host sync per level (the ``alive`` flag; with the pull gate, also
+the next level's gate counts, in the same read). The JAX ``lax.cond``
+choices of the gate become device masks (K1's ``need_blk``) or host
+branches on those counts.
+
+A batch's state checkpoints to the host (``start`` / ``advance`` /
+``finish``) in real-vertex-id row order as uint32, the JAX package's
+``PackedCheckpoint`` layout, so checkpoints cross between the packages.
 
 Parent trees are derived after the loop (``PackedBatchResult.parents_*``):
 the device parent scan of ``parent_scan.py`` over the engine's full ELL,
@@ -18,8 +25,8 @@ or, on the CPU or when asked for, one host scatter-min per lane.
 Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 ``max_levels_cap``, ``num_planes``, ``undirected``, ``device``, ``_rank``,
 ``_act``, ``_warmed``, ``num_vertices``, ``host_graph`` and the callables
-``_core``, ``_seed_dev``, ``_lane_stats``, ``_extract_word``, ``_lane_ecc``,
-``_full_parent_ell``.
+``_core``, ``_core_from``, ``_deeper``, ``_seed_dev``, ``_lane_stats``,
+``_extract_word``, ``_lane_ecc``, ``_full_parent_ell``, and ``_table_rows``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_bfs_torch.algorithms.frontier import _nonzero_static
 from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
 from tpu_bfs_torch.ops.ell_expand import COMBINE, KERNEL_OPS, TILE, ell_expand
@@ -182,54 +190,267 @@ def arrs_nbytes(host_tables: dict) -> int:
     return sum(int(np.asarray(t).nbytes) for t in host_tables.values())
 
 
+def _expand_pieces(spec: ExpandSpec, w: int, op: str):
+    """``(full, heavy)`` of a bucketed-ELL expansion: ``full(n, fw)`` is
+    ``n`` identity rows; ``heavy(arrs, fw)`` the heavy section, one K1
+    launch over the virtual rows, then their fold pyramid and
+    ``heavy_pick`` in plain torch."""
+    combine = COMBINE[op]
+    ident = KERNEL_OPS[op][0]
+
+    def full(n, fw):
+        return torch.full((n, w), ident, dtype=torch.int32, device=fw.device)
+
+    def heavy(arrs, fw):
+        acc = ell_expand(arrs["virtual_need"], arrs["virtual_gt"], fw, op=op)[: spec.num_virtual]
+        vr_ext = torch.cat([acc, full(1, fw)])
+        cur = vr_ext.index_select(0, arrs["fold_pad_map"])
+        pyramid = [cur]
+        for _ in range(spec.fold_steps):
+            pairs = cur.view(-1, 2, w)
+            cur = combine(pairs[:, 0], pairs[:, 1])
+            pyramid.append(cur)
+        pyr = torch.cat(pyramid) if len(pyramid) > 1 else pyramid[0]
+        return pyr.index_select(0, arrs["heavy_pick"])
+
+    return full, heavy
+
+
 def make_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
     """The bucketed-ELL expansion: one ``ell_expand`` launch per bucket
     (the JAX ``make_pallas_expand`` form), the heavy rows' fold pyramid and
     ``heavy_pick`` in plain torch. Returns ``expand(arrs, fw)``: the bucket
     outputs (heavy, light..., ``tail_rows`` identity rows), a fresh tensor."""
-    combine = COMBINE[op]
-    ident = KERNEL_OPS[op][0]
-
-    def _full(n, fw):
-        return torch.full((n, w), ident, dtype=torch.int32, device=fw.device)
-
-    def _bucket(arrs, fw, name, n):
-        return ell_expand(arrs[f"{name}_need"], arrs[f"{name}_gt"], fw, op=op)[:n]
+    full, heavy = _expand_pieces(spec, w, op)
 
     def expand(arrs, fw):
-        parts = []
-        if spec.heavy:
-            acc = _bucket(arrs, fw, "virtual", spec.num_virtual)
-            vr_ext = torch.cat([acc, _full(1, fw)])
-            cur = vr_ext.index_select(0, arrs["fold_pad_map"])
-            pyramid = [cur]
-            for _ in range(spec.fold_steps):
-                pairs = cur.view(-1, 2, w)
-                cur = combine(pairs[:, 0], pairs[:, 1])
-                pyramid.append(cur)
-            pyr = torch.cat(pyramid) if len(pyramid) > 1 else pyramid[0]
-            parts.append(pyr.index_select(0, arrs["heavy_pick"]))
+        parts = [heavy(arrs, fw)] if spec.heavy else []
         for i, (_k, n) in enumerate(spec.light_meta):
-            parts.append(_bucket(arrs, fw, f"light{i}", n))
+            parts.append(ell_expand(arrs[f"light{i}_need"], arrs[f"light{i}_gt"], fw, op=op)[:n])
         if spec.tail_rows:
-            parts.append(_full(spec.tail_rows, fw))
+            parts.append(full(spec.tail_rows, fw))
         return torch.cat(parts) if len(parts) > 1 else parts[0].clone()
 
     return expand
 
 
+# --- The pull gate -----------------------------------------------------------
+#
+# A row is settled once every active lane (a batch entry that seeded a table
+# row) has visited it: ``vis[r] & lane_mask == lane_mask``. A settled row
+# never claims again (``hit & ~vis`` is empty on every active lane, and
+# frontier words carry only active lanes' bits), so the pull work that
+# produces its hit, and its claim and plane ripple, can be skipped with
+# bit-identical distances and parents. The gate works in GATE_TILE-row
+# blocks: K1 skips a gated-out tile (``need_blk``), and the state pass
+# gathers only the blocks still holding an unsettled row.
+
+GATE_TILE = 128  # rows per gate block
+# The compacted passes pay off only when most blocks are settled; each gated
+# pass falls back to the dense form above this active fraction. Policy
+# only: both forms are bit-identical on everything extraction reads.
+GATE_DENSE_DEN = 4  # gated only when active blocks <= total / 4
+
+
+def host_lane_mask(rows_of_sources: np.ndarray, act: int, w: int) -> np.ndarray:
+    """[w] uint32 active-lane mask: the OR of every non-isolated batch
+    entry's (word, bit) seed slot (the keep rule of seed_scatter_args).
+    Lanes outside the batch and isolated-source lanes are vacuously
+    settled. An all-ones mask is always safe (it only delays settling); a
+    mask missing a seeded lane would skip live claims."""
+    ranks = np.asarray(rows_of_sources, dtype=np.int64)
+    lanes = np.arange(len(ranks))
+    keep = ranks < act
+    mask = np.zeros(w, np.uint32)
+    np.bitwise_or.at(mask, lanes[keep] // 32,
+                     np.uint32(1) << (lanes[keep] % 32).astype(np.uint32))
+    return mask
+
+
+def row_unsettled(vis: torch.Tensor, act: int, lane_mask: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: True where a real row (< ``act``) still has an active
+    lane unvisited, so its pull work must run. ``lane_mask`` is the [w]
+    int32 view of :func:`host_lane_mask`."""
+    m = lane_mask[None, :]
+    uns = ((vis & m) != m).any(dim=1)
+    uns[act:] = False
+    return uns
+
+
+def host_row_unsettled(vis: np.ndarray, act: int, lane_mask: np.ndarray) -> np.ndarray:
+    """:func:`row_unsettled` of a host [rows, w] uint32 table."""
+    uns = ((vis & lane_mask[None, :]) != lane_mask[None, :]).any(axis=1)
+    uns[act:] = False
+    return uns
+
+
+def seed_row_unsettled(rows_of_sources: np.ndarray, act: int, rows: int) -> np.ndarray:
+    """:func:`row_unsettled` of a fresh batch's seed table, from its sources
+    alone: a row is settled at level 0 only if it is the one row every
+    active lane starts from, and every row is when no lane is active."""
+    need = np.arange(rows) < act
+    r = np.asarray(rows_of_sources, dtype=np.int64)
+    kept = np.unique(r[r < act])
+    if len(kept) == 0:
+        need[:] = False
+    elif len(kept) == 1:
+        need[kept[0]] = False
+    return need
+
+
+def make_gated_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
+    """The gated form of :func:`make_expand` (the JAX
+    ``make_gated_pallas_expand``): the gate rides into K1 as its
+    ``need_blk`` mask, and a gated-out tile writes the identity without a
+    gather. Per light bucket, the mask is the bucket's blocks that hold a
+    needed row, or all ones when more than 1/GATE_DENSE_DEN of them do
+    (the dense fallback is the same kernel, not a second path); it is built
+    on the device, so no host read decides it. The heavy section is skipped
+    whole when none of its output rows is needed, which the host learned in
+    the previous level's sync.
+
+    Every bucket's mask comes out of one pass over ``needed`` (a block-id
+    map built on first use): a level pays a fixed handful of small ops for
+    the gate, not a handful per bucket.
+
+    Returns ``expand(arrs, fw, needed, heavy) -> (outputs, skipped)``:
+    ``needed`` is [outputs' rows] bool on the device, ``heavy`` a host
+    bool, ``skipped`` the skipped blocks (a device int64 scalar). Skipped
+    rows come out as the identity, whose claim the caller masks away."""
+    full, heavy_section = _expand_pieces(spec, w, op)
+    T = GATE_TILE
+    heavy_blocks = -(-spec.num_virtual // T) if spec.heavy else 0
+    nbs = [-(-n // T) for _k, n in spec.light_meta]
+    starts = np.concatenate([[0], np.cumsum(nbs)]).astype(np.int64)
+    maps = {}
+
+    def block_maps(arrs, device):
+        """(block of each output row, with the heavy and tail rows at a dump
+        block; bucket of each block; each bucket's block count)."""
+        if device not in maps:
+            nh = arrs["heavy_pick"].shape[0] if spec.heavy else 0
+            ids = [np.full(nh, starts[-1], np.int64)]
+            for i, (_k, n) in enumerate(spec.light_meta):
+                ids.append(starts[i] + np.arange(n, dtype=np.int64) // T)
+            ids.append(np.full(spec.tail_rows, starts[-1], np.int64))
+            bucket = np.repeat(np.arange(len(nbs), dtype=np.int64), nbs)
+            maps[device] = tuple(torch.from_numpy(x).to(device) for x in
+                                 (np.concatenate(ids), bucket, np.asarray(nbs, np.int64)))
+        return maps[device]
+
+    def expand(arrs, fw, needed, heavy):
+        parts = []
+        skipped = torch.zeros((), dtype=torch.int64, device=fw.device)
+        if spec.heavy:
+            if heavy:
+                parts.append(heavy_section(arrs, fw))
+            else:
+                parts.append(full(arrs["heavy_pick"].shape[0], fw))
+                skipped += heavy_blocks
+        if spec.light_meta:
+            row_block, block_bucket, nb = block_maps(arrs, fw.device)
+            hits = torch.zeros(int(starts[-1]) + 1, dtype=torch.int32, device=fw.device)
+            hits.index_add_(0, row_block, needed.to(torch.int32))
+            blk = hits[:-1] > 0
+            nzb = torch.zeros(len(nbs), dtype=torch.int64, device=fw.device)
+            nzb.index_add_(0, block_bucket, blk.long())
+            take_gated = nzb * GATE_DENSE_DEN <= nb
+            mask = torch.where(take_gated.index_select(0, block_bucket), blk, True).to(torch.int32)
+            skipped += torch.where(take_gated, nb - nzb, 0).sum()
+            for i, (_k, n) in enumerate(spec.light_meta):
+                m = mask[int(starts[i]) : int(starts[i + 1])]
+                parts.append(ell_expand(m, arrs[f"light{i}_gt"], fw, op=op)[:n])
+        if spec.tail_rows:
+            parts.append(full(spec.tail_rows, fw))
+        out = torch.cat(parts) if len(parts) > 1 else parts[0].clone()
+        return out, skipped
+
+    return expand
+
+
+def gated_state_update_(hit, vis, planes, need, nzt: int) -> torch.Tensor:
+    """Claim, visited-OR and plane ripple over only the GATE_TILE blocks
+    that still hold an unsettled row (``need``; ``nzt`` of them, a count
+    the host read in the previous level's sync): the pull gate's state
+    pass. Updates ``vis`` and ``planes`` in place, consumes ``hit``, and
+    returns the claim ``nxt``.
+
+    Skipped blocks match the dense update on everything extraction reads:
+    their claim is empty, ``vis`` is unchanged, and the plane bits a dense
+    ripple would still move there belong to inactive lanes or pad rows.
+    The ragged tail block always updates densely. Above 1/GATE_DENSE_DEN
+    active blocks the whole table updates densely, as in the JAX
+    ``gated_state_update``. The active blocks are gathered
+    (``index_select`` copies), updated and written back (``index_copy_``),
+    so nothing aliases."""
+    T = GATE_TILE
+    rows, w = vis.shape
+    nt = rows // T
+    if nt == 0 or nzt * GATE_DENSE_DEN > nt:
+        hit &= ~vis
+        vis |= hit
+        ripple_increment_(planes, ~vis)
+        return hit
+    body = nt * T
+    nxt = torch.zeros_like(vis)
+    if nzt:
+        idx = _nonzero_static(need[:body].view(nt, T).any(dim=1), nzt).long()
+
+        def blocks(t):
+            return t[:body].view(nt, T, w)
+
+        nx = blocks(hit).index_select(0, idx)
+        v = blocks(vis).index_select(0, idx)
+        nx &= ~v
+        v |= nx
+        pts = [blocks(p).index_select(0, idx) for p in planes]
+        ripple_increment_(pts, ~v)
+        for p, pt in zip(planes, pts):
+            blocks(p).index_copy_(0, idx, pt)
+        blocks(vis).index_copy_(0, idx, v)
+        blocks(nxt).index_copy_(0, idx, nx)
+    if rows > body:  # the tail, densely
+        nx = hit[body:]
+        v = vis[body:]
+        nx &= ~v
+        v |= nx
+        ripple_increment_([p[body:] for p in planes], ~v)
+        nxt[body:] = nx
+    return nxt
+
+
+class GateRead(NamedTuple):
+    """What the host knows of a level's gate before the level runs."""
+
+    nzt: int  # gate blocks (of the table's whole blocks) holding an unsettled row
+    heavy: bool  # whether any heavy bucket-output row is needed
+
+
+class GatedRun(NamedTuple):
+    """A gated loop's record besides the state."""
+
+    counts: torch.Tensor  # [gate_levels] int32 skipped blocks per level
+    syncs: int  # device-to-host reads in the loop: one a level
+    active_blocks: list  # per level, the state blocks holding an unsettled row
+
+
 def make_packed_loop(hit_of, num_planes: int):
     """The level loop of the wide and hybrid engines. ``hit_of(arrs, fw)``
     returns a fresh [rows, w] hit table, which the loop overwrites in place.
-    Returns ``(core, core_from)``:
+    Returns ``(core, core_from, deeper)``:
 
     - ``core(arrs, fw0, max_levels) -> (planes, vis, levels, alive,
       truncated)``: a fresh traversal (visited starts as the seed table,
       which is left untouched for extraction; planes start at zero);
     - ``core_from(arrs, fw, vis, planes, level0, max_levels) -> (fw, vis,
       planes, level, alive)``: resume from mid-traversal state; updates
-      ``vis`` and ``planes`` in place.
+      ``vis`` and ``planes`` in place;
+    - ``deeper(arrs, fw, vis) -> bool``: whether one more level would
+      claim anything (a claim-free expansion; the state is untouched).
     """
+
+    def deeper(arrs, fw, vis):
+        return bool((hit_of(arrs, fw) & ~vis).any())
 
     def core_from(arrs, fw, vis, planes, level0, max_levels):
         level, alive = int(level0), True
@@ -254,13 +475,145 @@ def make_packed_loop(hit_of, num_planes: int):
         # incomplete only if one more level would claim: one claim-free
         # expansion decides it, so an eccentricity exactly at the cap does
         # not report a false truncation.
-        truncated = bool(
-            alive and levels >= max_levels
-            and (hit_of(arrs, fw) & ~vis).any()
-        )
+        truncated = alive and levels >= max_levels and deeper(arrs, fw, vis)
         return planes, vis, levels, alive, truncated
 
-    return core, core_from
+    return core, core_from, deeper
+
+
+def make_gated_packed_loop(hit_of, num_planes: int, *, act: int, gate_levels: int,
+                           needed_of, heavy_rows: int):
+    """The pull-gated level loop (the gated mode of the JAX
+    ``make_packed_loop``). ``hit_of(arrs, fw, needed, heavy) -> (hit,
+    skipped)`` is the gated expansion; ``needed_of(arrs, need)`` maps the
+    per-row unsettled mask to bucket-output order, whose first
+    ``heavy_rows`` rows are the heavy section's.
+
+    Each level ends with one device-to-host read: ``alive``, and the next
+    level's unsettled block count and heavy flag, computed right after the
+    claim. The first level's come from the host (:class:`GateRead`), so a
+    loop of L levels reads L times. Returns ``(core, core_from, deeper)``
+    with the ungated signatures plus ``lane_mask`` ([w] int32) and
+    ``gate0``; ``core`` and ``core_from`` also return a :class:`GatedRun`
+    (the skipped blocks per level, at the absolute level index as in JAX)."""
+    T = GATE_TILE
+
+    def probe(arrs, vis, lane_mask):
+        need = row_unsettled(vis, act, lane_mask)
+        return need, needed_of(arrs, need)
+
+    def read(nxt, need, needed):
+        nt = need.shape[0] // T
+        alive, nzt, heavy = torch.stack([
+            nxt.any().long(),
+            need[: nt * T].view(nt, T).any(dim=1).sum(),
+            needed[:heavy_rows].any().long(),
+        ]).tolist()
+        return bool(alive), GateRead(int(nzt), bool(heavy))
+
+    def deeper(arrs, fw, vis, lane_mask):
+        # The heavy section runs: its settled rows claim nothing anyway.
+        _, needed = probe(arrs, vis, lane_mask)
+        return bool((hit_of(arrs, fw, needed, True)[0] & ~vis).any())
+
+    def core_from(arrs, fw, vis, planes, level0, max_levels, lane_mask, gate0):
+        counts = torch.zeros(max(gate_levels, 1), dtype=torch.int32, device=vis.device)
+        need, needed = probe(arrs, vis, lane_mask)
+        gate, level, alive, syncs, active = gate0, int(level0), True, 0, []
+        while alive and level < max_levels:
+            active.append(gate.nzt)
+            hit, skipped = hit_of(arrs, fw, needed, gate.heavy)
+            counts[min(level, gate_levels - 1)] = skipped
+            nxt = gated_state_update_(hit, vis, planes, need, gate.nzt)
+            need, needed = probe(arrs, vis, lane_mask)
+            alive, gate = read(nxt, need, needed)  # the level's one sync
+            syncs += 1
+            fw = nxt
+            level += 1
+        return fw, vis, planes, level, alive, GatedRun(counts, syncs, active)
+
+    def core(arrs, fw0, max_levels, lane_mask, gate0):
+        planes = tuple(torch.zeros_like(fw0) for _ in range(num_planes))
+        fw, vis, planes, levels, alive, run = core_from(
+            arrs, fw0, fw0.clone(), planes, 0, max_levels, lane_mask, gate0
+        )
+        truncated = alive and levels >= max_levels and deeper(arrs, fw, vis, lane_mask)
+        return planes, vis, levels, alive, truncated, run
+
+    return core, core_from, deeper
+
+
+class PullGateHost:
+    """Pull-gate bookkeeping of the wide and hybrid engines: the batch's
+    lane mask and first-level gate (host side), and the core wrappers that
+    thread them into the gated loop and keep its record:
+    ``last_gate_level_counts`` ([gate_levels] int32 skipped blocks per
+    level, on the device), ``last_host_syncs`` and
+    ``last_gate_active_blocks`` (per level run, the state blocks that held
+    an unsettled row, of ``_table_rows // GATE_TILE``). An engine calls
+    :meth:`_install_gate` when built with ``pull_gate=True``; it needs
+    ``_rank``, ``_act``, ``_table_rows``, ``w``, ``num_planes``,
+    ``max_levels_cap`` and ``device``."""
+
+    pull_gate = False
+    last_gate_level_counts = None
+    last_host_syncs = None
+    last_gate_active_blocks = None
+
+    def _install_gate(self, hit_of, *, needed_of, heavy_rows: int, heavy_needed_host):
+        """``heavy_needed_host(need)``: whether a host [rows] unsettled mask
+        needs a heavy output row (``needed_of`` on the host)."""
+        self.pull_gate = True
+        self._gate_heavy_host = heavy_needed_host
+        self._gate_loop = make_gated_packed_loop(
+            hit_of, self.num_planes, act=self._act, gate_levels=self.max_levels_cap,
+            needed_of=needed_of, heavy_rows=heavy_rows,
+        )
+        self._core, self._core_from, self._deeper = (
+            self._gated_core, self._gated_core_from, self._gated_deeper)
+
+    def _note_batch_sources(self, sources) -> None:
+        """The batch's lane mask, and the seed table's unsettled rows: every
+        gated loop starts after this (dispatch and advance call it)."""
+        if not self.pull_gate:
+            return
+        rows = np.asarray(self._rank)[np.asarray(sources, dtype=np.int64)]
+        self._lane_mask = host_lane_mask(rows, self._act, self.w)
+        self._lane_mask_dev = torch.from_numpy(self._lane_mask.view(np.int32)).to(self.device)
+        self._gate_need0 = seed_row_unsettled(rows, self._act, self._table_rows)
+
+    def _note_resume_state(self, vis_host: np.ndarray) -> None:
+        """The unsettled rows of a resumed host visited table ([rows, w]
+        uint32), for the first level's gate."""
+        if self.pull_gate:
+            self._gate_need0 = host_row_unsettled(vis_host, self._act, self._lane_mask)
+
+    def _gate0(self) -> GateRead:
+        """The first level's gate, from the noted host unsettled rows."""
+        need = self._gate_need0
+        nt = len(need) // GATE_TILE
+        nzt = int(need[: nt * GATE_TILE].reshape(nt, GATE_TILE).any(axis=1).sum())
+        return GateRead(nzt, self._gate_heavy_host(need))
+
+    def _gated_core(self, arrs, fw0, max_levels):
+        planes, vis, levels, alive, truncated, run = self._gate_loop[0](
+            arrs, fw0, max_levels, self._lane_mask_dev, self._gate0())
+        self._record(run)
+        return planes, vis, levels, alive, truncated
+
+    def _gated_core_from(self, arrs, fw, vis, planes, level0, max_levels):
+        fw, vis, planes, level, alive, run = self._gate_loop[1](
+            arrs, fw, vis, planes, level0, max_levels, self._lane_mask_dev, self._gate0())
+        self._record(run)
+        return fw, vis, planes, level, alive
+
+    def _record(self, run: GatedRun) -> None:
+        self.last_gate_level_counts = run.counts
+        self.last_host_syncs = run.syncs
+        self.last_gate_active_blocks = run.active_blocks
+
+    def _gated_deeper(self, arrs, fw, vis):
+        return self._gate_loop[2](arrs, fw, vis, self._lane_mask_dev)
 
 
 def seed_scatter_args(rows_of_sources: np.ndarray, act: int):
@@ -673,15 +1026,16 @@ def _check_batch_sources(engine, sources) -> np.ndarray:
 
 
 def _assemble_packed_result(engine, sources, planes, vis, src_bits, levels, alive,
-                            elapsed) -> PackedBatchResult:
+                            elapsed, iso_override=None) -> PackedBatchResult:
     """Lane stats on the device, isolated-lane patching, and the level count
-    (the last level found an empty frontier iff not alive)."""
+    (the last level found an empty frontier iff not alive). ``iso_override``
+    (a checkpoint's recorded isolated lanes) wins over the engine's own."""
     s = len(sources)
     r, d = engine._lane_stats(vis)
     reached = r.cpu().numpy().reshape(-1)[:s].astype(np.int64)
     slot_sum = d.cpu().numpy().reshape(-1)[:s]
     edges = slot_sum // 2 if engine.undirected else slot_sum
-    iso = engine._iso_of(sources)
+    iso = engine._iso_of(sources) if iso_override is None else iso_override
     if iso.any():
         reached[iso] = 1
         edges[iso] = 0
@@ -723,6 +1077,7 @@ def dispatch_packed_batch(engine, sources, *, max_levels: int | None = None) -> 
     sources = _check_batch_sources(engine, sources)
     cap = engine.max_levels_cap
     max_levels = cap if max_levels is None else min(max_levels, cap)
+    engine._note_batch_sources(sources)  # the pull gate's lane mask
     fw0 = engine._seed_dev(sources)
     t0 = time.perf_counter()
     planes, vis, levels, alive, truncated = engine._core(engine.arrs, fw0, max_levels)
@@ -761,12 +1116,135 @@ def run_packed_batch(engine, sources, *, max_levels: int | None = None,
     return fetch_packed_batch(engine, pend, check_cap=check_cap, time_it=time_it)
 
 
-class PackedRunProtocol:
-    """``run`` / ``dispatch`` / ``fetch`` for every packed engine, plus the
-    shared seeding and lane-map hooks. ``result_cls`` is the class of a
-    batch's result."""
+def packed_table_to_real(engine, table: torch.Tensor) -> np.ndarray:
+    """Engine-layout [rows, w] int32 table -> real-vertex-id [V, w] uint32
+    host array, the checkpoints' layout. Rows of isolated vertices (no
+    table row) come out all-zero, their live content."""
+    t = table.cpu().numpy().view(np.uint32)
+    real = np.zeros((engine.num_vertices, engine.w), np.uint32)
+    m = engine._rank < engine._act
+    real[m] = t[engine._rank[m]]
+    return real
+
+
+def packed_real_to_host_table(engine, real: np.ndarray) -> np.ndarray:
+    """Real-vertex-id [V, w] checkpoint array -> engine-layout [rows, w]
+    uint32 host table (pad and sentinel rows zero)."""
+    if real.shape != (engine.num_vertices, engine.w):
+        raise ValueError(
+            f"checkpoint table is {real.shape}, engine expects "
+            f"({engine.num_vertices}, {engine.w}) — lane count and graph "
+            "must match the engine the checkpoint resumes on"
+        )
+    t = np.zeros((engine._table_rows, engine.w), np.uint32)
+    m = engine._rank < engine._act
+    t[engine._rank[m]] = real[m]
+    return t
+
+
+def packed_real_to_table(engine, real: np.ndarray) -> torch.Tensor:
+    """Real-vertex-id [V, w] checkpoint array -> engine-layout [rows, w]
+    int32 tensor on the engine's device (the same bits)."""
+    return _device_table(engine, packed_real_to_host_table(engine, real))
+
+
+def _device_table(engine, table: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(table.view(np.int32)).to(engine.device)
+
+
+def start_packed_batch(engine, sources):
+    """Level-0 state of a packed batch as a host checkpoint: frontier and
+    visited tables and zero counter planes, in real-vertex-id row order,
+    and the isolated lanes (so any finishing engine can patch them)."""
+    from tpu_bfs_torch.utils.checkpoint import PackedCheckpoint, _new_nonce
+
+    sources = _check_batch_sources(engine, sources)
+    seed_real = packed_table_to_real(engine, engine._seed_dev(sources))
+    planes = np.zeros((engine.num_planes, engine.num_vertices, engine.w), np.uint32)
+    return PackedCheckpoint(
+        sources=sources, level=0, alive=True, frontier=seed_real,
+        visited=seed_real.copy(), planes=planes,
+        iso=np.asarray(engine._iso_of(sources), dtype=bool), nonce=_new_nonce(),
+    )
+
+
+def advance_packed_batch(engine, ckpt, levels: int | None = None):
+    """Run at most ``levels`` more levels from a packed checkpoint. The loop
+    state is restored exactly, so chunked advancing labels the same
+    distances, bit for bit, as one uninterrupted run."""
+    from tpu_bfs_torch.utils.checkpoint import PackedCheckpoint
+
+    if ckpt.planes.shape[0] != engine.num_planes:
+        raise ValueError(
+            f"checkpoint has {ckpt.planes.shape[0]} planes, engine has {engine.num_planes}"
+        )
+    if not ckpt.alive:
+        return ckpt
+    engine._note_batch_sources(ckpt.sources)
+    cap = engine.max_levels_cap
+    ml = min(ckpt.level + levels, cap) if levels is not None else cap
+    # visited converts first: it raises the descriptive lane-count/graph error.
+    vis_host = packed_real_to_host_table(engine, ckpt.visited)
+    engine._note_resume_state(vis_host)
+    vis = _device_table(engine, vis_host)
+    planes = tuple(packed_real_to_table(engine, p) for p in ckpt.planes)
+    fw = packed_real_to_table(engine, ckpt.frontier)
+    fw, vis, planes, level, alive = engine._core_from(engine.arrs, fw, vis, planes,
+                                                      ckpt.level, ml)
+    if alive and level >= cap:
+        # At the plane cap with the last level still claiming: an
+        # eccentricity exactly at the cap claims nothing more and ends
+        # cleanly (level cap + 1, not alive, as an uninterrupted run counts
+        # it); anything else is a truncation, which must raise rather than
+        # let a caller's advance loop spin at a level that cannot move. The
+        # check is claim-free, so the tables stay those of the run.
+        if engine._deeper(engine.arrs, fw, vis):
+            raise RuntimeError(
+                f"traversal truncated at {cap} levels; num_planes={engine.num_planes} "
+                f"caps at {cap} — construct the engine with more planes for this graph"
+            )
+        level, alive = level + 1, False
+    return PackedCheckpoint(
+        sources=ckpt.sources, level=int(level), alive=bool(alive),
+        frontier=packed_table_to_real(engine, fw),
+        visited=packed_table_to_real(engine, vis),
+        planes=np.stack([packed_table_to_real(engine, p) for p in planes]),
+        iso=ckpt.iso, nonce=ckpt.nonce,
+    )
+
+
+def finish_packed_batch(engine, ckpt) -> PackedBatchResult:
+    """A (finished or partial) packed checkpoint as a batch result, with the
+    same lazy extraction as a direct run; the checkpoint's recorded
+    isolated lanes are patched."""
+    sources = _check_batch_sources(engine, ckpt.sources)
+    vis = packed_real_to_table(engine, ckpt.visited)
+    planes = tuple(packed_real_to_table(engine, p) for p in ckpt.planes)
+    return _assemble_packed_result(
+        engine, sources, planes, vis, engine._seed_dev(sources), ckpt.level,
+        ckpt.alive, None, iso_override=ckpt.iso,
+    )
+
+
+class PackedRunProtocol(PullGateHost):
+    """``run`` / ``dispatch`` / ``fetch`` and checkpoint ``start`` /
+    ``advance`` / ``finish`` for every packed engine, plus the shared
+    seeding and lane-map hooks and the pull gate's bookkeeping.
+    ``result_cls`` is the class of a batch's result."""
 
     result_cls = PackedBatchResult
+
+    def start(self, sources):
+        """Level-0 batch state as a host checkpoint (real-id rows)."""
+        return start_packed_batch(self, sources)
+
+    def advance(self, ckpt, levels: int | None = None):
+        """At most ``levels`` more levels; bit-identical to no stop."""
+        return advance_packed_batch(self, ckpt, levels)
+
+    def finish(self, ckpt):
+        """A (finished or partial) checkpoint as a batch result."""
+        return finish_packed_batch(self, ckpt)
 
     def run(self, sources, *, max_levels=None, time_it=False, check_cap=True):
         return run_packed_batch(

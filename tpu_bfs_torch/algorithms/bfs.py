@@ -8,6 +8,11 @@ whether the new frontier is empty (for 'dopt', the frontier's size and
 out-degree sum, as one two-element tensor, which also picks the next
 level's branch). A high-diameter graph pays that sync on every level:
 ``last_host_syncs`` counts them.
+
+``start`` / ``advance`` / ``finish`` checkpoint a traversal to the host
+(``utils/checkpoint.BfsCheckpoint``, real vertex ids): the loop resumes
+from the saved state, bit-identical to no stop, on any single-source
+engine of either package.
 """
 
 from __future__ import annotations
@@ -33,29 +38,24 @@ from tpu_bfs_torch.utils.timing import run_timed
 BACKENDS = ("scan", "segment", "scatter", "delta", "dopt")
 
 
-def checkpoint_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "checkpoint and resume (start/advance/finish) are not ported to "
-        "tpu_bfs_torch yet (ROADMAP Queue 1 item 7)"
-    )
-
-
 def run_level_loop(step, frontier, visited, dist, level0: int, max_levels: int, *,
-                   sums=None, first_sums=None):
+                   sums=None, first_sums=None, alive: bool = True):
     """The host level loop shared by the single-source engines.
 
-    ``step(frontier, visited, nfront, fsum)`` returns the next frontier.
-    Without ``sums``, each level's one host sync reads whether the new
-    frontier is empty (``nfront``/``fsum`` are then None). With ``sums``
-    (a frontier -> [2] int64 (size, out-degree sum) device function), that
-    pair is the level's one sync, and ``first_sums`` gives it for the
+    ``step(frontier, visited, *info)`` returns the next frontier. Without
+    ``sums``, each level's one host sync reads whether the new frontier is
+    empty (``info`` is then ``(None, None)``, and ``alive`` says whether the
+    initial frontier is). With ``sums`` (a frontier -> [k] int64 device
+    function whose first value is the frontier's size), that tensor is the
+    level's one sync and ``info``, and ``first_sums`` gives it for the
     initial frontier. ``dist`` and ``visited`` are updated in place.
     Returns ``(frontier, level, syncs)``."""
     level, syncs = level0, 0
-    nfront, fsum = first_sums if sums is not None else (None, None)
-    alive = nfront > 0 if sums is not None else True
+    info = tuple(first_sums) if sums is not None else (None, None)
+    if sums is not None:
+        alive = info[0] > 0
     while alive and level < max_levels:
-        new = step(frontier, visited, nfront, fsum)
+        new = step(frontier, visited, *info)
         dist.masked_fill_(new, level + 1)
         visited |= new
         frontier = new
@@ -63,10 +63,17 @@ def run_level_loop(step, frontier, visited, dist, level0: int, max_levels: int, 
         if sums is None:
             alive = bool(new.any())
         else:
-            nfront, fsum = sums(new).tolist()
-            alive = nfront > 0
+            info = tuple(sums(new).tolist())
+            alive = info[0] > 0
         syncs += 1
     return frontier, level, syncs
+
+
+def host_frontier_sums(frontier: np.ndarray, out_row_ptr: np.ndarray) -> tuple[int, int]:
+    """(size, out-degree sum) of a host bool frontier over a row pointer:
+    the first ``sums`` of a level loop, without a device read."""
+    deg = np.diff(np.asarray(out_row_ptr, dtype=np.int64))[: len(frontier)]
+    return int(frontier.sum()), int(deg[frontier].sum())
 
 
 @dataclasses.dataclass
@@ -145,34 +152,82 @@ class BfsEngine:
         dist0[source] = 0
         return frontier0, frontier0.clone(), dist0
 
-    def distances(self, source: int, *, max_levels: int | None = None):
-        """Device distance array [vp] int32 and the loop's level count; no
-        host transfer."""
-        frontier0, visited, dist = self._init_state(source)
-        ml = max_levels if max_levels is not None else self.vp
+    def _loop(self, frontier, visited, dist, level0: int, max_levels: int,
+              first: tuple[int, int]):
+        """The level loop from a state; ``first`` is the initial frontier's
+        (size, out-degree sum), known on the host, so the loop starts
+        without a device read."""
         edges, backend, caps = self.edges, self.backend, self.caps
 
         def step(frontier, visited, nfront, fsum):
             return level_step(edges, frontier, visited, backend=backend, caps=caps,
                               nfront=nfront, fsum=fsum)
 
-        kw = {}
+        kw = {"alive": first[0] > 0}
         if backend == "dopt":
-            rp = self.dg.out_row_ptr
-            kw = {"sums": lambda f: frontier_sums(f, self._out_deg),
-                  "first_sums": (1, int(rp[source + 1] - rp[source]))}
-        _, level, syncs = run_level_loop(step, frontier0, visited, dist, 0, ml, **kw)
+            kw = {"sums": lambda f: frontier_sums(f, self._out_deg), "first_sums": first}
+        frontier, level, syncs = run_level_loop(step, frontier, visited, dist, level0,
+                                                max_levels, **kw)
         self.last_host_syncs = syncs
+        return frontier, level
+
+    def distances(self, source: int, *, max_levels: int | None = None):
+        """Device distance array [vp] int32 and the loop's level count; no
+        host transfer."""
+        frontier0, visited, dist = self._init_state(source)
+        ml = max_levels if max_levels is not None else self.vp
+        rp = self.dg.out_row_ptr
+        _, level = self._loop(frontier0, visited, dist, 0, ml,
+                              (1, int(rp[source + 1] - rp[source])))
         return dist, level
 
+    # --- checkpoint and resume (utils/checkpoint.py) ---
+
     def start(self, source: int):
-        raise checkpoint_unported()
+        """Level-0 state as a host checkpoint (no device work)."""
+        from tpu_bfs_torch.utils.checkpoint import initial_checkpoint
+
+        return initial_checkpoint(self.dg.num_vertices, source)
+
+    def _pad_state(self, ckpt):
+        """A checkpoint's [V] arrays padded to [vp], on the host."""
+        v, vp = self.dg.num_vertices, self.vp
+        f = np.zeros(vp, dtype=bool)
+        f[:v] = ckpt.frontier
+        vis = np.zeros(vp, dtype=bool)
+        vis[:v] = ckpt.visited
+        d = np.full(vp, INF_DIST, dtype=np.int32)
+        d[:v] = ckpt.distance
+        return f, vis, d
 
     def advance(self, ckpt, levels: int | None = None):
-        raise checkpoint_unported()
+        """At most ``levels`` more levels from a checkpoint, as a new host
+        checkpoint (``done`` once the frontier is empty); resuming in
+        chunks gives the distances of one uninterrupted run, bit for bit."""
+        from tpu_bfs_torch.utils.checkpoint import BfsCheckpoint
 
-    def finish(self, ckpt, *, with_parents: bool = True):
-        raise checkpoint_unported()
+        if len(ckpt.frontier) != self.dg.num_vertices:
+            raise ValueError(f"checkpoint has {len(ckpt.frontier)} vertices, graph has "
+                             f"{self.dg.num_vertices}")
+        f0, vis0, d0 = self._pad_state(ckpt)
+        cap = ckpt.level + levels if levels is not None else self.vp
+        put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        visited, dist = put(vis0), put(d0)
+        frontier, level = self._loop(put(f0.copy()), visited, dist, ckpt.level,
+                                     min(cap, self.vp),
+                                     host_frontier_sums(f0, self.dg.out_row_ptr))
+        v = self.dg.num_vertices
+        return BfsCheckpoint(
+            source=ckpt.source, level=int(level),
+            frontier=frontier.cpu().numpy()[:v], visited=visited.cpu().numpy()[:v],
+            distance=dist.cpu().numpy()[:v], nonce=ckpt.nonce,
+        )
+
+    def finish(self, ckpt, *, with_parents: bool = True) -> BfsResult:
+        """A (finished or partial) checkpoint as a BfsResult."""
+        _, _, d0 = self._pad_state(ckpt)
+        return self._package(torch.from_numpy(d0).to(self.device), ckpt.source,
+                             with_parents, None)
 
     def run(self, source: int, *, max_levels: int | None = None, with_parents: bool = True,
             time_it: bool = False) -> BfsResult:

@@ -39,13 +39,14 @@ from tpu_bfs_torch.algorithms._packed_common import (
     floor_lanes,
     lazy_full_parent_ell,
     make_expand,
+    make_gated_expand,
     make_packed_loop,
     make_state_kernels,
     pallas_expand_arrays,
     resolve_device,
 )
 from tpu_bfs_torch.graph.csr import Graph, _sorted_pairs
-from tpu_bfs_torch.graph.ell import EllBucket, bucketize_rows, rank_vertices
+from tpu_bfs_torch.graph.ell import EllBucket, bucketize_rows, gate_forward_map, rank_vertices
 from tpu_bfs_torch.ops.tile_spmm import AW, TILE, row_masks, tile_spmm
 
 W = 128
@@ -237,20 +238,35 @@ def expand_spec(hg: HybridGraph) -> ExpandSpec:
     )
 
 
-def make_hit(hg: HybridGraph, w: int):
+def make_hit(hg: HybridGraph, w: int, *, gated: bool = False):
     """One level's hit table: the residual expansion (K1 per bucket)
     permuted back to rank0 rows, which the dense-tile pass (K2) ORs into
-    in place."""
-    expand_residual = make_expand(expand_spec(hg), w)
+    in place. ``gated`` takes the pull gate's residual expansion
+    (``hit_of(arrs, fw, needed, heavy) -> (hit, skipped)``, ``needed`` in
+    bucket order); the dense pass stays ungated, as in JAX: its tiles are
+    already the compacted hot set, and its hits on settled rows are
+    claim-masked like any other."""
 
-    def hit_of(arrs, fw):
-        hit = expand_residual(arrs, fw).index_select(0, arrs["inv_perm_ext"])
+    def dense_into(arrs, fw, hit):
         if hg.num_tiles:
             tile_spmm(
                 arrs["row_start"], arrs["col_tile"], None, fw,
                 num_row_tiles=hg.vt, masks=arrs["a_masks"], out=hit,
             )
         return hit
+
+    if gated:
+        gated_residual = make_gated_expand(expand_spec(hg), w)
+
+        def gated_hit_of(arrs, fw, needed, heavy):
+            res, skipped = gated_residual(arrs, fw, needed, heavy)
+            return dense_into(arrs, fw, res.index_select(0, arrs["inv_perm_ext"])), skipped
+
+        return gated_hit_of
+    expand_residual = make_expand(expand_spec(hg), w)
+
+    def hit_of(arrs, fw):
+        return dense_into(arrs, fw, expand_residual(arrs, fw).index_select(0, arrs["inv_perm_ext"]))
 
     return hit_of
 
@@ -259,7 +275,12 @@ class HybridMsBfsEngine(PackedRunProtocol):
     """Up to 8192 concurrent BFS sources by default (``max_lanes``; auto
     sizing walks down when the state does not fit): dense tiles through
     K2, the residual through K1. Results are PackedBatchResult. ``device``
-    defaults to CUDA and raises when there is none."""
+    defaults to CUDA and raises when there is none.
+
+    ``pull_gate=True`` (default off, as in JAX) keys the residual buckets
+    (K1's ``need_blk``) and the state pass on the per-row settled mask; the
+    dense K2 pass stays ungated. Bit-identical distances, reached counts and
+    parents; skipped blocks per level land in ``last_gate_level_counts``."""
 
     def __init__(
         self,
@@ -272,6 +293,7 @@ class HybridMsBfsEngine(PackedRunProtocol):
         num_planes: int | str = "auto",
         hbm_budget_bytes: int = HBM_BUDGET_BYTES,
         max_lanes: int = DEFAULT_MAX_LANES,
+        pull_gate: bool = False,
         device=None,
     ):
         if num_planes != "auto" and not (1 <= num_planes <= 8):
@@ -328,7 +350,25 @@ class HybridMsBfsEngine(PackedRunProtocol):
         self.arrs = arrs
         self._act = hg.num_active
         self._table_rows = rows
-        self._core, self._core_from = make_packed_loop(make_hit(hg, self.w), num_planes)
+        if pull_gate:
+            # Residual outputs are in bucket order: the build-time forward
+            # map routes the per-row unsettled mask there (pad and tail
+            # positions read the appended False).
+            num_real = hg.res_heavy + sum(b.n for b in hg.res_light)
+            gate_fwd = gate_forward_map(hg.inv_perm_ext, num_real + hg.res_tail_rows, num_real)
+            arrs["gate_fwd"] = torch.from_numpy(gate_fwd.astype(np.int64)).to(dev)
+            nh = hg.res_heavy
+
+            def needed_of(arrs, need):
+                return torch.cat([need, need.new_zeros(1)]).index_select(0, arrs["gate_fwd"])
+
+            self._install_gate(
+                make_hit(hg, self.w, gated=True), needed_of=needed_of, heavy_rows=nh,
+                heavy_needed_host=lambda need: bool(np.append(need, False)[gate_fwd[:nh]].any()),
+            )
+        else:
+            self._core, self._core_from, self._deeper = make_packed_loop(
+                make_hit(hg, self.w), num_planes)
         in_deg_ranked = hg.in_degree[hg.old_of_new].astype(np.int32)
         self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
             hg.num_vertices, rows, self.w, num_planes,

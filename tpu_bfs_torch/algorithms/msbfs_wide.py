@@ -21,6 +21,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     auto_lanes,
     expand_arrays,
     make_expand,
+    make_gated_expand,
     make_packed_loop,
     make_state_kernels,
     pallas_expand_arrays,
@@ -52,7 +53,12 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
 
     ``num_planes`` bit-sliced counter planes bound the traversal at
     ``2**num_planes`` levels; ``run`` raises when a traversal outlives them.
-    ``device`` defaults to CUDA and raises when there is none."""
+    ``device`` defaults to CUDA and raises when there is none.
+
+    ``pull_gate=True`` (default off, as in JAX) skips settled rows' bucket
+    blocks inside K1 and their state blocks (``make_gated_expand``,
+    ``gated_state_update_``): bit-identical distances, reached counts and
+    parents; skipped blocks per level land in ``last_gate_level_counts``."""
 
     def __init__(
         self,
@@ -63,6 +69,7 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         num_planes: int = 5,
         hbm_budget_bytes: int = HBM_BUDGET_BYTES,
         max_lanes: int = DEFAULT_MAX_LANES,
+        pull_gate: bool = False,
         device=None,
     ):
         if not (1 <= num_planes <= 8):
@@ -95,9 +102,19 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         # parent scan's all-ones sentinel row: the scan borrows these tables.
         self.arrs = expand_arrays(ell, self._act, self.device)
         self._table_rows = self._act + 1
-        self._core, self._core_from = make_packed_loop(
-            make_expand(expand_spec(ell), self.w), num_planes
-        )
+        spec = expand_spec(ell)
+        if pull_gate:
+            # Bucket outputs are table rows in order (no permutation), so
+            # the per-row unsettled mask is the needed vector itself.
+            nh = ell.num_heavy
+            self._install_gate(
+                make_gated_expand(spec, self.w), needed_of=lambda arrs, need: need,
+                heavy_rows=nh, heavy_needed_host=lambda need: bool(need[:nh].any()),
+            )
+        else:
+            self._core, self._core_from, self._deeper = make_packed_loop(
+                make_expand(spec, self.w), num_planes
+            )
         in_deg_ranked = ell.in_degree[ell.old_of_new].astype(np.int32)
         self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
             ell.num_vertices, self._table_rows, self.w, num_planes,

@@ -14,11 +14,18 @@ tree on request. ``--backend`` picks the single-source engine;
     python -m tpu_bfs_torch 0 rmat:scale=14,ef=16 --multi-source 1,2,3
     python -m tpu_bfs_torch 2 graph.txt --multi-source 5,9 --engine wide --device cpu
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --certify --save-parent p.npy
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine hybrid --pull-gate --stats
+    python -m tpu_bfs_torch 0 rmat:scale=14 --ckpt state.npz --ckpt-every 2
+    python -m tpu_bfs_torch 0 rmat:scale=14 --resume state.npz
 
 Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 / ``random:n=..,m=..,seed=..``. With no ``--engine``, a batch of 512
 sources or fewer runs the 512-lane packed engine and a larger one the
-hybrid, as in the JAX CLI.
+hybrid, as in the JAX CLI (the wide engine with ``--ckpt``/``--resume``,
+the hybrid with ``--pull-gate``). Checkpoint files are the JAX CLI's: a
+run checkpointed by one resumes in the other. A failed chunk is not
+retried here (the JAX CLI's ``advance_with_recovery`` comes with the serve
+tier's recovery).
 """
 
 from __future__ import annotations
@@ -71,11 +78,21 @@ def packed_lanes(n_sources: int) -> int:
 
 
 def _make_ms_engine(args, g, n_sources: int):
-    engine = args.engine or default_engine(n_sources)
+    engine = args.engine
+    if engine is None:
+        engine = default_engine(n_sources)
+        if engine == "packed" and (args.ckpt or args.resume):
+            engine = "wide"  # checkpoints need the wide/hybrid state
+        if engine == "packed" and args.pull_gate:
+            engine = "hybrid"  # the gate lives in the wide/hybrid loop
     kw = {"device": args.device}
     if engine == "packed":
         from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
 
+        if args.pull_gate:
+            raise SystemExit("--pull-gate applies to the wide/hybrid engines (the 512-lane "
+                             "packed engine keeps no settled-mask state); use --engine wide "
+                             "or hybrid")
         if args.planes is not None:
             raise SystemExit("--planes applies to the wide and hybrid engines; the packed "
                              "engine counts 8 planes (depth 254)")
@@ -83,6 +100,8 @@ def _make_ms_engine(args, g, n_sources: int):
         return PackedMsBfsEngine(g, lanes=lanes, **kw)
     if args.lanes is not None:
         kw["lanes"] = args.lanes
+    if args.pull_gate:
+        kw["pull_gate"] = True
     if engine == "wide":
         from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
 
@@ -96,32 +115,66 @@ def _make_single_engine(args, g):
     if args.backend == "tiled":
         from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
 
-        return TiledBfsEngine(g, device=args.device)
+        return TiledBfsEngine(g, pull_gate=args.pull_gate, device=args.device)
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
 
     return BfsEngine(g, backend=args.backend, device=args.device)
 
 
-def _print_stats(distance, g) -> None:
+def _print_stats(distance, g, gated_tiles=None) -> None:
     from tpu_bfs_torch.utils.stats import level_stats
 
-    for line in level_stats(distance, g.degrees).json_lines():
+    for line in level_stats(distance, g.degrees, gated_tiles=gated_tiles).json_lines():
         print(line)
 
 
-def _run_multi_source(args, g, golden, sources) -> int:
-    """<source> plus the listed keys in one packed batch, lane 0 validated."""
+def advance_in_chunks(engine, ckpt, *, levels_per_chunk: int | None = None,
+                      max_level: int | None = None, save=None):
+    """Advance a checkpointed traversal to its end (or to ``max_level``),
+    ``levels_per_chunk`` levels at a time, calling ``save(ckpt)`` after each
+    chunk. The JAX ``advance_with_recovery`` without its retries."""
+    while not ckpt.done and (max_level is None or ckpt.level < max_level):
+        levels = levels_per_chunk
+        if max_level is not None:
+            room = max_level - ckpt.level
+            levels = room if levels is None else min(levels, room)
+        ckpt = engine.advance(ckpt, levels=levels)
+        if save is not None:
+            save(ckpt)
+    return ckpt
+
+
+def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
+    """<source> plus the listed keys in one packed batch, lane 0 validated;
+    with ``--ckpt``/``--resume``, a chunked batch through start/advance/finish."""
     from tpu_bfs_torch import validate
 
     engine = _make_ms_engine(args, g, len(sources))
     try:
-        for _ in range(max(1, args.repeat)):
-            res = engine.run(sources, max_levels=args.max_levels, time_it=True)
-            print(f"Elapsed time in milliseconds ({engine.device}): "
-                  f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
+        if args.ckpt or resume_st is not None:
+            from tpu_bfs_torch.utils import checkpoint as ck
+
+            save = None
+            if args.ckpt:
+                def save(c):
+                    ck.save_packed_checkpoint(args.ckpt, c)
+                    print(f"checkpoint @ level {c.level} -> {args.ckpt}")
+            st = resume_st if resume_st is not None else engine.start(sources)
+            st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
+                                   levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None)
+            res = engine.finish(st)
+        else:
+            for _ in range(max(1, args.repeat)):
+                res = engine.run(sources, max_levels=args.max_levels, time_it=True)
+                print(f"Elapsed time in milliseconds ({engine.device}): "
+                      f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
     except RuntimeError as exc:
         if "truncated" not in str(exc):
             raise
+        if args.ckpt or resume_st is not None:
+            raise SystemExit(f"{exc}\nhint: restart with --planes 8 (depth 254); a "
+                             "checkpoint's plane count is fixed at start, so existing "
+                             "checkpoints from this run cannot be resumed deeper")
         raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254) or --engine packed")
     for i, s in enumerate(sources):
         print(f"source {int(s)}: reached {int(res.reached[i])} vertices, "
@@ -129,7 +182,12 @@ def _run_multi_source(args, g, golden, sources) -> int:
     if res.teps:
         print(f"Harmonic-mean GTEPS/source: {res.teps / 1e9:.4f}")
     if args.stats:
-        _print_stats(res.distances_int32(0), g)
+        gated = getattr(engine, "last_gate_level_counts", None)
+        if gated is not None:
+            # Cut to the batch's levels, not lane 0's eccentricity: the
+            # deeper levels of other lanes are where the gate skips most.
+            gated = gated.cpu().numpy()[: res.num_levels + 1]
+        _print_stats(res.distances_int32(0), g, gated)
     if args.certify:
         validate.certify_bfs(g, int(sources[0]), res.distances_int32(0), res.parents_int32(0))
         print(f"Output certified (oracle-free, lane 0 of {len(sources)})")
@@ -149,22 +207,39 @@ def _run_multi_source(args, g, golden, sources) -> int:
     return 0
 
 
-def _run_single_source(args, g, golden) -> int:
-    """The reference's own run: one BFS from <source>, timed on the device."""
+def _run_single_source(args, g, golden, resume_st=None) -> int:
+    """The reference's own run: one BFS from <source>, timed on the device;
+    with ``--ckpt``/``--resume``, a chunked run through start/advance/finish."""
     from tpu_bfs_torch import validate
 
     engine = _make_single_engine(args, g)
-    for _ in range(max(1, args.repeat)):
-        res = engine.run(args.source, max_levels=args.max_levels,
-                         with_parents=not args.no_parents, time_it=True)
-        # The reference prints the device time (bfs.cu:624-626); an isolated
-        # source needs no device run and has no time.
-        if res.elapsed_s is not None:
-            print(f"Elapsed time in milliseconds ({engine.device.type}): "
-                  f"{res.elapsed_s * 1e3:.3f}")
+    if args.ckpt or resume_st is not None:
+        from tpu_bfs_torch.utils import checkpoint as ck
+
+        save = None
+        if args.ckpt:
+            def save(c):
+                ck.save_checkpoint(args.ckpt, c)
+                print(f"checkpointed at level {c.level}")
+        st = resume_st if resume_st is not None else engine.start(args.source)
+        st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
+                               levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None)
+        res = engine.finish(st, with_parents=not args.no_parents)
+    else:
+        for _ in range(max(1, args.repeat)):
+            res = engine.run(args.source, max_levels=args.max_levels,
+                             with_parents=not args.no_parents, time_it=True)
+            # The reference prints the device time (bfs.cu:624-626); an
+            # isolated source needs no device run and has no time.
+            if res.elapsed_s is not None:
+                print(f"Elapsed time in milliseconds ({engine.device.type}): "
+                      f"{res.elapsed_s * 1e3:.3f}")
     if res.teps:
         print(f"Traversed edges: {res.edges_traversed}  GTEPS: {res.teps / 1e9:.4f}")
     print(f"Reached {res.reached} vertices in {res.num_levels} levels")
+    skipped = getattr(engine, "last_gate_skipped_tiles", None)
+    if skipped is not None:
+        print(f"Pull gate skipped {skipped} dense-tile passes")
     if args.stats:
         _print_stats(res.distance, g)
     if args.certify:
@@ -228,7 +303,29 @@ def main(argv=None) -> int:
     ap.add_argument("--save-parent", default=None, metavar="PATH",
                     help="save the BFS tree to .npy, [V] int32 ([S, V] with --multi-source; "
                     "on the card, always the device parent scan)")
+    ap.add_argument("--pull-gate", action="store_true",
+                    help="frontier-aware pull expansion (default off): settled rows' bucket "
+                    "blocks (skipped inside K1) and state blocks, and for --backend tiled the "
+                    "dense-tile passes, are skipped per level, bit-identical to the plain "
+                    "scan. --multi-source wide/hybrid engines and --backend tiled; --stats "
+                    "adds per-level gated_tiles counts")
+    ap.add_argument("--ckpt", default=None, metavar="PATH",
+                    help="checkpoint the traversal state to PATH (npz, the JAX CLI's "
+                    "format) every --ckpt-every levels")
+    ap.add_argument("--ckpt-every", type=int, default=4, metavar="N",
+                    help="levels per checkpoint chunk (default 4)")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="resume a traversal from a checkpoint written by --ckpt (its "
+                    "source or sources replace the command line's)")
     args = ap.parse_args(argv)
+    if args.pull_gate and args.multi_source is None and args.backend != "tiled":
+        ap.error("--pull-gate for single-source runs needs --backend tiled (the other "
+                 "single-source backends have no tile pass to gate)")
+    if (args.ckpt or args.resume) and args.multi_source is not None and args.engine == "packed":
+        ap.error("--ckpt/--resume with --multi-source needs the wide or hybrid engine (the "
+                 "512-lane packed engine keeps no resumable state)")
+    if (args.ckpt or args.resume) and args.repeat > 1:
+        ap.error("--repeat does not apply to checkpointed runs")
 
     sources = None
     if args.multi_source is not None:
@@ -259,6 +356,12 @@ def main(argv=None) -> int:
     print(f"Number of vertices {g.num_vertices}")
     print(f"Number of edges {g.num_edges}")
     print(f"[load] {time.perf_counter() - t0:.3f}s")
+    resume_st = _load_resume(args, sources is not None)
+    if resume_st is not None:
+        if sources is not None:
+            sources = resume_st.sources
+        else:
+            args.source = resume_st.source
     check = sources if sources is not None else np.asarray([args.source])
     bad = check[(check < 0) | (check >= g.num_vertices)]
     if len(bad):
@@ -266,9 +369,30 @@ def main(argv=None) -> int:
     golden = None
     if not args.skip_cpu:
         t0 = time.perf_counter()
-        golden = bfs_golden(g, args.source)
+        golden = bfs_golden(g, int(check[0]))
         # The reference prints the CPU time (runCpu, bfs.cu:211-219).
         print(f"Elapsed time in milliseconds (CPU): {(time.perf_counter() - t0) * 1e3:.2f}")
     if sources is not None:
-        return _run_multi_source(args, g, golden, sources)
-    return _run_single_source(args, g, golden)
+        return _run_multi_source(args, g, golden, sources, resume_st)
+    return _run_single_source(args, g, golden, resume_st)
+
+
+def _load_resume(args, multi_source: bool):
+    """The ``--resume`` checkpoint (packed for a --multi-source batch), or
+    None. A packed one sets the batch width when --lanes is not given."""
+    if not args.resume:
+        return None
+    from tpu_bfs_torch.utils import checkpoint as ck
+
+    try:
+        if not multi_source:
+            st = ck.load_checkpoint(args.resume)
+            print(f"resumed source {st.source} at level {st.level}")
+            return st
+        st = ck.load_packed_checkpoint(args.resume)
+    except ValueError as exc:  # e.g. a single-source checkpoint with --multi-source
+        raise SystemExit(f"--resume: {exc}")
+    if args.lanes is None:
+        args.lanes = int(st.frontier.shape[1]) * 32
+    print(f"resumed {len(st.sources)} sources at level {st.level} ({args.lanes} lanes)")
+    return st

@@ -74,6 +74,22 @@ def pad_gate_blocks(idx_t: np.ndarray, sentinel: int, tile: int = 128) -> np.nda
     return out
 
 
+def gate_forward_map(routing: np.ndarray, out_height: int, num_real: int) -> np.ndarray:
+    """Forward form of a bucket routing map, for the pull gate.
+
+    ``routing`` maps each table row to its bucket-output position (the
+    hybrid's ``inv_perm_ext``; positions >= ``num_real`` are the shared
+    identity row). Returns ``fwd`` [out_height] int32: ``fwd[p]`` is the
+    table row whose bucket output is position p, and ``len(routing)`` (one
+    past the table) at pad and tail positions, so a per-row needed vector
+    extended by one trailing False never marks them needed."""
+    fwd = np.full(out_height, len(routing), dtype=np.int32)
+    pos = routing.astype(np.int64)
+    m = pos < num_real
+    fwd[pos[m]] = np.flatnonzero(m).astype(np.int32)
+    return fwd
+
+
 def _ell_fill(lens: np.ndarray, flat: np.ndarray, k: int, pad: int) -> np.ndarray:
     """Pack concatenated rows (lengths ``lens``) into [len(lens), k], pad ``pad``."""
     n = len(lens)
