@@ -45,11 +45,12 @@ Phases, one JSON line each:
     single phase's checked tree; K1 launches counted, and K1 held
     against its twin bit for bit at both widths on the run's own tables
     (the "K1 or, packed w 8" and "K1 or, packed w 1" kernel entries);
-10. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
+10. graph500: run_graph500(scale 19, ef 16, mode="hybrid", 64 searches,
     4 validated) on the card, its trees from the device scan through the
     default parents_int32 (the host scatter-min is made to raise while it
-    runs): scale 20, not 21, keeps the whole script near
-    10 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
+    runs): scale 19, not 21 (20 before the workloads phase came), keeps
+    the whole script near 10 minutes (--graph500-scale 21 adds some 100 s;
+    the line states the cut).
     Then mode="single" (16 searches, 4 validated) and mode="batched" (64
     searches) at scale 18 (--graph500-small-scale; the single phase runs the
     single-source path at the flagship's scale 21).
@@ -63,12 +64,27 @@ Phases, one JSON line each:
     gated batch's K1 launches, replayed on their own masks, are the "K1 or,
     gated" kernels entry. After the single phase, TiledBfsEngine(pull_gate=
     True) from its sources, equal to SciPy and to its checked trees;
-12. ckpt (after packed): a 256-lane hybrid batch on the flagship graph in
-    chunks of --ckpt-every levels (4), each saved, loaded and resumed, the
-    chunks after the first on the wide engine, equal on every lane to an
+12. ckpt (after packed): a 256-lane hybrid batch on the flagship graph,
+    its first --ckpt-every levels (4) on the hybrid, saved, loaded and
+    resumed to the end on the wide engine (one save a mode, cut from one
+    a chunk to keep the script's time), equal on every lane to an
     uninterrupted run; ungated, then gated. Then a single-source BfsEngine
     (scan) started, advanced to level 2, saved, loaded and finished, equal
     to run.
+13. workloads, one line a kind. khop (after pullgate): KhopServeEngine over
+    the flagship HybridMsBfsEngine, k = 3, on its 8192 sources, 3 lanes'
+    reached equal to SciPy's vertices within 3 hops. Then, after ckpt:
+    sssp, SsspEngine at 256 lanes on the flagship graph with
+    edge_weights(seed=1, wmax=8) attached, from the hub and sources drawn
+    with default_rng(7) among the traversable vertices, a warm batch (CUDA
+    events on every K1 launch) and a timed one, 3 lanes equal to SciPy's
+    dijkstra; both halves of every round are K1 minplus launches, and the
+    run's distances against its light-plane tables are the "K1 minplus,
+    sssp w 256" kernels entry. cc, connected_components over a 8192-lane
+    WidePackedMsBfsEngine on the flagship ELL, labels and count equal to
+    SciPy's components. p2p, P2pServeEngine over a 256-lane wide engine,
+    128 pairs: every path walked edge by edge, 4 distances equal to
+    SciPy's, fewer levels than those sources' BFS depth.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -77,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -506,16 +523,20 @@ def _check_trees(g, res, sources, lanes, trees) -> None:
 
 
 def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
-             unit: str, plain_reps: int = 1) -> dict:
+             unit: str, plain_reps: int = 1, wsuf: str | None = None) -> dict:
     """A kernels-line entry of K1 over one pass of every bucket ``names`` of
-    ``arrs`` with frontier (or key) table ``fw``: the kernel against its
-    twin, bit for bit, then both timed. The bound reads the rows the
-    indices name, each bucket's gate and index slab, and writes each
-    output, once, over 3.35 TB/s; the model is ell_expand_hbm_bytes."""
+    ``arrs`` with frontier (or key, or distance) table ``fw``: the kernel
+    against its twin, bit for bit, then both timed. The bound reads the
+    rows the indices name, each bucket's gate and index slab (and weight
+    slab ``{bucket}_{wsuf}_gt`` for minplus), and writes each output,
+    once, over 3.35 TB/s; the model is ell_expand_hbm_bytes."""
     w = fw.shape[1]
 
+    def wt(n):
+        return None if wsuf is None else arrs[f"{n}_{wsuf}_gt"]
+
     def k1_pass(fn):
-        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw, op=op) for n in names]
+        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw, wt(n), op=op) for n in names]
 
     saved = k1.ell_expand.launches
     got, want = k1_pass(k1.ell_expand), k1_pass(k1.ell_expand_plain)
@@ -526,8 +547,9 @@ def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
     named = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
     nbytes = named * w * 4 + sum(
         arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * w * 4
-        for n in names)
-    model = sum(k1.ell_expand_hbm_bytes(*arrs[f"{n}_gt"].shape, w) for n in names)
+        + (0 if wsuf is None else wt(n).nbytes) for n in names)
+    model = sum(k1.ell_expand_hbm_bytes(*arrs[f"{n}_gt"].shape, w, weighted=wsuf is not None)
+                for n in names)
     entry = {
         "name": name, "route": "cuda", "source": "tpu_bfs_torch/csrc/ell_expand.cu",
         "replaces": "tpu_bfs/ops/ell_expand.py:225", "launches": launches, "max_abs_err": err,
@@ -1046,10 +1068,10 @@ def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees) -> None:
 def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> None:
     """Checkpoint and resume on the flagship graph: a 256-lane hybrid batch
     started, advanced ``every`` levels, saved, loaded and resumed on the
-    wide engine in chunks of ``every`` levels (each saved and loaded), its
-    finish equal to an uninterrupted hybrid run on every lane; ungated, then
-    gated. Then a single-source BfsEngine (scan): start, advance to level
-    2, save, load, advance, finish, equal to run."""
+    wide engine to its end, its finish equal to an uninterrupted hybrid run
+    on every lane; ungated, then gated. One save a mode: the saves are host
+    zlib, the phase's cost. Then a single-source BfsEngine (scan): start,
+    advance to level 2, save, load, advance, finish, equal to run."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
     from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
@@ -1065,28 +1087,25 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
         heng = HybridMsBfsEngine(hg, lanes=256, num_planes=5, pull_gate=gate, device=dev)
         weng = WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, pull_gate=gate, device=dev)
         full = heng.run(src)
-        save_s, load_s, sizes, levels = [], [], [], []
         reset_counts(k1, k2)
-        st = heng.start(src)
-        eng_of_chunk = heng
         t_all = time.perf_counter()
-        while not st.done:
-            st = eng_of_chunk.advance(st, every)
-            t0 = time.perf_counter()
-            ck.save_packed_checkpoint(path, st)
-            save_s.append(time.perf_counter() - t0)
-            sizes.append(Path(path).stat().st_size)
-            t0 = time.perf_counter()
-            st = ck.load_packed_checkpoint(path)
-            load_s.append(time.perf_counter() - t0)
-            levels.append(st.level)
-            eng_of_chunk = weng  # the rest resumes on the wide engine
+        st = heng.advance(heng.start(src), every)  # the first chunk, on the hybrid
+        require(not st.done, "the batch ended in its first chunk: nothing resumed")
+        t0 = time.perf_counter()
+        ck.save_packed_checkpoint(path, st)
+        save_s = [time.perf_counter() - t0]
+        sizes = [Path(path).stat().st_size]
+        t0 = time.perf_counter()
+        st = ck.load_packed_checkpoint(path)
+        load_s = [time.perf_counter() - t0]
+        levels = [st.level]
+        st = weng.advance(st)  # the rest, resumed on the wide engine
+        levels.append(st.level)
         res = weng.finish(st)
         total_s = time.perf_counter() - t_all
         launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
         require(launches["ell_expand"] > 0 and launches["tile_spmm"] > 0,
                 f"the chunked batch skipped a kernel: {launches}")
-        require(len(levels) >= 2, "the batch ended in its first chunk: nothing resumed")
         require(res.num_levels == full.num_levels, "resumed levels != uninterrupted")
         require(np.array_equal(res.reached, full.reached) and np.array_equal(res.ecc, full.ecc),
                 "resumed reached/ecc != uninterrupted")
@@ -1115,17 +1134,226 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
                                     "equal_to_run": True}})
 
 
+def _dijkstra_oracle(g, sources):
+    """SciPy dijkstra over the weighted graph, duplicate slots min-folded
+    (parallel edges hash to one weight, but keep the oracle honest)."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    m = g.to_scipy(weighted=True).tocoo()
+    key = m.row.astype(np.int64) * g.num_vertices + m.col
+    order = np.lexsort((m.data, key))
+    k2, d2 = key[order], m.data[order]
+    first = np.ones(len(k2), bool)
+    first[1:] = k2[1:] != k2[:-1]
+    mm = sp.csr_matrix(
+        (d2[first], (k2[first] // g.num_vertices, k2[first] % g.num_vertices)),
+        shape=(g.num_vertices, g.num_vertices),
+    )
+    return csgraph.dijkstra(mm, directed=True, indices=sources)
+
+
+def phase_khop(dev, k1, k2, g, eng, sources) -> None:
+    """k-hop counts (k = 3) over the flagship HybridMsBfsEngine on its 8192
+    sources: the validated lanes' reached counts equal SciPy's vertices
+    within 3 hops (a search bounded at 3)."""
+    from scipy.sparse import csgraph
+
+    from tpu_bfs_torch.workloads.khop import KhopServeEngine
+
+    kh = KhopServeEngine(eng)
+    kh.run(sources, k=3)  # warm
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    res = kh.run(sources, k=3)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(all(n > 0 for n in launches.values()), f"khop skipped a kernel: {launches}")
+    # 3 levels, then the claim-free probe the loop runs at its bound.
+    require(res.num_levels == 3 and launches["tile_spmm"] == 4,
+            f"khop: {res.num_levels} levels, {launches['tile_spmm']} K2 launches")
+    picks = [0, len(sources) // 2, len(sources) - 1]
+    t0 = time.perf_counter()
+    d = csgraph.dijkstra(g.to_scipy(), unweighted=True, indices=sources[picks], limit=3.0)
+    want = np.isfinite(d).sum(axis=1)
+    require(np.array_equal(res.reached[picks], want),
+            f"khop reached {res.reached[picks].tolist()} != SciPy {want.tolist()}")
+    require(all(res.extras(i) == {"k": 3} for i in picks), "khop extras")
+    emit({"phase": "workloads", "kind": "khop", "graph": "the flagship graph",
+          "engine": "HybridMsBfsEngine", "lanes": eng.lanes, "k": 3, "batch_ms": batch_ms,
+          "launches": launches, "validated_lanes": picks, "reached": want.tolist(),
+          "validate_s": time.perf_counter() - t0})
+
+
+def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
+    """SSSP at 256 lanes on the flagship graph with edge_weights(seed=1,
+    wmax=8) attached (the JAX bench's kinds graph): a warm batch with CUDA
+    events around every K1 launch, then a timed batch; 3 lanes against
+    SciPy's dijkstra. Returns the "K1 minplus, sssp w 256" kernels entry,
+    K1 on the engine's own light-plane tables and the run's distances."""
+    from tpu_bfs_torch.graph.generate import edge_weights
+    from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
+
+    t0 = time.perf_counter()
+    gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = SsspEngine(gw, lanes=256, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hub = int(np.argmax(g.degrees))
+    draws = np.random.default_rng(7).choice(traversable[traversable != hub], size=255,
+                                            replace=False)
+    src = np.concatenate([[hub], draws])
+    names = bucket_names(eng.ell)
+    k1.ell_expand.timings = []
+    eng.run(src)  # warm, with CUDA events around each K1 launch
+    torch.cuda.synchronize()
+    ev_ms, ev_n = sum(a.elapsed_time(b) for a, b in k1.ell_expand.timings), \
+        len(k1.ell_expand.timings)
+    k1.ell_expand.timings = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts(k1, k2)
+    res = eng.run(src, time_it=True)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    bodies = res.rounds + eng.last_closes
+    require(launches["ell_expand"] == len(names) * bodies == ev_n,
+            f"sssp: {launches} K1 launches, not {len(names)} x {bodies} expansions")
+    require(launches["tile_spmm"] == 0, "sssp launched tile_spmm")
+    require(eng.last_host_reads == bodies, f"sssp: {eng.last_host_reads} host reads")
+    picks = [0, 128, 255]
+    t0 = time.perf_counter()
+    oracle = _dijkstra_oracle(gw, src[picks])
+    for j, i in enumerate(picks):
+        got = res.distances_int32(i).astype(float)
+        got[got == np.iinfo(np.int32).max] = np.inf
+        require(np.array_equal(got, oracle[j]), f"sssp lane {i} != dijkstra")
+        require(int(res.reached[i]) == int(np.isfinite(oracle[j]).sum()), "sssp reached")
+    validate_s = time.perf_counter() - t0
+    emit({"phase": "workloads", "kind": "sssp", "graph": "the flagship graph, "
+          "edge_weights(seed=1, wmax=8)", "lanes": eng.lanes, "delta": eng.delta,
+          "weights_s": weights_s, "engine_build_s": build_s,
+          "batch_ms": res.elapsed_s * 1e3, "rounds": res.rounds, "heavy_closes": eng.last_closes,
+          "host_reads": eng.last_host_reads, "launches": launches,
+          "k1_event_ms_per_batch": ev_ms, "k1_event_launches": ev_n,
+          "peak_above_start_gb": peak_gb, "max_distance": res.num_levels,
+          "validated_lanes": picks, "validate_s": validate_s})
+    fw = res._dist
+    require(int(fw[-1].min()) == int(INF_W), "the sentinel row is not all INF")
+    return k1_entry(k1, eng.arrs, names, fw, "minplus", launches["ell_expand"], ptxas,
+                    wsuf="wl", name="K1 minplus, sssp w 256",
+                    unit="one light sweep: every bucket of the full ELL, w 256, "
+                         "the run's distances against its light-plane tables")
+
+
+def phase_cc(dev, k1, k2, g, ell, lanes: int) -> None:
+    """connected_components over a WidePackedMsBfsEngine at 8192 lanes on
+    the flagship graph's ELL: labels equal the smallest vertex id of each
+    SciPy component, and the component counts are equal."""
+    from scipy.sparse import csgraph
+
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.workloads.cc import connected_components
+
+    t0 = time.perf_counter()
+    eng = WidePackedMsBfsEngine(ell, lanes=lanes, num_planes=5, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    labels, n, sweeps = connected_components(eng)
+    cc_s = time.perf_counter() - t0
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(launches["ell_expand"] > 0 and launches["tile_spmm"] == 0, f"cc: {launches}")
+    t0 = time.perf_counter()
+    nc, lbl = csgraph.connected_components(g.to_scipy(), directed=False)
+    smallest = np.full(nc, g.num_vertices)
+    np.minimum.at(smallest, lbl, np.arange(g.num_vertices))
+    require(n == nc, f"cc: {n} components, SciPy {nc}")
+    require(np.array_equal(labels, smallest[lbl]), "cc labels != smallest id of SciPy's")
+    emit({"phase": "workloads", "kind": "cc", "graph": "the flagship graph",
+          "engine": "WidePackedMsBfsEngine", "lanes": eng.lanes, "components": n,
+          "sweeps": sweeps, "seconds": cc_s, "ms_per_sweep": cc_s * 1e3 / sweeps,
+          "engine_build_s": build_s, "launches": launches,
+          "validate_s": time.perf_counter() - t0})
+
+
+def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
+    """P2pServeEngine over a 256-lane wide engine on the flagship graph, a
+    full batch of 128 pairs drawn among the traversable vertices: every path
+    walked edge by edge, its length the distance; 4 pairs' distances equal
+    SciPy's, and the levels expanded are below those sources' BFS depth."""
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.workloads.p2p import P2pServeEngine
+
+    eng = P2pServeEngine(WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, device=dev))
+    s, t = np.random.default_rng(11).choice(traversable, size=(2, 128))
+    eng.run(s[:4], targets=t[:4])  # warm, and the parent scanner built
+    paths_s = []
+    walk_paths = eng._paths
+
+    def timed_paths(res, walks):  # the scan passes, their copies and the walks
+        t0 = time.perf_counter()
+        out = walk_paths(res, walks)
+        paths_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._paths = timed_paths
+    reset_counts(k1, k2)
+    k1.ell_expand.timings = []
+    t0 = time.perf_counter()
+    res = eng.run(s, targets=t)
+    total_s = time.perf_counter() - t0
+    k1_ms = sum(a.elapsed_time(b) for a, b in k1.ell_expand.timings)
+    k1.ell_expand.timings = None
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    levels = int(res.ecc[0])
+    buckets = len(bucket_names(ell))
+    walked = [i for i in range(128) if res.extras(i)["distance"]]
+    passes = -(-2 * (max(walked) + 1) // 128) if walked else 0
+    require(launches["ell_expand"] == buckets * (levels + passes) and launches["tile_spmm"] == 0,
+            f"p2p: {launches} K1 launches, not {buckets} x ({levels} levels + {passes} scans)")
+    for i in range(128):
+        ex = res.extras(i)
+        require(ex["met"] and ex["path"] is not None, f"p2p pair {i} did not meet")
+        path = ex["path"]
+        require(path[0] == s[i] and path[-1] == t[i] and len(path) == ex["distance"] + 1,
+                f"p2p pair {i}: path ends or length wrong")
+        require(all(g.has_edge(a, b) for a, b in zip(path, path[1:])),
+                f"p2p pair {i}: a path step is not an edge")
+    t0 = time.perf_counter()
+    csr = g.to_scipy()
+    depth = []
+    for i in range(4):
+        d = bfs_scipy(g, int(s[i]), csr=csr)
+        require(res.extras(i)["distance"] == int(d[t[i]]), f"p2p pair {i} != SciPy")
+        depth.append(int(d[d != np.iinfo(np.int32).max].max()))
+    require(levels < min(depth), f"p2p expanded {levels} levels, BFS depth {depth}")
+    emit({"phase": "workloads", "kind": "p2p", "graph": "the flagship graph",
+          "engine": "WidePackedMsBfsEngine", "lanes": 256, "pairs": 128, "levels": levels,
+          "bfs_depth_of_checked": depth, "host_reads": eng.last_host_reads,
+          "batch_s": total_s, "paths_s": paths_s[0], "k1_event_ms": k1_ms,
+          "scan_passes": passes,
+          "launches": launches,
+          "distances": sorted({res.extras(i)["distance"] for i in range(128)}),
+          "validated_pairs": [0, 1, 2, 3], "validate_s": time.perf_counter() - t0})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
-    ap.add_argument("--graph500-scale", type=int, default=20,
-                    help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
+    ap.add_argument("--graph500-scale", type=int, default=19,
+                    help="RMAT scale of the graph500 phase (19; the flagship's is 21)")
     ap.add_argument("--graph500-small-scale", type=int, default=18,
                     help="RMAT scale of the graph500 single and batched runs (18)")
     ap.add_argument("--ckpt-every", type=int, default=4,
-                    help="levels per checkpoint chunk in the ckpt phase (4)")
+                    help="levels before the ckpt phase's checkpoint (4)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
@@ -1172,6 +1400,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:3], wide, ptxas))
+    phase_khop(dev, k1, k2, g, eng, sources)
     hg = eng.hg
     del eng, wide  # free the flagship's device state; its graph stays
     gc.collect()
@@ -1181,7 +1410,17 @@ def main(argv=None) -> int:
     entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
     kernels += entries
     phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_sources[0], args.ckpt_every)
-    del g, golden, trees, dg, ell, hg
+    del golden, trees, dg, hg
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_sssp(dev, k1, k2, g, traversable, ptxas))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cc(dev, k1, k2, g, ell, args.lanes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_p2p(dev, k1, k2, g, ell, traversable)
+    del g, ell
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)

@@ -401,3 +401,57 @@ def test_cli_checkpoint_and_resume_cross_jax(multi, tmp_path):
     assert "Output OK" in resumed and any(ln.startswith("resumed ") and "at level 2" in ln
                                           for ln in resumed)
     assert _lines(resumed, "source ", "Reached ") == _lines(jlines, "source ", "Reached ")
+
+
+def _path_graph_file(tmp_path, n):
+    path = tmp_path / f"path{n}.txt"
+    path.write_text(f"{n} {n - 1}\n" + "".join(f"{i} {i + 1}\n" for i in range(n - 1)))
+    return str(path)
+
+
+@pytest.mark.parametrize("flags", [[], ["--engine", "wide", "--planes", "8"],
+                                   ["--engine", "hybrid", "--planes", "8"]])
+def test_cli_depth_hint_at_254_levels(tmp_path, flags):
+    # A 300-vertex path is deeper than any 8-plane batch counts: the run
+    # still refuses, and the hint names the limit, not the failed settings.
+    path = _path_graph_file(tmp_path, 300)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["0", path, "--multi-source", "299", "--device", "cpu", "--skip-cpu"] + flags)
+    msg = str(exc.value)
+    assert "truncated at 254 levels" in msg and "num_planes=8" in msg
+    assert "254 levels (8 planes) is the deepest a --multi-source batch counts" in msg
+    assert "--planes 8" not in msg.split("hint:")[1]
+    # Fewer planes still get the rerun hint.
+    with pytest.raises(SystemExit, match=r"hint: rerun with --planes 8 \(depth 254\)"):
+        cli.main(["0", path, "--multi-source", "299", "--engine", "wide", "--device", "cpu",
+                  "--skip-cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["9", "random:n=7,m=10"],
+    ["9", "random:n=7,m=10", "--multi-source", "1"],
+    ["2", "random:n=7,m=10", "--multi-source", "1,9,-1,3"],
+])
+def test_cli_out_of_range_text_equals_jax(argv):
+    from tpu_bfs import cli as jcli
+
+    with pytest.raises(SystemExit) as want:
+        jcli.main(argv + ["--skip-cpu"])
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv + ["--skip-cpu", "--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "out of range [0, 7)" in str(got.value)
+
+
+@pytest.mark.parametrize("spec", ["rmat:scale=8,ef=8,weights=5",
+                                  "random:n=300,m=900,seed=4,weights=7", "rmat:scale=7"])
+def test_cli_graph_spec_weights_equal_jax(spec):
+    from tpu_bfs import cli as jcli
+
+    want, got = jcli.load_graph(spec), cli.load_graph(spec)
+    np.testing.assert_array_equal(got.col_idx, want.col_idx)
+    if "weights" in spec:
+        np.testing.assert_array_equal(got.weights, want.weights)
+        assert got.weights.min() >= 1
+    else:
+        assert got.weights is None and want.weights is None

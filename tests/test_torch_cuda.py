@@ -422,3 +422,50 @@ def test_checkpoint_resume_on_cuda(cuda, gate, tmp_path):
     ck.save_checkpoint(path, sst)
     out = single.finish(single.advance(ck.load_checkpoint(path)))
     np.testing.assert_array_equal(out.distance, single.run(s).distance)
+
+
+def test_sssp_on_cuda_equals_cpu(cuda):
+    # Both expansion halves through K1 minplus on the card: distances,
+    # rounds, closes and host reads equal the same engine on CPU tensors.
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    g = rmat_graph(12, 16, seed=11, weights=8)
+    src = np.random.default_rng(5).integers(0, g.num_vertices, size=128)
+    eng, cpu = SsspEngine(g, lanes=128, device=cuda), SsspEngine(g, lanes=128, device="cpu")
+    assert eng.ell.num_heavy > 0
+    before = k1.ell_expand.launches
+    res, want = eng.run(src), cpu.run(src)
+    buckets = 1 + len(eng.ell.light)
+    assert k1.ell_expand.launches - before == buckets * (res.rounds + eng.last_closes)
+    assert res.rounds == want.rounds and eng.last_closes == cpu.last_closes
+    assert eng.last_host_reads == cpu.last_host_reads == res.rounds + eng.last_closes
+    assert torch.equal(res._dist.cpu(), want._dist)
+    np.testing.assert_array_equal(res.reached, want.reached)
+    np.testing.assert_array_equal(res.ecc, want.ecc)
+    for i in (0, 77, 127):
+        np.testing.assert_array_equal(res.distances_int32(i), want.distances_int32(i))
+
+
+def test_cc_and_p2p_on_cuda_equal_cpu(cuda):
+    from tpu_bfs_torch.workloads.cc import connected_components
+    from tpu_bfs_torch.workloads.p2p import P2pServeEngine
+
+    g = rmat_graph(12, 2, seed=3)  # sparse: many components, several sweeps
+    want = connected_components(WidePackedMsBfsEngine(g, lanes=256, device="cpu"))
+    before = k1.ell_expand.launches
+    got = connected_components(WidePackedMsBfsEngine(g, lanes=256, device=cuda))
+    assert k1.ell_expand.launches > before
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[2] > 1
+    g = rmat_graph(12, 16, seed=11)
+    rng = np.random.default_rng(6)
+    s, t = rng.integers(0, g.num_vertices, size=(2, 128))
+    eng = P2pServeEngine(WidePackedMsBfsEngine(g, lanes=256, device=cuda))
+    cpu = P2pServeEngine(WidePackedMsBfsEngine(g, lanes=256, device="cpu"))
+    before = k1.ell_expand.launches
+    got, want = eng.run(s, targets=t), cpu.run(s, targets=t)
+    assert k1.ell_expand.launches > before
+    np.testing.assert_array_equal(got.ecc, want.ecc)
+    np.testing.assert_array_equal(got.reached, want.reached)
+    assert [got.extras(i) for i in range(128)] == [want.extras(i) for i in range(128)]
+    assert eng.last_host_reads == cpu.last_host_reads

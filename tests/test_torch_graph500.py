@@ -102,10 +102,10 @@ def test_run_graph500_backend_and_engine_cls():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mode": "single", "devices": 2}, "item 10"),
-    ({"mode": "batched", "devices": 4}, "item 10"),
-    ({"mode": "hybrid", "devices": 2}, "item 10"),
-    ({"mode": "single", "mesh2d": (2, 4)}, "item 10"),
+    ({"mode": "single", "devices": 2}, "item 3"),
+    ({"mode": "batched", "devices": 4}, "item 3"),
+    ({"mode": "hybrid", "devices": 2}, "item 3"),
+    ({"mode": "single", "mesh2d": (2, 4)}, "item 3"),
 ])
 def test_unported_modes_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

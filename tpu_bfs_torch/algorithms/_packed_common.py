@@ -190,19 +190,32 @@ def arrs_nbytes(host_tables: dict) -> int:
     return sum(int(np.asarray(t).nbytes) for t in host_tables.values())
 
 
-def _expand_pieces(spec: ExpandSpec, w: int, op: str):
+def _weight_slab(op: str, wsuf: str | None):
+    """``wt_of(arrs, name)``: the min-plus weight slab of bucket ``name``
+    (``{name}_{wsuf}_gt``, padded slot for slot with ``{name}_gt``), or None
+    for the ops that take no weights."""
+    if (op == "minplus") != (wsuf is not None):
+        raise ValueError("op='minplus' needs wsuf (the weight plane); or/min take none")
+    if wsuf is None:
+        return lambda arrs, name: None
+    return lambda arrs, name: arrs[f"{name}_{wsuf}_gt"]
+
+
+def _expand_pieces(spec: ExpandSpec, w: int, op: str, wsuf: str | None = None):
     """``(full, heavy)`` of a bucketed-ELL expansion: ``full(n, fw)`` is
     ``n`` identity rows; ``heavy(arrs, fw)`` the heavy section, one K1
     launch over the virtual rows, then their fold pyramid and
-    ``heavy_pick`` in plain torch."""
+    ``heavy_pick`` in plain torch. ``wsuf`` names min-plus's weight plane."""
     combine = COMBINE[op]
     ident = KERNEL_OPS[op][0]
+    wt_of = _weight_slab(op, wsuf)
 
     def full(n, fw):
         return torch.full((n, w), ident, dtype=torch.int32, device=fw.device)
 
     def heavy(arrs, fw):
-        acc = ell_expand(arrs["virtual_need"], arrs["virtual_gt"], fw, op=op)[: spec.num_virtual]
+        acc = ell_expand(arrs["virtual_need"], arrs["virtual_gt"], fw,
+                         wt_of(arrs, "virtual"), op=op)[: spec.num_virtual]
         vr_ext = torch.cat([acc, full(1, fw)])
         cur = vr_ext.index_select(0, arrs["fold_pad_map"])
         pyramid = [cur]
@@ -216,17 +229,22 @@ def _expand_pieces(spec: ExpandSpec, w: int, op: str):
     return full, heavy
 
 
-def make_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
+def make_expand(spec: ExpandSpec, w: int, *, op: str = "or", wsuf: str | None = None):
     """The bucketed-ELL expansion: one ``ell_expand`` launch per bucket
     (the JAX ``make_pallas_expand`` form), the heavy rows' fold pyramid and
     ``heavy_pick`` in plain torch. Returns ``expand(arrs, fw)``: the bucket
-    outputs (heavy, light..., ``tail_rows`` identity rows), a fresh tensor."""
-    full, heavy = _expand_pieces(spec, w, op)
+    outputs (heavy, light..., ``tail_rows`` identity rows), a fresh tensor.
+    With ``op="minplus"``, ``wsuf`` picks the weight plane each launch adds
+    (``arrs["{bucket}_{wsuf}_gt"]``)."""
+    full, heavy = _expand_pieces(spec, w, op, wsuf)
+    wt_of = _weight_slab(op, wsuf)
 
     def expand(arrs, fw):
         parts = [heavy(arrs, fw)] if spec.heavy else []
         for i, (_k, n) in enumerate(spec.light_meta):
-            parts.append(ell_expand(arrs[f"light{i}_need"], arrs[f"light{i}_gt"], fw, op=op)[:n])
+            name = f"light{i}"
+            parts.append(ell_expand(arrs[f"{name}_need"], arrs[f"{name}_gt"], fw,
+                                    wt_of(arrs, name), op=op)[:n])
         if spec.tail_rows:
             parts.append(full(spec.tail_rows, fw))
         return torch.cat(parts) if len(parts) > 1 else parts[0].clone()
@@ -1087,6 +1105,17 @@ def dispatch_packed_batch(engine, sources, *, max_levels: int | None = None) -> 
     )
 
 
+def check_not_truncated(engine, pend: PackedDispatch) -> None:
+    """Raise when the batch stopped at the engine's depth cap with levels
+    still to claim (a bound below the cap stops by request)."""
+    if pend.truncated and pend.max_levels == engine.max_levels_cap:
+        raise RuntimeError(
+            f"traversal truncated at {pend.levels} levels; "
+            f"num_planes={engine.num_planes} caps at {engine.max_levels_cap} "
+            "- construct the engine with more planes for this graph"
+        )
+
+
 def fetch_packed_batch(engine, pend: PackedDispatch, *, check_cap: bool = True,
                        time_it: bool = False) -> PackedBatchResult:
     """Check the depth cap and assemble the batch's result."""
@@ -1094,12 +1123,8 @@ def fetch_packed_batch(engine, pend: PackedDispatch, *, check_cap: bool = True,
         torch.cuda.synchronize(pend.vis.device)
     elapsed = (time.perf_counter() - pend.t0) if time_it else None
     engine._warmed = True
-    if check_cap and pend.truncated and pend.max_levels == engine.max_levels_cap:
-        raise RuntimeError(
-            f"traversal truncated at {pend.levels} levels; "
-            f"num_planes={engine.num_planes} caps at {engine.max_levels_cap} "
-            "- construct the engine with more planes for this graph"
-        )
+    if check_cap:
+        check_not_truncated(engine, pend)
     return _assemble_packed_result(
         engine, pend.sources, pend.planes, pend.vis, pend.fw0, pend.levels,
         pend.alive, elapsed,

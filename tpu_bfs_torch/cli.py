@@ -49,13 +49,17 @@ def _parse_spec(spec: str):
 def load_graph(spec: str):
     from tpu_bfs_torch.graph import generate, io
 
+    # weights=W attaches the edge_weights plane (values in [1, W]), as the
+    # JAX CLI does; SSSP reads it, BFS ignores it.
     if spec.startswith("rmat:") or spec == "rmat":
         _, kw = _parse_spec(spec)
-        return generate.rmat_graph(kw.get("scale", 16), kw.get("ef", 16), seed=kw.get("seed", 1))
+        return generate.rmat_graph(kw.get("scale", 16), kw.get("ef", 16), seed=kw.get("seed", 1),
+                                   weights=kw.get("weights") or None)
     if spec.startswith("random:"):
         _, kw = _parse_spec(spec)
         return generate.random_graph(
-            kw.get("n", 1024), kw.get("m", 8192), seed=kw.get("seed", 12345)
+            kw.get("n", 1024), kw.get("m", 8192), seed=kw.get("seed", 12345),
+            weights=kw.get("weights") or None,
         )
     if spec == "-":
         return io.read_stdin()
@@ -171,6 +175,12 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
     except RuntimeError as exc:
         if "truncated" not in str(exc):
             raise
+        if engine.num_planes >= 8:
+            # The packed engine, or wide/hybrid at --planes 8: no batch
+            # engine counts deeper.
+            raise SystemExit(f"{exc}\nhint: 254 levels (8 planes) is the deepest a "
+                             "--multi-source batch counts; this graph is deeper, so run "
+                             "its sources one at a time without --multi-source")
         if args.ckpt or resume_st is not None:
             raise SystemExit(f"{exc}\nhint: restart with --planes 8 (depth 254); a "
                              "checkpoint's plane count is fixed at start, so existing "
@@ -356,16 +366,21 @@ def main(argv=None) -> int:
     print(f"Number of vertices {g.num_vertices}")
     print(f"Number of edges {g.num_edges}")
     print(f"[load] {time.perf_counter() - t0:.3f}s")
+    # The JAX CLI's checks and texts: <source> first, then the batch.
+    if not (0 <= args.source < g.num_vertices):
+        raise SystemExit(f"source {args.source} out of range [0, {g.num_vertices})")
     resume_st = _load_resume(args, sources is not None)
     if resume_st is not None:
         if sources is not None:
             sources = resume_st.sources
         else:
             args.source = resume_st.source
+    if sources is not None:
+        bad = sources[(sources < 0) | (sources >= g.num_vertices)]
+        if len(bad):
+            raise SystemExit(f"--multi-source vertices {bad.tolist()} out of range "
+                             f"[0, {g.num_vertices})")
     check = sources if sources is not None else np.asarray([args.source])
-    bad = check[(check < 0) | (check >= g.num_vertices)]
-    if len(bad):
-        raise SystemExit(f"source vertices {bad.tolist()} out of range [0, {g.num_vertices})")
     golden = None
     if not args.skip_cpu:
         t0 = time.perf_counter()

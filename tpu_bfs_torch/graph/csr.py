@@ -98,10 +98,27 @@ class Graph:
         src = np.repeat(np.arange(self.num_vertices, dtype=np.int32), self.degrees)
         return src, self.col_idx.astype(np.int32)
 
-    def to_scipy(self):
+    def has_edge(self, u: int, v: int) -> bool:
+        """Whether the edge slot u -> v exists (binary search in a sorted
+        adjacency list, a scan in an unsorted one)."""
+        lo, hi = self.row_ptr[u], self.row_ptr[u + 1]
+        sl = self.col_idx[lo:hi]
+        j = np.searchsorted(sl, v)
+        if j < len(sl) and sl[j] == v:
+            return True
+        # Adjacency may be unsorted when built with sort_neighbors=False.
+        return bool(np.any(sl == v))
+
+    def to_scipy(self, *, weighted: bool = False):
+        """The CSR as a SciPy matrix: ones, or the weights plane."""
         import scipy.sparse as sp
 
-        data = np.ones(self.num_edges, dtype=np.int8)
+        if weighted:
+            if self.weights is None:
+                raise ValueError("graph has no weights plane")
+            data = self.weights.astype(np.int64)
+        else:
+            data = np.ones(self.num_edges, dtype=np.int8)
         return sp.csr_matrix(
             (data, self.col_idx, self.row_ptr),
             shape=(self.num_vertices, self.num_vertices),

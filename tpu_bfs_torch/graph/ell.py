@@ -10,7 +10,9 @@ the single-device builders in ``tpu_bfs/graph/ell.py``.
   fold pyramid ORs them back per vertex (``fold_pad_map``, ``heavy_pick``).
 
 ``pad_gate_blocks`` pads a transposed bucket table to whole 128-row blocks:
-the layout the ``ell_expand`` kernel takes.
+the layout the ``ell_expand`` kernel takes. ``build_ell_weights`` lays a
+weighted graph's weights out slot for slot with an ELL's index tables (the
+SSSP engine's weight planes).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import dataclasses
 
 import numpy as np
 
-from tpu_bfs_torch.graph.csr import Graph, _sorted_pairs
+from tpu_bfs_torch.graph.csr import Graph, _sorted_pairs, _stable_argsort
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +195,54 @@ def bucketize_rows(lens: np.ndarray, nbrs: np.ndarray, new_rp: np.ndarray,
         num_heavy, num_nonzero, num_virtual, fold_steps,
         virtual, fold_pad_map, heavy_pick, light,
     )
+
+
+def bucketize_values(lens: np.ndarray, vals: np.ndarray, new_rp: np.ndarray,
+                     kcap: int, pad: int):
+    """Per-bucket VALUE tables slot-aligned with :func:`bucketize_rows`'s
+    index tables: ``vals`` holds one value per edge slot in the flat order
+    of its ``nbrs``, and the same slicing (it is :func:`bucketize_rows` on
+    the values) puts the value of the neighbor ``idx[row, col]`` names at
+    slot (row, col); unused slots hold ``pad``. Returns ``(virtual_vals |
+    None, [light value tables])``."""
+    *_, virtual, _, _, light = bucketize_rows(lens, vals, new_rp, kcap, pad)
+    return (None if virtual is None else virtual.idx), [b.idx for b in light]
+
+
+def build_ell_weights(g: Graph, ell: EllGraph, *, pad: int = 0):
+    """The per-slot weight tables of ``ell``'s buckets. ``ell`` must be
+    ``build_ell(g)`` of the same weighted graph. Returns ``(virtual_w |
+    None, [light_w])``, each of exactly its bucket's ``idx`` shape: slot
+    (row, col) holds the weight of the in-edge from ``idx[row, col]``,
+    unused slots ``pad`` (they gather the engines' sentinel row, so their
+    weight is inert under min-plus)."""
+    if g.weights is None:
+        raise ValueError("graph has no weights plane (build it with weights=W)")
+    v_count = g.num_vertices
+    src, dst = g.coo
+    # The (dst, src) order of build_ell's neighbor lists: coo is src-major,
+    # so a stable sort by dst alone gives it, ties in CSR order.
+    order_ds = _stable_argsort(dst)
+    in_deg = np.bincount(dst, minlength=v_count).astype(np.int64)
+    in_rp = np.zeros(v_count + 1, dtype=np.int64)
+    np.cumsum(in_deg, out=in_rp[1:])
+    rank_order = ell.old_of_new
+    lens = in_deg[rank_order]
+    new_rp = np.zeros(v_count + 1, dtype=np.int64)
+    np.cumsum(lens, out=new_rp[1:])
+    wflat = g.weights[order_ds][_flat_positions(in_rp[rank_order], lens)]
+    virtual_w, light_w = bucketize_values(lens, wflat, new_rp, ell.kcap, pad)
+    # Shape pin: a plane out of line with its bucket would make every
+    # downstream gather-add silently wrong.
+    if (virtual_w is None) != (ell.virtual is None) or (
+        virtual_w is not None and virtual_w.shape != ell.virtual.idx.shape
+    ):
+        raise AssertionError("weight plane misaligned with ell heavy bucket")
+    if len(light_w) != len(ell.light) or any(
+        w.shape != b.idx.shape for w, b in zip(light_w, ell.light)
+    ):
+        raise AssertionError("weight plane misaligned with ell light buckets")
+    return virtual_w, light_w
 
 
 def build_ell(g: Graph, *, kcap: int = 64) -> EllGraph:

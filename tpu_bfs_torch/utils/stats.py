@@ -6,7 +6,7 @@ degree-weighted histogram. So the stats cost nothing in the level loop and
 hold for every engine. (The reference's only observability is printf,
 bfs.cu:53-96, 624-626.) A pull-gated batch adds its skipped blocks per
 level (``gated_tiles``). The recovery trailer comes with the serve tier
-(ROADMAP Queue 1 item 11).
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
