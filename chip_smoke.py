@@ -45,12 +45,11 @@ Phases, one JSON line each:
     single phase's checked tree; K1 launches counted, and K1 held
     against its twin bit for bit at both widths on the run's own tables
     (the "K1 or, packed w 8" and "K1 or, packed w 1" kernel entries);
-10. graph500: run_graph500(scale 19, ef 16, mode="hybrid", 64 searches,
+10. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
     4 validated) on the card, its trees from the device scan through the
     default parents_int32 (the host scatter-min is made to raise while it
-    runs): scale 19, not 21 (20 before the workloads phase came), keeps
-    the whole script near 10 minutes (--graph500-scale 21 adds some 100 s;
-    the line states the cut).
+    runs): scale 20, not 21, keeps the whole script near
+    10 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
     Then mode="single" (16 searches, 4 validated) and mode="batched" (64
     searches) at scale 18 (--graph500-small-scale; the single phase runs the
     single-source path at the flagship's scale 21).
@@ -80,7 +79,8 @@ Phases, one JSON line each:
     events on every K1 launch) and a timed one, 3 lanes equal to SciPy's
     dijkstra; both halves of every round are K1 minplus launches, and the
     run's distances against its light-plane tables are the "K1 minplus,
-    sssp w 256" kernels entry. cc, connected_components over a 8192-lane
+    sssp w 256" kernels entry (bit-exact against its twin on those tables
+    and on the full-weight plane of the heavy close). cc, connected_components over a 8192-lane
     WidePackedMsBfsEngine on the flagship ELL, labels and count equal to
     SciPy's components. p2p, P2pServeEngine over a 256-lane wide engine,
     128 pairs: every path walked edge by edge, 4 distances equal to
@@ -522,6 +522,21 @@ def _check_trees(g, res, sources, lanes, trees) -> None:
         certify_bfs(g, s, d, trees[i])
 
 
+def k1_check(k1, arrs, names, fw, op: str, wsuf: str | None, name: str) -> float:
+    """K1 against its twin, bit for bit, over one pass of every bucket
+    ``names`` of ``arrs`` (with weight slabs ``{bucket}_{wsuf}_gt`` for
+    minplus). Returns the max abs error; its launches do not count."""
+    saved = k1.ell_expand.launches
+    got, want = ([fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw,
+                     None if wsuf is None else arrs[f"{n}_{wsuf}_gt"], op=op) for n in names]
+                 for fn in (k1.ell_expand, k1.ell_expand_plain))
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}: ell_expand != twin")
+    k1.ell_expand.launches = saved
+    return err
+
+
 def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
              unit: str, plain_reps: int = 1, wsuf: str | None = None) -> dict:
     """A kernels-line entry of K1 over one pass of every bucket ``names`` of
@@ -539,11 +554,7 @@ def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
         return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw, wt(n), op=op) for n in names]
 
     saved = k1.ell_expand.launches
-    got, want = k1_pass(k1.ell_expand), k1_pass(k1.ell_expand_plain)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    require(all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}: ell_expand != twin")
-    del got, want
+    err = k1_check(k1, arrs, names, fw, op, wsuf, name)
     named = int(torch.unique(torch.cat([arrs[f"{n}_gt"].reshape(-1) for n in names])).numel())
     nbytes = named * w * 4 + sum(
         arrs[f"{n}_need"].nbytes + arrs[f"{n}_gt"].nbytes + arrs[f"{n}_gt"].shape[1] * w * 4
@@ -1191,7 +1202,8 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
     wmax=8) attached (the JAX bench's kinds graph): a warm batch with CUDA
     events around every K1 launch, then a timed batch; 3 lanes against
     SciPy's dijkstra. Returns the "K1 minplus, sssp w 256" kernels entry,
-    K1 on the engine's own light-plane tables and the run's distances."""
+    K1 on the engine's own light-plane tables and the run's distances, and
+    held bit for bit against its twin on the heavy close's plane too."""
     from tpu_bfs_torch.graph.generate import edge_weights
     from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
 
@@ -1243,10 +1255,14 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
           "validated_lanes": picks, "validate_s": validate_s})
     fw = res._dist
     require(int(fw[-1].min()) == int(INF_W), "the sentinel row is not all INF")
-    return k1_entry(k1, eng.arrs, names, fw, "minplus", launches["ell_expand"], ptxas,
-                    wsuf="wl", name="K1 minplus, sssp w 256",
-                    unit="one light sweep: every bucket of the full ELL, w 256, "
-                         "the run's distances against its light-plane tables")
+    entry = k1_entry(k1, eng.arrs, names, fw, "minplus", launches["ell_expand"], ptxas,
+                     wsuf="wl", name="K1 minplus, sssp w 256",
+                     unit="one light sweep: every bucket of the full ELL, w 256, "
+                          "the run's distances against its light-plane tables")
+    # The heavy close runs K1 over the full-weight plane at the same shapes.
+    entry["heavy_close_max_abs_err"] = k1_check(
+        k1, eng.arrs, names, fw, "minplus", "w", "K1 minplus, sssp heavy close")
+    return entry
 
 
 def phase_cc(dev, k1, k2, g, ell, lanes: int) -> None:
@@ -1293,16 +1309,6 @@ def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
     eng = P2pServeEngine(WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, device=dev))
     s, t = np.random.default_rng(11).choice(traversable, size=(2, 128))
     eng.run(s[:4], targets=t[:4])  # warm, and the parent scanner built
-    paths_s = []
-    walk_paths = eng._paths
-
-    def timed_paths(res, walks):  # the scan passes, their copies and the walks
-        t0 = time.perf_counter()
-        out = walk_paths(res, walks)
-        paths_s.append(time.perf_counter() - t0)
-        return out
-
-    eng._paths = timed_paths
     reset_counts(k1, k2)
     k1.ell_expand.timings = []
     t0 = time.perf_counter()
@@ -1336,7 +1342,7 @@ def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
     emit({"phase": "workloads", "kind": "p2p", "graph": "the flagship graph",
           "engine": "WidePackedMsBfsEngine", "lanes": 256, "pairs": 128, "levels": levels,
           "bfs_depth_of_checked": depth, "host_reads": eng.last_host_reads,
-          "batch_s": total_s, "paths_s": paths_s[0], "k1_event_ms": k1_ms,
+          "batch_s": total_s, "paths_s": eng.last_paths_s, "k1_event_ms": k1_ms,
           "scan_passes": passes,
           "launches": launches,
           "distances": sorted({res.extras(i)["distance"] for i in range(128)}),
@@ -1348,8 +1354,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
-    ap.add_argument("--graph500-scale", type=int, default=19,
-                    help="RMAT scale of the graph500 phase (19; the flagship's is 21)")
+    ap.add_argument("--graph500-scale", type=int, default=20,
+                    help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
     ap.add_argument("--graph500-small-scale", type=int, default=18,
                     help="RMAT scale of the graph500 single and batched runs (18)")
     ap.add_argument("--ckpt-every", type=int, default=4,

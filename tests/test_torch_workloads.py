@@ -364,6 +364,7 @@ def test_p2p_equals_jax(make, pairs, lanes):
     np.testing.assert_array_equal(got.ecc, want.ecc)
     np.testing.assert_array_equal(got.reached, want.reached)
     assert eng.last_host_reads == 1 + 2 * int(got.ecc[0])
+    assert eng.last_paths_s >= 0.0
     for i in range(pairs):
         ex = got.extras(i)
         assert ex == want.extras(i), i

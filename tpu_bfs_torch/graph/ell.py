@@ -209,13 +209,13 @@ def bucketize_values(lens: np.ndarray, vals: np.ndarray, new_rp: np.ndarray,
     return (None if virtual is None else virtual.idx), [b.idx for b in light]
 
 
-def build_ell_weights(g: Graph, ell: EllGraph, *, pad: int = 0):
+def build_ell_weights(g: Graph, ell: EllGraph):
     """The per-slot weight tables of ``ell``'s buckets. ``ell`` must be
     ``build_ell(g)`` of the same weighted graph. Returns ``(virtual_w |
     None, [light_w])``, each of exactly its bucket's ``idx`` shape: slot
     (row, col) holds the weight of the in-edge from ``idx[row, col]``,
-    unused slots ``pad`` (they gather the engines' sentinel row, so their
-    weight is inert under min-plus)."""
+    unused slots 0 (they gather the engines' sentinel row, so their weight
+    is inert under min-plus)."""
     if g.weights is None:
         raise ValueError("graph has no weights plane (build it with weights=W)")
     v_count = g.num_vertices
@@ -231,7 +231,7 @@ def build_ell_weights(g: Graph, ell: EllGraph, *, pad: int = 0):
     new_rp = np.zeros(v_count + 1, dtype=np.int64)
     np.cumsum(lens, out=new_rp[1:])
     wflat = g.weights[order_ds][_flat_positions(in_rp[rank_order], lens)]
-    virtual_w, light_w = bucketize_values(lens, wflat, new_rp, ell.kcap, pad)
+    virtual_w, light_w = bucketize_values(lens, wflat, new_rp, ell.kcap, 0)
     # Shape pin: a plane out of line with its bucket would make every
     # downstream gather-add silently wrong.
     if (virtual_w is None) != (ell.virtual is None) or (

@@ -21,6 +21,7 @@ scanner's row space, not decoded into whole trees.
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -152,7 +153,8 @@ class P2pServeEngine(ExchangeRecordDelegate):
     """kind="p2p" over a base WIDE packed engine. ``lanes`` counts PAIRS,
     half the base's lanes; ``ladder_lanes`` is the base width.
     ``last_host_reads`` counts the last batch's device-to-host reads in
-    the level loop and the meet checks."""
+    the level loop and the meet checks; ``last_paths_s`` is its seconds in
+    the path walks (the parent scan passes, their copies and the walks)."""
 
     kind = "p2p"
 
@@ -182,6 +184,7 @@ class P2pServeEngine(ExchangeRecordDelegate):
             self._table_rows, base._act, base.w, base.num_planes
         )
         self.last_host_reads = None
+        self.last_paths_s = None
 
     def dispatch(self, sources, *, targets=None, **_ignored) -> P2pPending:
         sources = np.asarray(sources, dtype=np.int64)
@@ -249,8 +252,10 @@ class P2pServeEngine(ExchangeRecordDelegate):
                 continue
             extras.append({"target": t, "met": True, "distance": int(dist[i]), "path": None})
             walks.append((i, s, t, int(self._id_of_row[row[i]])))
+        t0 = time.perf_counter()
         for i, path in self._paths(res, walks).items():
             extras[i]["path"] = path
+        self.last_paths_s = time.perf_counter() - t0
         return P2pResult(reached=reached, levels_expanded=level, extras_list=extras)
 
     def _paths(self, res, walks) -> dict:

@@ -175,7 +175,7 @@ class SsspEngine:
         their candidates absorb under min). Pad weight 0: INF + 0 is the
         min identity."""
         arrs = expand_arrays(self.ell, self._act, self.device)
-        vw, lw = build_ell_weights(self.host_graph, self.ell, pad=0)
+        vw, lw = build_ell_weights(self.host_graph, self.ell)
         planes = ([("virtual", vw)] if vw is not None else []) + [
             (f"light{i}", w) for i, w in enumerate(lw)]
         for name, w in planes:
