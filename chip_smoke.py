@@ -85,6 +85,22 @@ Phases, one JSON line each:
     SciPy's components. p2p, P2pServeEngine over a 256-lane wide engine,
     128 pairs: every path walked edge by edge, 4 distances equal to
     SciPy's, fewer levels than those sources' BFS depth.
+14. mesh (after khop): the mesh engines on a one-rank NCCL group on
+    cuda:0. DistHybridMsBfsEngine (dense exchange) at the flagship's full
+    size on the flagship's 8192 sources: its visited and plane tables equal
+    a single-device batch's of the same call (at one rank the tau order is
+    the rank order), every lane's distances, reached counts and
+    eccentricities too, and the
+    flagship's validated lanes equal SciPy; its batch ms and hmean GTEPS
+    beside the single-device batch's, the all-gather ms a level (CUDA
+    events), host reads a level, the build seconds and peak memory. Its
+    shard tables give the "K1 or, mesh shard" and "K2, mesh shard" kernels
+    entries. Then at the wide phase's scale 18 with 4096 lanes: the hybrid's
+    sparse and sliced exchanges against a single-device HybridMsBfsEngine
+    and DistWideMsBfsEngine (dense, sparse) against the wide phase's
+    engine, every lane's distances compared on the device. Last, two gloo
+    ranks sharing cuda:0 (NCCL refuses two ranks on one device) run
+    DistHybridMsBfsEngine at the same scale, equal to a single-device batch.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -1197,6 +1213,230 @@ def phase_khop(dev, k1, k2, g, eng, sources) -> None:
           "validate_s": time.perf_counter() - t0})
 
 
+def word_distances(eng, res, wi: int, num_vertices: int) -> torch.Tensor:
+    """[V, 32] uint8 distances of word ``wi``'s lanes in vertex-id order, on
+    the device (UNREACHED for vertices without a table row)."""
+    d = eng._extract_word(res._planes, res._vis, res._src_bits, wi)
+    rank = torch.from_numpy(np.asarray(eng._rank, dtype=np.int64)).to(d.device)
+    has_row = rank < eng._act
+    out = torch.full((num_vertices, 32), 255, dtype=torch.uint8, device=d.device)
+    out[has_row] = d.index_select(0, rank[has_row])
+    return out
+
+
+def same_lanes(eng_a, res_a, eng_b, res_b, name: str) -> int:
+    """Every lane's distances, reached count and eccentricity equal in the
+    two results (compared on the device, word by word). Returns the lanes."""
+    n = len(res_a.sources)
+    require(np.array_equal(res_a.reached, res_b.reached), f"{name}: reached counts differ")
+    require(np.array_equal(res_a.ecc, res_b.ecc), f"{name}: eccentricities differ")
+    require(res_a.num_levels == res_b.num_levels, f"{name}: levels differ")
+    v = eng_a.num_vertices
+    for wi in range(-(-n // 32)):
+        require(torch.equal(word_distances(eng_a, res_a, wi, v),
+                            word_distances(eng_b, res_b, wi, v)),
+                f"{name}: distances of word {wi} differ")
+    return n
+
+
+def k2_entry(k2, arrs, fw, prior, num_row_tiles: int, launches: int, ptxas, *, name: str,
+             unit: str) -> dict:
+    """A kernels-line entry of K2 over ``arrs``' dense tiles against frontier
+    ``fw``, ORing into ``prior`` as the engines do: the kernel against its
+    twin, bit for bit, then both timed. The bound reads the named column
+    slabs, the tiles and the touched output rows and writes those rows,
+    once, over 3.35 TB/s; the model is tile_spmm_hbm_bytes."""
+    row_bytes = fw.shape[1] * 4
+    saved = k2.tile_spmm.launches
+    buf = prior.clone()
+
+    def k2_pass():
+        return k2.tile_spmm(arrs["row_start"], arrs["col_tile"], None, fw,
+                            num_row_tiles=num_row_tiles, masks=arrs["a_masks"], out=buf)
+
+    def k2_plain():
+        return k2.tile_spmm_plain(arrs["row_start"], arrs["col_tile"], None, fw,
+                                  num_row_tiles=num_row_tiles, masks=arrs["a_masks"])
+
+    k2_pass()
+    want = prior | k2_plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(buf, want)
+    require(torch.equal(buf, want), f"{name}: tile_spmm out= != prior | twin")
+    del want
+    nt = int(arrs["row_start"][-1])
+    slabs = int(torch.unique(arrs["col_tile"][:nt]).numel())
+    touched = int((arrs["row_start"][1:] > arrs["row_start"][:-1]).sum())
+    nbytes = (arrs["row_start"].nbytes + arrs["col_tile"].nbytes + arrs["a_masks"].nbytes
+              + slabs * 128 * row_bytes + 2 * touched * 128 * row_bytes)
+    entry = {
+        "name": name, "route": "cuda", "source": "tpu_bfs_torch/csrc/tile_spmm.cu",
+        "replaces": "tpu_bfs/ops/tile_spmm.py:184", "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(k2_pass, 5), "plain_ms": cuda_ms(k2_plain, 1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        "model_ms": k2.tile_spmm_hbm_bytes(nt, num_row_tiles, fw.shape[1])
+        / HBM_BYTES_PER_S * 1e3,
+        "unit": unit, "ptxas": ptxas.get("tile_spmm.cu", []),
+    }
+    k2.tile_spmm.launches = saved  # comparisons do not count
+    return entry
+
+
+def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas) -> list:
+    """The mesh engines on a one-rank NCCL group (see the module docstring,
+    phase 14). Returns the two mesh kernels entries."""
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.mesh import close_mesh, make_mesh
+
+    mesh = make_mesh(device=dev)
+    require(mesh.num_shards == 1 and mesh.backend == "nccl", f"mesh {mesh}")
+    single = eng.run(sources, time_it=True)  # the single-device batch of this call
+
+    t0 = time.perf_counter()
+    meng = DistHybridMsBfsEngine(g, mesh, lanes=eng.lanes, num_planes=eng.num_planes)
+    build_s = time.perf_counter() - t0
+    meng.run(sources)  # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)  # the single engine and its batch stay live
+    reset_counts(k1, k2)
+    res = meng.run(sources, time_it=True)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(all(n > 0 for n in launches.values()), f"mesh: a kernel never launched: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak_above_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    syncs = meng.last_host_syncs
+    bodies = int(meng.last_exchange_level_counts.sum())  # one exchange a level body
+
+    # At one rank tau rows are rank0 rows: the tables equal the single batch's.
+    require(torch.equal(res._vis, single._vis), "mesh visited table != single-device")
+    require(all(torch.equal(a, b) for a, b in zip(res._planes, single._planes)),
+            "mesh planes != single-device")
+    same_lanes(meng, res, eng, single, "mesh flagship")  # every lane's distances too
+    validate_lanes(g, res, sources, picks)
+
+    # The all-gather a level, by CUDA events around the engine's gather.
+    gather, evs = meng._gather, []
+
+    def timed_gather(fw, branch):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = gather(fw, branch)
+        b.record()
+        evs.append((a, b))
+        return out
+
+    meng._gather = timed_gather
+    meng.run(sources)
+    torch.cuda.synchronize()
+    meng._gather = gather
+    gather_ms = sum(a.elapsed_time(b) for a, b in evs) / len(evs)
+
+    # The kernels on the rank's shard tables, the run's visited table as frontier.
+    fw = meng._gather(res._vis, 0)
+    arrs, spec = meng.arrs, meng.hd["res_spec"]
+    names = (["virtual"] if spec.heavy else []) + [f"light{i}" for i in
+                                                   range(len(spec.light_meta))]
+    entries = [k1_entry(k1, arrs, names, fw, "or", launches["ell_expand"], ptxas,
+                        name="K1 or, mesh shard", unit="one level: every bucket of the "
+                        "rank's residual shard (one rank)")]
+    prior = meng._expand(arrs, fw).index_select(0, arrs["perm"])
+    entries.append(k2_entry(k2, arrs, fw, prior, meng._nrt, launches["tile_spmm"], ptxas,
+                            name="K2, mesh shard", unit="one launch on the rank's row "
+                            "tiles, out= form (one rank)"))
+    del fw, prior
+    emit({"phase": "mesh", "engine": "DistHybridMsBfsEngine", "exchange": "dense",
+          "ranks": 1, "backend": mesh.backend, "graph": "the flagship graph",
+          "lanes": meng.lanes, "planes": meng.num_planes, "engine_build_s": build_s,
+          "levels": res.num_levels, "level_bodies": bodies,
+          "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
+          "single_batch_ms": single.elapsed_s * 1e3, "single_hmean_gteps": single.teps / 1e9,
+          "all_gather_ms_per_level": gather_ms, "gathers": len(evs),
+          "host_reads": syncs, "host_reads_per_level": syncs / bodies,
+          "peak_mem_gb": peak_gb, "peak_above_start_gb": peak_above_gb,
+          "launches": launches, "validated_lanes": picks,
+          "equal_to_single_device": "visited, planes, every lane's distances, reached, ecc"})
+    del res, single, meng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The wide phase's scale, 4096 lanes: the other exchanges against
+    # single-device engines.
+    g18, weng, wres, wsources = wide
+    hyb = HybridMsBfsEngine(g18, lanes=4096, num_planes=5, device=dev)
+    hres = hyb.run(wsources)
+    runs = []
+    for cls, base, bres, kw in (
+            (DistHybridMsBfsEngine, hyb, hres, dict(exchange="sparse")),
+            (DistHybridMsBfsEngine, hyb, hres, dict(exchange="sliced")),
+            (DistWideMsBfsEngine, weng, wres, dict(exchange="dense")),
+            (DistWideMsBfsEngine, weng, wres, dict(exchange="sparse"))):
+        t0 = time.perf_counter()
+        e = cls(g18, mesh, lanes=4096, num_planes=base.num_planes, **kw)
+        build_s = time.perf_counter() - t0
+        e.run(wsources)  # warm
+        reset_counts(k1, k2)
+        r = e.run(wsources, time_it=True)
+        n = same_lanes(e, r, base, bres, f"{cls.__name__} {kw['exchange']}")
+        runs.append({"engine": cls.__name__, **kw, "lanes_equal": n,
+                     "levels": r.num_levels, "batch_ms": r.elapsed_s * 1e3,
+                     "single_device": type(base).__name__, "engine_build_s": build_s,
+                     "exchange_counts": np.asarray(e.last_exchange_level_counts).tolist(),
+                     "launches": {"ell_expand": k1.ell_expand.launches,
+                                  "tile_spmm": k2.tile_spmm.launches}})
+        del e, r
+    close_mesh()
+    emit({"phase": "mesh", "scale": wide_scale, "edge_factor": 16, "lanes": 4096, "ranks": 1,
+          "runs": runs})
+    del hyb, hres
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_shared_card(dev, wide_scale)
+    return entries
+
+
+def shared_card_rank(mesh, scale: int, lanes: int):
+    """Rank entry of the shared-card check: DistHybridMsBfsEngine (dense
+    exchange) at RMAT ``scale`` with the bench's hub sources; returns the
+    reached counts, eccentricities and three lanes' distances."""
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+
+    g = rmat_graph(scale, 16, seed=1)
+    eng = DistHybridMsBfsEngine(g, mesh, lanes=lanes)
+    sources = np.random.default_rng(3).choice(np.flatnonzero(g.degrees > 0), size=lanes)
+    res = eng.run(sources)
+    picks = [0, lanes // 2, lanes - 1]
+    return (sources, res.reached, res.ecc, [res.distances_int32(i) for i in picks],
+            picks, mesh.backend, str(mesh.device))
+
+
+def phase_shared_card(dev, scale: int, ranks: int = 2) -> dict:
+    """Several gloo ranks on the one card (NCCL takes one rank a device):
+    their DistHybridMsBfsEngine run equals a single-device batch."""
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    sources, reached, ecc, dists, picks, backend, where = launch(
+        ranks, shared_card_rank, scale, 4096, device=f"cuda:{dev.index or 0}", backend="gloo")
+    mesh_s = time.perf_counter() - t0
+    eng = HybridMsBfsEngine(rmat_graph(scale, 16, seed=1), lanes=4096, num_planes=5,
+                            device=dev)
+    res = eng.run(sources)
+    require(np.array_equal(reached, res.reached) and np.array_equal(ecc, res.ecc),
+            "shared card: reached or ecc != single-device")
+    require(all(np.array_equal(d, res.distances_int32(i)) for d, i in zip(dists, picks)),
+            "shared card: distances != single-device")
+    out = {"phase": "mesh", "shared_card": True, "ranks": ranks, "backend": backend,
+           "device": where, "scale": scale, "lanes": 4096, "seconds": mesh_s,
+           "validated_lanes": picks}
+    emit(out)
+    return out
+
+
 def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
     """SSSP at 256 lanes on the flagship graph with edge_weights(seed=1,
     wmax=8) attached (the JAX bench's kinds graph): a warm batch with CUDA
@@ -1407,6 +1647,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:3], wide, ptxas))
     phase_khop(dev, k1, k2, g, eng, sources)
+    kernels += phase_mesh(dev, k1, k2, g, eng, sources, picks[:3], wide, args.wide_scale,
+                          ptxas)
+    gc.collect()
+    torch.cuda.empty_cache()
     hg = eng.hg
     del eng, wide  # free the flagship's device state; its graph stays
     gc.collect()

@@ -226,7 +226,7 @@ def test_cli_default_engine_rule_equals_jax(n_sources, pull_gate, ckpt, monkeypa
                   ckpt=ckpt, resume=None)
     jargs = argparse.Namespace(expand_impl="xla", devices=1, wire_pack=False,
                                sparse_delta=False, adaptive_push=None, **common)
-    targs = argparse.Namespace(device="cpu", **common)
+    targs = argparse.Namespace(device="cpu", devices=1, **common)
     jcli._make_ms_engine(jargs, None, n_sources)
     cli._make_ms_engine(targs, None, n_sources)
     assert tlog == jlog
@@ -276,7 +276,10 @@ def test_port_imports_no_jax():
     )
     mods = [m.removesuffix(".__init__") for m in mods]
     assert {"tpu_bfs_torch.utils.checkpoint", "tpu_bfs_torch.algorithms._packed_common",
-            "tpu_bfs_torch.algorithms.bfs_tiled", "tpu_bfs_torch.graph.ell"} <= set(mods)
+            "tpu_bfs_torch.algorithms.bfs_tiled", "tpu_bfs_torch.graph.ell",
+            "tpu_bfs_torch.parallel.mesh", "tpu_bfs_torch.parallel.collectives",
+            "tpu_bfs_torch.parallel.dist_msbfs_wide",
+            "tpu_bfs_torch.parallel.dist_msbfs_hybrid"} <= set(mods)
     code = (
         f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_bfs.')) "
@@ -455,3 +458,4 @@ def test_cli_graph_spec_weights_equal_jax(spec):
         assert got.weights.min() >= 1
     else:
         assert got.weights is None and want.weights is None
+

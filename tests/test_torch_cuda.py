@@ -3,7 +3,9 @@
 Every test needs a CUDA device (marker ``cuda``) and skips without one, as
 the ``cuda`` fixture decides at run time: a CUDA kernel has no CPU mode.
 This file imports neither jax nor tpu_bfs, so it also runs on a
-machine without them. There, skip the suite's conftest (it sets up JAX):
+machine without them. The mesh engines run as one-rank NCCL groups in
+spawned ranks (their entry points in tests/torch_mesh_cases.py), each
+against a one-rank gloo group on CPU tensors. There, skip the suite's conftest (it sets up JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -469,3 +471,33 @@ def test_cc_and_p2p_on_cuda_equal_cpu(cuda):
     np.testing.assert_array_equal(got.reached, want.reached)
     assert [got.extras(i) for i in range(128)] == [want.extras(i) for i in range(128)]
     assert eng.last_host_reads == cpu.last_host_reads
+
+
+@pytest.mark.parametrize("kind", ["hybrid", "wide"])
+def test_mesh_engines_on_cuda_equal_cpu(cuda, kind):
+    # DistHybridMsBfsEngine (gather dense, sparse gated, sliced gated, a
+    # chained checkpoint) and DistWideMsBfsEngine (dense, sparse) on RMAT 12:
+    # the one-rank NCCL group on the card equals the gloo rank on the CPU,
+    # tables, counters and trees included.
+    import torch_mesh_cases as cases
+    from tpu_bfs_torch.parallel.mesh import start
+
+    todo = cases.CARD_CASES if kind == "hybrid" else cases.CARD_WIDE_CASES
+    on_cpu = start(1, cases.run_cases, kind, todo, device="cpu")
+    got = start(1, cases.run_cases, kind, todo, device="cuda").result()
+    want = on_cpu.result()
+    for name, _g, _kw, _src, _mode in todo:
+        cases.assert_same(got[name], want[name], name)
+
+
+def test_mesh_refuses_more_ranks_than_cards(cuda):
+    # One rank a card: asking for more raises before any rank starts, and
+    # NCCL ranks never share a card; nothing moves to the CPU.
+    import torch_mesh_cases as cases
+    from tpu_bfs_torch.parallel.mesh import launch
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"requested {n} devices, only {n - 1} available"):
+        launch(n, cases.fail_on_rank_one)
+    with pytest.raises(ValueError, match="cannot share"):
+        launch(2, cases.fail_on_rank_one, device="cuda:0", backend="nccl")

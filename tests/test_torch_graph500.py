@@ -3,8 +3,8 @@
 Search keys and the TEPS numerator must equal the JAX package's on the same
 seeded graphs; every mode runs on device="cpu" and validates (oracle and
 certificate), and the single and batched modes find the JAX package's
-distances for every search; the mesh runs, not ported, raise instead of
-running another engine.
+distances for every search; the mesh runs not ported raise instead of
+running another engine (the hybrid mode on a mesh: test_torch_mesh_cli.py).
 """
 
 import numpy as np
@@ -103,28 +103,34 @@ def test_run_graph500_backend_and_engine_cls():
 
 @pytest.mark.parametrize("kw,item", [
     ({"mode": "single", "devices": 2}, "item 3"),
-    ({"mode": "batched", "devices": 4}, "item 3"),
-    ({"mode": "hybrid", "devices": 2}, "item 3"),
+    ({"mode": "single", "devices": 4}, "item 3"),
+    ({"mode": "batched", "mesh2d": (2, 2)}, "item 3"),
     ({"mode": "single", "mesh2d": (2, 4)}, "item 3"),
 ])
 def test_unported_modes_raise(kw, item):
+    # The single-source mesh and the 2D mesh (mode='hybrid', devices=N runs
+    # since the mesh engines came: tests/test_torch_mesh_cli.py).
     with pytest.raises(NotImplementedError, match=item):
         graph500.run_graph500(8, 4, num_searches=2, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw", [{"exchange": "ring"}, {"verbose": True}])
-def test_unported_knobs_are_not_accepted(kw):
-    # The mesh exchange and the progress log come with the runs that read
-    # them: no option is taken and then ignored.
-    with pytest.raises(TypeError, match="unexpected keyword"):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"exchange": "sliced"}, ValueError, "devices > 1"),
+    ({"verbose": True}, TypeError, "unexpected keyword"),
+])
+def test_unported_knobs_are_not_accepted(kw, exc, match):
+    # No option is taken and then ignored: the progress log is not ported,
+    # and the exchange belongs to mesh runs.
+    with pytest.raises(exc, match=match):
         graph500.run_graph500(8, 4, mode="hybrid", device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--exchange", "ring"], ["--exchange", "sliced"]])
-def test_main_rejects_unported_flags(flag, capsys):
+@pytest.mark.parametrize("flag,msg", [(["--exchange", "ring"], "invalid choice"),
+                                      (["--exchange", "sliced"], "--devices N")])
+def test_main_rejects_unported_flags(flag, msg, capsys):
     with pytest.raises(SystemExit):
         graph500.main(["--scale", "8", "--mode", "hybrid", "--device", "cpu"] + flag)
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 def test_bad_arguments_raise():

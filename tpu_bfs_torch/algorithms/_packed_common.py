@@ -174,15 +174,23 @@ def expand_arrays(ell_like, sentinel: int, device) -> dict:
     """Device tensors of one expansion: the kernel tables
     (:func:`pallas_expand_arrays`), an all-ones gate per table
     (``{name}_need``), and the heavy fold map and pick (int64)."""
+    return device_expand_arrays(pallas_expand_arrays(ell_like, sentinel),
+                                ell_like.fold_pad_map, ell_like.heavy_pick, device)
+
+
+def device_expand_arrays(tables: dict, fold_pad_map, heavy_pick, device) -> dict:
+    """:func:`expand_arrays` from the host kernel tables (name ->
+    [k, nb*128] int32) and the heavy fold map and pick (None without a
+    heavy section)."""
     arrs = {}
-    for name, tbl in pallas_expand_arrays(ell_like, sentinel).items():
+    for name, tbl in tables.items():
         arrs[name] = torch.from_numpy(tbl).to(device)
         arrs[name.removesuffix("_gt") + "_need"] = torch.ones(
             tbl.shape[1] // TILE, dtype=torch.int32, device=device
         )
-    if ell_like.virtual is not None:
-        arrs["fold_pad_map"] = torch.from_numpy(ell_like.fold_pad_map.astype(np.int64)).to(device)
-        arrs["heavy_pick"] = torch.from_numpy(ell_like.heavy_pick.astype(np.int64)).to(device)
+    if fold_pad_map is not None:
+        arrs["fold_pad_map"] = torch.from_numpy(fold_pad_map.astype(np.int64)).to(device)
+        arrs["heavy_pick"] = torch.from_numpy(heavy_pick.astype(np.int64)).to(device)
     return arrs
 
 
@@ -1054,6 +1062,9 @@ def _assemble_packed_result(engine, sources, planes, vis, src_bits, levels, aliv
     slot_sum = d.cpu().numpy().reshape(-1)[:s]
     edges = slot_sum // 2 if engine.undirected else slot_sum
     iso = engine._iso_of(sources) if iso_override is None else iso_override
+    # The distributed wide engine seeds a table of another row order than
+    # its result tables; its view converts.
+    src_bits = getattr(engine, "_src_bits_view", lambda t: t)(src_bits)
     if iso.any():
         reached[iso] = 1
         edges[iso] = 0
@@ -1144,8 +1155,10 @@ def run_packed_batch(engine, sources, *, max_levels: int | None = None,
 def packed_table_to_real(engine, table: torch.Tensor) -> np.ndarray:
     """Engine-layout [rows, w] int32 table -> real-vertex-id [V, w] uint32
     host array, the checkpoints' layout. Rows of isolated vertices (no
-    table row) come out all-zero, their live content."""
-    t = table.cpu().numpy().view(np.uint32)
+    table row) come out all-zero, their live content. A mesh engine's rank
+    holds only its own rows: its ``_gather_rows`` assembles the table."""
+    gather = getattr(engine, "_gather_rows", None)
+    t = (table if gather is None else gather(table)).cpu().numpy().view(np.uint32)
     real = np.zeros((engine.num_vertices, engine.w), np.uint32)
     m = engine._rank < engine._act
     real[m] = t[engine._rank[m]]
@@ -1174,7 +1187,24 @@ def packed_real_to_table(engine, real: np.ndarray) -> torch.Tensor:
 
 
 def _device_table(engine, table: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(table.view(np.int32)).to(engine.device)
+    """A host engine-layout table on the device; a mesh rank keeps its own
+    rows (``_own_rows``)."""
+    own = getattr(engine, "_own_rows", None)
+    if own is not None:
+        table = own(table)
+    return torch.from_numpy(np.ascontiguousarray(table).view(np.int32)).to(engine.device)
+
+
+def _fw_hooks(engine):
+    """The frontier's real-id conversions: the distributed wide engine's
+    loop carries a replicated rank-order frontier, unlike its visited and
+    plane tables, and converts it with ``_fw_table_from_real`` and
+    ``_fw_real_from_table``; every other engine as its other tables."""
+    to_fw = getattr(engine, "_fw_table_from_real", None) or (
+        lambda real: packed_real_to_table(engine, real))
+    from_fw = getattr(engine, "_fw_real_from_table", None) or (
+        lambda table: packed_table_to_real(engine, table))
+    return to_fw, from_fw
 
 
 def start_packed_batch(engine, sources):
@@ -1184,7 +1214,8 @@ def start_packed_batch(engine, sources):
     from tpu_bfs_torch.utils.checkpoint import PackedCheckpoint, _new_nonce
 
     sources = _check_batch_sources(engine, sources)
-    seed_real = packed_table_to_real(engine, engine._seed_dev(sources))
+    seed_view = getattr(engine, "_src_bits_view", lambda t: t)
+    seed_real = packed_table_to_real(engine, seed_view(engine._seed_dev(sources)))
     planes = np.zeros((engine.num_planes, engine.num_vertices, engine.w), np.uint32)
     return PackedCheckpoint(
         sources=sources, level=0, alive=True, frontier=seed_real,
@@ -1213,7 +1244,10 @@ def advance_packed_batch(engine, ckpt, levels: int | None = None):
     engine._note_resume_state(vis_host)
     vis = _device_table(engine, vis_host)
     planes = tuple(packed_real_to_table(engine, p) for p in ckpt.planes)
-    fw = packed_real_to_table(engine, ckpt.frontier)
+    to_fw, from_fw = _fw_hooks(engine)
+    fw = to_fw(ckpt.frontier)
+    # The chain identity of the mesh engines' exchange accounting.
+    engine._pending_chain_nonce = ckpt.nonce
     fw, vis, planes, level, alive = engine._core_from(engine.arrs, fw, vis, planes,
                                                       ckpt.level, ml)
     if alive and level >= cap:
@@ -1231,7 +1265,7 @@ def advance_packed_batch(engine, ckpt, levels: int | None = None):
         level, alive = level + 1, False
     return PackedCheckpoint(
         sources=ckpt.sources, level=int(level), alive=bool(alive),
-        frontier=packed_table_to_real(engine, fw),
+        frontier=from_fw(fw),
         visited=packed_table_to_real(engine, vis),
         planes=np.stack([packed_table_to_real(engine, p) for p in planes]),
         iso=ckpt.iso, nonce=ckpt.nonce,

@@ -17,6 +17,7 @@ tree on request. ``--backend`` picks the single-source engine;
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine hybrid --pull-gate --stats
     python -m tpu_bfs_torch 0 rmat:scale=14 --ckpt state.npz --ckpt-every 2
     python -m tpu_bfs_torch 0 rmat:scale=14 --resume state.npz
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2,3 --devices 2 --exchange sparse
 
 Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 / ``random:n=..,m=..,seed=..``. With no ``--engine``, a batch of 512
@@ -26,14 +27,29 @@ the hybrid with ``--pull-gate``). Checkpoint files are the JAX CLI's: a
 run checkpointed by one resumes in the other. A failed chunk is not
 retried here (the JAX CLI's ``advance_with_recovery`` comes with the serve
 tier's recovery).
+
+``--devices N --multi-source`` runs a mesh engine (``parallel/``; the
+hybrid unless ``--engine wide``) on N ranks: this process spawns them
+(``parallel.mesh.launch``), each runs the whole command on its device
+(``cuda:r``, or gloo ranks with ``--device cpu``), and rank 0's output is
+printed. Under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the group
+that exists instead and rank 0 prints. Single-source mesh runs and
+``--mesh RxC`` are not ported (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
+import sys
 import time
 
 import numpy as np
+
+#: This rank's mesh (``parallel.mesh.Mesh``) inside a --devices run.
+_MESH = None
 
 
 def _parse_spec(spec: str):
@@ -81,7 +97,44 @@ def packed_lanes(n_sources: int) -> int:
     return max(32, -(-n_sources // 32) * 32)
 
 
+def _mesh_engine_errors(args) -> None:
+    """The JAX CLI's refusals of a --devices batch (``tpu_bfs/cli.py:163-205``)."""
+    if args.engine == "packed":
+        raise SystemExit("--engine packed is single-device; use --engine hybrid or "
+                         "wide with --devices")
+    if args.exchange == "allreduce":
+        raise SystemExit("--exchange allreduce applies to single-source --devices "
+                         "runs; the packed engines exchange 'ring' (dense), "
+                         "'sparse', or 'sliced' (hybrid)")
+    if args.engine == "wide" and args.exchange == "sliced":
+        raise SystemExit("--exchange sliced is a hybrid-engine layout (ring-"
+                         "rotated expansion over dense tiles + pair ELL); use "
+                         "--engine hybrid")
+    if args.engine == "wide" and args.pull_gate:
+        raise SystemExit("--pull-gate on a mesh runs through the distributed "
+                         "hybrid engine; drop --engine wide")
+
+
+def _make_mesh_engine(args, g):
+    from tpu_bfs_torch.parallel.mesh import make_mesh
+
+    mesh = _MESH if _MESH is not None else make_mesh(args.devices, device=args.device)
+    kw = {"num_planes": args.planes or 5,
+          "exchange": args.exchange if args.exchange in ("sparse", "sliced") else "dense"}
+    if args.lanes is not None:
+        kw["lanes"] = args.lanes
+    if args.engine == "wide":
+        from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+
+        return DistWideMsBfsEngine(g, mesh, **kw)
+    from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+
+    return DistHybridMsBfsEngine(g, mesh, pull_gate=args.pull_gate, **kw)
+
+
 def _make_ms_engine(args, g, n_sources: int):
+    if args.devices > 1:
+        return _make_mesh_engine(args, g)
     engine = args.engine
     if engine is None:
         engine = default_engine(n_sources)
@@ -161,7 +214,8 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
             save = None
             if args.ckpt:
                 def save(c):
-                    ck.save_packed_checkpoint(args.ckpt, c)
+                    if _MESH is None or _MESH.rank == 0:
+                        ck.save_packed_checkpoint(args.ckpt, c)
                     print(f"checkpoint @ level {c.level} -> {args.ckpt}")
             st = resume_st if resume_st is not None else engine.start(sources)
             st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
@@ -185,7 +239,8 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
             raise SystemExit(f"{exc}\nhint: restart with --planes 8 (depth 254); a "
                              "checkpoint's plane count is fixed at start, so existing "
                              "checkpoints from this run cannot be resumed deeper")
-        raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254) or --engine packed")
+        alt = "" if args.devices > 1 else " or --engine packed"
+        raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254){alt}")
     for i, s in enumerate(sources):
         print(f"source {int(s)}: reached {int(res.reached[i])} vertices, "
               f"traversed edges {int(res.edges_traversed[i])}")
@@ -209,11 +264,16 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
             validate.check_parents(g, int(sources[0]), res.distances_int32(0),
                                    res.parents_int32(0))
         print("Output OK")
+    # On a mesh every rank computes (the extraction is collective) and rank 0 saves.
+    rank0 = _MESH is None or _MESH.rank == 0
     if args.save_dist:
-        np.save(args.save_dist, np.stack([res.distances_int32(i) for i in range(len(sources))]))
+        dists = np.stack([res.distances_int32(i) for i in range(len(sources))])
+        if rank0:
+            np.save(args.save_dist, dists)
     if args.save_parent:
-        out = np.empty((len(sources), g.num_vertices), np.int32)
-        np.save(args.save_parent, res.parents_into(out))
+        out = res.parents_into(np.empty((len(sources), g.num_vertices), np.int32))
+        if rank0:
+            np.save(args.save_parent, out)
     return 0
 
 
@@ -327,7 +387,33 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", default=None, metavar="PATH",
                     help="resume a traversal from a checkpoint written by --ckpt (its "
                     "source or sources replace the command line's)")
+    ap.add_argument("--devices", type=int, default=1, metavar="N",
+                    help="--multi-source on a mesh of N ranks, one device each (the "
+                    "sharded hybrid, or --engine wide); single-source mesh runs are "
+                    "not ported")
+    ap.add_argument("--mesh", default=None, metavar="RxC",
+                    help="2D mesh (not ported)")
+    ap.add_argument("--exchange", default="ring",
+                    choices=["ring", "allreduce", "sparse", "sliced"],
+                    help="--devices frontier exchange: 'ring' = the dense row gather, "
+                    "'sparse' = row ids and words with the dense fallback, 'sliced' "
+                    "(hybrid) = the ring-rotated expansion")
     args = ap.parse_args(argv)
+    if args.exchange == "sliced" and not (args.multi_source is not None and args.devices > 1):
+        ap.error("--exchange sliced is the packed hybrid engine's ring-rotation layout; "
+                 "use it with --multi-source --devices N")
+    if args.multi_source is not None and args.mesh:
+        ap.error("--multi-source shards 1D (row-tile round-robin); pass --devices N "
+                 "instead of a 2D mesh")
+    if args.mesh or (args.devices > 1 and args.multi_source is None):
+        from tpu_bfs_torch.workloads import _mesh_unported
+
+        raise _mesh_unported("the 2D mesh (--mesh)" if args.mesh
+                             else "single-source BFS on a mesh (--devices N)")
+    if args.devices > 1:
+        _mesh_engine_errors(args)
+        if _MESH is None:
+            return _run_mesh(args, sys.argv[1:] if argv is None else list(argv))
     if args.pull_gate and args.multi_source is None and args.backend != "tiled":
         ap.error("--pull-gate for single-source runs needs --backend tiled (the other "
                  "single-source backends have no tile pass to gate)")
@@ -390,6 +476,40 @@ def main(argv=None) -> int:
     if sources is not None:
         return _run_multi_source(args, g, golden, sources, resume_st)
     return _run_single_source(args, g, golden, resume_st)
+
+
+def _mesh_rank_main(mesh, argv):
+    """One rank of a --devices run: the whole command on ``mesh``, its
+    output captured. Returns ``(rank 0's output, exit code or message)``."""
+    global _MESH
+    _MESH = mesh
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except SystemExit as exc:  # a refusal or a truncation hint
+        rc = exc.code
+    return buf.getvalue(), rc
+
+
+def _run_mesh(args, argv) -> int:
+    """A --devices batch on its ranks, rank 0's output printed: the ranks
+    are spawned here, or, under torchrun, this process is one of them."""
+    from tpu_bfs_torch.parallel.mesh import launch, make_mesh
+
+    if "WORLD_SIZE" in os.environ:
+        mesh = make_mesh(args.devices, device=args.device)
+        text, rc = _mesh_rank_main(mesh, argv)
+        text = text if mesh.rank == 0 else ""
+    else:
+        if args.graph == "-":
+            raise SystemExit("--devices reads the graph in every rank: give a file or a "
+                             "generator spec, not stdin")
+        text, rc = launch(args.devices, _mesh_rank_main, argv, device=args.device)
+    print(text, end="")
+    if rc not in (0, None):
+        raise SystemExit(rc)
+    return 0
 
 
 def _load_resume(args, multi_source: bool):

@@ -12,7 +12,8 @@ the single-device builders in ``tpu_bfs/graph/ell.py``.
 ``pad_gate_blocks`` pads a transposed bucket table to whole 128-row blocks:
 the layout the ``ell_expand`` kernel takes. ``build_ell_weights`` lays a
 weighted graph's weights out slot for slot with an ELL's index tables (the
-SSSP engine's weight planes).
+SSSP engine's weight planes). ``build_ell_sharded`` deals the rows of a
+1D mesh's shards round-robin (the distributed wide engine's tables).
 """
 
 from __future__ import annotations
@@ -282,4 +283,179 @@ def build_ell(g: Graph, *, kcap: int = 64) -> EllGraph:
         heavy_pick=heavy_pick,
         fold_steps=fold_steps,
         light=light,
+    )
+
+
+# --- The sharded ELL of the distributed wide engine --------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def rank_by_in_degree(dst: np.ndarray, v_count: int):
+    """(in_degree, rank_order, rank) of the descending-in-degree relabeling
+    over every vertex, stable on ties (the sharded ELL's order: every
+    vertex has a row there)."""
+    in_deg = np.bincount(dst, minlength=v_count).astype(np.int64)
+    rank_order = np.argsort(-in_deg, kind="stable").astype(np.int32)
+    rank = np.empty(v_count, dtype=np.int32)
+    rank[rank_order] = np.arange(v_count, dtype=np.int32)
+    return in_deg, rank_order, rank
+
+
+def pad_heavy_shards(hlens_list, flat_list, kcap: int, sentinel: int):
+    """Heavy sections of several shards at one common shape.
+
+    Each shard's heavy rows (``hlens_list[p]``, non-increasing, neighbor
+    lists concatenated in ``flat_list[p]``) split into kcap-wide virtual
+    rows plus a fold pyramid, as in :func:`bucketize_rows`, every shape
+    padded to the maximum over the shards. ``m2`` always holds a padded
+    level-0 slot, so a shard with fewer heavy rows pads ``heavy_pick`` onto
+    an all-identity pyramid slot.
+
+    Returns ``(nh, num_virtual, fold_steps, m2, virtual [P, M, kcap],
+    fold_pad_map [P, m2], heavy_pick [P, nh])``, or zeros and Nones when no
+    shard has a heavy row."""
+    nh = max((len(h) for h in hlens_list), default=0)
+    if nh == 0:
+        return 0, 0, 0, 0, None, None, None
+    r_per_all = [np.maximum(-(-h // kcap), 1) for h in hlens_list]
+    num_virtual = max(max((int(r.sum()) for r in r_per_all), default=1), 1)
+    rp2_all = [
+        1 << np.ceil(np.log2(r)).astype(np.int64) if len(r) else np.zeros(0, np.int64)
+        for r in r_per_all
+    ]
+    fold_steps = max((int(np.log2(r[0])) for r in rp2_all if len(r)), default=0)
+    block = 1 << fold_steps
+    m2 = _round_up(max((int(r.sum()) for r in rp2_all), default=0) + 1, block)
+    v_parts, f_parts, h_parts = [], [], []
+    for hlens, flat, r_per, rp2 in zip(hlens_list, flat_list, r_per_all, rp2_all):
+        n_h = len(hlens)
+        vlens = np.zeros(num_virtual, dtype=np.int64)
+        fpm = np.full(m2, num_virtual, dtype=np.int32)
+        hpick = np.zeros(nh, dtype=np.int32)
+        if n_h:
+            vlens[: int(r_per.sum())] = kcap
+            vr_last = np.cumsum(r_per) - 1
+            vlens[vr_last] = hlens - kcap * (r_per - 1)
+            pstart = np.concatenate([[0], np.cumsum(rp2)[:-1]]).astype(np.int64)
+            vr_start = vr_last - r_per + 1
+            fpm[_flat_positions(pstart, r_per)] = _flat_positions(vr_start, r_per).astype(
+                np.int32)
+            hpick[:n_h] = _heavy_pick(rp2, pstart, m2, fold_steps)
+        v_parts.append(_ell_fill(vlens, flat, kcap, sentinel))
+        f_parts.append(fpm)
+        h_parts.append(hpick)
+    return (nh, num_virtual, fold_steps, m2,
+            np.stack(v_parts), np.stack(f_parts), np.stack(h_parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllGraph:
+    """Per-shard ELL tables of one common shape, for a 1D mesh.
+
+    The rank space (descending in-degree over every vertex) is padded to
+    ``num_shards * v_loc`` rows; shard p owns the rows r with
+    ``r % num_shards == p``, dealt round-robin so every shard sees the same
+    degree mix. Bucket boundaries are multiples of ``num_shards``, so every
+    shard has the same bucket row counts and its bucket outputs are its own
+    rows in local order. Neighbor ids are global ranks (sentinel ``v_pad``):
+    the shards gather from a replicated frontier table of ``v_pad + 1``
+    rows. Array fields carry a leading shard axis."""
+
+    num_vertices: int
+    num_edges: int
+    undirected: bool
+    kcap: int
+    num_shards: int
+    v_loc: int  # rows per shard; v_pad = num_shards * v_loc
+    old_of_new: np.ndarray  # [V] int32
+    rank: np.ndarray  # [V] int32
+    in_degree: np.ndarray  # [V] int64, original-id order
+    heavy_per_shard: int
+    num_virtual: int  # virtual rows per shard (the maximum, padded)
+    m2: int
+    fold_steps: int
+    virtual: np.ndarray | None  # [P, M, kcap] int32
+    fold_pad_map: np.ndarray | None  # [P, m2] int32
+    heavy_pick: np.ndarray | None  # [P, heavy_per_shard] int32
+    light: list  # (k, [P, n_k, k] int32)
+    tail_rows: int  # identity rows after each shard's buckets
+
+    @property
+    def v_pad(self) -> int:
+        return self.num_shards * self.v_loc
+
+
+def starts_of(rows: np.ndarray, new_rp: np.ndarray) -> np.ndarray:
+    """Flat-neighbor start offsets of the given rank rows."""
+    return new_rp[rows]
+
+
+def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEllGraph:
+    """The ELL tables of every shard of a ``num_shards``-way 1D partition
+    (NumPy, on the host). A mesh rank builds all of them and keeps its own:
+    the shapes are the maxima over the shards."""
+    p_count = num_shards
+    v_count = g.num_vertices
+    src, dst = g.coo
+    _, in_col = _sorted_pairs(dst, src, v_count)
+    in_deg, rank_order, rank = rank_by_in_degree(dst, v_count)
+
+    v_loc = -(-v_count // p_count)
+    v_pad = p_count * v_loc
+    in_rp = np.zeros(v_count + 1, dtype=np.int64)
+    np.cumsum(in_deg, out=in_rp[1:])
+    lens = np.zeros(v_pad, dtype=np.int64)
+    lens[:v_count] = in_deg[rank_order]
+    starts = np.zeros(v_pad, dtype=np.int64)
+    starts[:v_count] = in_rp[rank_order]
+    new_rp = np.zeros(v_pad + 1, dtype=np.int64)
+    np.cumsum(lens, out=new_rp[1:])
+    nbrs = rank[in_col[_flat_positions(starts, lens)]].astype(np.int32)
+
+    num_heavy = int(np.searchsorted(-lens, -kcap, side="left"))
+    h_bound = min(_round_up(num_heavy, p_count), v_pad)
+
+    def shard_rows(lo: int, hi: int, p: int) -> np.ndarray:
+        return np.arange(lo + p, hi, p_count, dtype=np.int64)
+
+    def shard_flat(rows):
+        return nbrs[_flat_positions(starts_of(rows, new_rp), lens[rows])]
+
+    virtual = fold_pad_map = heavy_pick = None
+    num_virtual = m2 = fold_steps = 0
+    heavy_per_shard = h_bound // p_count
+    if h_bound:
+        rows_p = [shard_rows(0, h_bound, p) for p in range(p_count)]
+        (_, num_virtual, fold_steps, m2, virtual, fold_pad_map, heavy_pick) = pad_heavy_shards(
+            [lens[r] for r in rows_p], [shard_flat(r) for r in rows_p], kcap, v_pad)
+
+    # The light ladder, its global boundaries multiples of num_shards.
+    light = []
+    prev = h_bound
+    k = kcap
+    while prev < v_pad and k >= 1:
+        hi = int(np.searchsorted(-lens, -(k // 2 + 1), side="right"))
+        hi = min(max(_round_up(hi, p_count), prev), v_pad)
+        if k == 1:  # the last bucket takes every remaining nonzero row
+            nz = int(np.searchsorted(-lens, 0, side="left"))
+            hi = min(max(_round_up(nz, p_count), prev), v_pad)
+        if hi > prev:
+            blocks = []
+            for p in range(p_count):
+                rows = shard_rows(prev, hi, p)
+                blocks.append(_ell_fill(lens[rows], shard_flat(rows), k, v_pad))
+            light.append((k, np.stack(blocks)))
+            prev = hi
+        k //= 2
+
+    return ShardedEllGraph(
+        num_vertices=v_count, num_edges=int(new_rp[-1]), undirected=g.undirected,
+        kcap=kcap, num_shards=p_count, v_loc=v_loc, old_of_new=rank_order, rank=rank,
+        in_degree=in_deg, heavy_per_shard=heavy_per_shard, num_virtual=num_virtual, m2=m2,
+        fold_steps=fold_steps, virtual=virtual, fold_pad_map=fold_pad_map,
+        heavy_pick=heavy_pick, light=light,
+        tail_rows=v_loc - heavy_per_shard - sum(b.shape[1] for _, b in light),
     )

@@ -9,12 +9,17 @@ TEPS.
     python -m tpu_bfs_torch.graph500 --mode batched --scale 16
     python -m tpu_bfs_torch.graph500 --mode hybrid --scale 8 --device cpu
 
-Every mode runs on one device: ``'single'`` (the official kernel-2 shape,
-one ``BfsEngine`` traversal per search), ``'batched'`` (all searches in one
-``MsBfsEngine`` batch) and ``'hybrid'`` (all searches in one batch of the
-flagship ``HybridMsBfsEngine``). The mesh runs (``devices > 1``,
-``mesh2d``) need engines that are not ported yet and raise
-``NotImplementedError``; they never fall back to another engine.
+Modes: ``'single'`` (the official kernel-2 shape, one ``BfsEngine``
+traversal per search), ``'batched'`` (all searches in one ``MsBfsEngine``
+batch) and ``'hybrid'`` (all searches in one batch of the flagship
+``HybridMsBfsEngine``). ``mode='hybrid', devices=N`` runs the sharded
+``DistHybridMsBfsEngine`` on N spawned ranks (``parallel.mesh.launch``;
+``cuda:r``, or gloo ranks with ``device='cpu'``) and returns rank 0's
+result. The other mesh runs (``'single'`` with ``devices > 1``, and
+``mesh2d``) are not ported yet and raise ``NotImplementedError``; they
+never fall back to another engine.
+
+    python -m tpu_bfs_torch.graph500 --mode hybrid --devices 2 --scale 10 --device cpu
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ def run_graph500(
     engine_cls=None,
     devices: int = 1,
     mesh2d: tuple[int, int] | None = None,
+    exchange: str | None = None,
     backend: str = "scan",
     device=None,
 ) -> Graph500Result:
@@ -95,15 +101,47 @@ def run_graph500(
     ``HybridMsBfsEngine``, the same equal-share accounting; ``num_planes``
     caps depth at 2**planes levels and ``lanes`` sets the batch width.
     ``engine_cls`` replaces the mode's engine, built as
-    ``engine_cls(g, device=device)``. ``device`` is CUDA unless named. The
-    mesh runs' frontier exchange comes with those runs."""
+    ``engine_cls(g, device=device)``. ``device`` is CUDA unless named.
+    ``exchange`` is the mesh hybrid's ('dense' by default, 'sparse',
+    'sliced')."""
     if mode not in ("single", "batched", "hybrid"):
         raise ValueError(f"unknown mode {mode!r}; have 'single', 'batched', 'hybrid'")
     if validate_mode not in ("oracle", "certify"):
         raise ValueError(f"unknown validate_mode {validate_mode!r}; have 'oracle', 'certify'")
-    if devices > 1 or mesh2d is not None:
-        raise _unported("a mesh run (devices > 1 or mesh2d)", "3")
+    if exchange is not None and devices == 1:
+        raise ValueError("exchange applies to a mesh run (mode='hybrid', devices > 1)")
+    if mesh2d is not None:
+        if mode == "hybrid":
+            raise ValueError("hybrid mode shards 1D (row-tile round-robin); pass "
+                             "devices=N instead of a 2D mesh")
+        raise _unported("a 2D mesh run (mesh2d)", "3")
+    if devices > 1:
+        if mode == "batched":
+            raise ValueError("mode='batched' is single-device; use mode='hybrid' (sharded "
+                             "DistHybridMsBfsEngine) or mode='single' on a mesh")
+        if mode == "single":
+            raise _unported("a single-source mesh run (mode='single', devices > 1)", "3")
+        from tpu_bfs_torch.parallel.mesh import launch
 
+        return launch(devices, _mesh_rank, dict(
+            scale=scale, edge_factor=edge_factor, seed=seed, num_searches=num_searches,
+            mode=mode, validate_searches=validate_searches, validate_mode=validate_mode,
+            num_planes=num_planes, lanes=lanes, engine_cls=engine_cls, exchange=exchange,
+            backend=backend), device=device)
+    return _run(scale, edge_factor, seed=seed, num_searches=num_searches, mode=mode,
+                validate_searches=validate_searches, validate_mode=validate_mode,
+                num_planes=num_planes, lanes=lanes, engine_cls=engine_cls, backend=backend,
+                device=device)
+
+
+def _mesh_rank(mesh, kw) -> Graph500Result:
+    """One rank of a mesh run: the whole harness on ``mesh``."""
+    return _run(**kw, device=mesh.device, mesh=mesh)
+
+
+def _run(scale, edge_factor, *, seed, num_searches, mode, validate_searches, validate_mode,
+         num_planes, lanes, engine_cls, backend, device, mesh=None,
+         exchange=None) -> Graph500Result:
     t0 = time.perf_counter()
     g = rmat_graph(scale, edge_factor, seed=seed)
     graph_s = time.perf_counter() - t0
@@ -112,6 +150,12 @@ def run_graph500(
     t0 = time.perf_counter()
     if engine_cls is not None:
         eng = engine_cls(g, device=device)
+    elif mode == "hybrid" and mesh is not None:
+        from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+
+        lanes_kw = {} if lanes is None else {"lanes": lanes}
+        eng = DistHybridMsBfsEngine(g, mesh, num_planes=num_planes,
+                                    exchange=exchange or "dense", **lanes_kw)
     elif mode == "hybrid":
         from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
 
@@ -196,7 +240,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", type=int, default=None, metavar="N",
                     help="hybrid mode: packed batch width (default: engine auto sizing)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard over N devices (not ported: N > 1 exits with an error)")
+                    help="hybrid mode: shard over N ranks, one device each (single "
+                    "mode on a mesh is not ported: exits with an error)")
+    ap.add_argument("--exchange", default=None, choices=["dense", "sparse", "sliced"],
+                    help="hybrid mode on a mesh: the frontier exchange (default dense)")
     ap.add_argument("--mesh", default=None, metavar="RxC",
                     help="2D mesh (not ported: exits with an error)")
     ap.add_argument("--backend", default="scan", choices=["scan", "segment", "scatter", "dopt"],
@@ -204,6 +251,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
     args = ap.parse_args(argv)
+    if args.exchange is not None and args.devices == 1:
+        ap.error("--exchange applies to --mode hybrid --devices N")
     mesh2d = None
     if args.mesh:
         try:
@@ -225,6 +274,7 @@ def main(argv=None) -> int:
             lanes=args.lanes,
             devices=args.devices,
             mesh2d=mesh2d,
+            exchange=args.exchange,
             backend=args.backend,
             device=args.device,
         )
