@@ -45,11 +45,12 @@ Phases, one JSON line each:
     single phase's checked tree; K1 launches counted, and K1 held
     against its twin bit for bit at both widths on the run's own tables
     (the "K1 or, packed w 8" and "K1 or, packed w 1" kernel entries);
-10. graph500: run_graph500(scale 20, ef 16, mode="hybrid", 64 searches,
+10. graph500: run_graph500(scale 18, ef 16, mode="hybrid", 64 searches,
     4 validated) on the card, its trees from the device scan through the
     default parents_int32 (the host scatter-min is made to raise while it
-    runs): scale 20, not 21, keeps the whole script near
-    10 minutes (--graph500-scale 21 adds some 100 s; the line states the cut).
+    runs): scale 18, not 21 (the flagship phase runs the hybrid at 21),
+    keeps the whole script near 11 minutes (--graph500-scale 20 or 21 runs
+    the larger graphs; the line states the cut).
     Then mode="single" (16 searches, 4 validated) and mode="batched" (64
     searches) at scale 18 (--graph500-small-scale; the single phase runs the
     single-source path at the flagship's scale 21).
@@ -101,6 +102,22 @@ Phases, one JSON line each:
     engine, every lane's distances compared on the device. Last, two gloo
     ranks sharing cuda:0 (NCCL refuses two ranks on one device) run
     DistHybridMsBfsEngine at the same scale, equal to a single-device batch.
+15. mesh_single (after single): the single-source mesh engines on a
+    one-rank NCCL group on cuda:0 at the flagship's full size, from the
+    single phase's 4 sources: DistBfsEngine with the ring, allreduce and
+    sparse exchanges (scan) and with dopt (ring), and Dist2DBfsEngine 1x1
+    with ring and sparse. Each BFS runs once to warm and once timed; every
+    distance array equals SciPy's and every tree the single phase's checked
+    tree. Per engine: ms per BFS (the timed run, and the median of 3 more
+    in turns with BfsEngine's of the same backend, scan or dopt), GTEPS, levels, host reads a level, the exchange's ms a level
+    (CUDA events around the row exchange and the 2D column gather), branch
+    counts and modeled bytes, build seconds and peak memory above the
+    memory held just before the engine is built (its build and its checked
+    runs). These engines are plain PyTorch: no kernel launches.
+    One host partition a mesh shape is shared by its engines (its seconds
+    stated). Then gloo ranks sharing cuda:0 at the wide phase's scale 18: the 1D
+    engine on 2 ranks and the 2D engine on 2x2, ring and sparse, every
+    source's distances and tree equal to BfsEngine's on the card.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -116,6 +133,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -126,6 +144,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the rest decode only the validated lanes (a whole pass takes seconds).
 # One pass keeps the whole script near 9 minutes.
 DECODE_PASSES = 1
+# Threads checking BFS trees on the host side by side (a lane's check is
+# a few O(E) numpy passes, some 2 GB of temporaries at scale 21).
+CHECK_THREADS = 4
+# Timed runs a source in the mesh_single phase past the protocol's one, in
+# turns with BfsEngine's: the spread of a ~10 ms BFS driven from the host.
+REPEATS = 3
 T0 = time.perf_counter()
 
 
@@ -528,14 +552,20 @@ def phase_kernels(eng, res, launches, k1, k2, ptxas):
 
 def _check_trees(g, res, sources, lanes, trees) -> None:
     """Each lane's tree equals validate.min_parent_from_dist and passes
-    validate.certify_bfs."""
+    validate.certify_bfs. The lanes are checked in CHECK_THREADS threads
+    (numpy's O(E) passes release the GIL), each lane in full."""
     from tpu_bfs_torch.validate import certify_bfs, min_parent_from_dist
 
-    for i in lanes:
-        s, d = int(sources[i]), res.distances_int32(i)
+    def check(i, d):
+        s = int(sources[i])
         require(np.array_equal(trees[i], min_parent_from_dist(g, s, d)),
                 f"lane {i}: scanned tree != min_parent_from_dist")
         certify_bfs(g, s, d, trees[i])
+
+    dists = [res.distances_int32(i) for i in lanes]  # device reads stay on this thread
+    g.coo  # built once, before the threads share it
+    with ThreadPoolExecutor(CHECK_THREADS) as pool:
+        list(pool.map(check, lanes, dists))  # re-raises a lane's failure
 
 
 def k1_check(k1, arrs, names, fw, op: str, wsuf: str | None, name: str) -> float:
@@ -755,6 +785,183 @@ def phase_single(dev, k1, k2, g, traversable):
           "golden_s": golden_s, "device_graph_s": dg_s, "validated": "every run",
           "launches": launches, "backends": backends})
     return sources, golden, trees, dg
+
+
+def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: int):
+    """The single-source mesh engines on a one-rank NCCL group (see the
+    module docstring, phase 15), then on gloo ranks sharing the card. Each
+    engine's timed runs alternate with BfsEngine's of its backend on the
+    single phase's DeviceGraph ``dg``."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine, partition_shard
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine, partition_shard_2d
+    from tpu_bfs_torch.parallel.mesh import close_mesh, make_mesh, make_mesh_2d
+    from tpu_bfs_torch.validate import check_distances
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    require(mesh.num_shards == 1 and mesh.backend == "nccl", f"mesh {mesh}")
+    m2 = make_mesh_2d(1, 1, mesh=mesh)
+    # One host partition a mesh shape, shared by its engines.
+    t0 = time.perf_counter()
+    shard = partition_shard(g, mesh)
+    partition_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard2 = partition_shard_2d(g, m2)
+    partition_2d_s = time.perf_counter() - t0
+
+    def one(kw):
+        return DistBfsEngine(g, mesh, shard=shard, **kw)
+
+    def two(kw):
+        return Dist2DBfsEngine(g, m2, shard=shard2, **kw)
+
+    engines = (("DistBfsEngine", dict(exchange="ring"), one),
+               ("DistBfsEngine", dict(exchange="allreduce"), one),
+               ("DistBfsEngine", dict(exchange="sparse"), one),
+               ("DistBfsEngine", dict(exchange="ring", backend="dopt"), one),
+               ("Dist2DBfsEngine", dict(exchange="ring"), two),
+               ("Dist2DBfsEngine", dict(exchange="sparse"), two))
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = {b: BfsEngine(dg, backend=b, device=dev) for b in ("scan", "dopt")}
+    reset_counts(k1, k2)
+    out = []
+    for name, kw, make in engines:
+        # Each engine's own peak: its build and its checked runs, from the
+        # memory held just before it is built (BfsEngine's runs excluded).
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        eng = make(kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs = []
+        ref = refs[kw.get("backend", "scan")]
+        for s in sources:
+            torch.cuda.reset_peak_memory_stats(dev)
+            eng.run(s, with_parents=False, time_it=True)  # warm (the first also warms inside)
+            r = eng.run(s, time_it=True)
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            check_distances(r.distance, golden[s])
+            require(np.array_equal(r.parent, trees[s]), f"{name} {kw}: tree of {s} differs")
+            bodies = int(eng.last_exchange_level_counts.sum())
+            # The spread: REPEATS more timed runs, in turns with BfsEngine's.
+            mine, theirs = [], []
+            for _ in range(REPEATS):
+                theirs.append(ref.run(s, with_parents=False, time_it=True).elapsed_s * 1e3)
+                mine.append(eng.run(s, with_parents=False, time_it=True).elapsed_s * 1e3)
+            runs.append({"source": s, "ms": r.elapsed_s * 1e3,
+                         "median_ms": float(np.median(mine)), "repeats_ms": mine,
+                         "bfs_engine_median_ms": float(np.median(theirs)),
+                         "bfs_engine_repeats_ms": theirs,
+                         "levels": r.num_levels, "level_bodies": bodies,
+                         "gteps": r.edges_traversed / float(np.median(mine)) / 1e6,
+                         "host_reads": eng.last_host_syncs,
+                         "host_reads_per_level": eng.last_host_syncs / bodies,
+                         "exchange_counts": eng.last_exchange_level_counts.tolist()})
+        # The exchange a level by CUDA events: the row exchange and (2D) the
+        # column all-gather, around the engine's own calls, in one more BFS.
+        evs = []
+
+        def timed(fn):
+            def call(*a):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a)
+                e1.record()
+                evs.append((e0, e1))
+                return res
+            return call
+
+        wrapped = ["_exchange_step"] + (["_gather_col"] if hasattr(eng, "_gather_col") else [])
+        for attr in wrapped:
+            setattr(eng, attr, timed(getattr(eng, attr)))
+        eng.run(sources[0], with_parents=False)
+        torch.cuda.synchronize()
+        bodies = int(eng.last_exchange_level_counts.sum())
+        exchange_ms = sum(a.elapsed_time(b) for a, b in evs) / bodies
+        ms = [x["median_ms"] for x in runs]
+        out.append({"engine": name, **kw, "mesh": "1x1" if "2D" in name else "1",
+                    "engine_build_s": build_s, "runs": runs, "mean_median_ms": sum(ms) / len(ms),
+                    "bfs_engine": kw.get("backend", "scan"),
+                    "bfs_engine_mean_median_ms":
+                        sum(x["bfs_engine_median_ms"] for x in runs) / len(runs),
+                    "hmean_gteps": len(runs) / sum(1 / x["gteps"] for x in runs),
+                    "exchange_ms_per_level": exchange_ms, "exchange_calls": len(evs),
+                    "labels": eng.exchange_branch_labels(),
+                    "wire_bytes_per_level": eng.wire_bytes_per_level(),
+                    "modeled_bytes_last_run": eng.last_exchange_bytes,
+                    "peak_above_start_gb": (peak - base) / 1e9})
+        del eng, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    require(launches == {"ell_expand": 0, "tile_spmm": 0},
+            f"the single-source mesh engines are plain PyTorch, yet launched {launches}")
+    del shard, shard2, refs
+    close_mesh()
+    emit({"phase": "mesh_single", "ranks": 1, "backend": "nccl", "graph": "the flagship graph",
+          "sources": sources, "validated": "every run: distances = SciPy, tree = the single "
+          "phase's checked tree", "launches": launches, "partition_1d_s": partition_s,
+          "partition_2d_s": partition_2d_s, "engines": out,
+          "seconds": time.perf_counter() - t_phase})
+    phase_shared_card_single(dev, small_scale)
+
+
+def shared_card_single_rank(mesh, scale: int, shape, sources):
+    """Rank entry of the shared-card single-source check: DistBfsEngine
+    (ring and sparse) for an int ``shape``, Dist2DBfsEngine (ring and
+    sparse) for an (R, C) one, on RMAT ``scale``; each source's distances
+    and parents, and the backend and device."""
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    g = rmat_graph(scale, 16, seed=1)
+    m2 = make_mesh_2d(*shape, mesh=mesh) if isinstance(shape, tuple) else None
+    out = {}
+    for exchange in ("ring", "sparse"):
+        eng = (Dist2DBfsEngine(g, m2, exchange=exchange) if m2
+               else DistBfsEngine(g, mesh, exchange=exchange))
+        for s in sources:
+            r = eng.run(s)
+            out[(exchange, s)] = (r.distance, r.parent)
+    return out, mesh.backend, str(mesh.device)
+
+
+def phase_shared_card_single(dev, scale: int) -> None:
+    """Gloo ranks sharing the card (NCCL takes one rank a device): the 1D
+    engine on 2 ranks and the 2D engine on a 2x2 mesh, every source's
+    distances and tree equal to BfsEngine's on the card."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.parallel.mesh import launch
+
+    g = rmat_graph(scale, 16, seed=1)
+    hub = int(np.argmax(g.degrees))
+    draws = np.random.default_rng(7).choice(np.flatnonzero(g.degrees > 0), size=2, replace=False)
+    sources = [hub] + [int(x) for x in draws]
+    ref = BfsEngine(g, device=dev)
+    want = {s: ref.run(s) for s in sources}
+    runs = []
+    for ranks, shape in ((2, 2), (4, (2, 2))):
+        t0 = time.perf_counter()
+        got, backend, where = launch(ranks, shared_card_single_rank, scale, shape, sources,
+                                     device=f"cuda:{dev.index or 0}", backend="gloo")
+        for (exchange, s), (dist, parent) in got.items():
+            require(np.array_equal(dist, want[s].distance)
+                    and np.array_equal(parent, want[s].parent),
+                    f"shared card {shape} {exchange}: source {s} != BfsEngine")
+        runs.append({"mesh": "x".join(map(str, shape)) if isinstance(shape, tuple) else shape,
+                     "ranks": ranks, "backend": backend, "device": where,
+                     "exchanges": ["ring", "sparse"], "seconds": time.perf_counter() - t0})
+    emit({"phase": "mesh_single", "shared_card": True, "scale": scale, "sources": sources,
+          "equal_to": "BfsEngine on the card: distances and trees", "runs": runs})
 
 
 def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> list:
@@ -1594,8 +1801,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
     ap.add_argument("--wide-scale", type=int, default=18, help="wide-engine RMAT scale (18)")
-    ap.add_argument("--graph500-scale", type=int, default=20,
-                    help="RMAT scale of the graph500 phase (20; the flagship's is 21)")
+    ap.add_argument("--graph500-scale", type=int, default=18,
+                    help="RMAT scale of the graph500 phase (18; the flagship's is 21)")
     ap.add_argument("--graph500-small-scale", type=int, default=18,
                     help="RMAT scale of the graph500 single and batched runs (18)")
     ap.add_argument("--ckpt-every", type=int, default=4,
@@ -1656,6 +1863,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     single_sources, golden, trees, dg = phase_single(dev, k1, k2, g, traversable)
+    phase_mesh_single(dev, k1, k2, g, dg, single_sources, golden, trees, args.wide_scale)
     phase_pullgate_tiled(dev, k1, k2, g, single_sources, golden, trees)
     entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
     kernels += entries

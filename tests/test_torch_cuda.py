@@ -501,3 +501,29 @@ def test_mesh_refuses_more_ranks_than_cards(cuda):
         launch(n, cases.fail_on_rank_one)
     with pytest.raises(ValueError, match="cannot share"):
         launch(2, cases.fail_on_rank_one, device="cuda:0", backend="nccl")
+
+
+@pytest.mark.parametrize("shape,ranks,backend", [(1, 1, "nccl"), ((1, 1), 1, "nccl"),
+                                                 (2, 2, "gloo"), ((1, 2), 2, "gloo")],
+                         ids=["1d-nccl", "2d-nccl", "1d-gloo2", "2d-gloo2"])
+def test_single_source_mesh_engines_on_cuda_equal_bfs_engine(cuda, shape, ranks, backend):
+    # DistBfsEngine and Dist2DBfsEngine with the ring, allreduce and sparse
+    # exchanges (and dopt) on RMAT 12, on a one-rank NCCL group and on two
+    # gloo ranks sharing the card (NCCL takes one rank a card): every
+    # distance array and tree equals BfsEngine's on the card, also after a
+    # checkpointed traversal.
+    import torch_mesh_cases as cases
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.parallel.mesh import launch
+
+    g = rmat_graph(12, 16, seed=2)
+    sources = [int(np.argmax(g.degrees)), 5, 1000]
+    got = launch(ranks, cases.card_dist_rank, shape, sources,
+                 device="cuda" if backend == "nccl" else "cuda:0", backend=backend)
+    eng = BfsEngine(g, device=cuda)
+    want = {s: eng.run(s) for s in sources}
+    assert len(got) == len(cases.CARD_DIST_RUNS) * (len(sources) + 1)
+    for (_run, s), (dist, parent) in got.items():
+        ref = want[sources[0] if s == "ckpt" else s]
+        np.testing.assert_array_equal(dist, ref.distance)
+        np.testing.assert_array_equal(parent, ref.parent)

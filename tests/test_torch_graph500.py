@@ -3,8 +3,8 @@
 Search keys and the TEPS numerator must equal the JAX package's on the same
 seeded graphs; every mode runs on device="cpu" and validates (oracle and
 certificate), and the single and batched modes find the JAX package's
-distances for every search; the mesh runs not ported raise instead of
-running another engine (the hybrid mode on a mesh: test_torch_mesh_cli.py).
+distances for every search, on one device and on 1D and 2D meshes of
+gloo ranks (the hybrid mode on a mesh: test_torch_mesh_cli.py).
 """
 
 import numpy as np
@@ -101,17 +101,32 @@ def test_run_graph500_backend_and_engine_cls():
     assert r.validated and r.mode == "single"
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mode": "single", "devices": 2}, "item 3"),
-    ({"mode": "single", "devices": 4}, "item 3"),
-    ({"mode": "batched", "mesh2d": (2, 2)}, "item 3"),
-    ({"mode": "single", "mesh2d": (2, 4)}, "item 3"),
+@pytest.mark.parametrize("kw", [
+    {"devices": 2},
+    {"devices": 4, "exchange": "sparse"},
+    {"mesh2d": (1, 2)},
+    {"mesh2d": (2, 2), "backend": "dopt", "exchange": "allreduce"},
 ])
-def test_unported_modes_raise(kw, item):
-    # The single-source mesh and the 2D mesh (mode='hybrid', devices=N runs
-    # since the mesh engines came: tests/test_torch_mesh_cli.py).
-    with pytest.raises(NotImplementedError, match=item):
-        graph500.run_graph500(8, 4, num_searches=2, device="cpu", **kw)
+def test_single_mode_on_a_mesh_equals_jax(kw, monkeypatch):
+    # mode='single' on a 1D or 2D mesh of gloo ranks: the searches are
+    # JAX's, every one validated in the ranks against SciPy and the
+    # certificate, and JAX's run on its virtual devices finds those
+    # distances too.
+    want_r, want = _searches(jg500, jval, monkeypatch, mode="single", **kw)
+    got_r = graph500.run_graph500(10, 8, num_searches=12, validate_searches=12, mode="single",
+                                  device="cpu", **kw)
+    assert got_r.validated and got_r.mode == "single"
+    assert got_r.num_searches == want_r.num_searches == len(got_r.teps) == 12
+    tg = tgen.rmat_graph(10, 8, seed=1)
+    assert sorted(want) == sorted(graph500.sample_search_keys(tg, 12).tolist())
+    for s, d in want.items():
+        np.testing.assert_array_equal(d, bfs_scipy(tg, s))
+
+
+def test_batched_mode_refuses_a_2d_mesh_like_jax():
+    for pkg, kw in ((jg500, {}), (graph500, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="mode='batched' is single-device"):
+            pkg.run_graph500(8, 4, num_searches=2, mode="batched", mesh2d=(2, 2), **kw)
 
 
 @pytest.mark.parametrize("kw,exc,match", [
@@ -125,7 +140,7 @@ def test_unported_knobs_are_not_accepted(kw, exc, match):
         graph500.run_graph500(8, 4, mode="hybrid", device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag,msg", [(["--exchange", "ring"], "invalid choice"),
+@pytest.mark.parametrize("flag,msg", [(["--exchange", "ring"], "--devices N or --mesh RxC"),
                                       (["--exchange", "sliced"], "--devices N")])
 def test_main_rejects_unported_flags(flag, msg, capsys):
     with pytest.raises(SystemExit):
@@ -149,5 +164,6 @@ def test_main_hybrid_and_unported(capsys):
     assert graph500.main(["--scale", "8", "--ef", "4", "--searches", "4", "--backend", "dopt",
                           "--device", "cpu"]) == 0  # the default mode: single
     assert "mode=single searches=4 validated=True" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        graph500.main(["--scale", "8", "--devices", "2", "--device", "cpu"])
+    assert graph500.main(["--scale", "8", "--ef", "4", "--searches", "4", "--mesh", "1x2",
+                          "--exchange", "sparse", "--device", "cpu"]) == 0
+    assert "mode=single searches=4 validated=True" in capsys.readouterr().out

@@ -165,3 +165,13 @@ def test_mesh_needs_cuda_unless_the_cpu_is_named():
 def test_spawned_ranks_import_no_jax():
     # This process imported JAX; the ranks it spawns must not.
     assert launch(2, cases.loaded_modules, device="cpu") == []
+
+
+def test_no_rank_exits_before_its_peers_finish(tmp_path):
+    # Rank 0 does no collective work and rank 1 works 1.5 s longer; rank 0
+    # still leaves only after rank 1 is done, so a slow rank's group
+    # never loses a peer while it is still joining (a gloo rank whose
+    # peer has exited fails in init_process_group).
+    assert launch(2, cases.exit_after_peers, str(tmp_path), device="cpu") == 0
+    done = float((tmp_path / "rank1_done").read_text())
+    assert float((tmp_path / "rank0_exit").read_text()) >= done

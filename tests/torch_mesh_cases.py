@@ -256,3 +256,232 @@ def loaded_modules(mesh):
 
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "tpu_bfs"))
+
+
+# --- the single-source mesh engines (DistBfsEngine, Dist2DBfsEngine) ---------
+
+#: (name, graph, engine keywords, sources, mode) of tests/test_torch_dist_bfs.py
+#: and tests/test_torch_dist2d.py. Modes: 'run' (every source's result and
+#: the exchange record), 'ckpt' (start, 2 levels, the rest, finish) and
+#: 'cap' (max_levels=3). Small caps make every sparse rung, the dense
+#: fallback and both dopt branches run.
+DIST_CASES = [
+    ("ring", "random_small", dict(exchange="ring"), [0, 17, 499], "run"),
+    ("allreduce", "rmat_small", dict(exchange="allreduce"), ("active", 3), "run"),
+    ("sparse_rungs", "rmat_small", dict(exchange="sparse", sparse_caps=(1, 8, 64)),
+     ("active", 3), "run"),
+    ("sparse_default", "random_small", dict(exchange="sparse"), [0, 250], "run"),
+    ("dopt", "rmat_small", dict(backend="dopt", dopt_caps=(16, 256)), ("active", 3), "run"),
+    ("dopt_default", "random_small", dict(backend="dopt", exchange="allreduce"), [7], "run"),
+    ("dopt_sparse_line", "line64", dict(backend="dopt", exchange="sparse", sparse_caps=(2,),
+                                        dopt_caps=(4,)), [0, 40], "run"),
+    ("segment_disconnected", "random_disconnected",
+     dict(backend="segment", exchange="sparse", sparse_caps=(4, 32)), ("iso", [0, 5]), "run"),
+    ("scatter", "random_small", dict(backend="scatter", exchange="allreduce"), [3], "run"),
+    ("ckpt_sparse", "rmat_small", dict(exchange="sparse", sparse_caps=(4, 64)), [3], "ckpt"),
+    ("cap", "line64", dict(), [0], "cap"),
+]
+
+#: The 2D cases. On meshes with more than one row, mesh rows may pick
+#: different sparse rungs at one level; JAX's engine then deadlocks on its
+#: virtual CPU devices, so 'sparse_rungs' runs against JAX on one-row
+#: meshes only, and against the JAX ring case's results on the others.
+#: 'sparse_ids' keeps every level on the id rung (rows never split).
+DIST2D_CASES = [
+    ("ring", "rmat_small", dict(exchange="ring"), ("active", 3), "run"),
+    ("allreduce", "random_small", dict(exchange="allreduce"), [0, 17, 499], "run"),
+    ("sparse_rungs", "rmat_small", dict(exchange="sparse", sparse_caps=(1, 8, 64)),
+     ("active", 3), "run"),
+    ("sparse_ids", "random_small", dict(exchange="sparse", sparse_caps=(10**6,)), [0, 250],
+     "run"),
+    ("dopt", "rmat_small", dict(backend="dopt", dopt_caps=(16, 256)), ("active", 3), "run"),
+    ("dopt_line", "line64", dict(backend="dopt", exchange="allreduce", dopt_caps=(4,)),
+     [0, 40], "run"),
+    ("disconnected", "random_disconnected", dict(backend="segment"), ("iso", [0, 5]), "run"),
+    ("ckpt", "rmat_small", dict(exchange="allreduce", backend="dopt"), [3], "ckpt"),
+    ("cap", "line64", dict(backend="scatter"), [0], "cap"),
+]
+
+#: The 1D mesh sizes and 2D mesh shapes the parity tests run.
+DIST_MESHES = [1, 2, 4, 8]
+DIST2D_MESHES = [(1, 1), (1, 2), (2, 2), (2, 4)]
+
+
+def bfs_fields(res) -> dict:
+    """A single-source BfsResult's fields (either package's)."""
+    return {"dist": np.asarray(res.distance), "parent": res.parent,
+            "levels": int(res.num_levels), "reached": int(res.reached),
+            "edges": int(res.edges_traversed)}
+
+
+def exchange_fields(eng) -> dict:
+    """A mesh engine's exchange record (either package's)."""
+    counts = eng.last_exchange_level_counts
+    return {"counts": None if counts is None else np.asarray(counts),
+            "bytes": eng.last_exchange_bytes, "labels": eng.exchange_branch_labels(),
+            "per_level": list(eng.wire_bytes_per_level())}
+
+
+def dist_case_record(case, g, engine):
+    """One single-source case's record and its engine, for either package:
+    ``engine(g, **kw)`` builds the mesh engine."""
+    _name, _gname, kw, src_spec, mode = case
+    eng = engine(g, **kw)
+    out = {}
+    for s in (int(x) for x in sources_of(src_spec, g)):
+        if mode == "ckpt":
+            first = eng.advance(eng.start(s), levels=2)
+            last = eng.advance(first)
+            out[f"ckpt2_{s}"] = ckpt_fields(first)
+            out[f"ckpt_end_{s}"] = ckpt_fields(last)
+            res = eng.finish(last)
+        else:
+            res = eng.run(s, max_levels=3 if mode == "cap" else None)
+        out.update({f"{k}_{s}": v for k, v in bfs_fields(res).items()})
+        out.update({f"{k}_{s}": v for k, v in exchange_fields(eng).items()})
+    return out, eng
+
+
+def run_dist_cases(mesh, shape, cases) -> dict:
+    """Rank entry point: every single-source case on ``mesh``, 1D for an
+    int ``shape`` and 2D for an (R, C) one, keyed by case name; with the
+    host syncs of each case's last run."""
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    if isinstance(shape, tuple):
+        m2 = make_mesh_2d(*shape, mesh=mesh)
+        make = lambda g, **kw: Dist2DBfsEngine(g, m2, **kw)  # noqa: E731
+    else:
+        make = lambda g, **kw: DistBfsEngine(g, mesh, **kw)  # noqa: E731
+    out = {}
+    for case in cases:
+        rec, eng = dist_case_record(case, graph_of(case[1], tgen, tio), make)
+        out[case[0]] = (rec, eng.last_host_syncs)
+    return out
+
+
+def collectives_rank(mesh, n: int, caps, seed: int) -> dict:
+    """Rank entry: the single-source exchanges on seeded per-rank inputs
+    (bool [P*n] at three densities, int32 [P*n]); each result all-gathered
+    in rank order."""
+    import torch
+
+    from tpu_bfs_torch.parallel import collectives as coll
+
+    p, r = mesh.num_shards, mesh.rank
+    rng = np.random.default_rng(seed + r)
+    out = {}
+    for dens in (0.002, 0.05, 0.5):
+        x = torch.from_numpy(rng.random(p * n) < dens)
+        hit, branch = coll.sparse_exchange_or(x, mesh, caps=caps)
+        out[f"sparse_{dens}"] = mesh.all_gather_rows(hit).numpy()
+        out[f"branch_{dens}"] = branch
+        for impl in ("ring", "allreduce"):
+            got = coll.reduce_scatter_or(x, mesh, impl=impl)
+            out[f"{impl}_{dens}"] = mesh.all_gather_rows(got).numpy()
+    vals = torch.from_numpy(rng.integers(-50, 2**31 - 1, size=p * n).astype(np.int32))
+    for impl in ("ring", "allreduce"):
+        got = coll.reduce_scatter_min(vals, mesh, impl=impl)
+        out[f"min_{impl}"] = mesh.all_gather_rows(got).numpy()
+    return out
+
+
+def collectives_inputs(p: int, n: int, seed: int):
+    """Every rank's inputs of :func:`collectives_rank`, stacked [P, P*n]:
+    the bool arrays by density and the int32 array."""
+    bools = {d: [] for d in (0.002, 0.05, 0.5)}
+    ints = []
+    for r in range(p):
+        rng = np.random.default_rng(seed + r)
+        for d in bools:
+            bools[d].append(rng.random(p * n) < d)
+        ints.append(rng.integers(-50, 2**31 - 1, size=p * n).astype(np.int32))
+    return {d: np.stack(v) for d, v in bools.items()}, np.stack(ints)
+
+
+def dist_loaded_modules(mesh):
+    """Rank entry: build and run a DistBfsEngine, then list the JAX and
+    tpu_bfs modules this rank has imported."""
+    import sys
+
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    g = graph_of("random_small", tgen, tio)
+    DistBfsEngine(g, mesh, exchange="sparse", backend="dopt").run(0)
+    Dist2DBfsEngine(g, make_mesh_2d(1, mesh.num_shards, mesh=mesh), exchange="sparse").run(0)
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_bfs"))
+
+
+def exit_after_peers(mesh, marker_dir: str):
+    """Rank entry of the launcher's exit check: rank 1 finishes 1.5 s after
+    rank 0, and rank 0 records when its process exits."""
+    import atexit
+    import time
+    from pathlib import Path
+
+    if mesh.rank == 0:
+        atexit.register(lambda: Path(marker_dir, "rank0_exit").write_text(repr(time.time())))
+    else:
+        time.sleep(1.5)
+        Path(marker_dir, f"rank{mesh.rank}_done").write_text(repr(time.time()))
+    return mesh.rank
+
+
+def ckpt_cross_rank(mesh, shape, path: str) -> dict:
+    """Rank entry: a 1D traversal checkpointed at level 2 (rank 0 saves it
+    to ``path``) finishes on a 2D mesh of ``shape`` over the same ranks,
+    and a 2D checkpoint one level later finishes back on the 1D engine."""
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+    from tpu_bfs_torch.utils.checkpoint import save_checkpoint
+
+    g = graph_of("rmat_small", tgen, tio)
+    one = DistBfsEngine(g, mesh, exchange="sparse", sparse_caps=(4, 64))
+    ck = one.advance(one.start(3), levels=2)
+    if mesh.rank == 0:
+        save_checkpoint(path, ck)
+    two = Dist2DBfsEngine(g, make_mesh_2d(*shape, mesh=mesh), backend="dopt",
+                          exchange="sparse")
+    res = two.finish(two.advance(ck))
+    back = one.finish(one.advance(two.advance(ck, levels=1)))
+    return {"level": ck.level, "dist": res.distance, "parent": res.parent,
+            "back_dist": back.distance, "back_parent": back.parent}
+
+
+#: The card tests' single-source mesh runs (tests/test_torch_cuda.py).
+CARD_DIST_RUNS = [dict(exchange="ring"), dict(exchange="allreduce"),
+                  dict(exchange="sparse"), dict(exchange="sparse", backend="dopt")]
+
+
+def card_dist_rank(mesh, shape, sources) -> dict:
+    """Rank entry: every ``CARD_DIST_RUNS`` engine on RMAT 12, 1D for an
+    int ``shape`` and 2D for an (R, C) one, from each source (and one
+    checkpointed traversal); {(run, source): (distances, parents)}."""
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    g = graph_of("rmat12", tgen, tio)
+    m2 = make_mesh_2d(*shape, mesh=mesh) if isinstance(shape, tuple) else None
+    out = {}
+    for i, kw in enumerate(CARD_DIST_RUNS):
+        eng = Dist2DBfsEngine(g, m2, **kw) if m2 else DistBfsEngine(g, mesh, **kw)
+        for s in sources:
+            r = eng.run(int(s))
+            out[(i, int(s))] = (r.distance, r.parent)
+        r = eng.finish(eng.advance(eng.advance(eng.start(int(sources[0])), levels=2)))
+        out[(i, "ckpt")] = (r.distance, r.parent)
+    return out

@@ -244,6 +244,36 @@ def level_step_dopt(edges: EdgeData, frontier, visited, *, caps: tuple,
     return expand_or(active, edges.dst, edges.in_rp, vp, backend=dense_backend) & ~visited
 
 
+class DoptExpand:
+    """Claim-free direction-optimizing expansion of the mesh engines
+    (``tpu_bfs/algorithms/frontier.py:make_dopt_expand``).
+
+    ``expand(frontier, nfront, fsum)`` returns hit [out_size]: the smallest
+    rung of ``caps`` whose edge capacity covers the frontier's local
+    out-degree sum ``fsum`` (and whose vertex capacity, ``min(cap,
+    vert_limit)``, covers its size ``nfront``) runs ``sparse_topdown``,
+    otherwise ``dense_fn(frontier)``. ``nfront`` and ``fsum`` are host
+    ints, read from :meth:`sums` in the level's one host read, so each rank
+    picks its own branch. No branch runs a collective: ranks may diverge,
+    and the exchange and the termination count stay outside, as in JAX."""
+
+    def __init__(self, edata: EdgeData, caps, *, vert_limit: int, out_size: int, dense_fn):
+        self.edata, self.caps = edata, tuple(sorted(caps))
+        self.vert_limit, self.out_size, self.dense_fn = vert_limit, out_size, dense_fn
+        self.out_deg = out_degrees(edata)
+
+    def sums(self, frontier):
+        """[2] int64 device tensor: the frontier's size and out-degree sum."""
+        return frontier_sums(frontier, self.out_deg)
+
+    def __call__(self, frontier, nfront: int, fsum: int):
+        edge_cap = dopt_rung(self.caps, nfront, fsum, self.vert_limit)
+        if edge_cap is None:
+            return self.dense_fn(frontier)
+        return sparse_topdown(self.edata, frontier, None, edge_cap=edge_cap,
+                              vert_cap=min(edge_cap, self.vert_limit), out_size=self.out_size)
+
+
 def level_step(edges: EdgeData, frontier, visited, *, backend: str = "scan", caps=(),
                nfront: int | None = None, fsum: int | None = None):
     """One BFS level: the next frontier mask (one iteration of the

@@ -18,6 +18,8 @@ tree on request. ``--backend`` picks the single-source engine;
     python -m tpu_bfs_torch 0 rmat:scale=14 --ckpt state.npz --ckpt-every 2
     python -m tpu_bfs_torch 0 rmat:scale=14 --resume state.npz
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2,3 --devices 2 --exchange sparse
+    python -m tpu_bfs_torch 0 rmat:scale=14 --devices 4 --exchange sparse --device cpu
+    python -m tpu_bfs_torch 0 rmat:scale=14 --mesh 2x2 --backend dopt --device cpu
 
 Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 / ``random:n=..,m=..,seed=..``. With no ``--engine``, a batch of 512
@@ -28,13 +30,17 @@ run checkpointed by one resumes in the other. A failed chunk is not
 retried here (the JAX CLI's ``advance_with_recovery`` comes with the serve
 tier's recovery).
 
-``--devices N --multi-source`` runs a mesh engine (``parallel/``; the
-hybrid unless ``--engine wide``) on N ranks: this process spawns them
-(``parallel.mesh.launch``), each runs the whole command on its device
-(``cuda:r``, or gloo ranks with ``--device cpu``), and rank 0's output is
-printed. Under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the group
-that exists instead and rank 0 prints. Single-source mesh runs and
-``--mesh RxC`` are not ported (ROADMAP Queue 1 item 3).
+A mesh run spawns its ranks (``parallel.mesh.launch``): each runs the
+whole command on its device (``cuda:r``, or gloo ranks with ``--device
+cpu``), and rank 0's output is printed. Under ``torchrun`` (``WORLD_SIZE``
+set) each rank joins the group that exists instead and rank 0 prints.
+``--devices N`` runs the single-source ``DistBfsEngine`` (1D vertex
+partition; ``--exchange ring|allreduce|sparse``), or with
+``--multi-source`` a packed mesh engine (the hybrid unless ``--engine
+wide``); ``--mesh RxC`` runs ``Dist2DBfsEngine`` on R * C ranks. The
+exchange planner's flags (``--wire-pack``, ``--sparse-delta``,
+``--sparse-sieve``, ``--sparse-predict``) are not ported (ROADMAP Queue 1
+item 3.5).
 """
 
 from __future__ import annotations
@@ -169,6 +175,16 @@ def _make_ms_engine(args, g, n_sources: int):
 
 
 def _make_single_engine(args, g):
+    if _MESH is not None:
+        kw = {"exchange": args.exchange, "backend": args.backend}
+        if args.mesh:
+            from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+            from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+            return Dist2DBfsEngine(g, make_mesh_2d(*args.mesh_shape, mesh=_MESH), **kw)
+        from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+
+        return DistBfsEngine(g, _MESH, **kw)
     if args.backend == "tiled":
         from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
 
@@ -289,7 +305,8 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
         save = None
         if args.ckpt:
             def save(c):
-                ck.save_checkpoint(args.ckpt, c)
+                if _MESH is None or _MESH.rank == 0:
+                    ck.save_checkpoint(args.ckpt, c)
                 print(f"checkpointed at level {c.level}")
         st = resume_st if resume_st is not None else engine.start(args.source)
         st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
@@ -324,9 +341,11 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
         if res.parent is not None:
             validate.check_parents(g, res.source, res.distance, res.parent)
         print("Output OK")
-    if args.save_dist:
+    # On a mesh every rank holds the whole result, and rank 0 saves it.
+    rank0 = _MESH is None or _MESH.rank == 0
+    if args.save_dist and rank0:
         np.save(args.save_dist, res.distance)
-    if args.save_parent and res.parent is not None:
+    if args.save_parent and res.parent is not None and rank0:
         np.save(args.save_parent, res.parent)
     return 0
 
@@ -388,35 +407,53 @@ def main(argv=None) -> int:
                     help="resume a traversal from a checkpoint written by --ckpt (its "
                     "source or sources replace the command line's)")
     ap.add_argument("--devices", type=int, default=1, metavar="N",
-                    help="--multi-source on a mesh of N ranks, one device each (the "
-                    "sharded hybrid, or --engine wide); single-source mesh runs are "
-                    "not ported")
+                    help="device count; >1 runs on a mesh of N ranks, one device each: "
+                    "single-source DistBfsEngine, or with --multi-source the sharded "
+                    "hybrid (--engine wide: the wide engine)")
     ap.add_argument("--mesh", default=None, metavar="RxC",
-                    help="2D mesh (not ported)")
+                    help="2D mesh shape (e.g. 2x4): the 2D edge partition engine on R*C "
+                    "ranks instead of the 1D vertex partition")
     ap.add_argument("--exchange", default="ring",
                     choices=["ring", "allreduce", "sparse", "sliced"],
-                    help="--devices frontier exchange: 'ring' = the dense row gather, "
-                    "'sparse' = row ids and words with the dense fallback, 'sliced' "
-                    "(hybrid) = the ring-rotated expansion")
+                    help="mesh frontier exchange: single-source 'ring' / 'allreduce' (dense "
+                    "OR reduce-scatter) or 'sparse' (queue-style ids with the dense "
+                    "fallback); with --multi-source, 'ring' = the dense row gather, "
+                    "'sparse' = row ids and words, 'sliced' (hybrid) = the ring-rotated "
+                    "expansion")
+    for flag in ("--wire-pack", "--sparse-delta", "--sparse-sieve", "--sparse-predict"):
+        ap.add_argument(flag, action="store_true",
+                        help="the exchange planner (not ported: exits with an error)")
     args = ap.parse_args(argv)
-    if args.exchange == "sliced" and not (args.multi_source is not None and args.devices > 1):
+    for flag in ("wire_pack", "sparse_delta", "sparse_sieve", "sparse_predict"):
+        if getattr(args, flag):
+            from tpu_bfs_torch.parallel.collectives import planner_unported
+
+            raise planner_unported("--" + flag.replace("_", "-"))
+    multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
+    if args.pull_gate and not multi and (args.backend != "tiled" or on_mesh):
+        ap.error("--pull-gate for single-source runs needs --backend tiled on a single "
+                 "device (the other single-source backends have no tile pass to gate)")
+    if on_mesh and args.backend in ("delta", "tiled"):
+        ap.error(f"--backend {args.backend} is single-device only")
+    if args.exchange == "sliced" and not (multi and args.devices > 1):
         ap.error("--exchange sliced is the packed hybrid engine's ring-rotation layout; "
                  "use it with --multi-source --devices N")
-    if args.multi_source is not None and args.mesh:
+    if multi and args.mesh:
         ap.error("--multi-source shards 1D (row-tile round-robin); pass --devices N "
                  "instead of a 2D mesh")
-    if args.mesh or (args.devices > 1 and args.multi_source is None):
-        from tpu_bfs_torch.workloads import _mesh_unported
-
-        raise _mesh_unported("the 2D mesh (--mesh)" if args.mesh
-                             else "single-source BFS on a mesh (--devices N)")
-    if args.devices > 1:
-        _mesh_engine_errors(args)
+    if args.mesh:
+        try:
+            args.mesh_shape = tuple(int(t) for t in args.mesh.lower().split("x"))
+            if len(args.mesh_shape) != 2:
+                raise ValueError(args.mesh)
+        except ValueError:
+            ap.error(f"--mesh must look like RxC (e.g. 2x4), got {args.mesh!r}")
+    if on_mesh:
+        if multi:
+            _mesh_engine_errors(args)
         if _MESH is None:
-            return _run_mesh(args, sys.argv[1:] if argv is None else list(argv))
-    if args.pull_gate and args.multi_source is None and args.backend != "tiled":
-        ap.error("--pull-gate for single-source runs needs --backend tiled (the other "
-                 "single-source backends have no tile pass to gate)")
+            ranks = args.devices if not args.mesh else args.mesh_shape[0] * args.mesh_shape[1]
+            return _run_mesh(args, ranks, sys.argv[1:] if argv is None else list(argv))
     if (args.ckpt or args.resume) and args.multi_source is not None and args.engine == "packed":
         ap.error("--ckpt/--resume with --multi-source needs the wide or hybrid engine (the "
                  "512-lane packed engine keeps no resumable state)")
@@ -492,20 +529,20 @@ def _mesh_rank_main(mesh, argv):
     return buf.getvalue(), rc
 
 
-def _run_mesh(args, argv) -> int:
-    """A --devices batch on its ranks, rank 0's output printed: the ranks
-    are spawned here, or, under torchrun, this process is one of them."""
+def _run_mesh(args, ranks: int, argv) -> int:
+    """A mesh run on its ``ranks`` ranks, rank 0's output printed: the
+    ranks are spawned here, or, under torchrun, this process is one of them."""
     from tpu_bfs_torch.parallel.mesh import launch, make_mesh
 
     if "WORLD_SIZE" in os.environ:
-        mesh = make_mesh(args.devices, device=args.device)
+        mesh = make_mesh(ranks, device=args.device)
         text, rc = _mesh_rank_main(mesh, argv)
         text = text if mesh.rank == 0 else ""
     else:
         if args.graph == "-":
             raise SystemExit("--devices reads the graph in every rank: give a file or a "
                              "generator spec, not stdin")
-        text, rc = launch(args.devices, _mesh_rank_main, argv, device=args.device)
+        text, rc = launch(ranks, _mesh_rank_main, argv, device=args.device)
     print(text, end="")
     if rc not in (0, None):
         raise SystemExit(rc)

@@ -12,14 +12,16 @@ TEPS.
 Modes: ``'single'`` (the official kernel-2 shape, one ``BfsEngine``
 traversal per search), ``'batched'`` (all searches in one ``MsBfsEngine``
 batch) and ``'hybrid'`` (all searches in one batch of the flagship
-``HybridMsBfsEngine``). ``mode='hybrid', devices=N`` runs the sharded
-``DistHybridMsBfsEngine`` on N spawned ranks (``parallel.mesh.launch``;
-``cuda:r``, or gloo ranks with ``device='cpu'``) and returns rank 0's
-result. The other mesh runs (``'single'`` with ``devices > 1``, and
-``mesh2d``) are not ported yet and raise ``NotImplementedError``; they
-never fall back to another engine.
+``HybridMsBfsEngine``). A mesh run spawns its ranks
+(``parallel.mesh.launch``; ``cuda:r``, or gloo ranks with ``device='cpu'``)
+and returns rank 0's result: ``mode='hybrid', devices=N`` runs the sharded
+``DistHybridMsBfsEngine``, ``mode='single', devices=N`` the 1D
+``DistBfsEngine`` and ``mode='single', mesh2d=(R, C)`` the 2D
+``Dist2DBfsEngine`` on R * C ranks.
 
     python -m tpu_bfs_torch.graph500 --mode hybrid --devices 2 --scale 10 --device cpu
+    python -m tpu_bfs_torch.graph500 --devices 4 --exchange sparse --scale 10 --device cpu
+    python -m tpu_bfs_torch.graph500 --mesh 2x2 --backend dopt --scale 10 --device cpu
 """
 
 from __future__ import annotations
@@ -64,13 +66,6 @@ def traversed_edges(g: Graph, dist: np.ndarray) -> int:
     return slots // 2 if g.undirected else slots
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpu_bfs_torch yet (ROADMAP Queue 1 item {item}); "
-        "run on one device"
-    )
-
-
 def run_graph500(
     scale: int,
     edge_factor: int = 16,
@@ -102,32 +97,33 @@ def run_graph500(
     caps depth at 2**planes levels and ``lanes`` sets the batch width.
     ``engine_cls`` replaces the mode's engine, built as
     ``engine_cls(g, device=device)``. ``device`` is CUDA unless named.
-    ``exchange`` is the mesh hybrid's ('dense' by default, 'sparse',
-    'sliced')."""
+    ``devices`` / ``mesh2d`` distribute the run: the single mode over a 1D
+    mesh (or the 2D edge partition with ``mesh2d``), the hybrid mode over
+    the sharded-state ``DistHybridMsBfsEngine``. ``exchange`` is the mesh
+    engine's: 'ring' (default), 'allreduce' or 'sparse' for the single
+    mode; 'dense' (default), 'sparse' or 'sliced' for the hybrid."""
     if mode not in ("single", "batched", "hybrid"):
         raise ValueError(f"unknown mode {mode!r}; have 'single', 'batched', 'hybrid'")
     if validate_mode not in ("oracle", "certify"):
         raise ValueError(f"unknown validate_mode {validate_mode!r}; have 'oracle', 'certify'")
-    if exchange is not None and devices == 1:
-        raise ValueError("exchange applies to a mesh run (mode='hybrid', devices > 1)")
-    if mesh2d is not None:
-        if mode == "hybrid":
-            raise ValueError("hybrid mode shards 1D (row-tile round-robin); pass "
-                             "devices=N instead of a 2D mesh")
-        raise _unported("a 2D mesh run (mesh2d)", "3")
-    if devices > 1:
-        if mode == "batched":
-            raise ValueError("mode='batched' is single-device; use mode='hybrid' (sharded "
-                             "DistHybridMsBfsEngine) or mode='single' on a mesh")
-        if mode == "single":
-            raise _unported("a single-source mesh run (mode='single', devices > 1)", "3")
+    distributed = devices > 1 or mesh2d is not None
+    if exchange is not None and not distributed:
+        raise ValueError("exchange applies to a mesh run (devices > 1 or mesh2d)")
+    if distributed and mode == "batched":
+        raise ValueError("mode='batched' is single-device; use mode='hybrid' (sharded "
+                         "DistHybridMsBfsEngine) or mode='single' on a mesh")
+    if mesh2d is not None and mode == "hybrid":
+        raise ValueError("hybrid mode shards 1D (row-tile round-robin); pass "
+                         "devices=N instead of a 2D mesh")
+    if distributed:
         from tpu_bfs_torch.parallel.mesh import launch
 
-        return launch(devices, _mesh_rank, dict(
+        ranks = devices if mesh2d is None else mesh2d[0] * mesh2d[1]
+        return launch(ranks, _mesh_rank, dict(
             scale=scale, edge_factor=edge_factor, seed=seed, num_searches=num_searches,
             mode=mode, validate_searches=validate_searches, validate_mode=validate_mode,
             num_planes=num_planes, lanes=lanes, engine_cls=engine_cls, exchange=exchange,
-            backend=backend), device=device)
+            backend=backend, mesh2d=mesh2d), device=device)
     return _run(scale, edge_factor, seed=seed, num_searches=num_searches, mode=mode,
                 validate_searches=validate_searches, validate_mode=validate_mode,
                 num_planes=num_planes, lanes=lanes, engine_cls=engine_cls, backend=backend,
@@ -140,7 +136,7 @@ def _mesh_rank(mesh, kw) -> Graph500Result:
 
 
 def _run(scale, edge_factor, *, seed, num_searches, mode, validate_searches, validate_mode,
-         num_planes, lanes, engine_cls, backend, device, mesh=None,
+         num_planes, lanes, engine_cls, backend, device, mesh=None, mesh2d=None,
          exchange=None) -> Graph500Result:
     t0 = time.perf_counter()
     g = rmat_graph(scale, edge_factor, seed=seed)
@@ -165,6 +161,17 @@ def _run(scale, edge_factor, *, seed, num_searches, mode, validate_searches, val
         from tpu_bfs_torch.algorithms.msbfs import MsBfsEngine
 
         eng = MsBfsEngine(g, device=device)
+    elif mesh2d is not None:
+        from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+        from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+        eng = Dist2DBfsEngine(g, make_mesh_2d(*mesh2d, mesh=mesh), backend=backend,
+                              **({"exchange": exchange} if exchange else {}))
+    elif mesh is not None:
+        from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+
+        eng = DistBfsEngine(g, mesh, backend=backend,
+                            **({"exchange": exchange} if exchange else {}))
     else:
         from tpu_bfs_torch.algorithms.bfs import BfsEngine
 
@@ -240,19 +247,21 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", type=int, default=None, metavar="N",
                     help="hybrid mode: packed batch width (default: engine auto sizing)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="hybrid mode: shard over N ranks, one device each (single "
-                    "mode on a mesh is not ported: exits with an error)")
-    ap.add_argument("--exchange", default=None, choices=["dense", "sparse", "sliced"],
-                    help="hybrid mode on a mesh: the frontier exchange (default dense)")
+                    help="shard over N ranks, one device each (single: 1D vertex "
+                    "partition; hybrid: sharded-state engine)")
+    ap.add_argument("--exchange", default=None,
+                    choices=["ring", "allreduce", "sparse", "dense", "sliced"],
+                    help="the mesh run's frontier exchange (single mode: ring/allreduce/"
+                    "sparse, default ring; hybrid mode: dense/sparse/sliced, default dense)")
     ap.add_argument("--mesh", default=None, metavar="RxC",
-                    help="2D mesh (not ported: exits with an error)")
+                    help="single mode: 2D edge partition over an RxC mesh of R*C ranks")
     ap.add_argument("--backend", default="scan", choices=["scan", "segment", "scatter", "dopt"],
                     help="single mode: frontier-expansion backend")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain kernel twins)")
     args = ap.parse_args(argv)
-    if args.exchange is not None and args.devices == 1:
-        ap.error("--exchange applies to --mode hybrid --devices N")
+    if args.exchange is not None and args.devices == 1 and not args.mesh:
+        ap.error("--exchange applies to mesh runs (--devices N or --mesh RxC)")
     mesh2d = None
     if args.mesh:
         try:
@@ -261,25 +270,22 @@ def main(argv=None) -> int:
                 raise ValueError(mesh2d)
         except ValueError:
             ap.error(f"--mesh must look like RxC (e.g. 2x4), got {args.mesh!r}")
-    try:
-        res = run_graph500(
-            args.scale,
-            args.ef,
-            seed=args.seed,
-            num_searches=args.searches,
-            mode=args.mode,
-            validate_searches=args.validate,
-            validate_mode=args.validate_mode,
-            num_planes=args.planes,
-            lanes=args.lanes,
-            devices=args.devices,
-            mesh2d=mesh2d,
-            exchange=args.exchange,
-            backend=args.backend,
-            device=args.device,
-        )
-    except NotImplementedError as exc:
-        raise SystemExit(f"tpu_bfs_torch.graph500: {exc}")
+    res = run_graph500(
+        args.scale,
+        args.ef,
+        seed=args.seed,
+        num_searches=args.searches,
+        mode=args.mode,
+        validate_searches=args.validate,
+        validate_mode=args.validate_mode,
+        num_planes=args.planes,
+        lanes=args.lanes,
+        devices=args.devices,
+        mesh2d=mesh2d,
+        exchange=args.exchange,
+        backend=args.backend,
+        device=args.device,
+    )
     print(
         f"graph500 scale={res.scale} ef={res.edge_factor} mode={res.mode} "
         f"searches={res.num_searches} validated={res.validated} "

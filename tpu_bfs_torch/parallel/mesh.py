@@ -41,18 +41,33 @@ GROUP_TIMEOUT_S = 600
 # all_gather_single is all_gather_into_tensor's newer name (same signature).
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
-_OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+_OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's view of a 1D mesh: ``num_shards`` ranks of one process
-    group, this process being ``rank`` on ``device``."""
+    group, this process being ``rank`` on ``device``. ``group`` is the
+    process group (None: the default one) and ``members`` its global ranks
+    in group order (None: 0 .. num_shards - 1); a 2D mesh's row and column
+    views (:class:`Mesh2D`) are meshes over subgroups."""
 
     num_shards: int
     rank: int
     device: torch.device
     backend: str
+    group: object = None
+    members: tuple | None = None
+
+    def _peer(self, idx: int) -> int:
+        """The global rank of group member ``idx``."""
+        return idx if self.members is None else self.members[idx]
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether a send, recv or all-to-all of ``t`` goes through host
+        memory: that of gloo ranks sharing a card (their all-gathers and
+        all-reduces take the CUDA tensors directly)."""
+        return self.backend == "gloo" and t.is_cuda
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """[P * n, ...]: every rank's ``t`` ([n, ...], the same shape on
@@ -60,14 +75,31 @@ class Mesh:
         flattened on its leading axis)."""
         out = torch.empty((self.num_shards * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        _all_gather_single(out, t.contiguous())
+        if self.num_shards == 1 and self.group is not None:
+            out.copy_(t)  # a one-rank subgroup: nothing crosses a wire
+            return out
+        _all_gather_single(out, t.contiguous(), group=self.group)
         return out
 
     def all_reduce_(self, t: torch.Tensor, op: str) -> torch.Tensor:
-        """``t`` reduced in place over the ranks (``op`` 'max' or 'sum';
-        the JAX ``lax.pmax``/``lax.psum``); returns ``t``."""
-        dist.all_reduce(t, op=_OPS[op])
+        """``t`` reduced in place over the ranks (``op`` 'max', 'sum' or
+        'min'; the JAX ``lax.pmax``/``psum``/``pmin``); returns ``t``."""
+        if self.num_shards == 1 and self.group is not None:
+            return t
+        dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The JAX ``lax.all_to_all`` of a [P, ...] tensor: row j goes to
+        rank j, and row j of the result came from rank j."""
+        if self.num_shards == 1:
+            return t.clone()
+        src = t.contiguous()
+        if self._staged(src):
+            return self.all_to_all(src.cpu()).to(t.device)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group)
+        return out
 
     def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
         """The ring rotation of the JAX ``lax.ppermute`` with pairs
@@ -76,12 +108,60 @@ class Mesh:
         p = self.num_shards
         if p == 1:
             return t
+        if self._staged(t):
+            return self.ring_shift(t.cpu()).to(t.device)
         out = torch.empty_like(t)
-        ops = [dist.P2POp(dist.isend, t.contiguous(), (self.rank + 1) % p),
-               dist.P2POp(dist.irecv, out, (self.rank - 1) % p)]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), self._peer((self.rank + 1) % p),
+                          self.group),
+               dist.P2POp(dist.irecv, out, self._peer((self.rank - 1) % p), self.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This rank's view of an R x C mesh, the counterpart of JAX's
+    ``make_mesh_2d`` with axes ('r', 'c'). Global rank k sits at (k // C,
+    k % C), row-major. ``r`` is the mesh over this rank's mesh column (the
+    ranks that differ in row index; its rank is i), the axis of the column
+    all-gather; ``c`` is the mesh over its mesh row (rank j), the axis of
+    the row reduce-scatter; ``world`` spans the whole mesh."""
+
+    rows: int
+    cols: int
+    world: Mesh
+    r: Mesh
+    c: Mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+
+def make_mesh_2d(rows: int, cols: int, *, mesh: Mesh | None = None, device=None,
+                 backend: str | None = None) -> Mesh2D:
+    """This rank's :class:`Mesh2D` over ``mesh`` (default: this process's
+    group, :func:`make_mesh`), which must have ``rows * cols`` ranks. The
+    row and column subgroups come from ``dist.new_group``: every rank calls
+    this, and so creates every group in the same order (rows, then
+    columns), as NCCL requires. Each call makes new groups: make the view
+    once and share it among a rank's engines."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"mesh {rows}x{cols} needs positive dimensions")
+    if mesh is None:
+        mesh = make_mesh(rows * cols, device=device, backend=backend)
+    if mesh.num_shards != rows * cols:
+        raise ValueError(f"mesh {rows}x{cols} needs {rows * cols} devices, "
+                         f"the process group has {mesh.num_shards}")
+    row_groups = [dist.new_group([i * cols + j for j in range(cols)]) for i in range(rows)]
+    col_groups = [dist.new_group([i * cols + j for i in range(rows)]) for j in range(cols)]
+    i, j = divmod(mesh.rank, cols)
+    over_r = Mesh(rows, i, mesh.device, mesh.backend, col_groups[j],
+                  tuple(ii * cols + j for ii in range(rows)))
+    over_c = Mesh(cols, j, mesh.device, mesh.backend, row_groups[i],
+                  tuple(i * cols + jj for jj in range(cols)))
+    return Mesh2D(rows, cols, mesh, over_r, over_c)
 
 
 def _device_of(device, rank: int) -> torch.device:
@@ -192,6 +272,10 @@ def _rank_main(rank: int, num_ranks: int, work_dir: str, fn, args, device,
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         value = fn(Mesh(num_ranks, rank, dev, backend), *args)
+        # No rank leaves before every rank has joined and finished: a rank
+        # that exits early closes its sockets while a slower peer may still
+        # be connecting, and that peer fails in init_process_group.
+        dist.barrier()
         if rank == 0:
             tmp = out / "result.tmp"
             tmp.write_bytes(pickle.dumps(value))
