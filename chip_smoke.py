@@ -118,6 +118,27 @@ Phases, one JSON line each:
     stated). Then gloo ranks sharing cuda:0 at the wide phase's scale 18: the 1D
     engine on 2 ranks and the 2D engine on 2x2, ring and sparse, every
     source's distances and tree equal to BfsEngine's on the card.
+16. mesh_kinds (after p2p): every workload kind on a one-rank NCCL group on
+    cuda:0 at the flagship's full size, over one build_ell_sharded of the
+    flagship graph (the weights do not change it) and one
+    build_ell_weights_sharded. DistSsspEngine at 256
+    lanes on the sssp phase's weighted graph and sources, with the ring,
+    allreduce and sparse (delta ids 8/16, prediction) exchanges: a warm
+    batch, a timed one (its K1 launches exactly buckets x (rounds +
+    closes)), 2 more in turns with the sssp phase's SsspEngine; every lane's
+    distances equal SsspEngine's bit for bit on the device and the checked
+    lanes SciPy's dijkstra; rounds, closes, host reads a round, the exchange
+    ms a round (CUDA events) and peak memory per engine. The ring engine's
+    shard tables give the "K1 minplus, mesh shard, w 256" kernels entry
+    (light plane, and the heavy close's plane held to the twin too). Then
+    connected_components and k-hop (k = 3) over an 8192-lane
+    DistWideMsBfsEngine on the flagship's sources, and p2p (the p2p phase's
+    128 pairs) over a 256-lane one: equal to the single-device phases'
+    labels, counts and answers, every path walked. Last, two gloo ranks
+    sharing cuda:0 at RMAT scale 16 (--mesh-kinds-small-scale): the mesh
+    SSSP (sparse, delta, prediction), DistBfsEngine with every planner knob
+    and k-hop over the wide mesh engine with delta ids, equal to their
+    one-device engines.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -150,6 +171,9 @@ CHECK_THREADS = 4
 # Timed runs a source in the mesh_single phase past the protocol's one, in
 # turns with BfsEngine's: the spread of a ~10 ms BFS driven from the host.
 REPEATS = 3
+# Turns of each mesh SSSP engine with SsspEngine in the mesh_kinds phase
+# (a ~0.7 s batch: two keep the phase near its 100 s).
+MESH_KINDS_TURNS = 2
 T0 = time.perf_counter()
 
 
@@ -1387,10 +1411,10 @@ def _dijkstra_oracle(g, sources):
     return csgraph.dijkstra(mm, directed=True, indices=sources)
 
 
-def phase_khop(dev, k1, k2, g, eng, sources) -> None:
+def phase_khop(dev, k1, k2, g, eng, sources) -> np.ndarray:
     """k-hop counts (k = 3) over the flagship HybridMsBfsEngine on its 8192
     sources: the validated lanes' reached counts equal SciPy's vertices
-    within 3 hops (a search bounded at 3)."""
+    within 3 hops (a search bounded at 3). Returns every lane's count."""
     from scipy.sparse import csgraph
 
     from tpu_bfs_torch.workloads.khop import KhopServeEngine
@@ -1418,6 +1442,7 @@ def phase_khop(dev, k1, k2, g, eng, sources) -> None:
           "engine": "HybridMsBfsEngine", "lanes": eng.lanes, "k": 3, "batch_ms": batch_ms,
           "launches": launches, "validated_lanes": picks, "reached": want.tolist(),
           "validate_s": time.perf_counter() - t0})
+    return np.asarray(res.reached)
 
 
 def word_distances(eng, res, wi: int, num_vertices: int) -> torch.Tensor:
@@ -1644,13 +1669,15 @@ def phase_shared_card(dev, scale: int, ranks: int = 2) -> dict:
     return out
 
 
-def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
+def phase_sssp(dev, k1, k2, g, traversable, ptxas):
     """SSSP at 256 lanes on the flagship graph with edge_weights(seed=1,
     wmax=8) attached (the JAX bench's kinds graph): a warm batch with CUDA
     events around every K1 launch, then a timed batch; 3 lanes against
     SciPy's dijkstra. Returns the "K1 minplus, sssp w 256" kernels entry,
     K1 on the engine's own light-plane tables and the run's distances, and
-    held bit for bit against its twin on the heavy close's plane too."""
+    held bit for bit against its twin on the heavy close's plane too; and
+    what the mesh_kinds phase reuses: the weighted graph, the sources, the
+    engine, its batch, the checked lanes and SciPy's rows of them."""
     from tpu_bfs_torch.graph.generate import edge_weights
     from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
 
@@ -1709,13 +1736,15 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas) -> dict:
     # The heavy close runs K1 over the full-weight plane at the same shapes.
     entry["heavy_close_max_abs_err"] = k1_check(
         k1, eng.arrs, names, fw, "minplus", "w", "K1 minplus, sssp heavy close")
-    return entry
+    return entry, {"graph": gw, "sources": src, "engine": eng, "result": res,
+                   "picks": picks, "oracle": oracle}
 
 
-def phase_cc(dev, k1, k2, g, ell, lanes: int) -> None:
+def phase_cc(dev, k1, k2, g, ell, lanes: int):
     """connected_components over a WidePackedMsBfsEngine at 8192 lanes on
     the flagship graph's ELL: labels equal the smallest vertex id of each
-    SciPy component, and the component counts are equal."""
+    SciPy component, and the component counts are equal. Returns the labels
+    and the engine's table rows."""
     from scipy.sparse import csgraph
 
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
@@ -1742,13 +1771,28 @@ def phase_cc(dev, k1, k2, g, ell, lanes: int) -> None:
           "sweeps": sweeps, "seconds": cc_s, "ms_per_sweep": cc_s * 1e3 / sweeps,
           "engine_build_s": build_s, "launches": launches,
           "validate_s": time.perf_counter() - t0})
+    return labels, eng._table_rows
 
 
-def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
+def walk_paths(g, res, s, t, name: str) -> None:
+    """Every pair met, and its path runs from s to t edge by edge with the
+    distance's length."""
+    for i in range(len(s)):
+        ex = res.extras(i)
+        require(ex["met"] and ex["path"] is not None, f"{name} pair {i} did not meet")
+        path = ex["path"]
+        require(path[0] == s[i] and path[-1] == t[i] and len(path) == ex["distance"] + 1,
+                f"{name} pair {i}: path ends or length wrong")
+        require(all(g.has_edge(a, b) for a, b in zip(path, path[1:])),
+                f"{name} pair {i}: a path step is not an edge")
+
+
+def phase_p2p(dev, k1, k2, g, ell, traversable):
     """P2pServeEngine over a 256-lane wide engine on the flagship graph, a
     full batch of 128 pairs drawn among the traversable vertices: every path
     walked edge by edge, its length the distance; 4 pairs' distances equal
-    SciPy's, and the levels expanded are below those sources' BFS depth."""
+    SciPy's, and the levels expanded are below those sources' BFS depth.
+    Returns the pairs and every pair's answer."""
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
     from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.workloads.p2p import P2pServeEngine
@@ -1770,14 +1814,7 @@ def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
     passes = -(-2 * (max(walked) + 1) // 128) if walked else 0
     require(launches["ell_expand"] == buckets * (levels + passes) and launches["tile_spmm"] == 0,
             f"p2p: {launches} K1 launches, not {buckets} x ({levels} levels + {passes} scans)")
-    for i in range(128):
-        ex = res.extras(i)
-        require(ex["met"] and ex["path"] is not None, f"p2p pair {i} did not meet")
-        path = ex["path"]
-        require(path[0] == s[i] and path[-1] == t[i] and len(path) == ex["distance"] + 1,
-                f"p2p pair {i}: path ends or length wrong")
-        require(all(g.has_edge(a, b) for a, b in zip(path, path[1:])),
-                f"p2p pair {i}: a path step is not an edge")
+    walk_paths(g, res, s, t, "p2p")
     t0 = time.perf_counter()
     csr = g.to_scipy()
     depth = []
@@ -1794,6 +1831,235 @@ def phase_p2p(dev, k1, k2, g, ell, traversable) -> None:
           "launches": launches,
           "distances": sorted({res.extras(i)["distance"] for i in range(128)}),
           "validated_pairs": [0, 1, 2, 3], "validate_s": time.perf_counter() - t0})
+    return s, t, [res.extras(i) for i in range(128)], int(res.ecc[0])
+
+
+def same_sssp_tables(a, da, b, db, name: str) -> None:
+    """Every vertex's row of two SSSP distance tables equal on the device:
+    ``a`` a single-device SsspEngine (rows of the vertices in an edge),
+    ``b`` a DistSsspEngine (a row a vertex; the others all INF there)."""
+    from tpu_bfs_torch.workloads.sssp import INF_W
+
+    ra, rb = np.asarray(a._rank, np.int64), np.asarray(b._rank, np.int64)
+    has = ra < a._act
+    step = 1 << 18
+    for lo in range(0, len(ra), step):
+        h = has[lo:lo + step]
+        ia = torch.from_numpy(ra[lo:lo + step][h]).to(da.device)
+        ib = torch.from_numpy(rb[lo:lo + step][h]).to(db.device)
+        require(torch.equal(da.index_select(0, ia), db.index_select(0, ib)),
+                f"{name}: distances != SsspEngine's")
+        iso = torch.from_numpy(rb[lo:lo + step][~h]).to(db.device)
+        require(bool((db.index_select(0, iso) == int(INF_W)).all()),
+                f"{name}: a row-less vertex is reached")
+
+
+def shared_card_kinds_rank(mesh, scale: int):
+    """Rank entry of the mesh_kinds phase's shared-card check, RMAT
+    ``scale``: DistSsspEngine (sparse, delta ids, prediction) at 64 lanes,
+    DistBfsEngine (sparse, with wire_pack, delta ids, sieve and prediction)
+    from 3 sources, and k-hop (k = 3) over DistWideMsBfsEngine (sparse, delta
+    ids) at 256 lanes; their answers and the backend and device."""
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+    from tpu_bfs_torch.workloads.khop import KhopServeEngine
+
+    g, gw, src = shared_kinds_inputs(scale)
+    sssp = DistSsspEngine(gw, mesh, lanes=64, exchange="sparse", delta_bits=(8, 16),
+                          predict=True).run(src[:64])
+    bfs = DistBfsEngine(g, mesh, exchange="sparse", wire_pack=True, delta_bits=(8, 16),
+                        sieve=True, predict=True)
+    trees = {int(s): (r.distance, r.parent) for s in src[:3] for r in [bfs.run(int(s))]}
+    khop = KhopServeEngine(DistWideMsBfsEngine(g, mesh, lanes=256, exchange="sparse",
+                                               delta_bits=(8, 16))).run(src, k=3)
+    return ([sssp.distances_int32(i) for i in range(64)], int(sssp.rounds), trees,
+            np.asarray(khop.reached), mesh.backend, str(mesh.device))
+
+
+def shared_kinds_inputs(scale: int):
+    """The shared-card check's graph, weighted graph and 256 sources."""
+    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
+
+    g = rmat_graph(scale, 16, seed=1)
+    gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    src = np.random.default_rng(7).choice(np.flatnonzero(g.degrees > 0), size=256,
+                                          replace=False)
+    return g, gw, src
+
+
+def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p2p,
+                     ptxas, small_scale: int) -> dict:
+    """Every workload kind on a one-rank NCCL group on cuda:0 at the
+    flagship's full size (see the module docstring, phase 16), then on gloo
+    ranks sharing the card. Returns the "K1 minplus, mesh shard, w 256"
+    kernels entry."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.graph.ell import build_ell_sharded, build_ell_weights_sharded
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+    from tpu_bfs_torch.parallel.mesh import close_mesh, launch, make_mesh
+    from tpu_bfs_torch.workloads.cc import connected_components
+    from tpu_bfs_torch.workloads.khop import KhopServeEngine
+    from tpu_bfs_torch.workloads.p2p import P2pServeEngine
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    t_phase = time.perf_counter()
+    gw, src, ref, ref_res = sssp["graph"], sssp["sources"], sssp["engine"], sssp["result"]
+    cc_labels, cc_table_rows = cc
+    mesh = make_mesh(device=dev)
+    require(mesh.num_shards == 1 and mesh.backend == "nccl", f"mesh {mesh}")
+    # One sharded ELL for every engine: the weights do not change it.
+    t0 = time.perf_counter()
+    shard = build_ell_sharded(g, 1)
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weights = build_ell_weights_sharded(gw, shard)
+    weights_s = time.perf_counter() - t0
+    names = (["virtual"] if shard.virtual is not None else []) + [
+        f"light{i}" for i in range(len(shard.light))]
+    out, entry = [], None
+    for kw in (dict(exchange="ring"), dict(exchange="allreduce"),
+               dict(exchange="sparse", delta_bits=(8, 16), predict=True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        eng = DistSsspEngine(gw, mesh, lanes=256, shard=shard, weights=weights, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng.run(src)  # warm
+        reset_counts(k1, k2)
+        res = eng.run(src, time_it=True)
+        launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        bodies = res.rounds + eng.last_closes
+        require(launches["ell_expand"] == len(names) * bodies > 0 and launches["tile_spmm"] == 0,
+                f"mesh sssp {kw}: {launches} K1 launches, not {len(names)} x {bodies}")
+        same_sssp_tables(ref, ref_res._dist, eng, res._dist, f"mesh sssp {kw}")
+        require(res.rounds == ref_res.rounds, f"mesh sssp {kw}: {res.rounds} rounds")
+        for j, i in enumerate(sssp["picks"]):
+            got = res.distances_int32(i).astype(float)
+            got[got == np.iinfo(np.int32).max] = np.inf
+            require(np.array_equal(got, sssp["oracle"][j]), f"mesh sssp {kw} lane {i} != dijkstra")
+        mine, theirs = [], []
+        for _ in range(MESH_KINDS_TURNS):  # in turns with SsspEngine
+            theirs.append(ref.run(src, time_it=True).elapsed_s * 1e3)
+            mine.append(eng.run(src, time_it=True).elapsed_s * 1e3)
+        # The exchange a round by CUDA events, in one more batch.
+        evs, exchange = [], eng._exchange_round
+
+        def timed(*a):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got = exchange(*a)
+            e1.record()
+            evs.append((e0, e1))
+            return got
+        eng._exchange_round = timed
+        eng.run(src)
+        torch.cuda.synchronize()
+        eng._exchange_round = exchange
+        out.append({"engine": "DistSsspEngine", **kw, "engine_build_s": build_s,
+                    "batch_ms": res.elapsed_s * 1e3, "median_ms": float(np.median(mine)),
+                    "repeats_ms": mine, "sssp_engine_median_ms": float(np.median(theirs)),
+                    "sssp_engine_repeats_ms": theirs, "rounds": res.rounds,
+                    "table_rows": eng._table_rows, "sssp_engine_table_rows": ref._table_rows,
+                    "heavy_closes": eng.last_closes, "host_reads": eng.last_host_reads,
+                    "host_reads_per_round": eng.last_host_reads / res.rounds,
+                    "exchange_ms_per_round": sum(a.elapsed_time(b) for a, b in evs) / len(evs),
+                    "exchange_counts": eng.last_exchange_level_counts.tolist(),
+                    "labels": eng.exchange_branch_labels(), "launches": launches,
+                    "peak_above_start_gb": peak_gb})
+        if entry is None:
+            entry = k1_entry(k1, eng.arrs, names, res._dist, "minplus", launches["ell_expand"],
+                             ptxas, wsuf="wl", name="K1 minplus, mesh shard, w 256",
+                             unit="one light sweep: every bucket of the rank's shard, w 256, "
+                                  "the run's distances against its light-plane tables")
+            entry["heavy_close_max_abs_err"] = k1_check(
+                k1, eng.arrs, names, res._dist, "minplus", "w", "K1 minplus, mesh heavy close")
+            require(entry["max_abs_err"] == entry["heavy_close_max_abs_err"] == 0,
+                    "mesh shard minplus != twin")
+        del eng, res
+    del ref, ref_res, sssp
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = {}
+    # CC and k-hop over one 8192-lane wide mesh engine, p2p over a 256-lane one.
+    t0 = time.perf_counter()
+    wide = DistWideMsBfsEngine(g, mesh, lanes=8192, shard=shard)
+    build_s = time.perf_counter() - t0
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    labels, n, sweeps = connected_components(wide)
+    kinds["cc"] = {"lanes": 8192, "table_rows": wide._table_rows, "single_device_table_rows":
+                   cc_table_rows, "engine_build_s": build_s, "components": n, "sweeps": sweeps,
+                   "seconds": time.perf_counter() - t0, "launches": k1.ell_expand.launches}
+    require(k1.ell_expand.launches > 0 and k2.tile_spmm.launches == 0, "mesh cc launches")
+    require(np.array_equal(labels, cc_labels), "mesh cc labels != the cc phase's (SciPy's)")
+    kh = KhopServeEngine(wide)
+    kh.run(flagship_sources, k=3)  # warm
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    res = kh.run(flagship_sources, k=3)
+    torch.cuda.synchronize()
+    kinds["khop"] = {"lanes": 8192, "k": 3, "batch_ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": k1.ell_expand.launches}
+    require(k1.ell_expand.launches > 0, "mesh khop launched no K1")
+    require(np.array_equal(res.reached, khop_reached), "mesh khop reached != the khop phase's")
+    del wide, kh, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, t, extras, levels = p2p
+    pe = P2pServeEngine(DistWideMsBfsEngine(g, mesh, lanes=256, shard=shard))
+    pe.run(s[:4], targets=t[:4])  # warm, and the parent scanner built
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    res = pe.run(s, targets=t)
+    kinds["p2p"] = {"lanes": 256, "pairs": 128, "batch_s": time.perf_counter() - t0,
+                    "levels": int(res.ecc[0]), "host_reads": pe.last_host_reads,
+                    "paths_s": pe.last_paths_s, "launches": k1.ell_expand.launches}
+    require(k1.ell_expand.launches > 0, "mesh p2p launched no K1")
+    require([res.extras(i) for i in range(128)] == extras and int(res.ecc[0]) == levels,
+            "mesh p2p answers != the p2p phase's")
+    walk_paths(g, res, s, t, "mesh p2p")
+    del pe, res, shard, weights
+    close_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_kinds", "ranks": 1, "backend": "nccl",
+          "graph": "the flagship graph, edge_weights(seed=1, wmax=8) for sssp",
+          "sssp_lanes": 256, "shard_build_s": shard_s, "weights_build_s": weights_s,
+          "sssp": out, "kinds": kinds,
+          "validated": "sssp: every lane = SsspEngine's, 3 lanes = dijkstra; cc labels, khop "
+                       "reached and p2p answers = the single-device phases'; every p2p path "
+                       "walked", "seconds": time.perf_counter() - t_phase})
+    # Two gloo ranks sharing the card, correctness only.
+    t0 = time.perf_counter()
+    dists, rounds, trees, reached, backend, where = launch(
+        2, shared_card_kinds_rank, small_scale, device=f"cuda:{dev.index or 0}", backend="gloo")
+    mesh_s = time.perf_counter() - t0
+    g2, gw2, src2 = shared_kinds_inputs(small_scale)
+    want = SsspEngine(gw2, lanes=64, device=dev).run(src2[:64])
+    require(rounds == want.rounds and all(
+        np.array_equal(d, want.distances_int32(i)) for i, d in enumerate(dists)),
+        "shared card: DistSsspEngine != SsspEngine")
+    bfs = BfsEngine(g2, device=dev)
+    for s0, (dist, parent) in trees.items():
+        r = bfs.run(s0)
+        require(np.array_equal(dist, r.distance) and np.array_equal(parent, r.parent),
+                f"shared card: DistBfsEngine planner from {s0} != BfsEngine")
+    kw = KhopServeEngine(WidePackedMsBfsEngine(g2, lanes=256, device=dev)).run(src2, k=3)
+    require(np.array_equal(reached, kw.reached), "shared card: mesh khop != wide khop")
+    emit({"phase": "mesh_kinds", "shared_card": True, "ranks": 2, "backend": backend,
+          "device": where, "scale": small_scale, "seconds": mesh_s,
+          "equal_to": "SsspEngine (64 lanes), BfsEngine (3 sources, trees), "
+                      "WidePackedMsBfsEngine k-hop (256 lanes)",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return entry
 
 
 def main(argv=None) -> int:
@@ -1807,6 +2073,8 @@ def main(argv=None) -> int:
                     help="RMAT scale of the graph500 single and batched runs (18)")
     ap.add_argument("--ckpt-every", type=int, default=4,
                     help="levels before the ckpt phase's checkpoint (4)")
+    ap.add_argument("--mesh-kinds-small-scale", type=int, default=16,
+                    help="RMAT scale of the mesh_kinds phase's shared-card ranks (16)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
     args = ap.parse_args(argv)
@@ -1853,7 +2121,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:3], wide, ptxas))
-    phase_khop(dev, k1, k2, g, eng, sources)
+    khop_reached = phase_khop(dev, k1, k2, g, eng, sources)
     kernels += phase_mesh(dev, k1, k2, g, eng, sources, picks[:3], wide, args.wide_scale,
                           ptxas)
     gc.collect()
@@ -1871,14 +2139,20 @@ def main(argv=None) -> int:
     del golden, trees, dg, hg
     gc.collect()
     torch.cuda.empty_cache()
-    kernels.append(phase_sssp(dev, k1, k2, g, traversable, ptxas))
+    entry, sssp = phase_sssp(dev, k1, k2, g, traversable, ptxas)
+    kernels.append(entry)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_cc(dev, k1, k2, g, ell, args.lanes)
+    cc = phase_cc(dev, k1, k2, g, ell, args.lanes)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_p2p(dev, k1, k2, g, ell, traversable)
-    del g, ell
+    p2p = phase_p2p(dev, k1, k2, g, ell, traversable)
+    del ell
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_mesh_kinds(dev, k1, k2, g, sssp, sources, khop_reached, cc, p2p,
+                                    ptxas, args.mesh_kinds_small_scale))
+    del g, sssp, sources
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)

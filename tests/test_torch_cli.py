@@ -279,7 +279,8 @@ def test_port_imports_no_jax():
             "tpu_bfs_torch.algorithms.bfs_tiled", "tpu_bfs_torch.graph.ell",
             "tpu_bfs_torch.parallel.mesh", "tpu_bfs_torch.parallel.collectives",
             "tpu_bfs_torch.parallel.dist_msbfs_wide",
-            "tpu_bfs_torch.parallel.dist_msbfs_hybrid"} <= set(mods)
+            "tpu_bfs_torch.parallel.dist_msbfs_hybrid",
+            "tpu_bfs_torch.parallel.dist_sssp"} <= set(mods)
     code = (
         f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_bfs.')) "

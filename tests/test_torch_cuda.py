@@ -527,3 +527,53 @@ def test_single_source_mesh_engines_on_cuda_equal_bfs_engine(cuda, shape, ranks,
         ref = want[sources[0] if s == "ckpt" else s]
         np.testing.assert_array_equal(dist, ref.distance)
         np.testing.assert_array_equal(parent, ref.parent)
+
+
+@pytest.mark.parametrize("ranks,backend", [(1, "nccl"), (2, "gloo")], ids=["nccl1", "gloo2"])
+def test_dist_sssp_on_cuda_equals_sssp_engine(cuda, ranks, backend):
+    # DistSsspEngine (ring, allreduce, sparse with delta ids and prediction)
+    # on a one-rank NCCL group and on two gloo ranks sharing the card:
+    # distances, rounds and closes equal SsspEngine's on the card; every
+    # expansion is a K1 minplus launch a bucket, and K1 on the rank's shard
+    # tables (light and full planes) equals its twin.
+    import torch_mesh_cases as cases
+    from tpu_bfs_torch.parallel.mesh import launch
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    g = rmat_graph(12, 16, seed=11, weights=8)
+    src = np.random.default_rng(5).integers(0, g.num_vertices, size=128)
+    want = SsspEngine(g, lanes=128, device=cuda).run(src)
+    got = launch(ranks, cases.card_sssp_rank, device="cuda" if backend == "nccl" else "cuda:0",
+                 backend=backend)
+    assert len(got) == len(cases.CARD_SSSP_RUNS)
+    for i, rec in got.items():
+        for j, lane in enumerate((0, 77, 127)):
+            np.testing.assert_array_equal(rec["dists"][j], want.distances_int32(lane))
+        assert rec["rounds"] == want.rounds
+        assert rec["launches"] == rec["buckets"] * (rec["rounds"] + rec["closes"])
+        assert rec["errs"] == [0, 0]
+        assert rec["counts"].sum() == rec["rounds"]
+
+
+def test_mesh_kinds_on_cuda_equal_cpu(cuda):
+    # CC, k-hop and p2p over DistWideMsBfsEngine on a one-rank NCCL group
+    # equal the same adapters over a gloo rank on the CPU.
+    import torch_mesh_cases as cases
+    from tpu_bfs_torch.parallel.mesh import start
+
+    on_cpu = start(1, cases.mesh_kinds_rank, device="cpu")
+    got = start(1, cases.mesh_kinds_rank, device="cuda").result()
+    want = on_cpu.result()
+    assert got.keys() == want.keys()
+    for key in got:
+        if isinstance(got[key], dict):
+            for f in got[key]:
+                a, b = got[key][f], want[key][f]
+                if isinstance(a, np.ndarray):
+                    np.testing.assert_array_equal(a, b, err_msg=f"{key} {f}")
+                else:
+                    assert a == b, (key, f)
+        elif isinstance(got[key], np.ndarray):
+            np.testing.assert_array_equal(got[key], want[key])
+        else:
+            assert got[key] == want[key], key

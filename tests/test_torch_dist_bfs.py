@@ -148,20 +148,6 @@ def test_exchange_models_equal_jax(p, n):
     assert tcoll.column_gather_wire_bytes(p, n) == jcoll.column_gather_wire_bytes(p, n)
 
 
-@pytest.mark.parametrize("knob", [dict(wire_pack=True), dict(delta_bits=(8, 16)),
-                                  dict(sieve=True), dict(predict=True)])
-def test_unported_planner_knobs_raise(knob):
-    # The packed, delta, sieve and predict forms are not ported: each knob
-    # refuses by name before any mesh or host work.
-    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
-    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
-
-    g = cases.graph_of("line64", tgen, tio)
-    for cls in (DistBfsEngine, Dist2DBfsEngine):
-        with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}.*item 3.5"):
-            cls(g, exchange="sparse", device="cpu", **knob)
-
-
 def test_dist_engines_refuse_bad_arguments_before_any_work():
     from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
     from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
@@ -193,7 +179,8 @@ def test_dist_checkpoint_crosses_engines_and_packages(mesh_runs):
 
 
 def test_spawned_dist_ranks_import_no_jax():
-    # Two ranks build and run both single-source mesh engines without
+    # Two ranks build and run both single-source mesh engines (with the
+    # planner), DistSsspEngine and the kinds on the mesh wide engine without
     # importing JAX or the JAX package, though this process has both.
     assert launch(2, cases.dist_loaded_modules, device="cpu") == []
 

@@ -63,14 +63,38 @@ def test_cli_mesh_refusals_equal_jax(flags):
     assert str(got.value) == str(want.value) and "--" in str(got.value)
 
 
-@pytest.mark.parametrize("argv", [["3", "rmat:scale=8", "--devices", "2", "--wire-pack"],
-                                  ["3", "rmat:scale=8", "--mesh", "2x2", "--exchange",
-                                   "sparse", "--sparse-delta"]])
-def test_cli_unported_mesh_runs_raise(argv):
-    # The exchange planner's flags (packed, delta, sieve, predict) are
-    # not ported: they refuse by name instead of running another exchange.
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3.5"):
-        cli.main(argv + ["--device", "cpu"])
+_PLANNER = ["--sparse-delta", "--sparse-sieve", "--sparse-predict"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["3", "rmat:scale=8", "--devices", "2", "--wire-pack"],
+    ["3", "rmat:scale=8", "--mesh", "2x2", "--exchange", "sparse", "--sparse-delta"],
+    ["3", "rmat:scale=9,ef=8,seed=2", "--devices", "4", "--exchange", "sparse",
+     "--wire-pack"] + _PLANNER,
+    ["3", "rmat:scale=8", "--mesh", "1x2", "--exchange", "sparse", "--backend", "dopt"]
+    + _PLANNER,
+    _MESH_ARGV + ["--engine", "wide", "--exchange", "sparse", "--sparse-delta", "--wire-pack"],
+])
+def test_cli_planner_mesh_runs_equal_jax(argv, tmp_path):
+    # The exchange planner's flags run and print what the JAX CLI prints.
+    # On a mesh of several rows JAX's planner may deadlock on its virtual
+    # devices when rows split (tests/test_torch_dist2d.py), so there the
+    # JAX side runs the ring: the printed results do not depend on the
+    # exchange.
+    from tpu_bfs import cli as jcli
+
+    jargv = list(argv)
+    if "2x2" in argv:
+        jargv = [a for a in argv if a not in _PLANNER + ["--exchange", "sparse"]]
+    saves = ["--save-dist", str(tmp_path / "d.npy")]
+    jlines = _run_cli(jcli.main, jargv + saves + ["--stats"])
+    want = np.load(tmp_path / "d.npy")
+    lines = _run_cli(cli.main, argv + saves + ["--stats", "--device", "cpu"])
+    assert "Output OK" in lines and "Output OK" in jlines
+    for prefix in ("Number of", "Reached ", '{"level"', "source "):
+        assert _lines(lines, prefix) == _lines(jlines, prefix)
+    assert _lines(lines, '{"level"')
+    np.testing.assert_array_equal(np.load(tmp_path / "d.npy"), want)
 
 
 _SINGLE_ARGV = ["0", "rmat:scale=9,ef=8,seed=2", "--stats"]
@@ -104,6 +128,13 @@ def test_cli_single_source_mesh_equals_jax(flags, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--devices", "2", "--backend", "tiled"],
                                    ["--mesh", "2x2", "--backend", "delta"],
+                                   ["--wire-pack"],
+                                   ["--sparse-sieve"],
+                                   ["--devices", "2", "--sparse-delta"],
+                                   ["--mesh", "1x2", "--exchange", "allreduce",
+                                    "--sparse-predict"],
+                                   ["--multi-source", "1,2", "--devices", "2", "--exchange",
+                                    "sparse", "--sparse-sieve"],
                                    ["--devices", "2", "--backend", "tiled", "--pull-gate"],
                                    ["--mesh", "2x2", "--exchange", "sliced"],
                                    ["--mesh", "2by2"]])

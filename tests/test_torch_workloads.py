@@ -450,9 +450,21 @@ def test_build_workload_engine():
         adapter = tw.build_workload_engine(kind, base, g, Spec())
         assert isinstance(adapter, cls) and adapter.completed_exchange_record() == (None, None)
         assert adapter.wire_bytes_per_level() is None
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tw.build_workload_engine("sssp", None, g, Spec(devices=4))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tw.id_of_row_map(object())
+    # The mesh forms on a one-rank gloo mesh: devices > 1 needs a group of
+    # that size, and the wide mesh engine's rows are chip-major (at one
+    # rank, the rank order itself).
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.mesh import close_mesh, make_mesh
+
+    mesh = make_mesh(device="cpu")
+    try:
+        with pytest.raises(ValueError, match="the process group has 1 ranks, not 4"):
+            tw.build_workload_engine("sssp", None, g, Spec(devices=4))
+        dbase = DistWideMsBfsEngine(g, mesh, lanes=32)
+        want = np.full(dbase.sell.v_pad, -1, np.int64)
+        want[dbase.sell.rank] = np.arange(g.num_vertices)
+        np.testing.assert_array_equal(tw.id_of_row_map(dbase), want)
+    finally:
+        close_mesh()
     with pytest.raises(ValueError, match="unknown workload kind"):
         tw.build_workload_engine("bfs", base, g, Spec())

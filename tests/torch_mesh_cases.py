@@ -12,6 +12,7 @@ counts, and BFS trees through the device parent scan.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 
@@ -105,6 +106,8 @@ CARD_CASES = [
 CARD_WIDE_CASES = [
     ("wide_dense", "rmat12", dict(), ("rng", 4096), "run"),
     ("wide_sparse", "rmat12", dict(lanes=256, exchange="sparse"), ("rng", 256), "run"),
+    ("wide_sparse_delta", "rmat12", dict(lanes=256, exchange="sparse", sparse_caps=(8, 64, 256),
+                                         delta_bits=(8, 16)), ("rng", 256), "run"),
 ]
 
 #: Lanes whose distances a record keeps of a batch over 128 lanes (those
@@ -162,6 +165,12 @@ def assert_same(port: dict, jax: dict, where: str) -> None:
             np.testing.assert_array_equal(a, b, err_msg=f"{where} {key}")
         else:
             assert a == b, f"{where} {key}: {a!r} != {b!r}"
+
+
+def jax_text(msg: str) -> str:
+    """A JAX refusal text as the port words it: the parenthesised reference
+    to the JAX package's history reads "(the exchange planner)"."""
+    return re.sub(r"\((?:the )?[A-Z]+ \d+(?: planner)?\)", "(the exchange planner)", msg)
 
 
 def ckpt_fields(ckpt) -> dict:
@@ -231,13 +240,13 @@ def sparse_gather_rank(mesh, cap):
     this rank's count of them."""
     import torch
 
-    from tpu_bfs_torch.parallel.collectives import nonzero_rows, sparse_rows_gather
+    from tpu_bfs_torch.parallel.collectives import row_gather_flags, sparse_rows_gather
 
     p, r = mesh.num_shards, mesh.rank
     nxt = torch.zeros((6, 2), dtype=torch.int32)
     nxt[r % 6] = torch.tensor([r + 1, -1], dtype=torch.int32)
     nxt[5] = r + 10
-    count = int(nonzero_rows(nxt))
+    count = int(row_gather_flags((nxt != 0).any(dim=1))[0])
     table = sparse_rows_gather(mesh, nxt, cap=cap, out_rows=6 * p,
                                gid_of=lambda ids: ids * p + r)
     return count, table.numpy()
@@ -404,19 +413,26 @@ def collectives_inputs(p: int, n: int, seed: int):
 
 
 def dist_loaded_modules(mesh):
-    """Rank entry: build and run a DistBfsEngine, then list the JAX and
-    tpu_bfs modules this rank has imported."""
+    """Rank entry: build and run the single-source mesh engines (with the
+    planner's knobs), DistSsspEngine and the kinds over the mesh wide
+    engine, then list the JAX and tpu_bfs modules this rank has imported."""
     import sys
 
     from tpu_bfs_torch.graph import generate as tgen
     from tpu_bfs_torch.graph import io as tio
     from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
     from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
     from tpu_bfs_torch.parallel.mesh import make_mesh_2d
 
     g = graph_of("random_small", tgen, tio)
-    DistBfsEngine(g, mesh, exchange="sparse", backend="dopt").run(0)
-    Dist2DBfsEngine(g, make_mesh_2d(1, mesh.num_shards, mesh=mesh), exchange="sparse").run(0)
+    planner = dict(wire_pack=True, delta_bits=(8, 16), sieve=True, predict=True)
+    DistBfsEngine(g, mesh, exchange="sparse", backend="dopt", **planner).run(0)
+    Dist2DBfsEngine(g, make_mesh_2d(1, mesh.num_shards, mesh=mesh), exchange="sparse",
+                    **planner).run(0)
+    DistSsspEngine(sssp_graph(tgen), mesh, lanes=4, exchange="sparse", delta_bits=(8,),
+                   predict=True).run(np.asarray(SSSP_SOURCES[:4]))
+    mesh_kinds_rank(mesh)
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_bfs"))
 
 
@@ -461,7 +477,9 @@ def ckpt_cross_rank(mesh, shape, path: str) -> dict:
 
 #: The card tests' single-source mesh runs (tests/test_torch_cuda.py).
 CARD_DIST_RUNS = [dict(exchange="ring"), dict(exchange="allreduce"),
-                  dict(exchange="sparse"), dict(exchange="sparse", backend="dopt")]
+                  dict(exchange="sparse"), dict(exchange="sparse", backend="dopt"),
+                  dict(exchange="sparse", wire_pack=True, delta_bits=(8, 16), sieve=True,
+                       predict=True)]
 
 
 def card_dist_rank(mesh, shape, sources) -> dict:
@@ -484,4 +502,305 @@ def card_dist_rank(mesh, shape, sources) -> dict:
             out[(i, int(s))] = (r.distance, r.parent)
         r = eng.finish(eng.advance(eng.advance(eng.start(int(sources[0])), levels=2)))
         out[(i, "ckpt")] = (r.distance, r.parent)
+    return out
+
+
+# --- the exchange planner (tests/test_torch_planner.py) ----------------------
+
+#: (name, planner keywords) of the exchange-level planner checks. The host
+#: carries (prev_biggest, growing) are part of a case; the visited chunk and
+#: its mesh total come from the inputs. The last case predicts dense.
+PLANNER_EXCHANGES = [
+    ("delta", dict(delta_bits=(8, 16))),
+    ("delta_sieve", dict(delta_bits=(8, 16), sieve=True)),
+    ("sieve_packed", dict(sieve=True, wire_pack=True)),
+    ("predict_measured", dict(predict=True, prev_biggest=10, growing=True)),
+    ("all", dict(delta_bits=(4, 8, 16), sieve=True, predict=True, prev_biggest=1000,
+                 growing=False, wire_pack=True)),
+    ("predicted", dict(predict=True, prev_biggest=1000, growing=True, delta_bits=(8,))),
+]
+PLANNER_DENSITIES = (0.002, 0.05, 0.5)
+
+
+def planner_inputs(p: int, n: int, seed: int):
+    """Every rank's inputs of :func:`planner_rank`, stacked: the bool [P,
+    P*n] contributions by density and the [P, n] visited chunks."""
+    contrib = {d: [] for d in PLANNER_DENSITIES}
+    vis = []
+    for r in range(p):
+        rng = np.random.default_rng(seed + r)
+        for d in PLANNER_DENSITIES:
+            contrib[d].append(rng.random(p * n) < d)
+        vis.append(rng.random(n) < (0.9 if r % 2 == 0 else 0.3))
+    return {d: np.stack(v) for d, v in contrib.items()}, np.stack(vis)
+
+
+def planner_rank(mesh, n: int, caps, seed: int) -> dict:
+    """Rank entry: the packed reduce-scatters, the packed sparse fallback
+    and every ``PLANNER_EXCHANGES`` case at each density; results
+    all-gathered in rank order (hits, and the claims ``hit & ~visited``),
+    branches and carried counts."""
+    import torch
+
+    from tpu_bfs_torch.parallel import collectives as coll
+
+    p, r = mesh.num_shards, mesh.rank
+    contrib, vis = planner_inputs(p, n, seed)
+    visited = torch.from_numpy(vis[r])
+    total = int(mesh.all_reduce_(visited.sum(dtype=torch.int64).reshape(1), "sum").item())
+    out = {}
+    for d in PLANNER_DENSITIES:
+        x = torch.from_numpy(contrib[d][r])
+        for impl in ("ring", "allreduce"):
+            got = coll.reduce_scatter_or(x, mesh, impl=impl, wire_pack=True)
+            out[f"packed_{impl}_{d}"] = mesh.all_gather_rows(got).numpy()
+        hit, branch = coll.sparse_exchange_or(x, mesh, caps=caps, wire_pack=True)
+        out[f"sparse_packed_{d}"] = (mesh.all_gather_rows(hit).numpy(), branch)
+        for name, kw in PLANNER_EXCHANGES:
+            hit, branch, biggest = coll.planned_sparse_exchange_or(
+                x, mesh, caps=caps, visited=visited, visited_total=total, **kw)
+            out[f"{name}_{d}"] = (mesh.all_gather_rows(hit).numpy(),
+                                  mesh.all_gather_rows(hit & ~visited).numpy(), branch, biggest)
+    return out
+
+
+# --- the planner on the mesh engines (tests/test_torch_mesh_planner.py) ------
+
+#: Planner cases of DistBfsEngine, every knob on its own and together; small
+#: caps make the rungs, the encodings and the dense fallback all run.
+PLANNER_DIST_CASES = [
+    ("wire_pack", "random_small", dict(exchange="ring", wire_pack=True), [0, 17], "run"),
+    ("wire_pack_allreduce", "rmat_small", dict(exchange="allreduce", wire_pack=True),
+     ("active", 2), "run"),
+    ("delta_bits", "rmat_small", dict(exchange="sparse", sparse_caps=(4, 64),
+                                      delta_bits=(8, 16)), ("active", 3), "run"),
+    ("sieve", "rmat12", dict(exchange="sparse", sparse_caps=(16, 256), sieve=True),
+     ("active", 2), "run"),
+    ("predict", "rmat_small", dict(exchange="sparse", sparse_caps=(2, 16), predict=True),
+     ("active", 3), "run"),
+    ("all_dopt_ckpt", "rmat_small", dict(exchange="sparse", sparse_caps=(4, 64), backend="dopt",
+                                         wire_pack=True, delta_bits=(8, 16), sieve=True,
+                                         predict=True), [3], "ckpt"),
+]
+
+#: The 2D planner cases. 'ids_delta16' keeps every level on one rung and one
+#: encoding (a cap above any row chunk, 16-bit deltas), so mesh rows never
+#: split and JAX runs it on every shape; the others may split rows, which
+#: deadlocks JAX's engine on its virtual devices (see DIST2D_CASES), so on
+#: meshes with more than one row they are held to JAX's ring records.
+PLANNER_DIST2D_CASES = [
+    ("wire_pack", "rmat_small", dict(exchange="ring", wire_pack=True), ("active", 3), "run"),
+    ("ids_delta16", "random_small", dict(exchange="sparse", sparse_caps=(2048,),
+                                         delta_bits=(16,), wire_pack=True), [0, 250], "run"),
+    ("planner", "rmat_small", dict(exchange="sparse", sparse_caps=(2, 16), delta_bits=(8, 16),
+                                   sieve=True, predict=True), ("active", 3), "run"),
+    ("planner_ckpt", "rmat_small", dict(exchange="sparse", backend="dopt", delta_bits=(8, 16),
+                                        predict=True), [3], "ckpt"),
+]
+
+#: The packed mesh engines' planner knobs (the sparse row gather's delta
+#: ids; wire_pack recorded).
+PLANNER_WIDE_CASES = [
+    ("delta", "rmat_small", dict(lanes=64, exchange="sparse", sparse_caps=(2, 24, 200),
+                                 delta_bits=(8, 16), wire_pack=True), ("active", 40), "run"),
+    ("delta_ckpt", "rmat_small", dict(lanes=64, exchange="sparse", delta_bits=(4,)),
+     ("active", 20), "ckpt"),
+]
+PLANNER_HYBRID_CASES = [
+    ("delta", "random_small", dict(tile_thr=4, exchange="sparse", sparse_caps=(4, 40, 300),
+                                   delta_bits=(8, 16), wire_pack=True), ("rng", 80), "run"),
+]
+
+
+def planner_engines_rank(mesh, shape) -> dict:
+    """Rank entry of the planner's engine checks on ``mesh``: for an int
+    ``shape`` the 1D cases and the packed engines' cases, for an (R, C)
+    one the 2D cases; with each single-source case's host reads."""
+    out = {"dist": run_dist_cases(mesh, shape, PLANNER_DIST2D_CASES if isinstance(shape, tuple)
+                                  else PLANNER_DIST_CASES)}
+    if not isinstance(shape, tuple):
+        out["wide"] = run_cases(mesh, "wide", PLANNER_WIDE_CASES)
+        out["hybrid"] = run_cases(mesh, "hybrid", PLANNER_HYBRID_CASES)
+    return out
+
+
+# --- the mesh SSSP engine (tests/test_torch_mesh_sssp.py) ----------------------
+
+#: (name, DistSsspEngine keywords, mesh shape or None for 1D) and the mesh
+#: sizes each runs on; the JAX test's graph and sources.
+SSSP_CASES = [
+    ("ring", dict(exchange="ring"), None, (1, 2, 4, 8)),
+    ("allreduce", dict(exchange="allreduce"), None, (2, 4)),
+    ("sparse", dict(exchange="sparse"), None, (1, 2, 4, 8)),
+    ("sparse_small_caps", dict(exchange="sparse", sparse_caps=(2, 8)), None, (4,)),
+    ("planner", dict(exchange="sparse", delta_bits=(8, 16), predict=True), None, (1, 4, 8)),
+    ("2d", dict(exchange="allreduce"), (2, 2), (4,)),
+    ("2d", dict(exchange="allreduce"), (2, 4), (8,)),
+]
+SSSP_SOURCES = [0, 7, 33, 95, 1, 64]
+SSSP_MESHES = [1, 2, 4, 8]
+
+
+def sssp_graph(gen):
+    """The JAX mesh-kinds test's weighted graph."""
+    return gen.random_graph(96, 480, seed=3, weights=5)
+
+
+def sssp_fields(eng, res) -> dict:
+    """A mesh SSSP batch's record (either package's)."""
+    return {"dist": np.stack([res.distances_int32(i) for i in range(len(res.sources))]),
+            "rounds": int(res.rounds), "reached": np.asarray(res.reached),
+            "ecc": np.asarray(res.ecc), "counts": np.asarray(eng.last_exchange_level_counts),
+            "bytes": eng.last_exchange_bytes, "labels": eng.exchange_branch_labels(),
+            "per_level": list(eng.wire_bytes_per_level())}
+
+
+def sssp_rank(mesh, p: int) -> dict:
+    """Rank entry: every SSSP case that runs on ``p`` ranks, keyed by (name,
+    shape), each with the host reads and closes of its batch."""
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    g = sssp_graph(tgen)
+    out = {}
+    for name, kw, shape, sizes in SSSP_CASES:
+        if p not in sizes:
+            continue
+        m = make_mesh_2d(*shape, mesh=mesh) if shape else mesh
+        eng = DistSsspEngine(g, m, lanes=32, **kw)
+        res = eng.run(np.asarray(SSSP_SOURCES))
+        out[(name, shape)] = (sssp_fields(eng, res), eng.last_host_reads, eng.last_closes)
+    return out
+
+
+# --- the workload kinds on the mesh (tests/test_torch_mesh_kinds.py) ----------
+
+#: (name, kind, DistWideMsBfsEngine keywords): the 1D rows of the JAX
+#: package's mesh-kinds matrix.
+MESH_KINDS = [
+    ("cc-dense", "cc", dict(lanes=64, exchange="dense")),
+    ("cc-sparse", "cc", dict(lanes=64, exchange="sparse")),
+    ("khop-sparse", "khop", dict(lanes=64, exchange="sparse", delta_bits=(8, 16))),
+    ("p2p-sparse", "p2p", dict(lanes=64, exchange="sparse")),
+]
+KIND_SOURCES = [0, 7, 33, 95, 1, 64]
+P2P_TARGETS = [95, 60, 41, 2, 90, 3]
+
+
+def kind_fields(kind: str, eng) -> dict:
+    """One kind's answers over the JAX test's graph and sources (either
+    package's adapter ``eng``)."""
+    src = np.asarray(KIND_SOURCES, dtype=np.int64)
+    if kind == "cc":
+        res = eng.run(src[:3])
+        return {"extras": [res.extras(i) for i in range(3)], "reached": np.asarray(res.reached)}
+    if kind == "khop":
+        res = eng.run(src, k=2)
+        return {"reached": np.asarray(res.reached), "extras": [res.extras(i) for i in range(6)]}
+    res = eng.run(src, targets=np.asarray(P2P_TARGETS, dtype=np.int64))
+    return {"extras": [res.extras(i) for i in range(6)], "reached": np.asarray(res.reached),
+            "levels": np.asarray(res.ecc)}
+
+
+def mesh_kinds_rank(mesh) -> dict:
+    """Rank entry: every ``MESH_KINDS`` adapter over a DistWideMsBfsEngine
+    on ``mesh``, built through ``build_workload_engine``; with the base's
+    row map, p2p's host reads and whether its parent scanner was kept."""
+    import dataclasses
+
+    from tpu_bfs_torch import workloads as tw
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+
+    g = sssp_graph(tgen)
+
+    @dataclasses.dataclass
+    class Spec:
+        lanes: int
+
+    out = {}
+    for name, kind, kw in MESH_KINDS:
+        base = DistWideMsBfsEngine(g, mesh, **kw)
+        eng = tw.build_workload_engine(kind, base, g, Spec(kw["lanes"]))
+        out[name] = kind_fields(kind, eng)
+        if kind == "p2p":
+            out["p2p_reads"] = eng.last_host_reads
+            out["row_map"] = tw.id_of_row_map(base)
+            # The walk's scanner stays on the base for the next batch.
+            out["p2p_scanner_kept"] = bool(getattr(base, "_parent_scanner_cache", None))
+    return out
+
+
+def workload_engine_rank(mesh, shape) -> tuple:
+    """Rank entry: ``build_workload_engine('sssp', ...)`` with ``devices`` the
+    group's size (and ``mesh_shape``): the engine's class name, mesh shape
+    and exchange, and one batch's distances."""
+    import dataclasses
+
+    from tpu_bfs_torch import workloads as tw
+    from tpu_bfs_torch.graph import generate as tgen
+
+    @dataclasses.dataclass
+    class Spec:
+        lanes: int = 4
+        devices: int = mesh.num_shards
+        device: str = "cpu"
+        mesh_shape: tuple = shape
+
+    eng = tw.build_workload_engine("sssp", None, sssp_graph(tgen), Spec())
+    res = eng.run(np.asarray(SSSP_SOURCES[:4]))
+    return (type(eng).__name__, eng._exchange, type(eng.mesh).__name__,
+            np.stack([res.distances_int32(i) for i in range(4)]))
+
+
+#: The card tests' mesh SSSP runs (tests/test_torch_cuda.py).
+CARD_SSSP_RUNS = [dict(exchange="ring"), dict(exchange="allreduce"),
+                  dict(exchange="sparse", delta_bits=(8, 16), predict=True)]
+
+
+def shard_minplus_errs(eng, dist) -> list:
+    """K1 minplus on a DistSsspEngine's shard tables against its plain twin,
+    over every bucket, on the light plane and on the heavy close's: the
+    largest absolute difference of each (launches not counted)."""
+    import torch
+
+    from tpu_bfs_torch.ops import ell_expand as k1
+
+    saved = k1.ell_expand.launches
+    names = (["virtual"] if eng.sell.virtual is not None else []) + [
+        f"light{i}" for i in range(len(eng.sell.light))]
+    errs = []
+    for suf in ("wl", "w"):
+        got, want = ([fn(eng.arrs[f"{n}_need"], eng.arrs[f"{n}_gt"], dist,
+                         eng.arrs[f"{n}_{suf}_gt"], op="minplus") for n in names]
+                     for fn in (k1.ell_expand, k1.ell_expand_plain))
+        errs.append(max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    k1.ell_expand.launches = saved
+    return errs
+
+
+def card_sssp_rank(mesh) -> dict:
+    """Rank entry: every ``CARD_SSSP_RUNS`` DistSsspEngine on weighted RMAT
+    12 at 128 lanes; per run the distance table (rank order), rounds,
+    closes, host reads, K1 launches and buckets, and K1 against its twin on
+    the rank's shard tables."""
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.ops import ell_expand as k1
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+
+    g = rmat_graph(12, 16, seed=11, weights=8)
+    src = np.random.default_rng(5).integers(0, g.num_vertices, size=128)
+    out = {}
+    for i, kw in enumerate(CARD_SSSP_RUNS):
+        eng = DistSsspEngine(g, mesh, lanes=128, **kw)
+        before = k1.ell_expand.launches
+        res = eng.run(src)
+        out[i] = {"dists": np.stack([res.distances_int32(j) for j in (0, 77, 127)]),
+                  "rounds": res.rounds, "closes": eng.last_closes,
+                  "reads": eng.last_host_reads, "launches": k1.ell_expand.launches - before,
+                  "buckets": (eng.sell.virtual is not None) + len(eng.sell.light),
+                  "errs": shard_minplus_errs(eng, res._dist),
+                  "counts": np.asarray(eng.last_exchange_level_counts)}
     return out

@@ -970,8 +970,9 @@ def parent_scanner_of(engine):
     full-coverage ELL, or V too large for the 32-bit key at the engine's
     level cap).
 
-    A scanner that borrows the engine's own ELL tables (the wide engine: no
-    extra device memory) is cached on the engine. One that built and moved
+    A scanner over device tables the engine lends (the wide engine's own,
+    no extra device memory; the mesh wide engine's full ELL, built for the
+    scan and kept) is cached on the engine. One that built and moved
     its own full ELL (the hybrid, whose dense tiles exist to avoid holding
     one) is returned uncached, so its device memory goes with it after the
     export. Unavailability is cached either way."""

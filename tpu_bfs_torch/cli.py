@@ -38,9 +38,11 @@ set) each rank joins the group that exists instead and rank 0 prints.
 partition; ``--exchange ring|allreduce|sparse``), or with
 ``--multi-source`` a packed mesh engine (the hybrid unless ``--engine
 wide``); ``--mesh RxC`` runs ``Dist2DBfsEngine`` on R * C ranks. The
-exchange planner's flags (``--wire-pack``, ``--sparse-delta``,
-``--sparse-sieve``, ``--sparse-predict``) are not ported (ROADMAP Queue 1
-item 3.5).
+exchange planner's flags: ``--wire-pack`` (32 vertices a word on the
+single-source exchanges; recorded on the packed engines, whose words
+already carry one bit a lane), and with ``--exchange sparse``
+``--sparse-delta`` (delta-encoded ids; the packed engines' row ids too),
+``--sparse-sieve`` and ``--sparse-predict`` (single-source).
 """
 
 from __future__ import annotations
@@ -129,6 +131,12 @@ def _make_mesh_engine(args, g):
           "exchange": args.exchange if args.exchange in ("sparse", "sliced") else "dense"}
     if args.lanes is not None:
         kw["lanes"] = args.lanes
+    if args.wire_pack:
+        kw["wire_pack"] = True  # recorded: the lane words are already packed
+    if args.sparse_delta:
+        from tpu_bfs_torch.parallel.collectives import DELTA_BITS_DEFAULT
+
+        kw["delta_bits"] = DELTA_BITS_DEFAULT
     if args.engine == "wide":
         from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
 
@@ -176,7 +184,11 @@ def _make_ms_engine(args, g, n_sources: int):
 
 def _make_single_engine(args, g):
     if _MESH is not None:
-        kw = {"exchange": args.exchange, "backend": args.backend}
+        from tpu_bfs_torch.parallel.collectives import DELTA_BITS_DEFAULT
+
+        kw = {"exchange": args.exchange, "backend": args.backend, "wire_pack": args.wire_pack,
+              "delta_bits": DELTA_BITS_DEFAULT if args.sparse_delta else (),
+              "sieve": args.sparse_sieve, "predict": args.sparse_predict}
         if args.mesh:
             from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
             from tpu_bfs_torch.parallel.mesh import make_mesh_2d
@@ -420,21 +432,46 @@ def main(argv=None) -> int:
                     "fallback); with --multi-source, 'ring' = the dense row gather, "
                     "'sparse' = row ids and words, 'sliced' (hybrid) = the ring-rotated "
                     "expansion")
-    for flag in ("--wire-pack", "--sparse-delta", "--sparse-sieve", "--sparse-predict"):
-        ap.add_argument(flag, action="store_true",
-                        help="the exchange planner (not ported: exits with an error)")
+    ap.add_argument("--wire-pack", action="store_true",
+                    help="ship the single-source mesh exchanges' bool buffers as 32-bit words, "
+                    "32 vertices a word (the 1D exchanges and the sparse dense fallback, both "
+                    "2D collectives); bit-identical results. The --multi-source mesh engines "
+                    "already exchange packed lane words: there it is recorded")
+    ap.add_argument("--sparse-delta", action="store_true",
+                    help="delta-encode the sparse exchange's ids (first id and 8- or 16-bit "
+                    "deltas in 32-bit words, the width picked a level from the all-reduced "
+                    "widest gap); with --multi-source, the sparse row gather's ids. Needs "
+                    "--exchange sparse on a mesh")
+    ap.add_argument("--sparse-sieve", action="store_true",
+                    help="the sparse exchange's visited sieve: on levels where it pays, each "
+                    "receiver's packed visited chunk goes back once and senders drop "
+                    "visited ids. Single-source mesh runs with --exchange sparse")
+    ap.add_argument("--sparse-predict", action="store_true",
+                    help="the sparse exchange's history prediction: a level after one that "
+                    "overflowed every rung, with the frontier still growing, takes the dense "
+                    "exchange without the measuring read. Single-source mesh runs with "
+                    "--exchange sparse")
     args = ap.parse_args(argv)
-    for flag in ("wire_pack", "sparse_delta", "sparse_sieve", "sparse_predict"):
-        if getattr(args, flag):
-            from tpu_bfs_torch.parallel.collectives import planner_unported
-
-            raise planner_unported("--" + flag.replace("_", "-"))
     multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
     if args.pull_gate and not multi and (args.backend != "tiled" or on_mesh):
         ap.error("--pull-gate for single-source runs needs --backend tiled on a single "
                  "device (the other single-source backends have no tile pass to gate)")
     if on_mesh and args.backend in ("delta", "tiled"):
         ap.error(f"--backend {args.backend} is single-device only")
+    if args.wire_pack and not on_mesh:
+        ap.error("--wire-pack packs multi-device exchanges; add --devices N or --mesh RxC "
+                 "(a single chip moves nothing over the wire)")
+    if args.sparse_delta or args.sparse_sieve or args.sparse_predict:
+        if not on_mesh:
+            ap.error("--sparse-delta/--sparse-sieve/--sparse-predict reshape multi-device "
+                     "exchanges; add --devices N or --mesh RxC")
+        if args.exchange != "sparse":
+            ap.error("--sparse-delta/--sparse-sieve/--sparse-predict apply to the "
+                     "queue-style id exchange; add --exchange sparse")
+    if (args.sparse_sieve or args.sparse_predict) and multi:
+        ap.error("--sparse-sieve/--sparse-predict are single-source exchange-planner "
+                 "features (1D --devices or --mesh RxC); --multi-source row gathers support "
+                 "--sparse-delta only")
     if args.exchange == "sliced" and not (multi and args.devices > 1):
         ap.error("--exchange sliced is the packed hybrid engine's ring-rotation layout; "
                  "use it with --multi-source --devices N")

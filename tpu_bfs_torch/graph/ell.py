@@ -393,18 +393,12 @@ def starts_of(rows: np.ndarray, new_rp: np.ndarray) -> np.ndarray:
     return new_rp[rows]
 
 
-def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEllGraph:
-    """The ELL tables of every shard of a ``num_shards``-way 1D partition
-    (NumPy, on the host). A mesh rank builds all of them and keeps its own:
-    the shapes are the maxima over the shards."""
-    p_count = num_shards
-    v_count = g.num_vertices
-    src, dst = g.coo
-    _, in_col = _sorted_pairs(dst, src, v_count)
-    in_deg, rank_order, rank = rank_by_in_degree(dst, v_count)
-
-    v_loc = -(-v_count // p_count)
-    v_pad = p_count * v_loc
+def _rank_space(in_deg: np.ndarray, rank_order: np.ndarray, v_pad: int):
+    """``(lens, starts, new_rp)`` of the rank space padded to ``v_pad`` rows:
+    rank row r's in-degree, its first slot in the dst-major in-edge list, and
+    the row pointers of the in-edges laid out in rank order. Both sharded
+    builders slice by these, so their slabs stay slot-aligned."""
+    v_count = len(in_deg)
     in_rp = np.zeros(v_count + 1, dtype=np.int64)
     np.cumsum(in_deg, out=in_rp[1:])
     lens = np.zeros(v_pad, dtype=np.int64)
@@ -413,8 +407,18 @@ def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEl
     starts[:v_count] = in_rp[rank_order]
     new_rp = np.zeros(v_pad + 1, dtype=np.int64)
     np.cumsum(lens, out=new_rp[1:])
-    nbrs = rank[in_col[_flat_positions(starts, lens)]].astype(np.int32)
+    return lens, starts, new_rp
 
+
+def _shard_slabs(lens: np.ndarray, new_rp: np.ndarray, flat: np.ndarray, kcap: int,
+                 p_count: int, pad: int):
+    """The sharded bucket slabs of rank rows of in-degrees ``lens`` (the
+    rank space padded to ``p_count`` shards) whose per-edge payload ``flat``
+    lies in ``new_rp`` order: neighbour ranks (pad the sentinel row) or
+    edge weights (pad 0), slot for slot the same slicing. Returns
+    ``(h_bound, pad_heavy_shards' tuple, [(k, [P, n_k, k])])``; bucket
+    boundaries are multiples of ``p_count``."""
+    v_pad = len(lens)
     num_heavy = int(np.searchsorted(-lens, -kcap, side="left"))
     h_bound = min(_round_up(num_heavy, p_count), v_pad)
 
@@ -422,15 +426,13 @@ def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEl
         return np.arange(lo + p, hi, p_count, dtype=np.int64)
 
     def shard_flat(rows):
-        return nbrs[_flat_positions(starts_of(rows, new_rp), lens[rows])]
+        return flat[_flat_positions(starts_of(rows, new_rp), lens[rows])]
 
-    virtual = fold_pad_map = heavy_pick = None
-    num_virtual = m2 = fold_steps = 0
-    heavy_per_shard = h_bound // p_count
+    heavy = (0, 0, 0, 0, None, None, None)
     if h_bound:
         rows_p = [shard_rows(0, h_bound, p) for p in range(p_count)]
-        (_, num_virtual, fold_steps, m2, virtual, fold_pad_map, heavy_pick) = pad_heavy_shards(
-            [lens[r] for r in rows_p], [shard_flat(r) for r in rows_p], kcap, v_pad)
+        heavy = pad_heavy_shards([lens[r] for r in rows_p], [shard_flat(r) for r in rows_p],
+                                 kcap, pad)
 
     # The light ladder, its global boundaries multiples of num_shards.
     light = []
@@ -446,10 +448,61 @@ def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEl
             blocks = []
             for p in range(p_count):
                 rows = shard_rows(prev, hi, p)
-                blocks.append(_ell_fill(lens[rows], shard_flat(rows), k, v_pad))
+                blocks.append(_ell_fill(lens[rows], shard_flat(rows), k, pad))
             light.append((k, np.stack(blocks)))
             prev = hi
         k //= 2
+    return h_bound, heavy, light
+
+
+def build_ell_weights_sharded(g: Graph, sell: "ShardedEllGraph"):
+    """The per-shard weight tables of ``sell``'s buckets, slot-aligned with
+    its index slabs. ``sell`` must be ``build_ell_sharded`` of the same
+    weighted graph. Slot (p, row, col) holds the weight of the in-edge whose
+    source ``sell``'s slot names; unused slots hold 0 (they gather the
+    engines' all-INF sentinel row, so their weight is inert under min-plus).
+    Returns ``(virtual_w [P, M, kcap] | None, [light_w [P, n_k, k]])``."""
+    if g.weights is None:
+        raise ValueError("graph has no weights plane (build it with weights=W)")
+    src, dst = g.coo
+    # build_ell_sharded's (dst, src) neighbour order: coo is src-major, so
+    # a stable sort by dst alone gives it, ties in CSR order.
+    order_ds = _stable_argsort(dst)
+    in_deg = np.bincount(dst, minlength=g.num_vertices).astype(np.int64)
+    lens, starts, new_rp = _rank_space(in_deg, sell.old_of_new, sell.v_pad)
+    wflat = np.asarray(g.weights)[order_ds][_flat_positions(starts, lens)].astype(np.int32)
+    _, heavy, light = _shard_slabs(lens, new_rp, wflat, sell.kcap, sell.num_shards, 0)
+    virtual_w, light_w = heavy[4], [blocks for _k, blocks in light]
+    # Shape pin: a plane out of line with its slab would make every
+    # downstream gather-add silently wrong.
+    if (virtual_w is None) != (sell.virtual is None) or (
+        virtual_w is not None and virtual_w.shape != sell.virtual.shape
+    ):
+        raise AssertionError("weight plane misaligned with sharded heavy bucket")
+    if len(light_w) != len(sell.light) or any(
+        w.shape != blk.shape for w, (_k, blk) in zip(light_w, sell.light)
+    ):
+        raise AssertionError("weight plane misaligned with sharded light buckets")
+    return virtual_w, light_w
+
+
+def build_ell_sharded(g: Graph, num_shards: int, *, kcap: int = 64) -> ShardedEllGraph:
+    """The ELL tables of every shard of a ``num_shards``-way 1D partition
+    (NumPy, on the host). A mesh rank builds all of them and keeps its own:
+    the shapes are the maxima over the shards."""
+    p_count = num_shards
+    v_count = g.num_vertices
+    src, dst = g.coo
+    _, in_col = _sorted_pairs(dst, src, v_count)
+    in_deg, rank_order, rank = rank_by_in_degree(dst, v_count)
+
+    v_loc = -(-v_count // p_count)
+    v_pad = p_count * v_loc
+    lens, starts, new_rp = _rank_space(in_deg, rank_order, v_pad)
+    nbrs = rank[in_col[_flat_positions(starts, lens)]].astype(np.int32)
+    h_bound, heavy, light = _shard_slabs(lens, new_rp, nbrs, kcap, p_count, v_pad)
+    (_, num_virtual, fold_steps, m2, virtual, fold_pad_map, heavy_pick) = heavy
+    heavy_per_shard = h_bound // p_count
 
     return ShardedEllGraph(
         num_vertices=v_count, num_edges=int(new_rp[-1]), undirected=g.undirected,

@@ -27,6 +27,14 @@ which pick its expansion branch). The sparse exchange's rung pick is a
 second read on meshes of more than one rank. Every collective sits
 outside the per-rank branch, so ranks that pick different dopt branches
 still meet in the same collectives.
+
+The exchange planner's knobs: ``wire_pack`` ships every bool exchange as
+32-bit words; ``delta_bits``, ``sieve`` and ``predict`` turn the sparse
+exchange into ``collectives.planned_sparse_exchange_or``, whose carried
+values (the last measured count, the frontier's growth, the visited
+total) come from all-reduced counts, so every rank holds the same. A
+planner level reads the host once (its phase 1), twice sieved, and not at
+all when predicted dense.
 """
 
 from __future__ import annotations
@@ -45,8 +53,13 @@ from tpu_bfs_torch.algorithms.frontier import (
 from tpu_bfs_torch.graph.csr import INF_DIST, Graph
 from tpu_bfs_torch.parallel.collectives import (
     ExchangeAccounting,
-    check_planner_knobs,
+    check_delta_bits,
     dense_or_wire_bytes,
+    planned_branch_count,
+    planned_branch_labels,
+    planned_reads,
+    planned_sparse_exchange_or,
+    planned_sparse_wire_bytes_per_level,
     reduce_scatter_min,
     reduce_scatter_or,
     resolve_sparse_caps,
@@ -67,12 +80,19 @@ BACKENDS = ("scan", "segment", "scatter", "dopt")
 EXCHANGES = ("ring", "allreduce", "sparse")
 
 
-def check_engine_args(exchange: str, backend: str, what: str = "", **knobs) -> None:
-    """The mesh engines' refusals, before any host work."""
+def check_engine_args(exchange: str, backend: str, what: str = "", *, planner: bool = False,
+                      row: str = "") -> None:
+    """The mesh engines' refusals, before any host work: JAX's texts.
+    ``planner`` is whether delta_bits, sieve or predict is on; ``row``
+    names the 2D engine's row exchange."""
     if exchange not in EXCHANGES:
         raise ValueError(
             f"unknown exchange {exchange!r}{what}; have 'ring', 'allreduce', 'sparse'")
-    check_planner_knobs(**knobs)
+    if planner and exchange != "sparse":
+        raise ValueError(
+            f"delta_bits/sieve/predict reshape the SPARSE {row}exchange (the exchange "
+            f"planner); exchange={exchange!r} has no id buffers to compress — use "
+            "exchange='sparse'")
     if backend not in BACKENDS:
         raise KeyError(f"unknown expansion backend {backend!r}; have {sorted(BACKENDS)}")
 
@@ -226,14 +246,84 @@ def _mesh_of(mesh, device) -> Mesh:
     return mesh
 
 
-class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
+class PlannerCarry:
+    """The planner's values carried from level to level, the same on every
+    rank: the last measured count (-1 before the first), the frontier
+    count before the last level, and the mesh's visited count."""
+
+    def __init__(self, vis_total: int):
+        self.prev_biggest, self.prev_count, self.vis_total = -1, 0, vis_total
+        self.biggest = -1
+
+    def advance(self, front: int, new: int) -> None:
+        """After a level that expanded ``front`` vertices and claimed
+        ``new``."""
+        self.prev_biggest, self.prev_count = self.biggest, front
+        self.vis_total += new
+
+
+class PlannedExchange(ExchangeAccounting):
+    """The single-source engines' exchange over one mesh axis, with the
+    planner's knobs. Hosts set ``_exchange`` and call :meth:`_set_planner`;
+    the 2D engine passes its row mesh and scales the visited total."""
+
+    def _set_planner(self, wire_pack, delta_bits, sieve, predict, sparse_caps, n: int):
+        self.wire_pack = bool(wire_pack)
+        self.delta_bits = check_delta_bits(delta_bits)
+        self.sieve, self.predict = bool(sieve), bool(predict)
+        sparse = self._exchange == "sparse"
+        self._planned = sparse and bool(self.delta_bits or self.sieve or self.predict)
+        self.sparse_caps = resolve_sparse_caps(sparse_caps, n, wire_pack=self.wire_pack,
+                                               delta_bits=self.delta_bits)
+        self._nb = 1 if not sparse else (
+            planned_branch_count(self.sparse_caps, self.delta_bits) if self._planned
+            else len(self.sparse_caps) + 1)
+
+    def _exchange_model(self, p: int, n: int) -> list[float]:
+        """The exchange's modeled bytes a level, per branch, over ``p``
+        ranks of ``n``-vertex chunks."""
+        if self._planned:
+            return planned_sparse_wire_bytes_per_level(p, n, self.sparse_caps,
+                                                       self.delta_bits, wire_pack=self.wire_pack)
+        if self._exchange == "sparse":
+            return sparse_wire_bytes_per_level(p, n, self.sparse_caps, wire_pack=self.wire_pack)
+        return [dense_or_wire_bytes(p, n, self._exchange, wire_pack=self.wire_pack)]
+
+    def exchange_branch_labels(self) -> list[str] | None:
+        if self._planned:
+            return planned_branch_labels(self.sparse_caps, self.delta_bits)
+        return super().exchange_branch_labels()
+
+    def _exchange_step(self, contrib: torch.Tensor, mesh, visited, plan: PlannerCarry,
+                       front: int, vis_scale: int = 1):
+        """(hit, branch, host reads) of a level's contribution over
+        ``mesh``; ``front`` is the frontier count (the planner's growth)."""
+        if self._planned:
+            hit, branch, plan.biggest = planned_sparse_exchange_or(
+                contrib, mesh, caps=self.sparse_caps, delta_bits=self.delta_bits,
+                sieve=self.sieve, visited=visited, visited_total=plan.vis_total // vis_scale,
+                predict=self.predict, prev_biggest=plan.prev_biggest,
+                growing=front >= plan.prev_count, wire_pack=self.wire_pack)
+            return hit, branch, planned_reads(branch, self.sparse_caps, self.delta_bits,
+                                              mesh.num_shards)
+        if self._exchange == "sparse":
+            hit, branch = sparse_exchange_or(contrib, mesh, caps=self.sparse_caps,
+                                             wire_pack=self.wire_pack)
+            return hit, branch, int(mesh.num_shards > 1)
+        return reduce_scatter_or(contrib, mesh, impl=self._exchange,
+                                 wire_pack=self.wire_pack), 0, 0
+
+
+class DistBfsEngine(PlannedExchange, VertexCheckpointMixin):
     """Single-source BFS over a 1D vertex partition, built inside every
     rank of ``mesh`` (default: this process's rank group, CUDA unless
     ``device`` names another). With one rank it is ``BfsEngine`` plus the
     mesh's collectives. ``exchange`` is 'ring', 'allreduce' or 'sparse'
     (``sparse_caps``, default ``default_sparse_caps``); ``backend`` is
     'scan', 'segment', 'scatter' or 'dopt' (``dopt_caps``, default
-    ``default_dopt_caps`` of the rank's edges). ``shard`` is this rank's
+    ``default_dopt_caps`` of the rank's edges). ``wire_pack``, ``delta_bits``,
+    ``sieve`` and ``predict`` are the exchange planner's knobs (the last
+    three need 'sparse'; see the module docstring). ``shard`` is this rank's
     :func:`partition_shard`, to build several engines over one graph
     without repeating the host partition.
 
@@ -246,8 +336,7 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
                  backend: str = "scan", sparse_caps=None, dopt_caps=None,
                  wire_pack: bool = False, delta_bits=(), sieve: bool = False,
                  predict: bool = False, device=None, shard=None):
-        check_engine_args(exchange, backend, wire_pack=wire_pack, delta_bits=delta_bits,
-                          sieve=sieve, predict=predict)
+        check_engine_args(exchange, backend, planner=bool(delta_bits or sieve or predict))
         self.mesh = _mesh_of(mesh, device)
         self.device = self.mesh.device
         self.p = p = self.mesh.num_shards
@@ -273,8 +362,7 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
             self._expand = self._dopt_expand(
                 self.src, self.dst, out_csr_1d_rank(part, k, src, dst), dopt_caps,
                 part.ep_chip, vert_limit=part.vloc, out_size=vp, dense_fn=dense)
-        self.sparse_caps = resolve_sparse_caps(sparse_caps, part.vloc)
-        self._nb = len(self.sparse_caps) + 1 if exchange == "sparse" else 1
+        self._set_planner(wire_pack, delta_bits, sieve, predict, sparse_caps, part.vloc)
         # The parent merge is one int32 MIN reduce-scatter; ids do not
         # apply, so 'sparse' rides the ring there, as in JAX.
         self._parent_impl = "ring" if exchange == "sparse" else exchange
@@ -284,15 +372,7 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
     def wire_bytes_per_level(self) -> list[float]:
         """Modeled bytes one rank moves a level, per exchange branch
         (aligned with ``exchange_branch_labels`` and the counters)."""
-        if self._exchange == "sparse":
-            return sparse_wire_bytes_per_level(self.p, self.part.vloc, self.sparse_caps)
-        return [dense_or_wire_bytes(self.p, self.part.vloc, self._exchange)]
-
-    def _exchange_step(self, contrib: torch.Tensor):
-        """(hit [vloc], branch) of a level's [vp] contribution."""
-        if self._exchange == "sparse":
-            return sparse_exchange_or(contrib, self.mesh, caps=self.sparse_caps)
-        return reduce_scatter_or(contrib, self.mesh, impl=self._exchange), 0
+        return self._exchange_model(self.p, self.part.vloc)
 
     def _first(self, nfront: int, own) -> tuple:
         """The loop's first host values: the global frontier count and,
@@ -303,18 +383,20 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         rp = self._out_rp_host
         return (nfront, len(own), int((rp[own + 1] - rp[own]).sum()))
 
-    def _loop(self, frontier, visited, dist, level0: int, max_levels: int, first):
+    def _loop(self, frontier, visited, dist, level0: int, max_levels: int, first,
+              vis_total: int):
         """The host level loop from this rank's slices; ``first`` as
-        :meth:`_first`. Returns the frontier, the level and the per-branch
-        level counts; ``visited`` and ``dist`` are updated in place."""
+        :meth:`_first`, ``vis_total`` the mesh's visited count. Returns the
+        frontier, the level and the per-branch level counts; ``visited``
+        and ``dist`` are updated in place."""
         mesh, dopt = self.mesh, self.backend == "dopt"
         counts = np.zeros(self._nb, dtype=np.int32)
         level, count, info = level0, first[0], first[1:]
         syncs = 0
-        rung_read = self._exchange == "sparse" and self.p > 1
+        plan = PlannerCarry(vis_total)
         while count > 0 and level < max_levels:
             contrib = self._expand(frontier, *info)
-            hit, branch = self._exchange_step(contrib)
+            hit, branch, reads = self._exchange_step(contrib, mesh, visited, plan, count)
             counts[branch] += 1
             new = hit & ~visited
             dist.masked_fill_(new, level + 1)
@@ -323,8 +405,10 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
             level += 1
             sums = self._expand.sums(new) if dopt else new.sum(dtype=torch.int64).reshape(1)
             total = mesh.all_reduce_(sums[:1].clone(), "sum")
+            front = count
             count, *info = torch.cat([total, sums] if dopt else [total]).tolist()
-            syncs += 1 + rung_read
+            plan.advance(front, count)
+            syncs += 1 + reads
         self.last_host_syncs = syncs
         return frontier, level, counts
 
@@ -347,7 +431,7 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         counter."""
         frontier, visited, dist, first = self._fresh_state(source)
         ml = max_levels if max_levels is not None else self.part.vp
-        _, level, counts = self._loop(frontier, visited, dist, 0, ml, first)
+        _, level, counts = self._loop(frontier, visited, dist, 0, ml, first, 1)
         self._record_exchange(counts)
         return dist, level
 
@@ -356,7 +440,7 @@ class DistBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         own = np.flatnonzero(f0[k * vloc : (k + 1) * vloc])
         frontier, visited, dist = self._local(f0), self._local(vis0), self._local(d0)
         frontier, level, counts = self._loop(frontier, visited, dist, level0, cap,
-                                             self._first(int(f0.sum()), own))
+                                             self._first(int(f0.sum()), own), int(vis0.sum()))
         self._record_exchange(counts, resumed_level=level0, chain_nonce=chain_nonce)
         return frontier, visited, dist, level
 

@@ -18,7 +18,10 @@ the empty frontier is the price). With ``exchange='sparse'`` the row
 exchange is the queue-style id exchange over the mesh row: each mesh row
 picks its rung from a MAX over its own ranks, so rows may take different
 rungs at one level, and the branch recorded for the level is the MAX over
-the mesh column, as in JAX.
+the mesh column, as in JAX. The planner's knobs are ``DistBfsEngine``'s, on
+the row exchange: its values are MAX-reduced over the mesh row only, so
+rows may take different branches, each on its own subgroup; ``wire_pack``
+also packs the column all-gather.
 
 ``Dist2DServeEngine`` (the serve tier's adapter) is not ported: it comes
 with its first reader (ROADMAP Queue 1 item 4).
@@ -35,16 +38,18 @@ from tpu_bfs_torch.algorithms.frontier import (
 )
 from tpu_bfs_torch.graph.csr import Graph
 from tpu_bfs_torch.parallel.collectives import (
-    ExchangeAccounting,
     column_gather_wire_bytes,
-    dense_2d_wire_bytes,
+    pack_bits,
     reduce_scatter_min,
-    reduce_scatter_or,
-    resolve_sparse_caps,
-    sparse_exchange_or,
-    sparse_wire_bytes_per_level,
+    unpack_bits,
 )
-from tpu_bfs_torch.parallel.dist_bfs import VertexCheckpointMixin, _put, check_engine_args
+from tpu_bfs_torch.parallel.dist_bfs import (
+    PlannedExchange,
+    PlannerCarry,
+    VertexCheckpointMixin,
+    _put,
+    check_engine_args,
+)
 from tpu_bfs_torch.parallel.mesh import Mesh2D, make_mesh_2d
 from tpu_bfs_torch.parallel.partition2d import out_csr_2d_rank, partition_2d_rank
 
@@ -54,11 +59,12 @@ def partition_shard_2d(graph: Graph, mesh: Mesh2D):
     return partition_2d_rank(graph, mesh.rows, mesh.cols, mesh.r.rank, mesh.c.rank)
 
 
-class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
+class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin):
     """BFS over an R x C mesh (a :class:`~tpu_bfs_torch.parallel.mesh.Mesh2D`,
     default ``make_mesh_2d(1, 1)``) with 2D edge
     partitioning; the API of ``DistBfsEngine``. ``exchange`` is the row
-    exchange ('ring', 'allreduce' or 'sparse'); ``backend`` as there.
+    exchange ('ring', 'allreduce' or 'sparse'); ``backend`` and the
+    planner's knobs as there.
 
     A rank holds its [w] slice of the padded id space, its edge shard with
     its [C*w + 1] row pointer, and a level's [R*w] column frontier and
@@ -68,8 +74,8 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
     def __init__(self, graph: Graph, mesh: Mesh2D | None = None, *, exchange: str = "ring",
                  backend: str = "scan", dopt_caps=None, wire_pack: bool = False, sparse_caps=None, delta_bits=(),
                  sieve: bool = False, predict: bool = False, device=None, shard=None):
-        check_engine_args(exchange, backend, " for the 2D engine", wire_pack=wire_pack,
-                          delta_bits=delta_bits, sieve=sieve, predict=predict)
+        check_engine_args(exchange, backend, " for the 2D engine",
+                          planner=bool(delta_bits or sieve or predict), row="row ")
         if mesh is None:
             mesh = make_mesh_2d(1, 1, device=device)
         if not isinstance(mesh, Mesh2D):
@@ -100,8 +106,9 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
             self._expand = self._dopt_expand(
                 self.src_g, self.dst_l, out_csr_2d_rank(part, src_g, dst_l), dopt_caps,
                 part.ep2, vert_limit=col_block, out_size=row_block, dense_fn=dense)
-        self.sparse_caps = resolve_sparse_caps(sparse_caps, w) if exchange == "sparse" else ()
-        self._nb = len(self.sparse_caps) + 1 if exchange == "sparse" else 1
+        self._set_planner(wire_pack, delta_bits, sieve, predict, sparse_caps, w)
+        if exchange != "sparse":
+            self.sparse_caps = ()  # the 2D engine keeps no ladder then, as in JAX
         # The parent merge rides the ring when the level exchange is sparse.
         self._parent_impl = "ring" if exchange == "sparse" else exchange
         self.last_host_syncs = 0
@@ -113,20 +120,15 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         mesh rows split at a level, the recorded branch is the row MAX, so
         the priced bytes are one representative, as in JAX."""
         w = self.part.w
-        if self._exchange != "sparse":
-            return [dense_2d_wire_bytes(self.rows, self.cols, w, self._exchange)]
-        ag = column_gather_wire_bytes(self.rows, w)
-        return [ag + x for x in sparse_wire_bytes_per_level(self.cols, w, self.sparse_caps)]
-
-    def _exchange_step(self, contrib: torch.Tensor):
-        """(hit [w], branch) of a level's [C*w] row contribution, over the
-        mesh row; the branch is this row's."""
-        if self._exchange == "sparse":
-            return sparse_exchange_or(contrib, self.mesh.c, caps=self.sparse_caps)
-        return reduce_scatter_or(contrib, self.mesh.c, impl=self._exchange), 0
+        ag = column_gather_wire_bytes(self.rows, w, wire_pack=self.wire_pack)
+        return [ag + x for x in self._exchange_model(self.cols, w)]
 
     def _gather_col(self, new: torch.Tensor) -> torch.Tensor:
-        """The [R*w] column frontier: every mesh-column rank's [w] slice."""
+        """The [R*w] column frontier: every mesh-column rank's [w] slice
+        (as 32-bit words with ``wire_pack`` on more than one row)."""
+        if self.wire_pack and self.rows > 1:
+            gw = self.mesh.r.all_gather_rows(pack_bits(new)[None])  # [R, ceil(w/32)]
+            return unpack_bits(gw, new.shape[0]).reshape(-1)
         return self.mesh.r.all_gather_rows(new)
 
     def _first(self, nfront: int, col_own: np.ndarray) -> tuple:
@@ -139,18 +141,23 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         return (nfront, len(col_own), int((rp[col_own + 1] - rp[col_own]).sum()))
 
     def _loop(self, frontier, visited, dist, col_frontier, level0: int, max_levels: int,
-              first):
+              first, vis_total: int):
         """The host level loop from this rank's [w] slices and its [R*w]
-        column frontier. Returns the frontier, the level and the
-        per-branch level counts; ``visited`` and ``dist`` change in place."""
+        column frontier; ``vis_total`` is the mesh's visited count.
+        Returns the frontier, the level and the per-branch level counts;
+        ``visited`` and ``dist`` change in place."""
         mesh, dopt = self.mesh, self.backend == "dopt"
         sparse = self._exchange == "sparse"
         counts = np.zeros(self._nb, dtype=np.int32)
         level, count, info = level0, first[0], first[1:]
         syncs = 0
+        # The sieve prices against this row's [C*w] chunks: the mesh's
+        # visited total scaled down by the row count, as in JAX.
+        plan = PlannerCarry(vis_total)
         while count > 0 and level < max_levels:
             contrib = self._expand(col_frontier, *info)
-            hit, branch = self._exchange_step(contrib)
+            hit, branch, reads = self._exchange_step(contrib, mesh.c, visited, plan, count,
+                                                     self.rows)
             new = hit & ~visited
             dist.masked_fill_(new, level + 1)
             visited |= new
@@ -164,9 +171,11 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
                 parts.append(mesh.r.all_reduce_(
                     torch.full((1,), branch, dtype=torch.int64, device=self.device), "max"))
             vals = torch.cat(parts).tolist()
+            front = count
             count, info = vals[0], vals[1:3] if dopt else ()
             counts[vals[-1] if sparse else 0] += 1
-            syncs += 1 + (sparse and self.cols > 1)
+            plan.advance(front, count)
+            syncs += 1 + reads
         self.last_host_syncs = syncs
         return frontier, level, counts
 
@@ -192,7 +201,7 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         """This rank's [w] distance slice (on the device) and the level."""
         frontier, visited, dist, col_frontier, first = self._fresh_state(source)
         ml = max_levels if max_levels is not None else self.part.vp
-        _, level, counts = self._loop(frontier, visited, dist, col_frontier, 0, ml, first)
+        _, level, counts = self._loop(frontier, visited, dist, col_frontier, 0, ml, first, 1)
         self._record_exchange(counts)
         return dist, level
 
@@ -203,7 +212,7 @@ class Dist2DBfsEngine(ExchangeAccounting, VertexCheckpointMixin):
         frontier, visited, dist = self._local(f0), self._local(vis0), self._local(d0)
         frontier, level, counts = self._loop(
             frontier, visited, dist, _put(col_host, self.device), level0, cap,
-            self._first(int(f0.sum()), np.flatnonzero(col_host)))
+            self._first(int(f0.sum()), np.flatnonzero(col_host)), int(vis0.sum()))
         self._record_exchange(counts, resumed_level=level0, chain_nonce=chain_nonce)
         return frontier, visited, dist, level
 

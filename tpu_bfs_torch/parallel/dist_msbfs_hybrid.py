@@ -21,7 +21,8 @@ Two layouts:
 
 The claim, visited update and plane ripple run on own rows. One
 ``all_reduce`` (max) a level carries ``alive`` and, for the sparse
-exchange, the next level's row count; with the pull gate the rank's own
+exchange, the next level's row count (and, with ``delta_bits``, its widest
+row-id gap); with the pull gate the rank's own
 gate values ride the same host read. The gather and sparse layouts with
 ``pull_gate`` skip settled rows' residual blocks inside K1 (counted in
 128-row blocks, summed over the ranks); the sliced layout skips a rank's
@@ -51,15 +52,17 @@ from tpu_bfs_torch.graph.ell import _ell_fill, gate_forward_map, pad_heavy_shard
 from tpu_bfs_torch.ops.tile_spmm import AW, TILE, row_masks, tile_spmm
 from tpu_bfs_torch.parallel.collectives import (
     RowGatherExchangeAccounting,
-    cap_ladder_select,
-    default_row_gather_caps,
-    nonzero_rows,
+    branch_rung,
+    row_gather_flags,
+    rows_gather_branch,
     rows_gather_branch_count,
     sparse_rows_gather,
 )
 from tpu_bfs_torch.parallel.dist_msbfs_wide import (
     MeshTableHost,
+    check_packed_mesh_knobs,
     resolve_mesh,
+    resolve_row_caps,
     shard_expand_arrays,
 )
 from tpu_bfs_torch.parallel.mesh import Mesh
@@ -304,6 +307,9 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
     multiple of 32 (both CUDA kernels take any width), 4096 by default as
     in JAX.
 
+    ``sparse_caps`` and ``delta_bits`` shape the sparse row gather, and
+    ``wire_pack`` is accepted and recorded, as in ``DistWideMsBfsEngine``.
+
     ``pull_gate=True`` works on every exchange. The unit of
     ``last_gate_level_counts`` differs by layout, as in JAX: the gather
     layout counts skipped 128-row residual blocks, the sliced one skipped
@@ -324,10 +330,15 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         exchange: str = "dense",
         lanes: int = LANES,
         pull_gate: bool = False,
+        sparse_caps=None,
+        wire_pack: bool = False,
+        delta_bits=(),
         device=None,
     ):
         if not (1 <= num_planes <= 8):
             raise ValueError("num_planes must be in [1, 8]")
+        self.delta_bits = check_packed_mesh_knobs(exchange, delta_bits)
+        self.wire_pack = bool(wire_pack)
         if exchange not in ("dense", "sparse", "sliced"):
             raise ValueError(f"unknown exchange {exchange!r}; have 'dense', 'sparse', 'sliced'")
         if lanes % 32 or not (32 <= lanes <= MAX_LANES):
@@ -381,8 +392,9 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         else:
             self.arrs = group_arrs(p, rows - 1)
 
-        self.sparse_caps = default_row_gather_caps(rows_loc, self.w)
-        self._nb = rows_gather_branch_count(self.sparse_caps) if exchange == "sparse" else 1
+        self.sparse_caps = resolve_row_caps(sparse_caps, rows_loc, self.w, self.delta_bits)
+        self._nb = (rows_gather_branch_count(self.sparse_caps, self.delta_bits)
+                    if exchange == "sparse" else 1)
         self._gather_p, self._gather_rows_loc = p_count, rows_loc
 
         self.pull_gate = pull_gate
@@ -438,10 +450,13 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         rows: global tile t = local tile j * P + rank p."""
         p_count, p, nrt, w = self.mesh.num_shards, self.mesh.rank, self._nrt, self.w
         rows = self.hd["rows"]
-        if self._exchange == "sparse" and branch < len(self.sparse_caps):
+        rung = branch_rung(branch, self.sparse_caps, self.delta_bits)
+        if self._exchange == "sparse" and rung is not None:
             return sparse_rows_gather(
-                self.mesh, fw, cap=self.sparse_caps[branch], out_rows=rows,
-                gid_of=lambda ids: ((ids // TILE) * p_count + p) * TILE + ids % TILE)[:rows]
+                self.mesh, fw, cap=rung[0], bits=rung[1], out_rows=rows,
+                gid_of=lambda ids: ((ids // TILE) * p_count + p) * TILE + ids % TILE,
+                gid_of_src=lambda ids, src: ((ids // TILE) * p_count + src) * TILE + ids % TILE,
+            )[:rows]
         ag = self.mesh.all_gather_rows(fw).view(p_count, nrt, TILE, w)
         return ag.transpose(0, 1).reshape(rows, w)
 
@@ -502,17 +517,20 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         return self._needed(vis)[: self._heavy_rows].any().to(torch.int32).reshape(1)
 
     def _read(self, nxt, vis, gated: bool):
-        """The level's one host read: ``alive`` and the largest row count
-        over the ranks (all-reduced), and this rank's gate value."""
+        """The level's one host read: ``alive`` and the next level's
+        exchange branch (from the largest row count and id gap over the
+        ranks, all-reduced), and this rank's gate value."""
         flags = nxt.any().to(torch.int32).reshape(1)
         if self._nb > 1:  # the sparse exchange's rung
-            flags = torch.cat([flags, nonzero_rows(nxt).reshape(1)])
+            flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1), self.delta_bits)])
         self.mesh.all_reduce_(flags, "max")
+        nf = flags.shape[0]
         if gated:
             flags = torch.cat([flags, self._gate_flags(nxt, vis)])
         vals = flags.tolist()
-        return (bool(vals[0]), vals[1] if self._nb > 1 else 0,
-                bool(vals[-1]) if gated else None)
+        branch = (rows_gather_branch(vals[1], vals[nf - 1], self.sparse_caps, self.delta_bits)
+                  if self._nb > 1 else 0)
+        return bool(vals[0]), branch, bool(vals[-1]) if gated else None
 
     def _loop(self, fw, vis, planes, level0, max_levels):
         """The level loop. Returns the state, the branch counts, the skipped
@@ -520,14 +538,13 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         gated = self.pull_gate
         counts = np.zeros(self._nb, dtype=np.int32)
         skips = np.zeros(self.max_levels_cap, dtype=np.int64)
-        biggest, gate, syncs = 0, None, 0
+        branch, gate, syncs = 0, None, 0
         if self._nb > 1 or gated:
             # The first level's rung and gate come from the starting state.
-            _, biggest, gate = self._read(fw, vis, gated)
+            _, branch, gate = self._read(fw, vis, gated)
             syncs += 1
         level, alive = int(level0), True
         while alive and level < max_levels:
-            branch = cap_ladder_select(biggest, self.sparse_caps) if self._nb > 1 else 0
             counts[branch] += 1
             hit, skipped = self._hit(fw, vis, branch, gate)
             if gated:
@@ -535,12 +552,12 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
             hit &= ~vis
             vis |= hit
             ripple_increment_(planes, ~vis)
-            alive, biggest, gate = self._read(hit, vis, gated)
+            alive, branch, gate = self._read(hit, vis, gated)
             syncs += 1
             fw = hit
             level += 1
         self.last_host_syncs = syncs
-        return fw, vis, planes, level, alive, counts, skips, (biggest, gate)
+        return fw, vis, planes, level, alive, counts, skips, (branch, gate)
 
     def _record_gate(self, skips) -> None:
         if self.pull_gate:
@@ -566,13 +583,12 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
 
     def _probe(self, fw, vis, last) -> bool:
         """Whether one more level would claim (claim-free; state untouched)."""
-        biggest, gate = last
-        branch = cap_ladder_select(biggest, self.sparse_caps) if self._nb > 1 else 0
+        branch, gate = last
         return self._any(self._hit(fw, vis, branch, gate)[0] & ~vis)
 
     def _deeper(self, arrs, fw, vis) -> bool:
-        _, biggest, gate = self._read(fw, vis, self.pull_gate)
-        return self._probe(fw, vis, (biggest, gate))
+        _, branch, gate = self._read(fw, vis, self.pull_gate)
+        return self._probe(fw, vis, (branch, gate))
 
     def _full_parent_ell(self):
         """The parent scan's structure: neither the dense tiles nor the

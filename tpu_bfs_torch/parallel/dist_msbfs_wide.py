@@ -11,10 +11,12 @@ Each rank runs, per level:
   own rows' hits; the claim ``hit & ~visited`` and the plane ripple on its
   own [v_loc, w] rows;
 - one ``all_reduce`` (max) of the ``alive`` flag and, for the sparse
-  exchange, its new-frontier row count: the level's one host read;
+  exchange, its new-frontier row count (and, with ``delta_bits``, the
+  widest gap between its row ids): the level's one host read;
 - the exchange that rebuilds the replicated frontier: ``dense``, an
   ``all_gather`` of every rank's rows, or ``sparse``, the row gather of
-  ``collectives.sparse_rows_gather`` at the rung the count picks.
+  ``collectives.sparse_rows_gather`` at the rung (and id encoding) the
+  count and gap pick.
 
 Result tables are chip-major: row ``p * v_loc + l`` holds global rank
 ``l * P + p``, and ``_rank`` maps vertex ids straight to those rows. A
@@ -32,6 +34,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     ExpandSpec,
     PackedRunProtocol,
     device_expand_arrays,
+    expand_arrays,
     lazy_full_parent_ell,
     make_expand,
     make_state_kernels,
@@ -43,9 +46,12 @@ from tpu_bfs_torch.graph.csr import Graph
 from tpu_bfs_torch.graph.ell import ShardedEllGraph, build_ell_sharded, pad_gate_blocks
 from tpu_bfs_torch.parallel.collectives import (
     RowGatherExchangeAccounting,
-    cap_ladder_select,
+    branch_rung,
+    check_delta_bits,
     default_row_gather_caps,
-    nonzero_rows,
+    normalize_caps,
+    row_gather_flags,
+    rows_gather_branch,
     rows_gather_branch_count,
     sparse_rows_gather,
 )
@@ -110,11 +116,37 @@ def resolve_mesh(mesh: Mesh | None, device) -> Mesh:
     return mesh
 
 
+def check_packed_mesh_knobs(exchange: str, delta_bits) -> tuple[int, ...]:
+    """The packed mesh engines' planner knobs: ``delta_bits`` canonical,
+    refused (JAX's text) without the sparse row gather."""
+    if delta_bits and exchange != "sparse":
+        raise ValueError(
+            "delta_bits compresses the SPARSE row gather's id stream "
+            f"(the exchange planner); exchange={exchange!r} ships whole slabs — "
+            "use exchange='sparse'")
+    return check_delta_bits(delta_bits)
+
+
+def resolve_row_caps(caps, rows_loc: int, w: int, delta_bits) -> tuple[int, ...]:
+    """An engine's row-gather ``sparse_caps``: None is
+    ``default_row_gather_caps``, an int one rung."""
+    if caps is None:
+        return default_row_gather_caps(rows_loc, w, delta_bits)
+    return normalize_caps((caps,) if isinstance(caps, int) else caps)
+
+
 class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunProtocol):
     """Mesh multi-source BFS: sharded ELL, replicated frontier, up to
     ``lanes`` sources a batch (a multiple of 32). Built inside every rank
     of ``mesh`` (default: this process's rank group, CUDA unless
-    ``device`` names another). ``exchange`` is 'dense' or 'sparse'.
+    ``device`` names another). ``exchange`` is 'dense' or 'sparse'
+    (``sparse_caps``, default ``default_row_gather_caps``; ``delta_bits``
+    delta-encodes its row ids). ``wire_pack`` is accepted and recorded, as
+    in JAX: the exchange already ships one bit a (vertex, lane). ``shard``
+    is ``build_ell_sharded`` of the Graph ``graph`` for the mesh's size, to
+    build several engines over one graph without repeating the host build
+    (a prebuilt shard set as ``graph`` keeps no edge list for the parent
+    scan).
 
     Device memory a rank: the replicated frontier (and the exchange's
     transient) at (v_pad + 1) x 4w bytes, plus (num_planes + 3) own
@@ -129,12 +161,18 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
         kcap: int = 64,
         num_planes: int = 5,
         exchange: str = "dense",
+        sparse_caps=None,
+        wire_pack: bool = False,
+        delta_bits=(),
         device=None,
+        shard: ShardedEllGraph | None = None,
     ):
         if not (1 <= num_planes <= 8):
             raise ValueError("num_planes must be in [1, 8]")
         if exchange not in ("dense", "sparse"):
             raise ValueError(f"unknown exchange {exchange!r}; have 'dense', 'sparse'")
+        self.delta_bits = check_packed_mesh_knobs(exchange, delta_bits)
+        self.wire_pack = bool(wire_pack)
         if lanes % 32 or not (32 <= lanes <= MAX_LANES):
             raise ValueError(f"lanes must be a multiple of 32 in [32, {MAX_LANES}]")
         self.mesh = resolve_mesh(mesh, device)
@@ -142,8 +180,10 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
         self.w, self.lanes, self.num_planes = lanes // 32, lanes, num_planes
         self.max_levels_cap = min(1 << num_planes, 254)
         p_count, p = self.mesh.num_shards, self.mesh.rank
-        self.sell = (build_ell_sharded(graph, p_count, kcap=kcap) if isinstance(graph, Graph)
+        if shard is None:
+            shard = (build_ell_sharded(graph, p_count, kcap=kcap) if isinstance(graph, Graph)
                      else graph)
+        self.sell = shard
         sell = self.sell
         if sell.num_shards != p_count:
             raise ValueError(f"ELL built for {sell.num_shards} shards, mesh has {p_count}")
@@ -178,8 +218,9 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
         ), self.w)
 
         self._exchange = exchange
-        self.sparse_caps = default_row_gather_caps(sell.v_loc, self.w)
-        self._nb = rows_gather_branch_count(self.sparse_caps) if exchange == "sparse" else 1
+        self.sparse_caps = resolve_row_caps(sparse_caps, sell.v_loc, self.w, self.delta_bits)
+        self._nb = (rows_gather_branch_count(self.sparse_caps, self.delta_bits)
+                    if exchange == "sparse" else 1)
         self._gather_p, self._gather_rows_loc = p_count, sell.v_loc
         # Chip-major row of global rank r: (r % P) * v_loc + r // P.
         ranks = sell.rank.astype(np.int64)
@@ -216,9 +257,11 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
     def _exchange_rows(self, nxt: torch.Tensor, branch: int) -> torch.Tensor:
         """The replicated [v_pad + 1, w] frontier of every rank's ``nxt``."""
         sell, p_count, p = self.sell, self.mesh.num_shards, self.mesh.rank
-        if branch < len(self.sparse_caps) and self._exchange == "sparse":
-            return sparse_rows_gather(self.mesh, nxt, cap=self.sparse_caps[branch],
-                                      out_rows=sell.v_pad, gid_of=lambda ids: ids * p_count + p)
+        rung = branch_rung(branch, self.sparse_caps, self.delta_bits)
+        if rung is not None and self._exchange == "sparse":
+            return sparse_rows_gather(self.mesh, nxt, cap=rung[0], bits=rung[1],
+                                      out_rows=sell.v_pad, gid_of=lambda ids: ids * p_count + p,
+                                      gid_of_src=lambda ids, src: ids * p_count + src)
         gathered = self.mesh.all_gather_rows(nxt)  # chip-major
         fw = torch.empty((sell.v_pad + 1, self.w), dtype=nxt.dtype, device=nxt.device)
         fw[: sell.v_pad].view(sell.v_loc, p_count, self.w).copy_(
@@ -239,9 +282,11 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
             ripple_increment_(planes, ~vis)
             flags = nxt.any().to(torch.int32).reshape(1)
             if sparse:
-                flags = torch.cat([flags, nonzero_rows(nxt).reshape(1)])
+                flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1),
+                                                           self.delta_bits)])
             alive, *rows = self.mesh.all_reduce_(flags, "max").tolist()
-            branch = cap_ladder_select(rows[0], self.sparse_caps) if sparse else 0
+            branch = (rows_gather_branch(rows[0], rows[-1], self.sparse_caps, self.delta_bits)
+                      if sparse else 0)
             counts[branch] += 1
             # A dead level's frontier is empty on every rank: no exchange.
             fw = (self._exchange_rows(nxt, branch) if alive
@@ -288,5 +333,11 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
     def _full_parent_ell(self):
         """The parent scan's structure: the shards do not concatenate into
         one coverage ELL, so a full ELL of the retained host graph, built on
-        every rank; the scan's row map reaches the chip-major tables."""
-        return lazy_full_parent_ell(self.host_graph, self.sell.kcap)
+        every rank; the scan's row map reaches the chip-major tables. Its
+        device tables are built here and lent, so ``parent_scanner_of``
+        keeps the scanner on the engine: p2p walks paths every batch, and a
+        rebuild would cost each batch seconds at the flagship size."""
+        ell, _ = lazy_full_parent_ell(self.host_graph, self.sell.kcap)
+        if ell is None:
+            return None, None
+        return ell, expand_arrays(ell, ell.num_active, self.device)

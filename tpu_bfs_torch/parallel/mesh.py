@@ -69,12 +69,13 @@ class Mesh:
         all-reduces take the CUDA tensors directly)."""
         return self.backend == "gloo" and t.is_cuda
 
-    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather_rows(self, t: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
         """[P * n, ...]: every rank's ``t`` ([n, ...], the same shape on
         every rank) stacked in rank order (the JAX ``lax.all_gather``
-        flattened on its leading axis)."""
-        out = torch.empty((self.num_shards * t.shape[0],) + tuple(t.shape[1:]),
-                          dtype=t.dtype, device=t.device)
+        flattened on its leading axis), into ``out`` (contiguous) if given."""
+        if out is None:
+            out = torch.empty((self.num_shards * t.shape[0],) + tuple(t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
         if self.num_shards == 1 and self.group is not None:
             out.copy_(t)  # a one-rank subgroup: nothing crosses a wire
             return out

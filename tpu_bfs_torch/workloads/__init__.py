@@ -19,8 +19,11 @@ p2p       point-to-point shortest path: source and target on two lanes
           sets meet; the path from the device parent scan (``p2p.py``).
 ========  ==========================================================
 
-Not ported yet: the mesh forms (``devices > 1``, ROADMAP Queue 1 item 3),
-the landmark tier and the dynamic-graph overlays (item 4).
+Every kind also runs on a mesh: sssp as ``parallel/dist_sssp.py``'s
+``DistSsspEngine`` (``devices > 1``), cc, k-hop and p2p over a
+``DistWideMsBfsEngine`` base, every rank running every sweep, level and
+scan pass in the same order. Not ported yet: the landmark tier and the
+dynamic-graph overlays (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -43,13 +46,6 @@ KIND_ENGINES = {
 #: Kinds whose responses carry no distance table: they answer from
 #: on-device summaries or a cached index alone.
 METADATA_ONLY_KINDS = ("cc", "khop", "p2p")
-
-
-def _mesh_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpu_bfs_torch yet (ROADMAP Queue 1 item 3, "
-        "the mesh engines); run on one device"
-    )
 
 
 def kind_unsupported_reason(kind: str, engine: str, devices: int,
@@ -87,13 +83,21 @@ def supported_kinds(engine: str, devices: int, graph) -> tuple:
 
 
 def id_of_row_map(engine) -> np.ndarray:
-    """[table rows] device-table row -> real vertex id, for a
-    full-coverage wide base: the ELL's ``old_of_new`` over its active rows.
+    """[table rows] device-table row -> real vertex id (-1 on pad rows,
+    which are never visited), for a full-coverage wide base: the ELL's
+    ``old_of_new`` over its active rows on one device; on a mesh the result
+    tables are chip-major over the sharded round-robin rank order (row m is
+    shard ``m // v_loc``'s local row ``m % v_loc``, global rank
+    ``(m % v_loc) * P + m // v_loc``), mapped through the rank inverse.
     The CC label fold and the p2p meet-vertex lookup both read it."""
     ell = getattr(engine, "ell", None)
-    if ell is None:
-        raise _mesh_unported("the sharded row map of a distributed wide engine")
-    return np.asarray(ell.old_of_new[: engine._act], dtype=np.int64)
+    if ell is not None:
+        return np.asarray(ell.old_of_new[: engine._act], dtype=np.int64)
+    sell = engine.sell
+    inv = np.full(sell.v_pad, -1, np.int64)
+    inv[np.asarray(sell.rank, np.int64)] = np.arange(engine.num_vertices, dtype=np.int64)
+    m = np.arange(sell.v_pad, dtype=np.int64)
+    return inv[(m % sell.v_loc) * sell.num_shards + m // sell.v_loc]
 
 
 def batch_params(queries) -> dict:
@@ -170,10 +174,29 @@ class WorkloadResult:
 def build_workload_engine(kind: str, base, graph, spec):
     """The adapter for ``kind`` over an already-built base engine (``base``
     is None for sssp, which builds its own weighted tables). ``spec``
-    carries ``lanes``, and optionally ``devices`` and ``overlay``."""
+    carries ``lanes``, and optionally ``devices``, ``device`` and
+    ``overlay``; for sssp on a mesh (``devices > 1``, built inside each
+    rank of a group of that size) ``mesh_shape`` (R, C), ``exchange``
+    (default 'allreduce' on a 2D mesh, else 'ring'), ``delta_bits`` and
+    ``predict``."""
     if kind == "sssp":
-        if int(getattr(spec, "devices", 1)) > 1:
-            raise _mesh_unported("the mesh SSSP engine (DistSsspEngine)")
+        devices = int(getattr(spec, "devices", 1))
+        if devices > 1:
+            from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+            from tpu_bfs_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+            device = getattr(spec, "device", None)
+            mesh = make_mesh(devices, device=device)
+            mesh_shape = tuple(getattr(spec, "mesh_shape", ()) or ())
+            if mesh_shape:
+                mesh = make_mesh_2d(*mesh_shape, mesh=mesh)
+            return DistSsspEngine(
+                graph, mesh, lanes=spec.lanes,
+                exchange=getattr(spec, "exchange", "") or (
+                    "allreduce" if mesh_shape else "ring"),
+                delta_bits=tuple(getattr(spec, "delta_bits", ())),
+                predict=bool(getattr(spec, "predict", False)),
+            )
         from tpu_bfs_torch.workloads.sssp import SsspEngine
 
         return SsspEngine(

@@ -11,6 +11,10 @@ the host a sweep instead of decoding lane bits there.
 On directed graphs a sweep computes reachability classes of the seed
 order (what repeated BFS gives); the classic notion is the undirected one.
 
+Over a mesh base (``DistWideMsBfsEngine``) each rank folds its own rows
+and the per-row lanes are all-gathered into the chip-major table the row
+map reads; every rank runs every sweep, so the sweeps' collectives pair up.
+
 The serve adapter caches the index per engine: the first query pays the
 sweeps, every later one answers label, size and count from host arrays.
 """
@@ -49,12 +53,21 @@ def min_lane(vis: torch.Tensor, act: int) -> torch.Tensor:
     return torch.where(nz.any(dim=1), lane, int(_NO_LANE)).to(torch.int32)
 
 
+def _row_min_lanes(engine, vis: torch.Tensor) -> np.ndarray:
+    """[rows] smallest visiting lane of every table row, on the host; a mesh
+    engine's rank folds its own rows and the fold is all-gathered."""
+    gather = getattr(engine, "_gather_rows", None)
+    if gather is None:
+        return min_lane(vis, engine._act).cpu().numpy()
+    return gather(min_lane(vis, vis.shape[0])).cpu().numpy()
+
+
 def connected_components(engine):
-    """Full component labelling over a wide packed engine's graph. Returns
-    ``(labels [V] int64, num_components, sweeps)``: ``labels[v]`` is the
-    smallest vertex id that seeded v's component's flood. Every sweep labels
-    at least its seeds, so the loop ends within V sweeps."""
-    act = engine._act
+    """Full component labelling over a wide packed engine's graph (one
+    device or a mesh). Returns ``(labels [V] int64, num_components,
+    sweeps)``: ``labels[v]`` is the smallest vertex id that seeded v's
+    component's flood. Every sweep labels at least its seeds, so the loop
+    ends within V sweeps."""
     id_of_row = id_of_row_map(engine)
     labels = np.full(engine.num_vertices, -1, np.int64)
     unseen = np.ones(engine.num_vertices, dtype=bool)
@@ -65,7 +78,7 @@ def connected_components(engine):
         # truncation check, and no per-lane summaries.
         pend = engine.dispatch(seeds)
         check_not_truncated(engine, pend)
-        ml = min_lane(pend.vis, act).cpu().numpy()
+        ml = _row_min_lanes(engine, pend.vis)
         del pend
         hit = (ml < _NO_LANE) & (id_of_row >= 0)
         vids = id_of_row[hit]

@@ -17,6 +17,11 @@ planes. The path is walked through the two lanes' deterministic min-parent
 trees from the device parent scan (``parent_scan.py``, K1 ``min``): one
 scan pass, and one copy to the host, per pass of 128 lanes, walked in the
 scanner's row space, not decoded into whole trees.
+
+Over a mesh base (``DistWideMsBfsEngine``) each rank steps its own rows:
+the meet check is all-reduced (MAX) and the per-pair minimum taken over
+the ranks, the first chip-major row breaking ties as on one device; every
+rank then walks the same paths through the same scan passes.
 """
 
 from __future__ import annotations
@@ -179,10 +184,14 @@ class P2pServeEngine(ExchangeRecordDelegate):
         self.ladder_lanes = base.lanes
         self.num_vertices = base.num_vertices
         self._id_of_row = id_of_row_map(base)
-        self._table_rows = int(getattr(base, "_table_rows", base._act + 1))
-        self._pair_met, self._pair_dist = _make_pair_kernels(
-            self._table_rows, base._act, base.w, base.num_planes
-        )
+        # A mesh base keeps its own [rows_loc, w] rows of chip-major tables.
+        self._mesh = getattr(base, "mesh", None)
+        self._view = getattr(base, "_src_bits_view", None)
+        if self._mesh is not None:
+            rows = act = base._rows_loc
+        else:
+            rows, act = int(getattr(base, "_table_rows", base._act + 1)), base._act
+        self._pair_met, self._pair_dist = _make_pair_kernels(rows, act, base.w, base.num_planes)
         self.last_host_reads = None
         self.last_paths_s = None
 
@@ -204,25 +213,46 @@ class P2pServeEngine(ExchangeRecordDelegate):
         inter[1::2] = targets
         return P2pPending(sources, targets, inter, self.base._seed_dev(inter))
 
+    def _met(self, vis: torch.Tensor) -> torch.Tensor:
+        """[w*16] bool: pair p has met (on some rank's rows of a mesh)."""
+        met = self._pair_met(vis)
+        if self._mesh is None:
+            return met
+        return self._mesh.all_reduce_(met.to(torch.int32), "max") != 0
+
+    def _dist_rows(self, planes, vis, src_bits):
+        """The per-pair meet distance and chip-major meet row: on a mesh the
+        minimum over the ranks' own, the lowest rank (the first chip-major
+        row) on ties."""
+        dist, row = self._pair_dist(planes, vis, src_bits)
+        if self._mesh is None:
+            return dist, row
+        dists = self._mesh.all_gather_rows(dist[None])  # [P, npairs]
+        rows = self._mesh.all_gather_rows(row[None])
+        r = dists.argmin(dim=0)  # the first minimum
+        return (dists.gather(0, r[None])[0],
+                r * self.base._rows_loc + rows.gather(0, r[None])[0])
+
     def fetch(self, pend: P2pPending, **_ignored) -> P2pResult:
         base = self.base
         n = pend.n
         fw = pend.fw0
         # The core updates vis and the planes in place; the seed table
-        # stays as the batch's source bits.
-        vis = pend.fw0.clone()
+        # stays as the batch's source bits (a mesh base's own rows of it).
+        src_bits = pend.fw0 if self._view is None else self._view(pend.fw0)
+        vis = src_bits.clone()
         planes = tuple(torch.zeros_like(vis) for _ in range(base.num_planes))
         level, alive = 0, True
         # Level 0 meets only where s == t.
-        met = self._pair_met(vis)[:n].cpu().numpy()
+        met = self._met(vis)[:n].cpu().numpy()
         reads = 1
         while not met.all() and alive and level < base.max_levels_cap:
             fw, vis, planes, level, alive = base._core_from(
                 base.arrs, fw, vis, planes, level, level + 1)
-            met = self._pair_met(vis)[:n].cpu().numpy()
+            met = self._met(vis)[:n].cpu().numpy()
             reads += 2  # the level's alive flag and its meet check
         self.last_host_reads = reads
-        dist, row = self._pair_dist(planes, vis, pend.fw0)
+        dist, row = self._dist_rows(planes, vis, src_bits)
         dist = dist[:n].cpu().numpy()
         row = row[:n].cpu().numpy()
         iso = base._iso_of(pend.inter)
