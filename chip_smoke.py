@@ -139,6 +139,26 @@ Phases, one JSON line each:
     SSSP (sparse, delta, prediction), DistBfsEngine with every planner knob
     and k-hop over the wide mesh engine with delta ids, equal to their
     one-device engines.
+17. serve (after mesh_kinds, the flagship graph still loaded): the serve
+    tier (tpu_bfs_torch/serve). BfsService(engine="wide", lanes=256,
+    width_ladder="auto" (32/64/256), linger_ms=2) on the flagship graph, the
+    JAX bench_serve protocol not cut: 64 client threads x 8 queries, closed
+    loop, sources from default_rng(7) among the traversable vertices;
+    pipelined, then the same loop unpipelined on the same warmed rungs. Every
+    response's reached and levels equal the 256-lane rung engine's direct
+    batches, 8 rows of distances those batches' and 3 SciPy's. QPS, p50/p99,
+    fill, routing, extract p50, peak memory, K1 launches, each rung's build
+    and warm seconds and the dispatch's host reads a level. One 48-query
+    batch routed to the 64-lane rung (w 2) gives the "K1 or, serve rung
+    w 2" kernels entry. Then `python -m tpu_bfs_torch.serve` on RMAT 16 as
+    a subprocess (three queries, a malformed line, an out-of-range source;
+    SIGTERM drains it, exit 0); the chaos arm (the flagship service under
+    seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4, 64 queries,
+    the recovery counters exactly the fired faults); at the wide phase's
+    scale with edge_weights(seed=1, wmax=8) a five-kind service (8 queries
+    a kind, each equal to that kind's engine run directly), a hybrid service
+    (4096 lanes, 64 queries, K2 on the serve path) and the answer tier (a
+    repeat is a cache hit, a landmark-exact p2p pair needs no dispatch).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -150,7 +170,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -174,6 +196,11 @@ REPEATS = 3
 # Turns of each mesh SSSP engine with SsspEngine in the mesh_kinds phase
 # (a ~0.7 s batch: two keep the phase near its 100 s).
 MESH_KINDS_TURNS = 2
+# The serve phase's closed loop (the JAX bench_serve's: 64 clients x 8
+# queries) and its chaos arm's fault spec (scripts/chip_session.sh:203-204).
+SERVE_CLIENTS = 64
+SERVE_PER_CLIENT = 8
+SERVE_SPEC = "seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4"
 T0 = time.perf_counter()
 
 
@@ -2062,6 +2089,443 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
     return entry
 
 
+def closed_loop(svc, picks) -> tuple[list, float]:
+    """``len(picks)`` client threads, each querying its row of sources one
+    after another; (results in pick order, seconds)."""
+    import threading
+
+    results, errs = [None] * len(picks), []
+
+    def client(ci):
+        try:
+            results[ci] = [svc.query(int(s), timeout=600) for s in picks[ci]]
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(picks))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    flat = [r for row in results for r in row]
+    bad = [r for r in flat if not r.ok]
+    require(not bad, f"{len(bad)} serve queries failed; first: "
+                     f"{bad[0].status if bad else ''} {bad[0].error if bad else ''}")
+    return flat, seconds
+
+
+def direct_answers(eng, sources) -> dict:
+    """source -> (reached, levels, result, lane) from the engine's own
+    batches of ``sources`` (``eng.lanes`` at a time)."""
+    out = {}
+    for lo in range(0, len(sources), eng.lanes):
+        chunk = np.asarray(sources[lo:lo + eng.lanes])
+        res = eng.run(chunk)
+        for i, s in enumerate(chunk):
+            out[int(s)] = (int(res.reached[i]), int(res.ecc[i]), res, i)
+    return out
+
+
+def same_as_direct(results, direct, name: str, sample: int = 0) -> int:
+    """Every result's reached and levels equal the direct batch's, and the
+    distances of ``sample`` spread results too. Returns how many rows were
+    compared in full."""
+    for r in results:
+        reached, levels, _, _ = direct[r.source]
+        require((r.reached, r.levels) == (reached, levels),
+                f"{name}: source {r.source} {(r.reached, r.levels)} != direct "
+                f"{(reached, levels)}")
+    rows = [r for r in results if r.distances is not None]
+    picked = rows[:: max(1, len(rows) // sample)][:sample] if sample else []
+    for r in picked:
+        _, _, res, i = direct[r.source]
+        require(np.array_equal(r.distances, res.distances_int32(i)),
+                f"{name}: source {r.source}'s distances != the direct batch's")
+    return len(picked)
+
+
+def host_reads(fn) -> int:
+    """Device-to-host synchronizations of ``fn()`` (CUDA's sync debug mode
+    warns on each)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def extract_split(eng, res) -> dict:
+    """One 32-lane word of a batch's distance extraction (what the serve
+    worker does for a query's row, ``PackedBatchResult.distance_u8_lane``
+    and ``distances_int32``), timed step by step: the device word table,
+    its copy to the host, the host scatter into vertex order, and one
+    lane's int32 row. Milliseconds (host clock, device synchronised)."""
+    from tpu_bfs_torch.algorithms.msbfs_packed import UNREACHED
+    from tpu_bfs_torch.graph.csr import INF_DIST
+
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    word = eng._extract_word(res._planes, res._vis, res._src_bits, 0)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    dr = word.cpu().numpy()
+    t.append(time.perf_counter())
+    full = np.full((eng.num_vertices, 32), UNREACHED, np.uint8)
+    m = eng._rank < eng._act
+    full[m] = dr[eng._rank[m]]
+    t.append(time.perf_counter())
+    d8 = full[:, 0]
+    row = np.where(d8 == UNREACHED, INF_DIST, d8.astype(np.int32))
+    t.append(time.perf_counter())
+    require(np.array_equal(row, res.distances_int32(0)), "extract split: lane 0's row")
+    steps = ("word_table_ms", "word_copy_ms", "host_scatter_ms", "int32_row_ms")
+    return {k: (b - a) * 1e3 for k, a, b in zip(steps, t, t[1:])} | {
+        "word_table_mb": word.numel() / 1e6}
+
+
+def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
+    """bench_serve's closed loop on the flagship graph, pipelined then not,
+    every answer held to the 256-lane rung engine's direct batches (8 rows
+    of distances too, 3 to SciPy's)."""
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.serve import BfsService
+
+    picks = np.random.default_rng(7).choice(
+        traversable, size=(SERVE_CLIENTS, SERVE_PER_CLIENT), replace=False)
+    out, direct = {}, None
+    for pipeline in (True, False):
+        t0 = time.perf_counter()
+        svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto",
+                         pipeline=pipeline, linger_ms=2.0, queue_cap=1024,
+                         registry=reg, device=dev)
+        up_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts(k1, k2)
+        flat, seconds = closed_loop(svc, picks)
+        launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        snap = svc.statsz()
+        svc.close()
+        require(launches["ell_expand"] > 0 and launches["tile_spmm"] == 0,
+                f"serve loop launches {launches}")
+        require(snap["completed"] == len(flat) and snap["errors"] == 0, f"statsz {snap}")
+        if direct is None:
+            eng = reg.get(svc._spec(256))
+            direct = direct_answers(eng, picks.reshape(-1))
+            batch = picks.reshape(-1)[:eng.lanes]
+            reads = host_reads(lambda: eng.dispatch(batch))
+            seed_reads = host_reads(lambda: eng._seed_dev(batch))
+            levels = direct[int(batch[0])][2].num_levels
+            split = extract_split(eng, direct[int(batch[0])][2])
+        compared = same_as_direct(flat, direct, "serve loop", sample=8)
+        csr = g.to_scipy()
+        for r in [r for r in flat if r.distances is not None][:3]:
+            require(np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+                    f"serve loop: source {r.source} != SciPy")
+        key = "pipelined" if pipeline else "unpipelined"
+        out[key] = {
+            "service_up_s": up_s, "queries": len(flat), "seconds": seconds,
+            "qps": len(flat) / seconds, "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+            "fill_ratio": snap["fill_ratio"], "routing": snap["routing"],
+            "batches": snap["batches"], "extract_p50_ms": snap["extract_p50_ms"],
+            "peak_above_start_gb": peak_gb, "launches": launches,
+            "rows_equal_direct": compared, "rows_equal_scipy": 3,
+        }
+    out["ladder"] = [32, 64, 256]
+    out["rung_build_s"] = {str(s.lanes): reg.build_s[s] for s in reg.build_s if s.kind == "bfs"}
+    out["rung_warm_s"] = {str(s.lanes): reg.warm_s[s] for s in reg.warm_s if s.kind == "bfs"}
+    out["dispatch_host_reads"] = reads
+    out["seed_host_reads"] = seed_reads
+    out["dispatch_levels"] = levels
+    # The level loop's reads: one a level body (levels + 1 bodies).
+    out["host_reads_per_level"] = (reads - seed_reads) / (levels + 1)
+    out["extract_split_one_word"] = split
+    return out, picks, direct
+
+
+def serve_w2_batch(dev, k1, k2, g, reg, picks, direct, ptxas) -> dict:
+    """One 48-query batch through BfsService routed to the 64-lane rung
+    (w 2): its K1 launches, answers equal to the direct batches, then the
+    "K1 or, serve rung w 2" kernels entry on that rung's own tables."""
+    from tpu_bfs_torch.serve import BfsService
+
+    svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto", registry=reg,
+                     device=dev, autostart=False)
+    srcs = picks.reshape(-1)[:48]
+    pend = [svc.submit(int(s)) for s in srcs]
+    reset_counts(k1, k2)
+    svc.start()
+    res = [p.result(600) for p in pend]
+    launches = k1.ell_expand.launches
+    snap = svc.statsz()
+    svc.close()
+    require(snap["routing"] == {"64": 1}, f"the 48-query batch routed {snap['routing']}")
+    same_as_direct(res, direct, "w 2 batch", sample=2)
+    eng = reg.get(svc._spec(64))
+    require(eng.w == 2, f"the 64-lane rung has w {eng.w}")
+    run = eng.run(np.asarray(srcs))
+    names = bucket_names(eng.ell)
+    require(launches == len(names) * (run.num_levels + 1),
+            f"w 2 batch: {launches} K1 launches, not {len(names)} x {run.num_levels + 1}")
+    entry = k1_entry(k1, eng.arrs, names, run._vis, "or", launches, ptxas, plain_reps=2,
+                     name="K1 or, serve rung w 2",
+                     unit="one level of the serve ladder's 64-lane rung: every bucket "
+                          "of the full ELL, w 2, the batch's visited table")
+    entry["launches_per"] = "one 48-query batch served at the 64-lane rung"
+    return entry, {"batch_queries": 48, "routing": snap["routing"], "k1_launches": launches,
+                   "levels": run.num_levels, "buckets": len(names)}
+
+
+def serve_jsonl(dev) -> dict:
+    """``python -m tpu_bfs_torch.serve`` on RMAT 16 as a subprocess: three
+    queries (one distance-free), a malformed line and an out-of-range
+    source; the lines equal the expected ones (the CPU parity test's
+    forms), the distances decode and equal the engine's, and SIGTERM
+    drains it with a final statsz line and exit code 0."""
+    import threading
+
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.cli import load_graph
+    from tpu_bfs_torch.serve.frontend import _parse_request_line, decode_distances
+
+    spec = "rmat:scale=16"
+    g = load_graph(spec)
+    v = g.num_vertices
+    eng = WidePackedMsBfsEngine(g, lanes=32, num_planes=8, device=dev)
+    want = eng.run(np.asarray([0, 5, 9]))
+    bad = "this is not json"
+    try:
+        _parse_request_line(bad)
+    except Exception as exc:  # noqa: BLE001 — the server's own error text
+        bad_err = f"bad request: {exc!r}"
+    lines = [json.dumps({"id": 0, "source": 0}), json.dumps({"id": 1, "source": 5}),
+             json.dumps({"id": 2, "source": 9, "want_distances": False}), bad,
+             json.dumps({"id": "far", "source": v + 5})]
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_bfs_torch.serve", spec, "--lanes", "256",
+         "--device", str(dev), "--statsz-interval-s", "0"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=here, env=dict(os.environ, PYTHONPATH=str(here)))
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    try:
+        proc.stdin.write("\n".join(lines) + "\n")
+        proc.stdin.flush()
+        got = [json.loads(proc.stdout.readline()) for _ in lines]
+        answered_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"serve subprocess exited {proc.returncode}: {err[-2000:]}")
+    require("SIGTERM received: draining" in err, "no SIGTERM drain in the server's log")
+    final = [ln for ln in err.splitlines() if ln.startswith("statsz ")]
+    require(bool(final) and json.loads(final[-1][7:])["completed"] == 3, "final statsz line")
+    by_id = {r.get("id"): r for r in got}
+    for r in got:
+        r.pop("latency_ms", None)
+    require(by_id[None] == {"id": None, "status": "error", "error": bad_err},
+            f"malformed line answered {by_id[None]}")
+    require(by_id["far"] == {"id": "far", "source": v + 5, "status": "error",
+                             "error": f"source {v + 5} out of range [0, {v})"},
+            f"out-of-range answered {by_id['far']}")
+    for i, s in enumerate((0, 5, 9)):
+        r = by_id[i]
+        require(r["status"] == "ok" and r["source"] == s, f"query {i}: {r}")
+        require((r["reached"], r["levels"]) == (int(want.reached[i]), int(want.ecc[i])),
+                f"query {i}: reached/levels != the engine's")
+        if i < 2:
+            require(np.array_equal(decode_distances(r["distances_npy"]),
+                                   want.distances_int32(i)), f"query {i}: distances_npy")
+        else:
+            require("distances_npy" not in r, "a distance-free query carried distances")
+    return {"graph": spec, "V": v, "lines": len(lines), "answered_s": answered_s,
+            "drain": "SIGTERM, final statsz, exit 0"}
+
+
+def serve_chaos(dev, g, reg, picks, direct) -> dict:
+    """The flagship service under SERVE_SPEC, 16 clients x 4 queries: every
+    answer equal to the direct batches, and the recovery counters exactly
+    the schedule's firings."""
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.serve import BfsService
+    from tpu_bfs_torch.utils.recovery import COUNTERS
+
+    svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto", linger_ms=2.0,
+                     registry=reg, device=dev)
+    COUNTERS.reset()
+    sched = faults.arm_from_spec(SERVE_SPEC)
+    try:
+        flat, seconds = closed_loop(svc, picks.reshape(-1)[:64].reshape(16, 4))
+        snap = svc.statsz()
+    finally:
+        faults.disarm()
+        svc.close()
+    same_as_direct(flat, direct, "chaos", sample=4)
+    counts = sched.counts()
+    c = COUNTERS.as_dict()
+    require(counts == {"transient": 2, "slow_extract": 4}, f"fired {counts}")
+    require(c["faults_injected"] == 6 and c["transient_retries"] == 2
+            and sum(c.values()) == 8, f"recovery counters {c}")
+    require(snap["retries"] == 2 and snap["errors"] == 0, f"statsz {snap}")
+    return {"spec": SERVE_SPEC, "queries": len(flat), "seconds": seconds,
+            "fired": counts, "counters": {k: v for k, v in c.items() if v},
+            "batches": snap["batches"], "p99_ms": snap["p99_ms"]}
+
+
+def serve_kinds(dev, k1, k2, scale: int) -> dict:
+    """At RMAT ``scale`` (the wide phase's) with edge_weights(seed=1,
+    wmax=8): a five-kind service, 8 queries a kind, each equal to that
+    kind's engine run directly; a hybrid service (K2 on the serve path),
+    64 queries; and the answer tier (a repeat is a cache hit, a
+    landmark-exact p2p pair resolves without a dispatch)."""
+    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.serve import BfsService, EngineRegistry
+
+    g = rmat_graph(scale, 16, seed=1)
+    gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    rng = np.random.default_rng(7)
+    live = np.flatnonzero(g.degrees > 0)
+    src = [int(s) for s in rng.choice(live, 40, replace=False)]
+    tgt = [int(s) for s in rng.choice(live, 8, replace=False)]
+    reg = EngineRegistry(capacity=16, device=dev)
+    t0 = time.perf_counter()
+    # One 256-lane width for every kind: CC's sweeps seed a lane per
+    # unlabelled vertex, and a 32-lane rung would take thousands of them.
+    svc = BfsService(gw, kinds=("bfs", "sssp", "cc", "khop", "p2p"), lanes=256,
+                     width_ladder="off", registry=reg, device=dev, autostart=False)
+    queries = ([("bfs", {"source": s}) for s in src[:8]]
+               + [("sssp", {"source": s}) for s in src[8:16]]
+               + [("cc", {"source": s}) for s in src[16:24]]
+               + [("khop", {"source": s, "k": 2}) for s in src[24:32]]
+               + [("p2p", {"source": s, "target": t}) for s, t in zip(src[32:40], tgt)])
+    pend = [(kind, svc.submit(kind=kind, **q)) for kind, q in queries]
+    reset_counts(k1, k2)
+    svc.start()
+    res = [(kind, p.result(600)) for kind, p in pend]
+    kinds_launches = k1.ell_expand.launches
+    snap = svc.statsz()
+    svc.close()
+    kinds_routing = snap["routing"]
+    require(snap["errors"] == 0 and kinds_launches > 0, f"kinds: {snap}")
+    for kind in ("bfs", "sssp", "cc", "khop", "p2p"):
+        mine = [(q, r) for (kd, q), (_, r) in zip(queries, res) if kd == kind]
+        widths = {r.dispatched_lanes for _, r in mine}
+        require(len(widths) == 1 and all(r.ok for _, r in mine), f"{kind}: {widths}")
+        eng = reg.get(svc._spec(widths.pop(), kind))
+        s = np.asarray([q["source"] for q, _ in mine])
+        if kind == "p2p":
+            d = eng.run(s, targets=np.asarray([q["target"] for q, _ in mine]))
+        elif kind == "khop":
+            d = eng.run(s, k=2)
+        else:
+            d = eng.run(s)
+        for i, (q, r) in enumerate(mine):
+            ex = d.extras(i) if hasattr(d, "extras") else None
+            require((r.reached, r.extras) == (int(d.reached[i]), ex),
+                    f"{kind} query {i}: {(r.reached, r.extras)} != direct "
+                    f"{(int(d.reached[i]), ex)}")
+            if r.distances is not None:
+                require(np.array_equal(r.distances, d.distances_int32(i)),
+                        f"{kind} query {i}: distances != direct")
+    kinds_s = time.perf_counter() - t0
+
+    # The hybrid engine behind the service: K2 on the serve path.
+    t0 = time.perf_counter()
+    hsvc = BfsService(g, engine="hybrid", lanes=4096, width_ladder="off",
+                      registry=reg, device=dev, autostart=False)
+    hsrc = [int(s) for s in rng.choice(live, 64, replace=False)]
+    pend = [hsvc.submit(s) for s in hsrc]
+    reset_counts(k1, k2)
+    hsvc.start()
+    hres = [p.result(600) for p in pend]
+    hybrid_launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    hsvc.close()
+    require(all(n > 0 for n in hybrid_launches.values()),
+            f"hybrid service launches {hybrid_launches}")
+    same_as_direct(hres, direct_answers(reg.get(hsvc._spec(4096)), hsrc), "hybrid",
+                   sample=4)
+    hybrid_s = time.perf_counter() - t0
+
+    # The answer tier.
+    t0 = time.perf_counter()
+    csvc = BfsService(g, kinds=("bfs", "p2p"), lanes=256, width_ladder="off",
+                      cache_bytes=64 << 20, landmarks=8, registry=reg, device=dev)
+    first = csvc.query(src[0], timeout=600)
+    # The extraction worker fills the cache just after it resolves a batch.
+    deadline = time.monotonic() + 60
+    while not len(csvc._cache) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    again = csvc.query(src[0], timeout=600)
+    require(first.ok and again.ok and again.extras == {"cache_hit": True}
+            and again.batch_lanes == 0 and np.array_equal(again.distances, first.distances),
+            f"the repeat was no cache hit: {again.extras}")
+    lm = int(csvc._landmarks.landmarks[0])
+    before = csvc.statsz()["batches"]
+    pair = csvc.query(lm, kind="p2p", target=src[1], timeout=600)
+    snap = csvc.statsz()
+    csvc.close()
+    want = int(bfs_scipy(g, lm)[src[1]])
+    require(pair.ok and pair.extras.get("landmark") and pair.extras["distance"] == want
+            and pair.batch_lanes == 0 and snap["batches"] == before,
+            f"landmark pair: {pair.extras}, batches {before} -> {snap['batches']}")
+    return {"scale": scale, "scale_cut": f"scale {scale}, not the flagship's 21: "
+                                         "the flagship loop serves the wide kind at 21",
+            "kinds_queries": len(queries), "kinds_launches": kinds_launches,
+            "kinds_routing": kinds_routing, "kinds_s": kinds_s,
+            "hybrid_queries": len(hsrc), "hybrid_launches": hybrid_launches,
+            "hybrid_s": hybrid_s, "cache_hits": snap["cache_hits"],
+            "landmark_exact": snap["landmark_exact"], "answer_tier_s": time.perf_counter() - t0}
+
+
+def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
+    """The serve tier (see the module docstring, phase 17). Returns the
+    "K1 or, serve rung w 2" kernels entry."""
+    from tpu_bfs_torch.serve import EngineRegistry
+
+    t_phase = time.perf_counter()
+    reg = EngineRegistry(capacity=8, device=dev)
+    loop, picks, direct = serve_flagship(dev, k1, k2, g, traversable, reg)
+    entry, w2 = serve_w2_batch(dev, k1, k2, g, reg, picks, direct, ptxas)
+    chaos = serve_chaos(dev, g, reg, picks, direct)
+    emit({"phase": "serve", "graph": "the flagship graph", "engine": "wide",
+          "lanes": 256, "clients": SERVE_CLIENTS, "queries_per_client": SERVE_PER_CLIENT,
+          **loop, "w2_batch": w2, "chaos": chaos,
+          "seconds": time.perf_counter() - t_phase})
+    del reg, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    jsonl = serve_jsonl(dev)
+    jsonl["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kinds = serve_kinds(dev, k1, k2, wide_scale)
+    kinds["seconds"] = time.perf_counter() - t0
+    emit({"phase": "serve", "jsonl": jsonl, "small": kinds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
@@ -2152,7 +2616,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_mesh_kinds(dev, k1, k2, g, sssp, sources, khop_reached, cc, p2p,
                                     ptxas, args.mesh_kinds_small_scale))
-    del g, sssp, sources
+    del sssp, sources
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_serve(dev, k1, k2, g, traversable, args.wide_scale, ptxas))
+    del g
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)

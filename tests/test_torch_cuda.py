@@ -577,3 +577,71 @@ def test_mesh_kinds_on_cuda_equal_cpu(cuda):
             np.testing.assert_array_equal(got[key], want[key])
         else:
             assert got[key] == want[key], key
+
+
+def _serve_stream(device, g, queries, **kw):
+    from tpu_bfs_torch.serve import BfsService
+
+    with BfsService(g, device=device, autostart=False, **kw) as svc:
+        pend = [svc.submit(**q) for q in queries]
+        svc.start()
+        return [p.result(300) for p in pend], svc.statsz()
+
+
+def test_serve_on_cuda_equals_cpu(cuda):
+    # An RMAT 12 query stream (every kind, distance-free queries) through
+    # BfsService on the card equals the same stream on the CPU.
+    from dataclasses import replace
+
+    from tpu_bfs_torch.graph.generate import edge_weights
+
+    g = rmat_graph(12, 16, seed=4)
+    g = replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    src = [int(s) for s in np.random.default_rng(2).choice(g.num_vertices, 300)]
+    queries = ([{"source": s, "want_distances": i % 4 != 0} for i, s in enumerate(src[:200])]
+               + [{"source": s, "kind": "sssp"} for s in src[200:240]]
+               + [{"source": s, "kind": "khop", "k": 2} for s in src[240:260]]
+               + [{"source": s, "kind": "cc"} for s in src[260:270]]
+               + [{"source": s, "kind": "p2p", "target": t}
+                  for s, t in zip(src[270:285], src[285:300])])
+    kw = dict(lanes=256, width_ladder="auto", linger_ms=50.0)
+    got, snap = _serve_stream("cuda", g, queries, **kw)
+    want, _ = _serve_stream("cpu", g, queries, **kw)
+    assert snap["errors"] == 0
+    for a, b in zip(got, want):
+        assert a.ok and b.ok, (a.error, b.error)
+        assert (a.kind, a.levels, a.reached, a.extras, a.batch_lanes, a.dispatched_lanes) \
+            == (b.kind, b.levels, b.reached, b.extras, b.batch_lanes, b.dispatched_lanes)
+        assert (a.distances is None) == (b.distances is None)
+        if a.distances is not None:
+            np.testing.assert_array_equal(a.distances, b.distances)
+
+
+def test_serve_extraction_stream_overlaps_next_dispatch(cuda):
+    # The extraction worker copies on its own stream after the batch's
+    # event: with a slow fetch, batch N+1 is dispatched while batch N is
+    # still being extracted, and every answer equals a direct batch.
+    from tpu_bfs_torch import faults, obs
+    from tpu_bfs_torch.serve import BfsService
+
+    g = rmat_graph(12, 16, seed=5)
+    src = [int(s) for s in np.random.default_rng(3).choice(g.num_vertices, 512)]
+    svc = BfsService(g, device="cuda", lanes=256, width_ladder="off",
+                     single_flight=False)
+    rec = obs.arm()
+    faults.arm_from_spec("slow@fetch:ms=300:n=1")
+    try:
+        res = [p.result(300) for p in [svc.submit(s) for s in src]]
+    finally:
+        faults.disarm()
+        obs.disarm()
+        svc.close()
+    t = {(e["name"], e["ph"], e["args"].get("batch")): e["t"] for e in rec.snapshot()
+         if e["cat"] == "serve.batch" and e["name"] in ("dispatch", "extract")}
+    b1, b2 = sorted({b for (_, _, b) in t})[:2]
+    assert t[("dispatch", "b", b2)] < t[("extract", "e", b1)]
+    eng = WidePackedMsBfsEngine(g, lanes=256, num_planes=8, device="cuda")
+    for lo in (0, 256):
+        direct = eng.run(np.asarray(src[lo:lo + 256]))
+        for i in range(256):
+            np.testing.assert_array_equal(res[lo + i].distances, direct.distances_int32(i))

@@ -32,12 +32,14 @@ Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpu_bfs_torch import faults
 from tpu_bfs_torch.algorithms.frontier import _nonzero_static
 from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
@@ -1102,15 +1104,32 @@ class PackedDispatch:
     t0: float
 
 
+def _engine_dispatch_lock(engine) -> threading.Lock:
+    """The engine's dispatch lock: the serve tier may dispatch on one
+    engine from two threads (the scheduler, and the extraction worker
+    re-dispatching after a transient failure), and the pull gate's
+    batch-scoped lane mask must bind to its own batch's level loop.
+    ``dict.setdefault`` is atomic, so racers agree on one lock."""
+    lock = engine.__dict__.get("_dispatch_lock")
+    if lock is None:
+        lock = engine.__dict__.setdefault("_dispatch_lock", threading.Lock())
+    return lock
+
+
 def dispatch_packed_batch(engine, sources, *, max_levels: int | None = None) -> PackedDispatch:
     """Seed and run one packed batch."""
+    if faults.ACTIVE is not None:
+        # The fault injection site "dispatch" (tpu_bfs_torch/faults.py).
+        faults.ACTIVE.hit("dispatch", lanes=engine.lanes,
+                          devices=faults.mesh_devices(engine))
     sources = _check_batch_sources(engine, sources)
     cap = engine.max_levels_cap
     max_levels = cap if max_levels is None else min(max_levels, cap)
-    engine._note_batch_sources(sources)  # the pull gate's lane mask
-    fw0 = engine._seed_dev(sources)
-    t0 = time.perf_counter()
-    planes, vis, levels, alive, truncated = engine._core(engine.arrs, fw0, max_levels)
+    with _engine_dispatch_lock(engine):
+        engine._note_batch_sources(sources)  # the pull gate's lane mask
+        fw0 = engine._seed_dev(sources)
+        t0 = time.perf_counter()
+        planes, vis, levels, alive, truncated = engine._core(engine.arrs, fw0, max_levels)
     return PackedDispatch(
         sources=sources, fw0=fw0, planes=planes, vis=vis, levels=levels,
         alive=alive, truncated=truncated, max_levels=max_levels, t0=t0,
@@ -1131,6 +1150,10 @@ def check_not_truncated(engine, pend: PackedDispatch) -> None:
 def fetch_packed_batch(engine, pend: PackedDispatch, *, check_cap: bool = True,
                        time_it: bool = False) -> PackedBatchResult:
     """Check the depth cap and assemble the batch's result."""
+    if faults.ACTIVE is not None:
+        # The fault injection site "fetch": slow_extract sleeps here.
+        faults.ACTIVE.hit("fetch", lanes=engine.lanes,
+                          devices=faults.mesh_devices(engine))
     if time_it and pend.vis.device.type == "cuda":
         torch.cuda.synchronize(pend.vis.device)
     elapsed = (time.perf_counter() - pend.t0) if time_it else None

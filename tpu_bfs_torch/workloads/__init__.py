@@ -22,8 +22,9 @@ p2p       point-to-point shortest path: source and target on two lanes
 Every kind also runs on a mesh: sssp as ``parallel/dist_sssp.py``'s
 ``DistSsspEngine`` (``devices > 1``), cc, k-hop and p2p over a
 ``DistWideMsBfsEngine`` base, every rank running every sweep, level and
-scan pass in the same order. Not ported yet: the landmark tier and the
-dynamic-graph overlays (ROADMAP Queue 1 item 4).
+scan pass in the same order. ``landmarks.py`` is the serve tier's
+landmark distance tier. Not ported yet: the dynamic-graph overlays
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ import torch
 from tpu_bfs_torch.algorithms._packed_common import (
     _assemble_packed_result,
     acquire_parent_scanner,
+    parent_scanner_of,
 )
 from tpu_bfs_torch.workloads import ExchangeRecordDelegate, id_of_row_map
 
@@ -194,6 +195,13 @@ class P2pServeEngine(ExchangeRecordDelegate):
         self._pair_met, self._pair_dist = _make_pair_kernels(rows, act, base.w, base.num_planes)
         self.last_host_reads = None
         self.last_paths_s = None
+
+    def warm_residency(self) -> None:
+        """The serve registry's warm-up hook: build and cache the base
+        engine's parent scanner now, so the first path walk of a served
+        batch does not pay for it (``parent_scanner_of`` caches the
+        scanner, or its unavailability, on the engine)."""
+        parent_scanner_of(self.base)
 
     def dispatch(self, sources, *, targets=None, **_ignored) -> P2pPending:
         sources = np.asarray(sources, dtype=np.int64)
