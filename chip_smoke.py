@@ -70,7 +70,9 @@ Phases, one JSON line each:
     a chunk to keep the script's time), equal on every lane to an
     uninterrupted run; ungated, then gated. Then a single-source BfsEngine
     (scan) started, advanced to level 2, saved, loaded and finished, equal
-    to run.
+    to run; the same level-2 state saved as 4 shards
+    (save_checkpoint_sharded), reloaded and finished, equal to run; and the
+    run's result through save_result / load_result. Seconds of each.
 13. workloads, one line a kind. khop (after pullgate): KhopServeEngine over
     the flagship HybridMsBfsEngine, k = 3, on its 8192 sources, 3 lanes'
     reached equal to SciPy's vertices within 3 hops. Then, after ckpt:
@@ -159,6 +161,23 @@ Phases, one JSON line each:
     a kind, each equal to that kind's engine run directly), a hybrid service
     (4096 lanes, 64 queries, K2 on the serve path) and the answer tier (a
     repeat is a cache hit, a landmark-exact p2p pair needs no dispatch).
+    The integrity arm: (a) the flagship loop once more, pipelined, with
+    audit_rate=0.1, audit_structural and audit_checksum: zero findings and
+    audit errors, every answer equal to the direct batches; audits run,
+    the audit p50 lag, the structural audit's ms, QPS and p50 beside the
+    unaudited pipelined loop; (b) at the wide phase's scale, corrupt_result
+    (one finding, one quarantine, every later answer equal to SciPy's, a
+    flight dump naming the query) and corrupt_wire (a checksum finding).
+18. obs (after ckpt): the operations surface. The port CLI as a
+    subprocess at the wide phase's scale: a gated hybrid batch with
+    --stats --trace-out, its trace line's levels equal to the batch's and
+    the Perfetto file one level-track row a level; a 256-lane gated wide
+    batch in turns with the recorder disarmed and armed (the overhead,
+    printed, not gated); and the CLI in process under --ckpt --faults
+    'seed=7:transient@advance:n=1,corrupt_ckpt:n=1', its distances equal
+    to an unfaulted run and its recovery line the fired faults. The
+    mesh_single phase also checks each engine's last_run_trace: frontier
+    total = reached - 1, its rows' wire bytes = the exchange accounting.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -172,6 +191,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -844,6 +864,7 @@ def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: i
     engine's timed runs alternate with BfsEngine's of its backend on the
     single phase's DeviceGraph ``dg``."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.obs.engine_trace import trace_summary
     from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine, partition_shard
     from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine, partition_shard_2d
     from tpu_bfs_torch.parallel.mesh import close_mesh, make_mesh, make_mesh_2d
@@ -900,6 +921,12 @@ def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: i
             check_distances(r.distance, golden[s])
             require(np.array_equal(r.parent, trees[s]), f"{name} {kw}: tree of {s} differs")
             bodies = int(eng.last_exchange_level_counts.sum())
+            # The engine trace of the checked run (no host read of its own).
+            summ = trace_summary(eng.last_run_trace)
+            require(summ["frontier_total"] == r.reached - 1 and summ["levels"] == bodies
+                    and summ["wire_bytes_total"] == eng.last_exchange_bytes,
+                    f"{name} {kw}: trace {summ} against reached {r.reached}, {bodies} "
+                    f"levels, {eng.last_exchange_bytes} bytes")
             # The spread: REPEATS more timed runs, in turns with BfsEngine's.
             mine, theirs = [], []
             for _ in range(REPEATS):
@@ -913,7 +940,8 @@ def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: i
                          "gteps": r.edges_traversed / float(np.median(mine)) / 1e6,
                          "host_reads": eng.last_host_syncs,
                          "host_reads_per_level": eng.last_host_syncs / bodies,
-                         "exchange_counts": eng.last_exchange_level_counts.tolist()})
+                         "exchange_counts": eng.last_exchange_level_counts.tolist(),
+                         "trace": summ})
         # The exchange a level by CUDA events: the row exchange and (2D) the
         # column all-gather, around the engine's own calls, in one more BFS.
         evs = []
@@ -1413,10 +1441,148 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
     require(np.array_equal(r.distance, want.distance) and np.array_equal(r.parent, want.parent),
             "single-source resume != run")
     Path(path).unlink()
+    # The same level-2 state as 4 shard files, reloaded and finished.
+    files = {}
+    mid = beng.advance(beng.start(single_source), 2)
+    t0 = time.perf_counter()
+    ck.save_checkpoint_sharded(str(d / "sharded"), mid, num_shards=4)
+    files["sharded_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ck.load_checkpoint_sharded(str(d / "sharded"))
+    files["sharded_load_s"] = time.perf_counter() - t0
+    require(back.level == 2 and np.array_equal(back.distance, mid.distance),
+            "sharded reload != the saved state")
+    r = beng.finish(beng.advance(back))
+    require(np.array_equal(r.distance, want.distance) and np.array_equal(r.parent, want.parent),
+            "sharded resume != run")
+    t0 = time.perf_counter()
+    ck.save_result(str(d / "result.npz"), want)
+    files["result_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = ck.load_result(str(d / "result.npz"))
+    files["result_load_s"] = time.perf_counter() - t0
+    require(np.array_equal(got.distance, want.distance) and np.array_equal(got.parent, want.parent)
+            and (got.reached, got.num_levels) == (want.reached, want.num_levels),
+            "result round trip")
+    shutil.rmtree(d)
     emit({"phase": "ckpt", "graph": "the flagship graph", "lanes": 256, "every": every,
           "packed": out, "single": {"backend": "scan", "source": int(single_source),
                                     "resumed_at": 2, "levels": r.num_levels,
-                                    "equal_to_run": True}})
+                                    "equal_to_run": True},
+          "files": {"shards": 4, "resumed_at": 2, "equal_to_run": True, **files}})
+
+
+OBS_FAULTS = "seed=7:transient@advance:n=1,corrupt_ckpt:n=1"
+
+
+def run_cli(argv) -> list:
+    """stdout lines of the port CLI run in this process (exit code 0)."""
+    import io
+
+    from tpu_bfs_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    require(rc == 0, f"cli {argv} exited {rc}")
+    return buf.getvalue().splitlines()
+
+
+def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
+    """The operations surface (see the module docstring, phase 18)."""
+    from tpu_bfs_torch import faults, obs
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.cli import load_graph
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.utils.recovery import COUNTERS
+
+    t_phase = time.perf_counter()
+    d = BUILD_DIR / "obs"
+    d.mkdir(parents=True, exist_ok=True)
+    spec = f"rmat:scale={scale}"
+    g = load_graph(spec)
+    live = np.flatnonzero(g.degrees > 0)
+    src = [int(x) for x in np.random.default_rng(3).choice(live, 600, replace=False)]
+    out = {"graph": spec}
+
+    # The CLI as a subprocess: a gated hybrid batch, --stats --trace-out.
+    trace_path = d / "cli_trace.json"
+    here = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m", "tpu_bfs_torch", str(src[0]), spec, "--multi-source",
+            ",".join(map(str, src[1:])), "--engine", "hybrid", "--lanes", "4096",
+            "--pull-gate", "--stats", "--trace-out", str(trace_path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=here,
+                          env=dict(os.environ, PYTHONPATH=str(here)))
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    require("Output OK" in lines, "the traced CLI run did not validate")
+    level_lines = [ln for ln in lines if ln.startswith('{"level"')]
+    trace = [json.loads(ln[6:]) for ln in lines if ln.startswith("trace ")]
+    require(len(trace) == 1 and trace[0]["levels"] == len(level_lines)
+            and trace[0]["gated_tiles_total"] == sum(json.loads(ln)["gated_tiles"]
+                                                    for ln in level_lines),
+            f"trace line {trace} against {len(level_lines)} level lines")
+    doc = json.loads(trace_path.read_text())
+    rows = [e for e in doc["traceEvents"] if e.get("cat") == "engine.level"]
+    require([e["args"]["level"] for e in rows] == list(range(trace[0]["levels"])),
+            f"Perfetto level track: {len(rows)} rows for {trace[0]['levels']} levels")
+    out["cli"] = {"engine": "hybrid", "lanes": 4096, "sources": len(src), "pull_gate": True,
+                  "seconds": cli_s, "trace": trace[0], "perfetto_level_rows": len(rows),
+                  "perfetto_events": len(doc["traceEvents"])}
+
+    # A 256-lane gated wide batch on the flagship ELL, recorder disarmed and
+    # armed in turns (an armed fetch copies the gate counters off the card).
+    eng = WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, pull_gate=True, device=dev)
+    batch = np.random.default_rng(11).choice(traversable, 256, replace=False)
+    eng.run(batch)
+    reset_counts(k1, k2)
+    turns = {"disarmed": [], "armed": []}
+    for armed in (False, True, True, False, False, True):
+        obs.arm() if armed else obs.disarm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(batch)
+        torch.cuda.synchronize()
+        turns["armed" if armed else "disarmed"].append((time.perf_counter() - t0) * 1e3)
+    obs.disarm()
+    launches = k1.ell_expand.launches
+    require(launches > 0 and len(eng.last_run_trace) == res.num_levels + 1,
+            f"armed batch: {launches} K1 launches, trace {len(eng.last_run_trace or ())} rows")
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    out["packed_overhead"] = {"lanes": 256, "pull_gate": True, "levels": res.num_levels,
+                              "turns_ms": turns, "median_ms": med, "k1_launches": launches,
+                              "armed_over_disarmed": med["armed"] / med["disarmed"] - 1}
+    del eng, res
+
+    # The CLI in process: a checkpointed batch under a fault schedule,
+    # against the same batch unfaulted.
+    base = [str(src[0]), spec, "--multi-source", ",".join(map(str, src[1:256])), "--engine",
+            "wide", "--lanes", "256", "--skip-cpu"]
+    COUNTERS.reset()
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    lines = run_cli(base + ["--ckpt", str(d / "ck.npz"), "--ckpt-every", "2", "--faults",
+                            OBS_FAULTS, "--stats", "--save-dist", str(d / "faulted.npy")])
+    faulted_s = time.perf_counter() - t0
+    fired = faults.ACTIVE.counts()
+    faults.disarm()
+    launches = k1.ell_expand.launches
+    run_cli(base + ["--save-dist", str(d / "clean.npy")])
+    require(np.array_equal(np.load(d / "faulted.npy"), np.load(d / "clean.npy")),
+            "the faulted checkpointed run's distances != the unfaulted run's")
+    rec = [json.loads(ln)["recovery"] for ln in lines if ln.startswith('{"recovery"')]
+    require(fired == {"transient": 1, "corrupt_ckpt": 1} and len(rec) == 1
+            and rec[0]["transient_retries"] == 1 and rec[0]["engine_rebuilds"] == 1
+            and rec[0]["faults_injected"] == 2 and launches > 0,
+            f"fired {fired}, recovery {rec}, {launches} K1 launches")
+    out["faulted_ckpt"] = {"spec": OBS_FAULTS, "lanes": 256, "every": 2, "seconds": faulted_s,
+                           "fired": fired, "recovery": {k: v for k, v in rec[0].items() if v},
+                           "recovery_log": [ln for ln in lines if ln.startswith("[recovery]")],
+                           "k1_launches": launches, "distances_equal_unfaulted": True}
+    shutil.rmtree(d)
+    emit({"phase": "obs", **out, "seconds": time.perf_counter() - t_phase})
 
 
 def _dijkstra_oracle(g, sources):
@@ -2243,6 +2409,7 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
             "peak_above_start_gb": peak_gb, "launches": launches,
             "rows_equal_direct": compared, "rows_equal_scipy": 3,
         }
+    out["audited"] = serve_audited(dev, k1, k2, g, reg, picks, direct, out["pipelined"])
     out["ladder"] = [32, 64, 256]
     out["rung_build_s"] = {str(s.lanes): reg.build_s[s] for s in reg.build_s if s.kind == "bfs"}
     out["rung_warm_s"] = {str(s.lanes): reg.warm_s[s] for s in reg.warm_s if s.kind == "bfs"}
@@ -2253,6 +2420,152 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
     out["host_reads_per_level"] = (reads - seed_reads) / (levels + 1)
     out["extract_split_one_word"] = split
     return out, picks, direct
+
+
+def serve_audited(dev, k1, k2, g, reg, picks, direct, plain) -> dict:
+    """The integrity arm (a): the flagship closed loop once more, pipelined,
+    with every audit knob on. Zero findings and audit errors, every answer
+    equal to the direct batches; its QPS and p50 beside ``plain`` (the
+    unaudited pipelined loop) and the structural audit's own time."""
+    from tpu_bfs_torch.serve import BfsService
+
+    t0 = time.perf_counter()
+    svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto", pipeline=True,
+                     linger_ms=2.0, queue_cap=1024, registry=reg, device=dev,
+                     audit_rate=0.1, audit_structural=True, audit_checksum=True)
+    up_s = time.perf_counter() - t0
+    # Time each structural audit inside the loop (host clock, on the
+    # extraction worker) and note the stream it ran on: the worker's side
+    # stream, never the default stream that dispatches the next batch.
+    aud = svc._integrity._structural
+    audit, in_loop = aud.audit, []
+
+    def timed_audit(kind, r):
+        side = torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev)
+        t1 = time.perf_counter()
+        try:
+            return audit(kind, r)
+        finally:
+            in_loop.append(((time.perf_counter() - t1) * 1e3, side))
+
+    aud.audit = timed_audit
+    try:
+        reset_counts(k1, k2)
+        flat, seconds = closed_loop(svc, picks)
+        launches = k1.ell_expand.launches
+        require(svc.flush_audits(600), "the audits did not drain")
+        snap = svc.statsz()
+        aud.audit = audit
+        require(in_loop and all(side for _, side in in_loop),
+                f"structural audits off the extraction stream: {in_loop}")
+        # The structural audit of one served answer alone, outside the loop
+        # (host copy to the card, the checksum folds, the level check over
+        # every edge slot).
+        row = next(r for r in flat if r.distances is not None)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            aud.audit("bfs", row)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        dist = torch.from_numpy(row.distances).to(dev)
+        check_ms = cuda_ms(lambda: aud.violations("bfs", dist), 3)
+    finally:
+        svc.close()
+    require(launches > 0, "the audited loop launched no K1")
+    require(snap["audits_run"] > 0 and snap["audit_failures"] == 0
+            and snap["audit_errors"] == 0 and snap["quarantines"] == 0,
+            f"clean audited loop: {snap}")
+    require(snap["completed"] == len(flat) and snap["errors"] == 0, f"statsz {snap}")
+    same_as_direct(flat, direct, "audited loop", sample=4)
+    return {"audit_rate": 0.1, "structural": True, "checksum": True, "service_up_s": up_s,
+            "queries": len(flat), "seconds": seconds, "qps": len(flat) / seconds,
+            "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+            "unaudited_qps": plain["qps"], "unaudited_p50_ms": plain["p50_ms"],
+            "audits_run": snap["audits_run"], "audit_failures": snap["audit_failures"],
+            "audit_errors": snap["audit_errors"], "audit_dropped": snap["audit_dropped"],
+            "audit_p50_lag_ms": snap["audit_p50_lag_ms"],
+            "structural_audits_in_loop": len(in_loop),
+            "structural_audit_in_loop_ms": sorted(round(t, 2) for t, _ in in_loop),
+            "structural_audit_alone_ms": ms,
+            "level_check_ms": check_ms, "edge_slots": int(g.num_edges), "k1_launches": launches}
+
+
+def serve_corruption(dev, k1, k2, scale: int) -> dict:
+    """The integrity arm (b) at RMAT ``scale``: corrupt_result caught by the
+    shadow replay on the other rung (one finding, one quarantine, a flight
+    dump naming the query, every later answer equal to SciPy's), then
+    corrupt_wire caught by the checksum of the audited row's copy."""
+    from tpu_bfs_torch import faults, obs
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.serve import BfsService, EngineRegistry
+
+    g = rmat_graph(scale, 16, seed=1)
+    csr = g.to_scipy()
+    live = np.flatnonzero(g.degrees > 0)
+    src = [int(x) for x in np.random.default_rng(5).choice(live, 10, replace=False)]
+    reg = EngineRegistry(capacity=8, device=dev)
+    dump = BUILD_DIR / "flight"
+    shutil.rmtree(dump, ignore_errors=True)
+    dump.mkdir(parents=True)
+    out = {"scale": scale, "scale_cut": f"scale {scale}, not the flagship's 21: the clean "
+                                        "audited loop runs at 21"}
+    for name, spec, kw in (
+            ("corrupt_result", "seed=5:corrupt_result:n=1", dict(audit_rate=1.0)),
+            ("corrupt_wire", "seed=2:corrupt_wire:n=1",
+             dict(audit_structural=True, audit_checksum=True))):
+        logs = []
+        t0 = time.perf_counter()
+        rec = obs.arm(dump_dir=str(dump), window_s=120)
+        svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto", registry=reg,
+                         device=dev, log=logs.append, **kw)
+        try:
+            faults.arm_from_spec(spec)
+            reset_counts(k1, k2)
+            first = svc.submit(src[0], id=f"{name}-0").result(600)
+            require(svc.flush_audits(600), "the audits did not drain")
+            fired = faults.ACTIVE.counts()
+            faults.disarm()
+            snap = svc.statsz()
+            later = [svc.submit(s, id=f"{name}-{i}").result(600)
+                     for i, s in enumerate(src[1:], 1)]
+            require(svc.flush_audits(600), "the audits did not drain")
+            after = svc.statsz()
+        finally:
+            faults.disarm()
+            svc.close()
+            obs.disarm()
+        launches = k1.ell_expand.launches
+        require(fired == {name: 1} and launches > 0, f"{name}: fired {fired}, {launches} K1")
+        require(snap["audit_failures"] == 1 and snap["quarantines"] == 1 and snap["breaker_open"],
+                f"{name}: {snap}")
+        require(after["audit_failures"] == 1 and after["quarantines"] == 1,
+                f"{name}: findings after the quarantine: {after}")
+        for r in later:
+            require(r.ok and np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+                    f"{name}: a later answer ({r.source}) != SciPy")
+        entry = {"spec": spec, **kw, "fired": fired, "audit_failures": snap["audit_failures"],
+                 "quarantines": snap["quarantines"], "breaker_open": snap["breaker_open"],
+                 "later_answers_equal_scipy": len(later), "audits_run": after["audits_run"],
+                 "seconds": time.perf_counter() - t0}
+        if name == "corrupt_result":
+            require(not np.array_equal(first.distances, bfs_scipy(g, src[0], csr=csr)),
+                    "the corrupted answer equals SciPy's")
+            dumped = "\n".join(p.read_text() for p in sorted(dump.glob("*.jsonl")))
+            require('"corruption"' in dumped and f'"{name}-0"' in dumped,
+                    "no flight dump names the corrupted query")
+            entry["flight_dumps"] = len(list(dump.glob("*.jsonl")))
+        else:
+            require(any("wire checksum mismatch" in m for m in logs),
+                    "corrupt_wire: no checksum finding in the log")
+            entry["finding"] = next(m for m in logs if "wire checksum mismatch" in m)[:200]
+        out[name] = entry
+        del rec
+    shutil.rmtree(dump)
+    return out
 
 
 def serve_w2_batch(dev, k1, k2, g, reg, picks, direct, ptxas) -> dict:
@@ -2506,11 +2819,14 @@ def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
     loop, picks, direct = serve_flagship(dev, k1, k2, g, traversable, reg)
     entry, w2 = serve_w2_batch(dev, k1, k2, g, reg, picks, direct, ptxas)
     chaos = serve_chaos(dev, g, reg, picks, direct)
+    del reg, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    integrity = serve_corruption(dev, k1, k2, wide_scale)
     emit({"phase": "serve", "graph": "the flagship graph", "engine": "wide",
           "lanes": 256, "clients": SERVE_CLIENTS, "queries_per_client": SERVE_PER_CLIENT,
-          **loop, "w2_batch": w2, "chaos": chaos,
+          **loop, "w2_batch": w2, "chaos": chaos, "integrity": integrity,
           "seconds": time.perf_counter() - t_phase})
-    del reg, direct
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2600,6 +2916,7 @@ def main(argv=None) -> int:
     entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
     kernels += entries
     phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_sources[0], args.ckpt_every)
+    phase_obs(dev, k1, k2, ell, traversable, args.wide_scale)
     del golden, trees, dg, hg
     gc.collect()
     torch.cuda.empty_cache()

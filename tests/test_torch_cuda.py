@@ -645,3 +645,107 @@ def test_serve_extraction_stream_overlaps_next_dispatch(cuda):
         direct = eng.run(np.asarray(src[lo:lo + 256]))
         for i in range(256):
             np.testing.assert_array_equal(res[lo + i].distances, direct.distances_int32(i))
+
+
+# --- the integrity tier on the card -------------------------------------------
+
+
+@pytest.mark.parametrize("n", [6, 4099, 1 << 21])
+def test_checksum_fold_on_cuda_equals_cpu(cuda, n):
+    # The int32 row fold: masked int64 terms, no reliance on wrapping.
+    from tpu_bfs_torch.integrity.wire import make_i32_checksum, words_checksum_np
+
+    rng = np.random.default_rng(n)
+    row = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    row[::5] = np.iinfo(np.int32).max
+    row[1::7] = -1
+    want = words_checksum_np(row)
+    assert make_i32_checksum(n, cuda)(torch.from_numpy(row).to(cuda)) == want
+    assert make_i32_checksum(n, "cpu")(torch.from_numpy(row)) == want
+
+
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+def test_relaxation_check_on_cuda_equals_cpu(cuda, kind):
+    from dataclasses import replace
+
+    from tpu_bfs_torch.graph.csr import INF_DIST
+    from tpu_bfs_torch.graph.generate import edge_weights
+    from tpu_bfs_torch.integrity.staleness import ORACLES
+    from tpu_bfs_torch.integrity.structural import StructuralAuditor
+
+    g = rmat_graph(12, 16, seed=4)
+    g = replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    dev, cpu = StructuralAuditor(g, device=cuda), StructuralAuditor(g, device="cpu")
+    src = int(np.argmax(g.degrees))
+    good = ORACLES[kind](g, src)
+    bad = good.copy()
+    fin = np.flatnonzero((good != INF_DIST) & (good > 0))
+    bad[fin[::17]] += 64  # many violations
+    for row in (good, bad):
+        n = dev.violations(kind, torch.from_numpy(row).to(cuda))
+        assert n == cpu.violations(kind, torch.from_numpy(row))
+        assert (n == 0) == (row is good)
+
+
+def test_shadow_replay_between_dispatch_and_extraction(cuda):
+    # A replay on the serving engine itself between batch N's dispatch and
+    # its extraction on a side stream: every answer equals a direct batch
+    # (each dispatch owns its tensors; the replay overwrites nothing).
+    g = rmat_graph(12, 16, seed=5)
+    eng = WidePackedMsBfsEngine(g, lanes=64, num_planes=8, device=cuda)
+    rng = np.random.default_rng(4)
+    batch = rng.choice(g.num_vertices, 64, replace=False)
+    direct = eng.run(batch)
+    want = [direct.distances_int32(i) for i in range(64)]
+    pend = eng.dispatch(batch)
+    replay = eng.run(np.asarray([int(batch[5])]))
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        res = eng.fetch(pend)
+        got = [res.distances_int32(i) for i in range(64)]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(replay.distances_int32(0), want[5])
+
+
+def test_audited_serve_on_cuda_finds_nothing_and_answers_exactly(cuda):
+    # Every answer audited (structural, shadow on the other rung, checksum)
+    # while slow extractions overlap the next dispatches: no finding, and
+    # every answer equals the CPU oracle.
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.integrity.staleness import oracle_bfs
+    from tpu_bfs_torch.serve import BfsService
+
+    g = rmat_graph(11, 16, seed=6)
+    src = [int(s) for s in np.random.default_rng(8).choice(g.num_vertices, 160)]
+    svc = BfsService(g, device="cuda", lanes=64, width_ladder="32,64", single_flight=False,
+                     audit_rate=1.0, audit_structural=True, audit_checksum=True)
+    # Spy on the structural audits: count them apart from the shadow replays,
+    # and record whether each ran off the default (dispatching) stream.
+    structural = svc._integrity._structural
+    audit, on_side_stream = structural.audit, []
+
+    def spy(kind, r):
+        on_side_stream.append(
+            torch.cuda.current_stream(cuda) != torch.cuda.default_stream(cuda))
+        return audit(kind, r)
+
+    structural.audit = spy
+    faults.arm_from_spec("slow@fetch:ms=50:n=4")
+    try:
+        res = [p.result(300) for p in [svc.submit(s) for s in src]]
+        assert svc.flush_audits(300)
+        snap = svc.statsz()
+    finally:
+        faults.disarm()
+        svc.close()
+    # One structural audit a batch, on the extraction worker's stream.
+    assert on_side_stream and all(on_side_stream)
+    # Every query is sampled; its replay is run or, past the backlog bound, shed.
+    replays = snap["audits_run"] - len(on_side_stream)
+    assert replays + snap["audit_dropped"] == len(src)
+    assert snap["audit_failures"] == 0
+    assert snap["audit_errors"] == 0 and snap["quarantines"] == 0
+    for s, r in zip(src, res):
+        np.testing.assert_array_equal(r.distances, oracle_bfs(g, s))

@@ -177,3 +177,26 @@ def test_deadline_shed_drain_and_shutdown_equal_jax():
 
     res, _, snap, _ = _both(None, never_started, lanes=32, width_ladder="off")
     assert [r[2] for r in res] == ["shutdown"] * 3 and snap["shutdown"] == 3
+
+
+@pytest.mark.parametrize("site", ["sssp_dispatch", "sssp_fetch"])
+def test_sssp_fault_sites_fire_equal_jax(site):
+    # The sssp rung consults its own dispatch and fetch sites, as in JAX:
+    # a transient there is retried in place (the port skipped both before).
+    def weighted(pkg):
+        _, reg_cls, _, _, gen = PKGS[pkg]
+        reg = reg_cls(capacity=8, **({"device": "cpu"} if pkg == "torch" else {}))
+        reg.add_graph(KEY, gen(96, 480, seed=3, weights=5))
+        return reg
+
+    drive = _queued(range(5), kind="sssp")
+    spec = f"seed=7:transient@{site}:n=1"
+    kw = dict(lanes=32, width_ladder="off", kinds=("bfs", "sssp"))
+    got = _scenario("torch", spec, drive, reg=weighted("torch"), **kw)
+    for _, _, _, counters, _ in PKGS.values():
+        counters.reset()
+    want = _scenario("jax", spec, drive, reg=weighted("jax"), **kw)
+    assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3]
+    assert all(r[2] == "ok" for r in got[0])
+    assert got[2]["retries"] == 1 and got[2]["faults"] == {"transient": 1}
+    assert got[3]["transient_retries"] == 1 and got[3]["faults_injected"] == 1

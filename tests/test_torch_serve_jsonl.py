@@ -118,7 +118,7 @@ def test_jsonl_no_distances_flag_equal_jax(regs):
 
 
 def test_jsonl_refuses_unported_flags_and_ops(regs):
-    for flag in (["--devices", "2"], ["--audit-rate", "0.1"], ["--mutations"],
+    for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"], ["--mutations"],
                  ["--preheat", "d"], ["--export-aot", "d"], ["--engine", "dist2d"]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _run(tfront, regs[1], "", flag)
@@ -156,3 +156,135 @@ def test_server_subprocess_drains_on_sigterm(tmp_path):
     assert "SIGTERM received: draining" in err
     final = [ln for ln in err.splitlines() if ln.startswith("statsz ")][-1]
     assert json.loads(final[len("statsz "):])["completed"] == 3
+
+
+# --- statsz interval alias and the integrity tier through the server ----------
+
+
+def _ns(**kw):
+    import argparse
+
+    kw.setdefault("statsz_interval_s", None)
+    kw.setdefault("statsz_every", None)
+    return argparse.Namespace(**kw)
+
+
+@pytest.mark.parametrize("kw,env,want", [
+    ({}, "", 10.0), ({}, "2.5", 2.5), ({"statsz_every": 0.0}, "2.5", 0.0),
+    ({"statsz_interval_s": 7.0, "statsz_every": 3.0}, "2.5", 7.0), ({}, "typo", 10.0),
+])
+def test_statsz_interval_precedence_equals_jax(kw, env, want):
+    assert tfront.resolve_statsz_interval(_ns(**kw), env=env) == want
+    assert jfront.resolve_statsz_interval(_ns(**kw), env=env) == want
+
+
+def test_statsz_every_parses_as_in_jax():
+    # The reference's own scripts start servers with --statsz-every 0.
+    argv = [SPEC, "--statsz-every", "0"]
+    targs = tfront.build_arg_parser().parse_args(argv)
+    jargs = jfront.build_arg_parser().parse_args(argv)
+    assert tfront.resolve_statsz_interval(targs) == jfront.resolve_statsz_interval(jargs) == 0.0
+
+
+AUDIT_SPEC = "random:n=96,m=480,seed=3,weights=5"
+AUDIT_ARGV = [AUDIT_SPEC, "--lanes", "64", "--ladder", "32,64", "--linger-ms", "5",
+              "--statsz-every", "0", "--audit-rate", "1", "--audit-structural",
+              "--audit-checksum"]
+AUDIT_KEYS = ("audits_run", "audit_failures", "audit_errors", "audit_dropped", "quarantines",
+              "completed", "errors", "batches", "audit")
+
+
+def _audited(front, requests, extra=(), stdin=None, stdout=None):
+    argv = AUDIT_ARGV + list(extra) + (["--device", "cpu"] if front is tfront else [])
+    args = front.build_arg_parser().parse_args(argv)
+    out, err = stdout or io.StringIO(), io.StringIO()
+    reg = (TRegistry(capacity=8, device="cpu") if front is tfront
+           else JRegistry(capacity=8))
+    assert front.run_server(args, stdin=stdin or io.StringIO(requests), stdout=out,
+                            stderr=err, registry=reg) == 0
+    statsz = [ln for ln in err.getvalue().splitlines() if ln.startswith("statsz ")]
+    return out, json.loads(statsz[-1][len("statsz "):])
+
+
+@pytest.mark.chaos
+def test_integrity_smoke_acts_equal_jax(tmp_path):
+    """scripts/integrity_smoke.py's two acts through both JSONL servers in
+    process: a clean fully-audited mixed-kind soak with zero findings, then
+    corrupt_result with the flight recorder: the first answer is wrong,
+    the rung is quarantined, every later answer is exact, the dump names
+    the query. The statsz audit counters are equal."""
+    import threading
+
+    from tpu_bfs_torch.integrity.staleness import oracle_bfs
+
+    g = load_graph(AUDIT_SPEC)
+    reqs = []
+    for s in (0, 3, 5, 7):
+        for kind in ("bfs", "sssp", "cc", "khop", "p2p"):
+            req = {"id": len(reqs), "source": s, "kind": kind}
+            req.update({"khop": {"k": 2}, "p2p": {"target": (s + 7) % g.num_vertices}}.get(
+                kind, {}))
+            reqs.append(req)
+    stream = "".join(json.dumps(r) + "\n" for r in reqs)
+    snaps = {}
+    for name, front in (("torch", tfront), ("jax", jfront)):
+        out, snap = _audited(front, stream)
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+        assert len(lines) == len(reqs) and all(r["status"] == "ok" for r in lines)
+        for r in lines:
+            if reqs[r["id"]]["kind"] == "bfs":
+                np.testing.assert_array_equal(
+                    tfront.decode_distances(r["distances_npy"]), oracle_bfs(g, r["source"]))
+        snaps[name] = snap
+    for k in AUDIT_KEYS:
+        assert snaps["torch"][k] == snaps["jax"][k], k
+    assert snaps["torch"]["audits_run"] > 0
+    assert snaps["torch"]["audit_failures"] == snaps["torch"]["quarantines"] == 0
+
+    class Gate:
+        """stdin that sends the first query, waits for its answer and the
+        audit's quarantine, then sends the rest."""
+
+        def __init__(self, first, rest, answered):
+            self.first, self.rest, self.answered = first, rest, answered
+
+        def __iter__(self):
+            yield self.first
+            assert self.answered.wait(120)
+            import time
+
+            time.sleep(2.0)  # detection and quarantine are asynchronous
+            yield from self.rest
+
+    class Out(io.StringIO):
+        def __init__(self, answered):
+            super().__init__()
+            self.answered = answered
+
+        def write(self, s):
+            n = super().write(s)
+            self.answered.set()
+            return n
+
+    for name, front in (("torch", tfront), ("jax", jfront)):
+        dump = tmp_path / name
+        answered = threading.Event()
+        first = json.dumps({"id": 0, "source": 0}) + "\n"
+        rest = [json.dumps({"id": i, "source": s}) + "\n" for i, s in enumerate((3, 5, 7), 1)]
+        out, snap = _audited(front, None, ["--faults", "seed=5:corrupt_result:n=1", "--obs",
+                                           f"dump_dir={dump},window=120"],
+                             stdin=Gate(first, rest, answered), stdout=Out(answered))
+        resp = {r["id"]: r for r in map(json.loads, out.getvalue().splitlines())}
+        d0 = tfront.decode_distances(resp[0]["distances_npy"])
+        assert not np.array_equal(d0, oracle_bfs(g, 0))
+        for i, s in enumerate((3, 5, 7), 1):
+            np.testing.assert_array_equal(tfront.decode_distances(resp[i]["distances_npy"]),
+                                          oracle_bfs(g, s))
+        assert snap["audit_failures"] >= 1 and snap["quarantines"] >= 1
+        assert snap["faults"] == {"corrupt_result": 1}
+        dumped = "\n".join(p.read_text() for p in sorted(dump.glob("*.jsonl")))
+        assert '"corruption"' in dumped and '"query": 0' in dumped.replace('"query":0',
+                                                                           '"query": 0')
+        snaps[name] = snap
+    for k in AUDIT_KEYS:
+        assert snaps["torch"][k] == snaps["jax"][k], k

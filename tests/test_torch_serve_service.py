@@ -203,13 +203,30 @@ def test_answer_tier_equal_jax(regs):
     {"devices": 2}, {"mesh_shape": (1, 2)}, {"exchange": "sparse"},
     {"wire_pack": True}, {"delta_bits": (8,)}, {"sieve": True},
     {"predict": True}, {"resume_levels": 2}, {"mesh_probe_interval_s": 1.0},
-    {"audit_rate": 0.1}, {"audit_structural": True}, {"audit_checksum": True},
-    {"audit_seed": 3}, {"dynamic": (8, 4)}, {"generation_dir": "g"},
+    {"dynamic": (8, 4)}, {"generation_dir": "g"},
     {"staleness_bound": 1}, {"aot_dir": "a"}, {"engine": "dist2d"},
 ])
 def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
         TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"audit_rate": 0.1}, {"audit_structural": True}, {"audit_checksum": True},
+    {"audit_seed": 3},
+])
+def test_audit_arguments_are_accepted_on_one_device(regs, kw):
+    # The integrity tier is ported: the knobs arm it (audit_seed alone arms
+    # nothing, as in JAX); on a mesh the service is still refused by name.
+    svc = TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
+    try:
+        armed = any(kw.get(k) for k in ("audit_rate", "audit_structural", "audit_checksum"))
+        assert (svc._integrity is not None) == armed
+        assert ("audit" in svc.statsz_extras()) == armed
+    finally:
+        svc.close()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        TService(KEY, registry=regs[1], autostart=False, device="cpu", devices=2, **kw)
 
 
 def test_pipeline_dispatches_the_next_batch_while_extracting(regs):

@@ -804,3 +804,73 @@ def card_sssp_rank(mesh) -> dict:
                   "errs": shard_minplus_errs(eng, res._dist),
                   "counts": np.asarray(eng.last_exchange_level_counts)}
     return out
+
+
+# Engine-trace cases (tests/test_torch_trace.py): (name, graph, engine
+# keywords, source, levels of a first chunk or None). A chunked case
+# records the trace of its resumed chunk (level0 > 0).
+TRACE_CASES_1D = [
+    ("ring", "rmat_small", dict(exchange="ring"), 3, None),
+    ("allreduce_dopt", "rmat_small", dict(exchange="allreduce", backend="dopt"), 3, None),
+    ("sparse", "rmat_small", dict(exchange="sparse", sparse_caps=(1, 8, 64)), 3, None),
+    ("planned", "rmat_small", dict(exchange="sparse", delta_bits=(8, 16), sieve=True,
+                                   predict=True), 3, None),
+    ("resumed", "rmat_small", dict(exchange="sparse"), 3, 2),
+    ("path100", "path100", dict(exchange="ring"), 0, None),
+]
+TRACE_CASES_2D = [
+    ("ring", "rmat_small", dict(exchange="ring"), 3, None),
+    ("dopt", "rmat_small", dict(exchange="allreduce", backend="dopt"), 3, None),
+    ("resumed", "rmat_small", dict(exchange="ring"), 3, 2),
+]
+TRACE_CASES_2D_ONE_ROW = [  # sparse 2D: JAX deadlocks when mesh rows split
+    ("sparse", "rmat_small", dict(exchange="sparse", sparse_caps=(1, 8, 64)), 3, None),
+]
+GRAPHS["path100"] = lambda gen, io: _path(io, 100)
+
+
+def trace_case_record(case, g, engine) -> dict:
+    """One trace case's rows and summary (either package)."""
+    _name, _gname, kw, source, first = case
+    eng = engine(g, **kw)
+    if first is None:
+        eng.run(source)
+    else:
+        eng.advance(eng.advance(eng.start(source), levels=first))
+    return {"trace": eng.last_run_trace, "summary": trace_summary_of(eng)}
+
+
+def trace_summary_of(eng) -> dict:
+    from tpu_bfs_torch.obs.engine_trace import trace_summary
+
+    return trace_summary(eng.last_run_trace, eng)
+
+
+def run_trace_cases(mesh, shape, cases, packed=()) -> dict:
+    """Rank entry point: the single-source trace cases on ``mesh`` (1D for
+    an int ``shape``, 2D for an (R, C) one), then the packed mesh cases
+    (name, graph, engine keywords, sources) with the recorder armed."""
+    from tpu_bfs_torch import obs
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+
+    if isinstance(shape, tuple):
+        m2 = make_mesh_2d(*shape, mesh=mesh)
+        make = lambda g, **kw: Dist2DBfsEngine(g, m2, **kw)  # noqa: E731
+    else:
+        make = lambda g, **kw: DistBfsEngine(g, mesh, **kw)  # noqa: E731
+    out = {case[0]: trace_case_record(case, graph_of(case[1], tgen, tio), make)
+           for case in cases}
+    obs.arm()
+    try:
+        for name, gname, kw, sources in packed:
+            eng = DistWideMsBfsEngine(graph_of(gname, tgen, tio), mesh, **kw)
+            eng.run(np.asarray(sources))
+            out[name] = {"trace": eng.last_run_trace, "summary": trace_summary_of(eng)}
+    finally:
+        obs.disarm()
+    return out

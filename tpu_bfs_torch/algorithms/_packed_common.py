@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from tpu_bfs_torch import faults
+from tpu_bfs_torch import obs as _obs
 from tpu_bfs_torch.algorithms.frontier import _nonzero_static
 from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
@@ -1160,10 +1161,17 @@ def fetch_packed_batch(engine, pend: PackedDispatch, *, check_cap: bool = True,
     engine._warmed = True
     if check_cap:
         check_not_truncated(engine, pend)
-    return _assemble_packed_result(
+    result = _assemble_packed_result(
         engine, pend.sources, pend.planes, pend.vis, pend.fw0, pend.levels,
         pend.alive, elapsed,
     )
+    if _obs.ACTIVE is not None and engine.records_run_trace:
+        # The trace copies the gate counters off the device: behind the
+        # ACTIVE guard, a disarmed fetch pays this one attribute check.
+        from tpu_bfs_torch.obs.engine_trace import record_packed_run
+
+        record_packed_run(engine, pend.levels, recorder=_obs.ACTIVE)
+    return result
 
 
 def run_packed_batch(engine, sources, *, max_levels: int | None = None,
@@ -1316,6 +1324,8 @@ class PackedRunProtocol(PullGateHost):
     ``result_cls`` is the class of a batch's result."""
 
     result_cls = PackedBatchResult
+    #: Whether an armed fetch records ``last_run_trace`` (obs/engine_trace).
+    records_run_trace = True
 
     def start(self, sources):
         """Level-0 batch state as a host checkpoint (real-id rows)."""

@@ -67,6 +67,9 @@ class PackedMsBfsEngine(WidePackedMsBfsEngine):
     TEPS count. ``device`` is CUDA unless named."""
 
     result_cls = PackedBfsResult
+    # The JAX engine runs its own loop outside the packed fetch, so it
+    # records no per-level trace; neither does this one.
+    records_run_trace = False
 
     def __init__(self, graph: Graph | EllGraph, *, lanes: int = 256, kcap: int = 64,
                  undirected: bool | None = None, device=None):

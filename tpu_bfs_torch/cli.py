@@ -26,9 +26,22 @@ Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 sources or fewer runs the 512-lane packed engine and a larger one the
 hybrid, as in the JAX CLI (the wide engine with ``--ckpt``/``--resume``,
 the hybrid with ``--pull-gate``). Checkpoint files are the JAX CLI's: a
-run checkpointed by one resumes in the other. A failed chunk is not
-retried here (the JAX CLI's ``advance_with_recovery`` comes with the serve
-tier's recovery).
+run checkpointed by one resumes in the other. A transient failure mid-chunk
+rebuilds the engine and resumes from the last chunk
+(``utils/recovery.advance_with_recovery``).
+
+The operations flags: ``--faults SPEC`` arms a fault-injection schedule
+(``faults.py``), ``--obs [SPEC]`` the telemetry recorder and
+``--trace-out PATH`` a Perfetto trace of the run with the engine's
+per-level track. With ``--stats`` the run also prints the engine-trace
+summary (``trace {...}``: always on a single-source mesh, on the packed
+engines when the recorder is armed) and, when a retry fired, the
+``{"recovery": ...}`` line. On a mesh every rank arms the schedule and
+the recorder, so one spec fires as in the JAX CLI's one process; rank 0
+prints and writes the trace.
+
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine hybrid --stats --trace-out t.json
+    python -m tpu_bfs_torch 0 rmat:scale=14 --ckpt s.npz --faults 'seed=7:transient@advance:n=1' --stats
 
 A mesh run spawns its ranks (``parallel.mesh.launch``): each runs the
 whole command on its device (``cuda:r``, or gloo ranks with ``--device
@@ -213,47 +226,112 @@ def _print_stats(distance, g, gated_tiles=None) -> None:
         print(line)
 
 
-def advance_in_chunks(engine, ckpt, *, levels_per_chunk: int | None = None,
-                      max_level: int | None = None, save=None):
-    """Advance a checkpointed traversal to its end (or to ``max_level``),
-    ``levels_per_chunk`` levels at a time, calling ``save(ckpt)`` after each
-    chunk. The JAX ``advance_with_recovery`` without its retries."""
-    while not ckpt.done and (max_level is None or ckpt.level < max_level):
-        levels = levels_per_chunk
-        if max_level is not None:
-            room = max_level - ckpt.level
-            levels = room if levels is None else min(levels, room)
-        ckpt = engine.advance(ckpt, levels=levels)
-        if save is not None:
-            save(ckpt)
-    return ckpt
+def _print_recovery() -> None:
+    """The recovery counters' line, when a retry or rebuild fired."""
+    from tpu_bfs_torch.utils.stats import recovery_stats_line
+
+    line = recovery_stats_line()
+    if line:
+        print(line)
+
+
+def _rank0() -> bool:
+    return _MESH is None or _MESH.rank == 0
+
+
+def _arm_ops(args) -> None:
+    """Arm the fault schedule (``--faults``, else ``TPU_BFS_FAULTS``) and
+    the telemetry recorder (``--obs``, else ``TPU_BFS_OBS``; ``--trace-out``
+    implies one) in this process; rank 0 of a mesh reports."""
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch import obs
+
+    sched = faults.arm_from_spec_or_env(args.faults)
+    rec = obs.arm_for_run(args.obs, args.trace_out)
+    if not _rank0():
+        return
+    if sched is not None:
+        print(f"[faults] schedule armed: {sched.to_spec()}", file=sys.stderr)
+    if rec is not None:
+        print(f"[obs] telemetry recorder armed (flight window {rec.window_s:.0f}s, dump dir "
+              f"{rec.dump_dir!r})", file=sys.stderr)
+
+
+def _finish_obs(args, engine, label: str) -> None:
+    """The run's epilogue: with --stats the engine-trace summary line; with
+    --trace-out the Perfetto JSON (the recorder's spans and the engine's
+    per-level track)."""
+    import json
+
+    from tpu_bfs_torch import obs
+
+    trace = getattr(engine, "last_run_trace", None)
+    if args.stats and trace:
+        from tpu_bfs_torch.obs.engine_trace import trace_summary
+
+        print("trace " + json.dumps(trace_summary(trace, engine)))
+    rec = obs.ACTIVE
+    if args.trace_out and rec is not None and _rank0():
+        from tpu_bfs_torch.obs.exporters import write_perfetto
+
+        write_perfetto(rec.snapshot(), args.trace_out, t0=rec.t0,
+                       level_traces=[(label, trace)] if trace else [],
+                       meta={"tool": "tpu_bfs_torch", "graph": args.graph})
+        print(f"[obs] trace written -> {args.trace_out}", file=sys.stderr)
+
+
+def _timed_runs(args, run, **span):
+    """``run()`` ``--repeat`` times, each inside a "run" span when the
+    recorder is armed; the last result."""
+    from tpu_bfs_torch import obs
+
+    res = None
+    for rep in range(max(1, args.repeat)):
+        rec = obs.ACTIVE
+        if rec is not None:
+            rec.begin("run", "cli", cat="cli", rep=rep, **span)
+        try:
+            res = run()
+        finally:
+            # finally: a handled truncation must not leave the span open.
+            if rec is not None:
+                rec.end("run", "cli", cat="cli", rep=rep,
+                        levels=None if res is None else res.num_levels)
+    return res
 
 
 def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
     """<source> plus the listed keys in one packed batch, lane 0 validated;
     with ``--ckpt``/``--resume``, a chunked batch through start/advance/finish."""
-    from tpu_bfs_torch import validate
+    from tpu_bfs_torch import obs, validate
 
-    engine = _make_ms_engine(args, g, len(sources))
+    with obs.maybe_span("engine_build", "cli", cat="cli", lanes=args.lanes, engine=args.engine):
+        engine = _make_ms_engine(args, g, len(sources))
     try:
         if args.ckpt or resume_st is not None:
             from tpu_bfs_torch.utils import checkpoint as ck
+            from tpu_bfs_torch.utils.recovery import advance_with_recovery
 
             save = None
             if args.ckpt:
                 def save(c):
-                    if _MESH is None or _MESH.rank == 0:
+                    if _rank0():
                         ck.save_packed_checkpoint(args.ckpt, c)
                     print(f"checkpoint @ level {c.level} -> {args.ckpt}")
             st = resume_st if resume_st is not None else engine.start(sources)
-            st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
-                                   levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None)
+            engine, st, _ = advance_with_recovery(
+                lambda: _make_ms_engine(args, g, len(sources)), st, engine=engine,
+                levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None,
+                max_level=args.max_levels, save=save, log=lambda m: print(f"[recovery] {m}"))
             res = engine.finish(st)
         else:
-            for _ in range(max(1, args.repeat)):
+            def run():
                 res = engine.run(sources, max_levels=args.max_levels, time_it=True)
                 print(f"Elapsed time in milliseconds ({engine.device}): "
                       f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
+                return res
+
+            res = _timed_runs(args, run, sources=len(sources))
     except RuntimeError as exc:
         if "truncated" not in str(exc):
             raise
@@ -281,6 +359,7 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
             # deeper levels of other lanes are where the gate skips most.
             gated = gated.cpu().numpy()[: res.num_levels + 1]
         _print_stats(res.distances_int32(0), g, gated)
+        _print_recovery()
     if args.certify:
         validate.certify_bfs(g, int(sources[0]), res.distances_int32(0), res.parents_int32(0))
         print(f"Output certified (oracle-free, lane 0 of {len(sources)})")
@@ -293,39 +372,44 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
                                    res.parents_int32(0))
         print("Output OK")
     # On a mesh every rank computes (the extraction is collective) and rank 0 saves.
-    rank0 = _MESH is None or _MESH.rank == 0
     if args.save_dist:
         dists = np.stack([res.distances_int32(i) for i in range(len(sources))])
-        if rank0:
+        if _rank0():
             np.save(args.save_dist, dists)
     if args.save_parent:
         out = res.parents_into(np.empty((len(sources), g.num_vertices), np.int32))
-        if rank0:
+        if _rank0():
             np.save(args.save_parent, out)
+    _finish_obs(args, engine, type(engine).__name__)
     return 0
 
 
 def _run_single_source(args, g, golden, resume_st=None) -> int:
     """The reference's own run: one BFS from <source>, timed on the device;
     with ``--ckpt``/``--resume``, a chunked run through start/advance/finish."""
-    from tpu_bfs_torch import validate
+    from tpu_bfs_torch import obs, validate
 
-    engine = _make_single_engine(args, g)
+    with obs.maybe_span("engine_build", "cli", cat="cli", backend=args.backend,
+                        devices=args.devices):
+        engine = _make_single_engine(args, g)
     if args.ckpt or resume_st is not None:
         from tpu_bfs_torch.utils import checkpoint as ck
+        from tpu_bfs_torch.utils.recovery import advance_with_recovery
 
         save = None
         if args.ckpt:
             def save(c):
-                if _MESH is None or _MESH.rank == 0:
+                if _rank0():
                     ck.save_checkpoint(args.ckpt, c)
                 print(f"checkpointed at level {c.level}")
         st = resume_st if resume_st is not None else engine.start(args.source)
-        st = advance_in_chunks(engine, st, save=save, max_level=args.max_levels,
-                               levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None)
+        engine, st, _ = advance_with_recovery(
+            lambda: _make_single_engine(args, g), st, engine=engine,
+            levels_per_chunk=max(1, args.ckpt_every) if args.ckpt else None,
+            max_level=args.max_levels, save=save, log=lambda m: print(f"[recovery] {m}"))
         res = engine.finish(st, with_parents=not args.no_parents)
     else:
-        for _ in range(max(1, args.repeat)):
+        def run():
             res = engine.run(args.source, max_levels=args.max_levels,
                              with_parents=not args.no_parents, time_it=True)
             # The reference prints the device time (bfs.cu:624-626); an
@@ -333,6 +417,9 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
             if res.elapsed_s is not None:
                 print(f"Elapsed time in milliseconds ({engine.device.type}): "
                       f"{res.elapsed_s * 1e3:.3f}")
+            return res
+
+        res = _timed_runs(args, run, source=args.source)
     if res.teps:
         print(f"Traversed edges: {res.edges_traversed}  GTEPS: {res.teps / 1e9:.4f}")
     print(f"Reached {res.reached} vertices in {res.num_levels} levels")
@@ -341,6 +428,7 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
         print(f"Pull gate skipped {skipped} dense-tile passes")
     if args.stats:
         _print_stats(res.distance, g)
+        _print_recovery()
     if args.certify:
         parent = (res.parent if res.parent is not None
                   else validate.min_parent_from_dist(g, res.source, res.distance))
@@ -354,11 +442,11 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
             validate.check_parents(g, res.source, res.distance, res.parent)
         print("Output OK")
     # On a mesh every rank holds the whole result, and rank 0 saves it.
-    rank0 = _MESH is None or _MESH.rank == 0
-    if args.save_dist and rank0:
+    if args.save_dist and _rank0():
         np.save(args.save_dist, res.distance)
-    if args.save_parent and res.parent is not None and rank0:
+    if args.save_parent and res.parent is not None and _rank0():
         np.save(args.save_parent, res.parent)
+    _finish_obs(args, engine, type(engine).__name__)
     return 0
 
 
@@ -451,6 +539,20 @@ def main(argv=None) -> int:
                     "overflowed every rung, with the frontier still growing, takes the dense "
                     "exchange without the measuring read. Single-source mesh runs with "
                     "--exchange sparse")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="arm a deterministic fault-injection schedule (tpu_bfs_torch/faults.py), "
+                    "e.g. 'seed=7:transient@advance:n=1,corrupt_ckpt:n=1'; default: the "
+                    "TPU_BFS_FAULTS env var, else disabled. --stats prints the recovery "
+                    "counters when a retry fired")
+    ap.add_argument("--obs", default=None, metavar="SPEC", nargs="?", const="1",
+                    help="arm the telemetry recorder (tpu_bfs_torch/obs): span tracing, the "
+                    "packed engines' per-level traces and the flight recorder. SPEC e.g. "
+                    "'dump_dir=/tmp/fr,window=60'; bare --obs uses defaults; default: the "
+                    "TPU_BFS_OBS env var, else disabled. --stats adds the trace-summary line")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace-event JSON of the run here (host spans "
+                    "and a per-level engine-trace track: frontier count, direction, gated "
+                    "tiles, exchange choice, modeled wire bytes; implies --obs)")
     args = ap.parse_args(argv)
     multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
     if args.pull_gate and not multi and (args.backend != "tiled" or on_mesh):
@@ -491,6 +593,7 @@ def main(argv=None) -> int:
         if _MESH is None:
             ranks = args.devices if not args.mesh else args.mesh_shape[0] * args.mesh_shape[1]
             return _run_mesh(args, ranks, sys.argv[1:] if argv is None else list(argv))
+    _arm_ops(args)
     if (args.ckpt or args.resume) and args.multi_source is not None and args.engine == "packed":
         ap.error("--ckpt/--resume with --multi-source needs the wide or hybrid engine (the "
                  "512-lane packed engine keeps no resumable state)")
@@ -520,8 +623,11 @@ def main(argv=None) -> int:
 
     from tpu_bfs_torch.reference import bfs_golden
 
+    from tpu_bfs_torch import obs
+
     t0 = time.perf_counter()
-    g = load_graph(args.graph)
+    with obs.maybe_span("graph_load", "cli", cat="cli", graph=args.graph):
+        g = load_graph(args.graph)
     # The reference prints these (bfs.cu:789-790).
     print(f"Number of vertices {g.num_vertices}")
     print(f"Number of edges {g.num_edges}")

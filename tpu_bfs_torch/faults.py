@@ -6,21 +6,27 @@ The spec grammar, the site and kind tables and the schedule are the JAX
 package's, whole, so one spec string arms both packages identically. The
 port visits these sites:
 
-============ =====================================================
-site         where it lives
-============ =====================================================
-dispatch     algorithms/_packed_common.dispatch_packed_batch
-fetch        algorithms/_packed_common.fetch_packed_batch
-serve_batch  serve/executor.BatchExecutor.dispatch_batch
-engine_build serve/registry.EngineRegistry._build_inner
-cache_lookup serve/answercache.AnswerCache.get
-============ =====================================================
+================ ===================================================
+site             where it lives
+================ ===================================================
+dispatch         algorithms/_packed_common.dispatch_packed_batch
+fetch            algorithms/_packed_common.fetch_packed_batch
+serve_batch      serve/executor.BatchExecutor.dispatch_batch
+engine_build     serve/registry.EngineRegistry._build_inner
+cache_lookup     serve/answercache.AnswerCache.get
+ckpt_save        utils/checkpoint._atomic_savez (+ maybe_corrupt_file)
+ckpt_load        utils/checkpoint._load_npz_verified
+advance          utils/recovery.advance_with_recovery
+sssp_dispatch    workloads/sssp.SsspEngine.dispatch (and DistSsspEngine)
+sssp_fetch       workloads/sssp.SsspEngine.fetch (and DistSsspEngine)
+audit_structural integrity/structural.StructuralAuditor.audit
+audit_shadow     integrity/shadow.ShadowAuditor._replay
+================ ===================================================
 
-The other sites of the table wait for their readers: ``ckpt_save``,
-``ckpt_load``, ``advance``, ``sssp_dispatch`` and ``sssp_fetch`` (ROADMAP
-Queue 1 item 4), ``probe`` (the mesh serve slice), ``audit_*`` (integrity),
-``generation_flip`` and ``compact`` (dynamic graphs) and ``aot_load``
-(item 5). A clause naming one of them parses and never fires.
+The other sites of the table wait for their readers: ``probe`` (the mesh
+serve slice, ROADMAP Queue 1 entry 5), ``generation_flip`` and ``compact``
+(dynamic graphs, entry 4) and ``aot_load`` (entry 6). A clause naming one
+of them parses and never fires.
 
 Production code never pays for this when disabled: every site guard is
 one module-attribute check (``if faults.ACTIVE is not None``) against a
@@ -487,6 +493,42 @@ def arm_from_spec_or_env(spec: str | None,
 def disarm() -> None:
     global ACTIVE
     ACTIVE = None
+
+
+def corruption_offset(path: str) -> int:
+    """A byte offset inside real payload: the first byte of a zip
+    archive's last member's compressed data (checkpoints are npz, a zip).
+    A flip at an arbitrary offset can land in zip slack and leave the file
+    intact, which would make a corruption drill vacuous. The file's
+    midpoint for a file that is not a zip."""
+    try:
+        import struct
+        import zipfile
+
+        with zipfile.ZipFile(path) as z:
+            info = z.infolist()[-1]
+        with open(path, "rb") as f:
+            f.seek(info.header_offset + 26)
+            nlen, elen = struct.unpack("<HH", f.read(4))
+        return info.header_offset + 30 + nlen + elen
+    except Exception:  # noqa: BLE001 — not a zip: the midpoint
+        return os.path.getsize(path) // 2
+
+
+def maybe_corrupt_file(path: str) -> bool:
+    """``ckpt_save`` site hook for ``corrupt_ckpt`` rules: flip one payload
+    byte after a completed atomic write, the storage corruption the
+    load-side CRC must catch. True when it fired."""
+    sched = ACTIVE
+    if sched is None or not sched.take("ckpt_save", "corrupt_ckpt", path=path):
+        return False
+    off = corruption_offset(path)
+    with open(path, "r+b") as f:
+        f.seek(off)
+        byte = f.read(1) or b"\x00"
+        f.seek(off)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return True
 
 
 def mesh_devices(engine) -> int:

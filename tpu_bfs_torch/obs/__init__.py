@@ -22,8 +22,10 @@ What the armed recorder collects:
   trace-event JSON (``--trace-out``), Prometheus-style text (``/metricz``
   via ``BfsService.metricz`` and ``--metricz-out``) and plain JSONL.
 
-The engines' per-level traces (``last_run_trace``, JAX's
-``obs/engine_trace.py``) are not ported yet (ROADMAP Queue 1 item 3.6).
+- **per-level engine traces** (:mod:`~tpu_bfs_torch.obs.engine_trace`):
+  ``last_run_trace`` on the single-source mesh engines (always) and the
+  packed engines (recorded by an armed fetch), summarised by the CLI's
+  ``trace`` line and drawn as level tracks in the Perfetto file.
 
 Spec grammar (``--obs`` / ``TPU_BFS_OBS``)::
 

@@ -51,11 +51,42 @@ def trace_events(events, *, t0: float = 0.0, pid: int = 0) -> list[dict]:
     return out
 
 
-def write_perfetto(events, path: str, *, t0: float = 0.0,
+def level_trace_events(trace, *, t0_us: float = 0.0, label: str = "engine",
+                       pid: int = 0, tid: int = 0) -> list[dict]:
+    """Per-level engine-trace rows (``engine.last_run_trace``) as one
+    synthetic track: one instant event a level, its row in ``args``.
+    Levels have no host timestamps of their own, so rows sit 1 us apart
+    from ``t0_us``: a logical axis."""
+    out = [{
+        "ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+        "args": {"name": f"{label} levels"},
+    }]
+    for row in trace or ():
+        out.append({
+            "name": f"level {row.get('level')}",
+            "cat": "engine.level",
+            "ph": "i",
+            "ts": round(t0_us + float(row.get("level", 0)), 3),
+            "pid": pid,
+            "tid": tid,
+            "s": "t",
+            "args": dict(row),
+        })
+    return out
+
+
+def write_perfetto(events, path: str, *, t0: float = 0.0, level_traces=(),
                    meta: dict | None = None) -> str:
-    """Write one Perfetto-loadable JSON file of the recorder's events.
-    Returns ``path``."""
-    doc = {"traceEvents": trace_events(events, t0=t0), "displayTimeUnit": "ms"}
+    """Write one Perfetto-loadable JSON file: the recorder's events plus a
+    level track for each ``(label, last_run_trace)`` pair. Returns
+    ``path``."""
+    evs = trace_events(events, t0=t0)
+    tid = 1000  # level tracks sit far from real thread ids
+    t_end = max((e["ts"] for e in evs if "ts" in e), default=0.0)
+    for label, trace in level_traces:
+        evs.extend(level_trace_events(trace, t0_us=t_end, label=label, tid=tid))
+        tid += 1
+    doc = {"traceEvents": evs, "displayTimeUnit": "ms"}
     if meta:
         doc["metadata"] = meta
     with open(path, "w") as f:

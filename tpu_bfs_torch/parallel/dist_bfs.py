@@ -51,6 +51,7 @@ from tpu_bfs_torch.algorithms.frontier import (
     expand_or,
 )
 from tpu_bfs_torch.graph.csr import INF_DIST, Graph
+from tpu_bfs_torch.obs.engine_trace import DistTraceHost, LevelRecord
 from tpu_bfs_torch.parallel.collectives import (
     ExchangeAccounting,
     check_delta_bits,
@@ -314,7 +315,7 @@ class PlannedExchange(ExchangeAccounting):
                                  wire_pack=self.wire_pack), 0, 0
 
 
-class DistBfsEngine(PlannedExchange, VertexCheckpointMixin):
+class DistBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
     """Single-source BFS over a 1D vertex partition, built inside every
     rank of ``mesh`` (default: this process's rank group, CUDA unless
     ``device`` names another). With one rank it is ``BfsEngine`` plus the
@@ -394,6 +395,7 @@ class DistBfsEngine(PlannedExchange, VertexCheckpointMixin):
         level, count, info = level0, first[0], first[1:]
         syncs = 0
         plan = PlannerCarry(vis_total)
+        trace = LevelRecord(level0)
         while count > 0 and level < max_levels:
             contrib = self._expand(frontier, *info)
             hit, branch, reads = self._exchange_step(contrib, mesh, visited, plan, count)
@@ -402,14 +404,16 @@ class DistBfsEngine(PlannedExchange, VertexCheckpointMixin):
             dist.masked_fill_(new, level + 1)
             visited |= new
             frontier = new
-            level += 1
             sums = self._expand.sums(new) if dopt else new.sum(dtype=torch.int64).reshape(1)
             total = mesh.all_reduce_(sums[:1].clone(), "sum")
             front = count
             count, *info = torch.cat([total, sums] if dopt else [total]).tolist()
+            trace.add(level, count, branch)
+            level += 1
             plan.advance(front, count)
             syncs += 1 + reads
         self.last_host_syncs = syncs
+        self._record_trace(trace, level - level0)
         return frontier, level, counts
 
     def _fresh_state(self, source: int):

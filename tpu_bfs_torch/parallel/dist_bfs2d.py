@@ -37,6 +37,7 @@ from tpu_bfs_torch.algorithms.frontier import (
     expand_or,
 )
 from tpu_bfs_torch.graph.csr import Graph
+from tpu_bfs_torch.obs.engine_trace import DistTraceHost, LevelRecord
 from tpu_bfs_torch.parallel.collectives import (
     column_gather_wire_bytes,
     pack_bits,
@@ -59,7 +60,7 @@ def partition_shard_2d(graph: Graph, mesh: Mesh2D):
     return partition_2d_rank(graph, mesh.rows, mesh.cols, mesh.r.rank, mesh.c.rank)
 
 
-class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin):
+class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
     """BFS over an R x C mesh (a :class:`~tpu_bfs_torch.parallel.mesh.Mesh2D`,
     default ``make_mesh_2d(1, 1)``) with 2D edge
     partitioning; the API of ``DistBfsEngine``. ``exchange`` is the row
@@ -154,6 +155,7 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin):
         # The sieve prices against this row's [C*w] chunks: the mesh's
         # visited total scaled down by the row count, as in JAX.
         plan = PlannerCarry(vis_total)
+        trace = LevelRecord(level0)
         while count > 0 and level < max_levels:
             contrib = self._expand(col_frontier, *info)
             hit, branch, reads = self._exchange_step(contrib, mesh.c, visited, plan, count,
@@ -162,7 +164,6 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin):
             dist.masked_fill_(new, level + 1)
             visited |= new
             frontier = new
-            level += 1
             col_frontier = self._gather_col(new)
             parts = [mesh.world.all_reduce_(new.sum(dtype=torch.int64).reshape(1), "sum")]
             if dopt:
@@ -173,10 +174,14 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin):
             vals = torch.cat(parts).tolist()
             front = count
             count, info = vals[0], vals[1:3] if dopt else ()
-            counts[vals[-1] if sparse else 0] += 1
+            recorded = vals[-1] if sparse else 0  # the row MAX when rows split
+            counts[recorded] += 1
+            trace.add(level, count, recorded)
+            level += 1
             plan.advance(front, count)
             syncs += 1 + reads
         self.last_host_syncs = syncs
+        self._record_trace(trace, level - level0)
         return frontier, level, counts
 
     def _fresh_state(self, source: int):

@@ -15,10 +15,13 @@ scheduler at all:
   entry. The ``stale_cache`` kind mutates a CRC-valid hit instead;
 - **population at resolve time**: the extraction worker calls ``put``
   after a batch resolves (``serve/frontend._finish``); the dispatch path
-  never writes the cache.
+  never writes the cache;
+- **generation quarantine**: a confirmed stale or corrupt cached answer
+  (the integrity tier's shadow audit) bumps the cache generation, which
+  is part of every key, and drops the store.
 
-The JAX cache's generation axis serves the dynamic-graph flip and the
-integrity tier's quarantine, neither ported yet (ROADMAP Queue 1 item 4).
+The JAX cache's graph-generation axis serves the dynamic-graph flip, not
+ported yet (ROADMAP Queue 1 entry 4).
 
 Thread-safe: client threads call ``get`` concurrently with the extraction
 worker's ``put``; one lock guards the store.
@@ -87,9 +90,12 @@ class AnswerCache:
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()  # guarded-by: _lock
         self._bytes = 0  # guarded-by: _lock
+        self._generation = 0  # guarded-by: _lock
+        self._quarantines = 0  # guarded-by: _lock
 
     def _key(self, kind, source, k, target, want_distances) -> tuple:
-        return (self.graph_key, kind, int(source),
+        # Callers hold _lock (the generation is part of the key).
+        return (self.graph_key, self._generation, kind, int(source),
                 None if k is None else int(k),
                 None if target is None else int(target),
                 bool(want_distances))
@@ -135,8 +141,8 @@ class AnswerCache:
         ``levels``, ``reached``, ``extras``, ``width``, ``devices``) or None
         on a miss, including a hit whose CRC check failed (the entry is
         evicted and the miss counted)."""
-        key = self._key(kind, source, k, target, want_distances)
         with self._lock:
+            key = self._key(kind, source, k, target, want_distances)
             e = self._entries.get(key)
             if e is not None:
                 self._entries.move_to_end(key)
@@ -187,19 +193,43 @@ class AnswerCache:
         rec = _obs.ACTIVE
         if rec is not None:
             rec.event("cache_corrupt_entry", cat="serve.cache",
-                      kind=key[1], source=key[2])
+                      kind=key[2], source=key[3])
         if self.metrics is not None:
             self.metrics.record_cache_eviction()
             self.metrics.record_cache_miss()
             self.metrics.set_cache_bytes(nbytes_now)
 
+    def quarantine_generation(self, *, detail: str = "") -> int:
+        """A confirmed stale or corrupt CACHED answer poisons trust in the
+        whole resident generation: bump the generation (every old key
+        becomes unreachable) and drop the store. Returns the new one."""
+        with self._lock:
+            self._generation += 1
+            self._quarantines += 1
+            self._entries.clear()
+            self._bytes = 0
+            gen = self._generation
+        self.log(f"answer cache QUARANTINED -> generation {gen}"
+                 + (f" ({detail})" if detail else ""))
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("cache_quarantine", cat="serve.cache", generation=gen, detail=detail)
+            rec.flight_dump("cache_quarantine")
+        if self.metrics is not None:
+            self.metrics.record_cache_quarantine()
+            self.metrics.set_cache_bytes(0)
+        return gen
+
     def config_summary(self) -> dict:
-        """The statsz echo: entries, resident bytes and the budget."""
+        """The statsz echo: entries, resident bytes, the budget, the
+        generation and its quarantines."""
         with self._lock:
             return {
                 "entries": len(self._entries),
                 "bytes": self._bytes,
                 "max_bytes": self.max_bytes,
+                "generation": self._generation,
+                "quarantines": self._quarantines,
             }
 
     def __len__(self) -> int:

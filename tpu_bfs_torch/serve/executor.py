@@ -173,6 +173,22 @@ class CircuitBreaker:
             )
         return opened
 
+    def trip(self, key) -> None:
+        """Force-open ``key`` at once: the integrity tier's corruption
+        quarantine. A rung whose audited answer was provably corrupt stops
+        taking traffic now, not after ``threshold`` more wrong batches; it
+        half-opens on the ordinary cooldown (the evicted rung's rebuild
+        gets its probe batch)."""
+        with self._lock:
+            st = self._state.setdefault(key, [self.CLOSED, 0, 0.0])
+            st[0] = self.OPEN
+            st[1] = max(st[1], self.threshold)
+            st[2] = self._now()
+            self.opens += 1
+        COUNTERS.bump("breaker_opens")
+        self._log(f"circuit breaker FORCED OPEN for {key} (corruption "
+                  f"quarantine; cooldown {self.cooldown_s:.1f}s)")
+
     def open_keys(self) -> list:
         """Keys currently open or half-open (for statsz)."""
         with self._lock:

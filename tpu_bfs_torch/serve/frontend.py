@@ -25,12 +25,19 @@ batch N+1 while batch N's distances are copied to the host. On the card
 the worker extracts on its own CUDA stream, ordered after each batch's
 dispatch by the event the executor records (``serve/executor.py``).
 
+The integrity tier (``tpu_bfs_torch/integrity``) is armed by the audit
+knobs: ``audit_structural`` checks sampled lanes of every served batch
+against the graph's tree properties on the device, ``audit_rate``
+replays that share of resolved queries on a disjoint rung and
+bit-compares them, ``audit_checksum`` folds both sides of each audited
+row's copy; a confirmed finding quarantines the rung that served it.
+
 Not ported yet, each raising ``NotImplementedError`` at construction with
 its ROADMAP item: the mesh (``devices > 1``, ``mesh_shape``,
 ``exchange``, ``wire_pack``, ``delta_bits``, ``sieve``, ``predict``,
-``resume_levels``, ``mesh_probe_interval_s``), the integrity tier
-(``audit_*``), dynamic graphs (``dynamic``, ``generation_dir``,
-``staleness_bound``) and AOT preheat (``aot_dir``).
+``resume_levels``, ``mesh_probe_interval_s``), dynamic graphs
+(``dynamic``, ``generation_dir``, ``staleness_bound``) and AOT preheat
+(``aot_dir``).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from tpu_bfs_torch.serve.executor import (
     BatchExecutor,
     CircuitBreaker,
     OomRequeue,
+    _stream_ctx,
     breaker_key,
     engine_device,
 )
@@ -95,7 +103,6 @@ MIN_LANES = 32
 # top), bounding pad waste per batch below 3/4 of the dispatched width.
 LADDER_FACTOR = 4
 
-INTEGRITY_ITEM = "ROADMAP Queue 1 item 4 (integrity/, the audit tier)"
 DYNAMIC_ITEM = "ROADMAP Queue 1 item 4 (graph/dynamic.py, dynamic graphs)"
 AOT_ITEM = "ROADMAP Queue 1 item 5 (utils/aot.py preheat)"
 
@@ -140,8 +147,7 @@ def build_width_ladder(lanes: int, ladder="auto", *, engine: str = "wide") -> li
 
 def _refuse_unported(*, devices, exchange, wire_pack, delta_bits, sieve,
                      predict, mesh_shape, resume_levels,
-                     mesh_probe_interval_s, audit_rate, audit_structural,
-                     audit_checksum, audit_seed, dynamic, generation_dir,
+                     mesh_probe_interval_s, dynamic, generation_dir,
                      staleness_bound, aot_dir) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of the first
     constructor argument whose feature is not ported yet."""
@@ -150,12 +156,10 @@ def _refuse_unported(*, devices, exchange, wire_pack, delta_bits, sieve,
             "sieve": sieve, "predict": predict,
             "mesh_shape": tuple(mesh_shape), "resume_levels": resume_levels,
             "mesh_probe_interval_s": mesh_probe_interval_s}
-    audit = {"audit_rate": audit_rate, "audit_structural": audit_structural,
-             "audit_checksum": audit_checksum, "audit_seed": audit_seed}
     dyn = {"dynamic": dynamic, "generation_dir": generation_dir,
            "staleness_bound": staleness_bound}
-    for group, item in ((mesh, MESH_SERVE_ITEM), (audit, INTEGRITY_ITEM),
-                        (dyn, DYNAMIC_ITEM), ({"aot_dir": aot_dir}, AOT_ITEM)):
+    for group, item in ((mesh, MESH_SERVE_ITEM), (dyn, DYNAMIC_ITEM),
+                        ({"aot_dir": aot_dir}, AOT_ITEM)):
         for name, val in group.items():
             if val:
                 raise NotImplementedError(
@@ -184,8 +188,10 @@ class BfsService:
     never copy it off the device. ``kinds`` picks the query kinds served
     (default: all this engine and graph support). ``cache_bytes`` arms the
     answer cache and ``landmarks`` the landmark p2p tier; ``single_flight``
-    collapses identical in-flight queries. ``device`` is the torch device
-    of the service's own registry (None: CUDA, raising without a card).
+    collapses identical in-flight queries. ``audit_rate``,
+    ``audit_structural``, ``audit_checksum`` and ``audit_seed`` arm the
+    integrity tier (module docstring). ``device`` is the torch device of
+    the service's own registry (None: CUDA, raising without a card).
     """
 
     def __init__(
@@ -239,10 +245,7 @@ class BfsService:
             devices=devices, exchange=exchange, wire_pack=wire_pack,
             delta_bits=delta_bits, sieve=sieve, predict=predict,
             mesh_shape=mesh_shape, resume_levels=resume_levels,
-            mesh_probe_interval_s=mesh_probe_interval_s,
-            audit_rate=audit_rate, audit_structural=audit_structural,
-            audit_checksum=audit_checksum, audit_seed=audit_seed,
-            dynamic=dynamic, generation_dir=generation_dir,
+            mesh_probe_interval_s=mesh_probe_interval_s, dynamic=dynamic, generation_dir=generation_dir,
             staleness_bound=staleness_bound, aot_dir=aot_dir,
         )
         if engine == "dist2d":
@@ -319,6 +322,25 @@ class BfsService:
         # Bounded OOM requeue budget: a query re-admitted more than this
         # many times resolves with an error carrying its attempt history.
         self._max_requeues = max(int(max_requeues), 0)
+        # The integrity tier, armed by any audit knob; a disarmed service
+        # holds None and pays nothing. flush_audits waits for no batch in
+        # the finish-and-observe window and an empty pipeline.
+        self._audit_quiesce = threading.Lock()
+        self._finishing = 0  # guarded-by: _audit_quiesce
+        if audit_rate > 0 or audit_structural or audit_checksum:
+            from tpu_bfs_torch.integrity import IntegrityTier
+
+            self._integrity = IntegrityTier(
+                self, rate=audit_rate,
+                structural=bool(audit_structural) or bool(audit_checksum),
+                checksum=audit_checksum, seed=audit_seed,
+            )
+            if registry is None:
+                # The shadow replays keep a disjoint rung (plus a rebuild
+                # slot) resident beside the serving ladder.
+                self._registry.capacity = self._registry.capacity + 2
+        else:
+            self._integrity = None
         # Answer tier: single-flight (on by default) is independent of the
         # cache; hits bypass the scheduler and stamp provenance.
         self._inflight = InflightIndex() if single_flight else None
@@ -384,6 +406,8 @@ class BfsService:
                 target=self._loop, name="bfs-serve-scheduler", daemon=True
             )
             self._thread.start()
+            if self._integrity is not None:
+                self._integrity.start()
         return self
 
     def drain(self) -> None:
@@ -408,6 +432,10 @@ class BfsService:
             if extract_thread is not None:
                 self._pipe_q.put(None)  # after scheduler exit: no more puts
                 extract_thread.join()
+            if self._integrity is not None:
+                # After both serving threads: close() drains every queued
+                # audit, so the final statsz carries complete counts.
+                self._integrity.close()
         else:
             # Never started: drain staged queries here instead.
             for q in self._queue.next_batch(self._queue.cap, 0.0):
@@ -577,6 +605,7 @@ class BfsService:
             batch_lanes=0, dispatched_lanes=0, devices=hit["devices"],
         )):
             self.metrics.record_cache_hit(lat)
+            self._audit_answer(q, origin="cache")
 
     def _resolve_landmark(self, q: PendingQuery, extras: dict) -> None:
         lat = (time.monotonic() - q.t_submit) * 1e3
@@ -586,6 +615,14 @@ class BfsService:
             batch_lanes=0, dispatched_lanes=0,
         )):
             self.metrics.record_cache_hit(lat, landmark=True)
+            self._audit_answer(q, origin="landmark")
+
+    def _audit_answer(self, q: PendingQuery, *, origin: str) -> None:
+        """Sampled shadow audit of a cache- or landmark-resolved answer: a
+        confirmed mismatch quarantines the answer tier, not a rung."""
+        tier = self._integrity
+        if tier is not None:
+            tier.observe_answer(q, origin=origin)
 
     def _account_follower(self, q: PendingQuery) -> None:
         """Metrics of a single-flight follower's resolution, by terminal
@@ -633,6 +670,22 @@ class BfsService:
                 f"{str(exc)[:200]}); serving without the landmark tier"
             )
 
+    def quarantine_answer_tier(self, origin: str, detail: str = "") -> None:
+        """A confirmed stale or corrupt cached or landmark answer: the
+        suspect is stored state, not a rung. Quarantine the cache
+        generation, or drop the landmark columns."""
+        if origin == "landmark":
+            self._landmarks = None
+            self._log("landmark tier DROPPED after a confirmed stale answer"
+                      + (f" ({detail[:200]})" if detail else ""))
+            rec = _obs.ACTIVE
+            if rec is not None:
+                rec.event("landmark_quarantine", cat="serve.cache", detail=detail[:300])
+                rec.flight_dump("landmark_quarantine")
+            return
+        if self._cache is not None:
+            self._cache.quarantine_generation(detail=detail)
+
     def query(self, source, *, timeout: float | None = None,
               deadline_ms: float | None = None,
               want_distances: bool | None = None, kind: str = "bfs",
@@ -652,6 +705,8 @@ class BfsService:
             "draining": self._draining,
             "devices": 1,
         }
+        if self._integrity is not None:
+            out["audit"] = self._integrity.config_summary()
         if self._cache is not None:
             out["cache"] = self._cache.config_summary()
         lm = self._landmarks
@@ -828,12 +883,61 @@ class BfsService:
         if n:
             self.metrics.record_errors(n)
 
+    # --- integrity tier ---------------------------------------------------
+
+    def _quarantine_rung(self, width: int, kind: str) -> None:
+        """Corruption quarantine: evict the suspect rung (its rebuild clears
+        its device state) and force-open its breaker so routing stops
+        offering it until the cooldown's probe batch."""
+        self._registry.evict(self._spec(width, kind=kind))
+        self._breaker.trip(breaker_key(width, 1, kind))
+
+    def _escalate_mesh(self, devices: int, cause) -> None:
+        """Repeated corruption on a mesh runs the mesh degrade ladder in
+        JAX; a one-device service has no mesh to degrade."""
+
+    def _shadow_spec(self, width: int, kind: str) -> EngineSpec:
+        """The DISJOINT engine a shadow replay of a ``width``-lane answer
+        runs on: another ladder rung when one exists, else a width off the
+        ladder (half, or one quantum more at the floor)."""
+        others = [w for w in self.width_ladder if w != width]
+        if others:
+            return self._spec(others[0], kind=kind)
+        floor, quantum = self._width_floor, self._width_quantum
+        w2 = max(floor, (width // 2) // quantum * quantum)
+        if w2 == width:
+            w2 = width + quantum
+        return self._spec(w2, kind=kind)
+
+    def _acquire_shadow_engine(self, width: int, kind: str):
+        """The shadow auditor's engine: the disjoint rung, warmed and kept
+        resident through the registry."""
+        return self._registry.get(self._shadow_spec(width, kind))
+
+    def flush_audits(self, timeout: float = 60.0) -> bool:
+        """Barrier: every enqueued audit processed (callers read the audit
+        counters after this). True when flushed, or when disarmed."""
+        if self._integrity is None:
+            return True
+        return self._integrity.flush(timeout)
+
     def _finish(self, pending, stream=None) -> None:
         """The extraction half, inline or on the worker (on ``stream``).
         Never lets an exception escape with queries unresolved."""
+        with self._audit_quiesce:
+            self._finishing += 1
         try:
             self._executor.finish_batch(pending, stream)
             self._populate_cache(pending)
+            tier = self._integrity
+            if tier is not None:
+                # Every query of the batch is resolved: audits add no
+                # client latency, and observe_batch catches everything.
+                # The audit's device work (the structural check's copy,
+                # gathers and count) runs on the extraction stream, never
+                # between the next batch's level kernels.
+                with _stream_ctx(stream):
+                    tier.observe_batch(pending)
         except OomRequeue as exc:
             width = pending.lanes
             # Drop the OOM'd engine's references before the narrower
@@ -856,6 +960,9 @@ class BfsService:
                     n += 1
             if n:
                 self.metrics.record_errors(n)
+        finally:
+            with self._audit_quiesce:
+                self._finishing -= 1
 
     def _populate_cache(self, pending) -> None:
         """After a batch's queries resolved (on the extraction worker),
@@ -1102,13 +1209,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="how long an open breaker waits before admitting "
                     "one half-open probe batch (default 30000)")
     ap.add_argument("--audit-rate", type=float, default=0.0, metavar="R",
-                    help="shadow audits (refused: the integrity tier)")
+                    help="integrity tier: replay this fraction of resolved "
+                    "queries on a disjoint rung and bit-compare (a mismatch "
+                    "quarantines the serving rung); 0 disables (default)")
     ap.add_argument("--audit-structural", action="store_true",
-                    help="structural audits (refused: the integrity tier)")
+                    help="integrity tier: check one sampled lane of every "
+                    "served batch against the tree properties on the device")
     ap.add_argument("--audit-checksum", action="store_true",
-                    help="wire checksums (refused: the integrity tier)")
+                    help="integrity tier: fold both sides of each audited "
+                    "row's host-to-device copy (implies --audit-structural)")
     ap.add_argument("--audit-seed", type=int, default=0,
-                    help="audit sampler seed (refused: the integrity tier)")
+                    help="seed of the deterministic audit sampler (default 0)")
     ap.add_argument("--cache-bytes", type=int, default=0, metavar="N",
                     help="answer cache: byte-budgeted LRU of resolved "
                     "payloads, CRC32-verified at every hit; 0 disables "
@@ -1143,6 +1254,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="seconds between periodic telemetry emissions "
                     "(the stderr statsz line and the --metricz-out text); "
                     "0 disables. Default: TPU_BFS_STATSZ_INTERVAL, else 10")
+    ap.add_argument("--statsz-every", type=float, default=None,
+                    help="legacy alias of --statsz-interval-s")
     ap.add_argument("--obs", default=None, metavar="SPEC", nargs="?",
                     const="1",
                     help="arm the telemetry recorder (tpu_bfs_torch/obs): "
@@ -1224,9 +1337,12 @@ DEFAULT_STATSZ_INTERVAL_S = 10.0
 
 
 def resolve_statsz_interval(args, *, env=None) -> float:
-    """``--statsz-interval-s`` wins, then ``TPU_BFS_STATSZ_INTERVAL``, then
-    10 s; an unparsable environment value falls back to the default."""
-    interval = args.statsz_interval_s
+    """``--statsz-interval-s`` wins, then the legacy ``--statsz-every``,
+    then ``TPU_BFS_STATSZ_INTERVAL``, then 10 s; an unparsable environment
+    value falls back to the default."""
+    interval = getattr(args, "statsz_interval_s", None)
+    if interval is None:
+        interval = getattr(args, "statsz_every", None)
     if interval is None:
         env_iv = (env if env is not None
                   else os.environ.get("TPU_BFS_STATSZ_INTERVAL", "")).strip()
@@ -1488,9 +1604,15 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
         if args.trace_out and recorder is not None:
             from tpu_bfs_torch.obs.exporters import write_perfetto
 
+            # A level track for each resident engine that recorded a
+            # per-level trace (armed runs only).
+            level_traces = [(f"{spec.engine}/w{spec.lanes}", eng.last_run_trace)
+                            for spec, eng in service._registry.resident_engines()
+                            if getattr(eng, "last_run_trace", None)]
             try:
                 write_perfetto(
                     recorder.snapshot(), args.trace_out, t0=recorder.t0,
+                    level_traces=level_traces,
                     meta={"tool": "tpu_bfs_torch.serve", "graph": args.graph},
                 )
                 log(f"trace written -> {args.trace_out}")

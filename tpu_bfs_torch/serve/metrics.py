@@ -16,10 +16,9 @@ two-window recent span (``RECENT_WINDOW_S``), so a slow cold batch ages
 out of p99.
 
 The snapshot carries the JAX package's keys, so the two statsz lines and
-Prometheus texts compare key for key. The mesh-failover and integrity
-counters (``mesh_*``, ``audit*``, ``quarantines``) and
-``cache_quarantines`` stay 0 until their tiers are ported (ROADMAP Queue 1
-item 4).
+Prometheus texts compare key for key. The mesh-failover counters
+(``mesh_*``) stay 0 until the mesh serve tier is ported (ROADMAP Queue 1
+entry 5).
 """
 
 from __future__ import annotations
@@ -180,15 +179,19 @@ class ServeMetrics:
         self.requeued = 0  # guarded-by: _lock — re-admitted after OOM'd batch
         self.watchdog_trips = 0  # guarded-by: _lock — watchdog firings
         self.requeue_shed = 0  # guarded-by: _lock — shed at requeue budget
-        # Mesh failover and the integrity tier: not ported yet, so these
-        # stay 0 (the snapshot keeps the JAX package's keys).
+        # Mesh failover: not ported yet, so these stay 0 (the snapshot
+        # keeps the JAX package's keys).
         self.mesh_faults = 0  # guarded-by: _lock
         self.mesh_degrades = 0  # guarded-by: _lock
+        # Integrity tier: audits run and failed, audit errors, audits
+        # shed, and rung quarantines. The lag histogram prices how far
+        # behind the served answer its verdict lands (audit_p50_lag_ms).
         self.audits_run = 0  # guarded-by: _lock
         self.audit_failures = 0  # guarded-by: _lock
         self.audit_errors = 0  # guarded-by: _lock
         self.audit_dropped = 0  # guarded-by: _lock
         self.quarantines = 0  # guarded-by: _lock
+        self._audit_lag_hist = Log2Histogram()  # guarded-by: _lock
         # Answer cache + landmark tier. cache_bytes is a GAUGE (resident
         # payload bytes, set by the cache after every mutation); everything
         # else is monotonic. The hit histogram prices the bypass path
@@ -197,7 +200,7 @@ class ServeMetrics:
         self.cache_misses = 0  # guarded-by: _lock
         self.cache_evictions = 0  # guarded-by: _lock
         self.cache_bytes = 0  # guarded-by: _lock — gauge
-        self.cache_quarantines = 0  # guarded-by: _lock — stays 0 (no audit tier)
+        self.cache_quarantines = 0  # guarded-by: _lock
         self.single_flight_collapses = 0  # guarded-by: _lock
         self.landmark_exact = 0  # guarded-by: _lock
         self.landmark_bounded = 0  # guarded-by: _lock
@@ -281,6 +284,25 @@ class ServeMetrics:
         with self._lock:
             self.requeue_shed += n
 
+    def record_audit(self, lag_ms: float, *, failed: bool = False) -> None:
+        with self._lock:
+            self.audits_run += 1
+            if failed:
+                self.audit_failures += 1
+            self._audit_lag_hist.add(lag_ms)
+
+    def record_audit_error(self) -> None:
+        with self._lock:
+            self.audit_errors += 1
+
+    def record_audit_dropped(self) -> None:
+        with self._lock:
+            self.audit_dropped += 1
+
+    def record_quarantine(self) -> None:
+        with self._lock:
+            self.quarantines += 1
+
     def record_cache_hit(self, latency_ms: float, *,
                          landmark: bool = False) -> None:
         """One query resolved WITHOUT a traversal. Counts toward
@@ -309,6 +331,10 @@ class ServeMetrics:
     def record_cache_eviction(self, n: int = 1) -> None:
         with self._lock:
             self.cache_evictions += n
+
+    def record_cache_quarantine(self) -> None:
+        with self._lock:
+            self.cache_quarantines += 1
 
     def set_cache_bytes(self, nbytes: int) -> None:
         with self._lock:
@@ -395,7 +421,7 @@ class ServeMetrics:
                 "audit_failures": self.audit_failures,
                 "audit_errors": self.audit_errors,
                 "audit_dropped": self.audit_dropped,
-                "audit_p50_lag_ms": None,
+                "audit_p50_lag_ms": self._round(self._audit_lag_hist.percentile(50)),
                 "quarantines": self.quarantines,
                 "cache_hits": self.cache_hits,
                 "cache_misses": self.cache_misses,

@@ -285,3 +285,14 @@ class EngineRegistry:
             return list(self._engines)
         finally:
             self._lock.release()
+
+    def resident_engines(self) -> list:
+        """``(spec, engine)`` pairs, with :meth:`resident`'s non-blocking
+        read (empty when a build holds the lock): the trace exporter
+        walks them for ``last_run_trace`` level tracks."""
+        if not self._lock.acquire(timeout=0.05):
+            return []
+        try:
+            return list(self._engines.items())
+        finally:
+            self._lock.release()

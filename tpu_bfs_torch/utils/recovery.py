@@ -23,15 +23,19 @@ as it does there. What PyTorch and the port's kernels raise on the card:
   failed with cudaError_t N")`` (``ops/_build.check_launch``): no marker
   matches, so it is deterministic.
 
-``reset_failed_backend_init`` (jax's backend-cache reset) has no PyTorch
-counterpart and is not ported; ``advance_with_recovery`` waits for its
-reader, the CLI (ROADMAP Queue 1 item 4).
+``advance_with_recovery`` drives the CLI's checkpointed traversals: a
+transient failure mid-chunk rebuilds the engine and resumes from the last
+durable chunk. ``reset_failed_backend_init`` (jax's backend-cache reset)
+has no PyTorch counterpart and is not ported: a CUDA context that failed
+to come up is not retried.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+
+from tpu_bfs_torch import faults as _faults
 
 
 @dataclasses.dataclass
@@ -167,3 +171,63 @@ def is_transient_failure(exc: BaseException) -> bool:
     if any(p in msg for p in NON_TRANSIENT_MARKERS):
         return False
     return any(p in msg for p in TRANSIENT_PATTERNS)
+
+
+
+def advance_with_recovery(make_engine, ckpt, *, engine=None, levels_per_chunk: int | None = None,
+                          max_level: int | None = None, save=None, max_restarts: int = 2,
+                          log=None):
+    """Drive a checkpointed traversal to its end (or to ``max_level``),
+    ``levels_per_chunk`` levels at a time, surviving transient failures by
+    rebuilding the engine and resuming from the last durable state.
+
+    ``make_engine()`` builds a fresh engine over the same graph (the
+    failure may have poisoned its device state); ``engine`` seeds the
+    first attempt. ``save(ckpt)`` persists each chunk, the recovery point.
+    Non-transient exceptions (wrong answers, OOM, truncation) propagate at
+    once; after ``max_restarts`` rebuilds the transient error propagates
+    too. Returns ``(engine, ckpt, restarts)``."""
+    if engine is None:
+        engine = make_engine()
+    restarts = 0
+    while not ckpt.done and (max_level is None or ckpt.level < max_level):
+        levels = levels_per_chunk
+        if max_level is not None:
+            room = max_level - ckpt.level
+            levels = room if levels is None else min(levels, room)
+        try:
+            if _faults.ACTIVE is not None:
+                # The fault site "advance": an injected transient takes the
+                # rebuild-and-resume path below.
+                _faults.ACTIVE.hit("advance", level=ckpt.level)
+            nxt = engine.advance(ckpt, levels=levels)
+        except Exception as exc:  # noqa: BLE001 — gated by the classifier
+            if restarts >= max_restarts or not is_transient_failure(exc):
+                raise
+            restarts += 1
+            COUNTERS.bump("transient_retries")
+            COUNTERS.bump("engine_rebuilds")
+            if log is not None:
+                log(f"transient failure at level {ckpt.level} ({type(exc).__name__}: "
+                    f"{str(exc)[:200]}); rebuilding engine and resuming (restart "
+                    f"{restarts}/{max_restarts})")
+            # An engine build may hit the same blip: keep it inside the budget.
+            while True:
+                try:
+                    engine = make_engine()
+                    break
+                except Exception as exc2:  # noqa: BLE001
+                    if restarts >= max_restarts or not is_transient_failure(exc2):
+                        raise
+                    restarts += 1
+                    COUNTERS.bump("transient_retries")
+                    COUNTERS.bump("engine_rebuilds")
+                    if log is not None:
+                        log(f"transient failure rebuilding the engine "
+                            f"({type(exc2).__name__}); retrying (restart "
+                            f"{restarts}/{max_restarts})")
+            continue
+        ckpt = nxt
+        if save is not None:
+            save(ckpt)
+    return engine, ckpt, restarts

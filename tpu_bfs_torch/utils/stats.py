@@ -5,8 +5,8 @@ frontier size by level is its histogram, and edges scanned by level the
 degree-weighted histogram. So the stats cost nothing in the level loop and
 hold for every engine. (The reference's only observability is printf,
 bfs.cu:53-96, 624-626.) A pull-gated batch adds its skipped blocks per
-level (``gated_tiles``). The recovery trailer comes with the serve tier
-(ROADMAP Queue 1 item 4).
+level (``gated_tiles``). :func:`recovery_stats_line` is the ``--stats``
+trailer of the process's recovery counters.
 """
 
 from __future__ import annotations
@@ -79,3 +79,14 @@ def level_stats(distance: np.ndarray, degrees: np.ndarray,
     return LevelStats(frontier_size=frontier, edges_scanned=edges,
                       reached=int(reached_mask.sum()),
                       unreached=int((~reached_mask).sum()), gated_tiles=gt)
+
+
+def recovery_stats_line() -> str | None:
+    """The ``--stats`` trailer of the process's recovery counters
+    (``utils/recovery.COUNTERS``): one ``{"recovery": {...}}`` JSON line
+    when any retry, rebuild or degrade fired in this process, else None."""
+    from tpu_bfs_torch.utils.recovery import COUNTERS
+
+    if not COUNTERS.any():
+        return None
+    return json.dumps({"recovery": COUNTERS.as_dict()})

@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch.algorithms._packed_common import expand_arrays, make_expand, resolve_device
 from tpu_bfs_torch.algorithms.msbfs_wide import expand_spec
 from tpu_bfs_torch.graph.csr import INF_DIST, Graph
@@ -250,6 +251,10 @@ class SsspEngine:
         return reached.cpu().numpy(), ecc.cpu().numpy()
 
     def dispatch(self, sources, **_ignored) -> SsspDispatch:
+        if _faults.ACTIVE is not None:
+            # The fault site "sssp_dispatch", the packed engines' "dispatch"
+            # twin (DistSsspEngine inherits it).
+            _faults.ACTIVE.hit("sssp_dispatch", lanes=self.lanes)
         sources = np.asarray(sources, dtype=np.int64)
         if sources.ndim != 1 or not (1 <= len(sources) <= self.lanes):
             raise ValueError(f"need 1..{self.lanes} sources, got {sources.shape}")
@@ -263,6 +268,8 @@ class SsspEngine:
 
     def fetch(self, pend: SsspDispatch, *, check_cap: bool = True,
               time_it: bool = False) -> SsspBatchResult:
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.hit("sssp_fetch", lanes=self.lanes)
         if time_it and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = (time.perf_counter() - pend.t0) if time_it else None
