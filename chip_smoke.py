@@ -178,6 +178,32 @@ Phases, one JSON line each:
     to an unfaulted run and its recovery line the fired faults. The
     mesh_single phase also checks each engine's last_run_trace: frontier
     total = reached - 1, its rows' wire bytes = the exchange accounting.
+19. dynamic (after p2p): dynamic graphs (tpu_bfs_torch/graph/dynamic.py),
+    overlay capacity 256 x 32. (a) WidePackedMsBfsEngine(lanes=256,
+    overlay=...) over the packed phase's full ELL of the flagship graph,
+    not cut: with the empty overlay every lane equals a plain 256-lane
+    engine's; then an add-only batch of 64 edges between mutable vertices
+    (default_rng(23), degree 1 to kcap - 2, JAX's bench rule) and a batch
+    of 16 base-edge removals (override rows), each followed by one batch
+    from the mutated endpoints: 5 lanes equal to SciPy on materialize(),
+    some lane's distances changed; K1 ms a level (CUDA events), the
+    plain-torch fold's ms a level and the batch ms with and without the
+    overlay. (b) SsspEngine(lanes=256, overlay=...) on the sssp phase's
+    weighted graph and sources after a batch of 48 adds and 16 re-weights:
+    5 lanes equal to Dijkstra on materialize(); K1 minplus and the fold's
+    ms a light sweep. Their K1 launches give the "K1 or, dynamic wide w 8"
+    and "K1 minplus, dynamic sssp w 256" kernels entries, each bit-exact
+    against its twin on the engine's own tables. (c) At the wide phase's
+    scale (every flip materializes the graph for the staleness ring):
+    BfsService(wide, 256 lanes, ladder auto, dynamic=..., kinds bfs, sssp
+    and cc, audit_rate=0.1, staleness_bound=0) under JAX's mutation soak,
+    16 closed-loop clients and 32 one-edge flips 0.05 s apart: no query
+    dropped, no staleness finding, 8 answers equal to SciPy on their
+    generation's graph; flip ms p50 and max, overlay occupancy, queries;
+    one forced compaction (answers unchanged, its seconds); torn_flip (one
+    staleness finding, then healed), corrupt_overlay (restaged from host
+    truth, no finding) and compaction_crash (rolled back, the orphan
+    quarantined, answers unchanged).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -221,6 +247,8 @@ MESH_KINDS_TURNS = 2
 SERVE_CLIENTS = 64
 SERVE_PER_CLIENT = 8
 SERVE_SPEC = "seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4"
+# The dynamic phase's overlay capacity (rows, kcap): JAX's bench default.
+DYN_CAP = (256, 32)
 T0 = time.perf_counter()
 
 
@@ -2842,6 +2870,381 @@ def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
     return entry
 
 
+# --- the dynamic phase ----------------------------------------------------------
+
+
+def changed_lanes(eng, res_a, res_b) -> int:
+    """Lanes whose distances differ between two results of ``eng``'s shape
+    on the same sources (compared on the device, word by word)."""
+    n, v, changed = len(res_a.sources), eng.num_vertices, 0
+    for wi in range(-(-n // 32)):
+        diff = word_distances(eng, res_a, wi, v) != word_distances(eng, res_b, wi, v)
+        changed += int(diff.any(dim=0)[: min(32, n - 32 * wi)].sum())
+    return changed
+
+
+def timed_fold(fold_of, eng, fw, reps: int = 20) -> float:
+    """ms of one overlay fold over ``eng``'s armed tables and the table
+    ``fw``, on an expansion output of ``fw``'s shape (CUDA events)."""
+    out = torch.zeros_like(fw)
+    fold = fold_of(lambda arrs, f: out)
+    return cuda_ms(lambda: fold(eng.arrs, fw), reps)
+
+
+def mutable_vertices(g) -> np.ndarray:
+    """Vertices an overlay row can carry whole (JAX's bench rule, bench.py
+    1979-1995): degree >= 1 (a base table row exists) and <= kcap - 2."""
+    return np.flatnonzero((g.degrees > 0) & (g.degrees <= DYN_CAP[1] - 2))
+
+
+def base_edges_between(g, allowed: np.ndarray, n: int, seed: int, exclude=()) -> list:
+    """``n`` base edges (u < v), both endpoints in ``allowed``, no endpoint
+    twice or in ``exclude``, drawn with default_rng(seed)."""
+    src, dst = g.coo
+    ok = np.isin(src, allowed) & np.isin(dst, allowed) & (src < dst)
+    idx = np.random.default_rng(seed).permutation(np.flatnonzero(ok))
+    used, out = {int(x) for x in np.ravel(exclude)}, []
+    for j in idx:
+        u, v = int(src[j]), int(dst[j])
+        if u in used or v in used:
+            continue
+        used |= {u, v}
+        out.append((u, v))
+        if len(out) == n:
+            return out
+    raise AssertionError(f"only {len(out)} base edges between mutable vertices")
+
+
+def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
+    """(a) The flagship graph, not cut: WidePackedMsBfsEngine(ell, lanes=256,
+    overlay=DYN_CAP) over the packed phase's ELL; the empty overlay equals
+    a plain 256-lane engine on every lane, then an add-only batch of 64
+    edges and a batch of 16 removals (override rows), each followed by one
+    batch from the mutated endpoints, 5 lanes against SciPy on
+    materialize()."""
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.graph.dynamic import DynamicGraph, make_overlay_fold
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.validate import check_distances
+
+    t0 = time.perf_counter()
+    eng = WidePackedMsBfsEngine(ell, lanes=256, overlay=DYN_CAP, device=dev)
+    plain = WidePackedMsBfsEngine(ell, lanes=256, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dyn = DynamicGraph(g, capacity=DYN_CAP)
+    dyn_s = time.perf_counter() - t0
+    require(np.array_equal(dyn._rank, ell.rank) and dyn._act == ell.num_active,
+            "DynamicGraph's ranking != the engine ELL's (overlay ids are ranks)")
+    mutable = mutable_vertices(g)
+    ends = np.random.default_rng(23).choice(mutable, size=(64, 2), replace=False)
+    removals = base_edges_between(g, mutable, 16, 29, exclude=ends)
+    draws = np.random.default_rng(7).choice(traversable, size=96, replace=False)
+    src = np.concatenate([ends.ravel(), np.ravel(removals), draws])[:256]
+    eng.run(src)  # warm
+    base = eng.run(src, time_it=True)
+    plain.run(src)
+    plain_res = plain.run(src, time_it=True)
+    lanes = same_lanes(eng, base, plain, plain_res, "dynamic: empty overlay vs plain")
+    picks = [0, 1, 64, 128, 200]
+    out = {"engine_build_s": build_s, "dynamic_graph_s": dyn_s, "mutable": len(mutable),
+           "empty_overlay_lanes_equal_plain": lanes,
+           "plain_batch_ms": plain_res.elapsed_s * 1e3,
+           "empty_overlay_batch_ms": base.elapsed_s * 1e3, "batches": []}
+    prev, res, launches = base, None, 0
+    names = bucket_names(ell)
+    for label, batch in (("add 64", {"add": [tuple(map(int, e)) for e in ends]}),
+                         ("remove 16", {"remove": removals})):
+        t0 = time.perf_counter()
+        tables, stats = dyn.apply(**batch)
+        eng.set_overlay(tables)
+        apply_s = time.perf_counter() - t0
+        k1.ell_expand.timings = []
+        eng.run(src)  # with CUDA events around each K1 launch
+        torch.cuda.synchronize()
+        k1_ev = sum(a.elapsed_time(b) for a, b in k1.ell_expand.timings)
+        k1.ell_expand.timings = None
+        reset_counts(k1, k2)
+        res = eng.run(src, time_it=True)
+        launches = k1.ell_expand.launches
+        require(launches == len(names) * (res.num_levels + 1) and k2.tile_spmm.launches == 0,
+                f"dynamic wide: {launches} K1 launches for {res.num_levels} levels")
+        t0 = time.perf_counter()
+        mat = dyn.materialize()
+        mat_s = time.perf_counter() - t0
+        csr = mat.to_scipy()
+        for i in picks:
+            check_distances(res.distances_int32(i), bfs_scipy(mat, int(src[i]), csr=csr))
+        changed = changed_lanes(eng, prev, res)
+        require(changed > 0, f"dynamic wide, {label}: no lane's distances changed")
+        fold_ms = timed_fold(lambda e: make_overlay_fold(e, op="or"), eng, res._vis)
+        out["batches"].append({
+            "batch": label, "overlay_rows": stats["overlay_rows"],
+            "override_rows": int(tables["ov_override"][:stats["overlay_rows"]].sum()),
+            "apply_s": apply_s, "materialize_s": mat_s, "levels": res.num_levels,
+            "batch_ms": res.elapsed_s * 1e3, "k1_launches": launches,
+            "k1_ms_per_level": k1_ev / (res.num_levels + 1), "fold_ms_per_level": fold_ms,
+            "lanes_changed": changed, "validated_lanes": picks})
+        prev = res
+    entry = k1_entry(k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2,
+                     name="K1 or, dynamic wide w 8",
+                     unit="one level of the overlay wide engine: every bucket of the full "
+                          "ELL, w 8, before the plain-torch overlay fold")
+    return out, entry
+
+
+def dynamic_sssp(dev, k1, k2, sssp, ptxas):
+    """(b) SsspEngine(overlay=DYN_CAP) on the sssp phase's weighted flagship
+    graph and sources, 256 lanes: one batch after an add and re-weight
+    batch (re-weights make override rows), 5 lanes against Dijkstra on
+    materialize()."""
+    from tpu_bfs_torch.graph.dynamic import DynamicGraph, make_overlay_fold
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    gw, src = sssp["graph"], sssp["sources"]
+    t0 = time.perf_counter()
+    eng = SsspEngine(gw, lanes=256, overlay=DYN_CAP, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dyn = DynamicGraph(gw, capacity=DYN_CAP)
+    mutable = mutable_vertices(gw)
+    ends = np.random.default_rng(31).choice(mutable, size=(48, 2), replace=False)
+    adds = [(int(u), int(v), 1 + i % 8) for i, (u, v) in enumerate(ends)]
+    reweights = []
+    for u, v in base_edges_between(gw, mutable, 16, 37, exclude=ends):
+        lo = int(gw.row_ptr[u])
+        w = int(gw.weights[lo + int(np.flatnonzero(gw.col_idx[lo:gw.row_ptr[u + 1]] == v)[0])])
+        reweights.append((u, v, 1 + w % 8))
+    t0 = time.perf_counter()
+    tables, stats = dyn.apply(add=adds + reweights)
+    eng.set_overlay(tables)
+    apply_s = time.perf_counter() - t0
+    names = bucket_names(eng.ell)
+    k1.ell_expand.timings = []
+    eng.run(src)  # warm, with CUDA events around each K1 launch
+    torch.cuda.synchronize()
+    k1_ev, k1_n = sum(a.elapsed_time(b) for a, b in k1.ell_expand.timings), \
+        len(k1.ell_expand.timings)
+    k1.ell_expand.timings = None
+    reset_counts(k1, k2)
+    res = eng.run(src, time_it=True)
+    launches = k1.ell_expand.launches
+    bodies = res.rounds + eng.last_closes
+    require(launches == len(names) * bodies == k1_n and k2.tile_spmm.launches == 0,
+            f"dynamic sssp: {launches} K1 launches, not {len(names)} x {bodies}")
+    t0 = time.perf_counter()
+    mat = dyn.materialize()
+    mat_s = time.perf_counter() - t0
+    picks = [0, 1, 64, 128, 255]
+    t0 = time.perf_counter()
+    oracle = _dijkstra_oracle(mat, src[picks])
+    for j, i in enumerate(picks):
+        got = res.distances_int32(i).astype(float)
+        got[got == np.iinfo(np.int32).max] = np.inf
+        require(np.array_equal(got, oracle[j]), f"dynamic sssp lane {i} != dijkstra")
+    validate_s = time.perf_counter() - t0
+    changed = int((res._dist != sssp["result"]._dist).any(dim=0).sum())
+    require(changed > 0, "dynamic sssp: no lane's distances changed")
+    fold_ms = timed_fold(lambda e: make_overlay_fold(e, op="minplus", weights_key="ov_wl"),
+                         eng, res._dist, reps=10)
+    out = {"engine_build_s": build_s, "apply_s": apply_s, "materialize_s": mat_s,
+           "overlay_rows": stats["overlay_rows"],
+           "override_rows": int(tables["ov_override"][:stats["overlay_rows"]].sum()),
+           "delta": eng.delta, "batch_ms": res.elapsed_s * 1e3, "rounds": res.rounds,
+           "heavy_closes": eng.last_closes, "base_batch_ms": sssp["result"].elapsed_s * 1e3,
+           "k1_launches": launches, "k1_ms_per_expansion": k1_ev / k1_n,
+           "fold_ms_per_light_sweep": fold_ms, "lanes_changed": changed,
+           "validated_lanes": picks, "validate_s": validate_s}
+    entry = k1_entry(k1, eng.arrs, names, res._dist, "minplus", launches, ptxas, wsuf="wl",
+                     name="K1 minplus, dynamic sssp w 256",
+                     unit="one light sweep of the overlay SsspEngine: every bucket of the "
+                          "full ELL, w 256, before the plain-torch overlay fold")
+    entry["heavy_close_max_abs_err"] = k1_check(
+        k1, eng.arrs, names, res._dist, "minplus", "w", "K1 minplus, dynamic sssp close")
+    return out, entry
+
+
+def dynamic_serve(dev, k1, k2, scale: int) -> dict:
+    """(c) At the wide phase's scale: BfsService(wide, 256 lanes, ladder auto,
+    dynamic=DYN_CAP, kinds bfs/sssp/cc, audit_rate=0.1, staleness_bound=0).
+    JAX's mutation soak (16 closed-loop clients, 32 one-edge flips 0.05 s
+    apart): zero dropped, zero staleness findings, 8 answers equal to SciPy
+    on their generation's graph; one forced compaction; then torn_flip (one
+    finding, then healed), corrupt_overlay (restaged, no finding) and
+    compaction_crash (rolled back, answers unchanged)."""
+    import threading
+
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.graph.csr import INF_DIST
+    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.serve import BfsService
+
+    g = rmat_graph(scale, 16, seed=1)
+    g = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    logs = []
+    t0 = time.perf_counter()
+    svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto", dynamic=DYN_CAP,
+                     kinds=("bfs", "sssp", "cc"), audit_rate=0.1, staleness_bound=0,
+                     device=dev, log=logs.append)
+    up_s = time.perf_counter() - t0
+    out = {"scale": scale, "service_up_s": up_s, "ladder": svc.width_ladder}
+    try:
+        hub = int(np.argmax(g.degrees))
+        traversable = np.flatnonzero(svc.query(hub, timeout=600).distances != INF_DIST)
+        picks = np.random.default_rng(7).choice(traversable, size=(16, 64), replace=True)
+        mutable = mutable_vertices(g)
+        ends = np.random.default_rng(23).choice(mutable, size=(36, 2), replace=False)
+
+        def exact(s, name):
+            mat = svc._dynamic.materialize()
+            r = svc.query(int(s), timeout=600)
+            require(r.ok and np.array_equal(r.distances, bfs_scipy(mat, int(s))),
+                    f"dynamic serve: {name}, source {s} != SciPy")
+            return r
+
+        stop, flat, errs = threading.Event(), [], []
+
+        def client(ci):
+            got, i = [], 0
+            try:
+                while not stop.is_set():
+                    got.append(svc.query(int(picks[ci][i % 64]), timeout=600))
+                    i += 1
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                errs.append(exc)
+            flat.extend(got)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+        flip_ms, occupancy, checked = [], 0, 0
+        reset_counts(k1, k2)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            for j, (u, v) in enumerate(ends[:32]):
+                flip = svc.apply_edge_updates(add=[(int(u), int(v))])
+                flip_ms.append(flip["flip_ms"])
+                occupancy = max(occupancy, flip["overlay_rows"])
+                if j % 4 == 3:  # this thread alone flips: the answer's generation is this one
+                    exact(u, f"soak generation {flip['generation']}")
+                    checked += 1
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        soak_s = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        dropped = sum(1 for r in flat if not r.ok)
+        require(dropped == 0, f"dynamic serve: {dropped} of {len(flat)} queries dropped")
+        require(k1.ell_expand.launches > 0, "dynamic serve launched no K1")
+        svc.flush_audits()
+        snap = svc.statsz()
+        st = snap["dynamic"]["staleness"]
+        require(st["stale"] == 0 and st["over_bound"] == 0 and st["errors"] == 0
+                and st["unmatched"] == 0, f"dynamic serve soak: staleness {st}")
+        require(snap["audit_failures"] == 0 and snap["errors"] == 0, "dynamic serve: findings")
+        out["soak"] = {"flips": len(flip_ms), "flip_p50_ms": float(np.percentile(flip_ms, 50)),
+                       "flip_max_ms": float(max(flip_ms)),
+                       "occupancy": occupancy / DYN_CAP[0], "queries": len(flat),
+                       "seconds": soak_s, "qps": len(flat) / soak_s, "dropped": dropped,
+                       "answers_equal_scipy": checked, "staleness": st,
+                       "audits_run": snap["audits_run"], "audit_dropped": snap["audit_dropped"],
+                       "k1_launches": k1.ell_expand.launches}
+        # One forced compaction: answer-neutral.
+        before = exact(ends[0][0], "before compaction")
+        t0 = time.perf_counter()
+        with svc._flip_lock:
+            svc._compact_locked()
+        out["compaction_s"] = time.perf_counter() - t0
+        after = exact(ends[0][0], "after compaction")
+        require(np.array_equal(before.distances, after.distances), "compaction changed answers")
+
+        # torn_flip: one staleness finding, then healed.
+        u, v = (int(x) for x in ends[32])
+        faults.arm_from_spec("torn_flip@generation_flip:n=1")
+        try:
+            svc.apply_edge_updates(add=[(u, v)])
+        finally:
+            faults.disarm()
+        truth = bfs_scipy(svc._dynamic.materialize(), u)
+        torn, tries = 0, 0
+        while svc.statsz()["dynamic"]["staleness"]["over_bound"] == 0 and tries < 200:
+            r = svc.query(u, timeout=600)
+            torn += int(not np.array_equal(r.distances, truth))
+            tries += 1
+            svc.flush_audits()
+        st = svc.statsz()["dynamic"]["staleness"]
+        require(st["over_bound"] == 1 and st["stale"] == 1 and torn >= 1,
+                f"torn_flip: staleness {st} after {tries} queries ({torn} stale)")
+        exact(u, "healed after torn_flip")
+        out["torn_flip"] = {"queries_until_finding": tries, "stale_answers": torn,
+                            "staleness": st}
+        # corrupt_overlay: restaged from host truth, no finding.
+        u, v = (int(x) for x in ends[33])
+        faults.arm_from_spec("corrupt_overlay@generation_flip:n=1")
+        try:
+            svc.apply_edge_updates(add=[(u, v)])
+        finally:
+            faults.disarm()
+        require(any("CRC re-check" in m for m in logs), "corrupt_overlay: no CRC re-check")
+        for _ in range(8):
+            exact(u, "after corrupt_overlay")
+        svc.flush_audits()
+        require(svc.statsz()["dynamic"]["staleness"]["over_bound"] == 1,
+                "corrupt_overlay: a staleness finding")
+        # compaction_crash: rolled back, answers unchanged.
+        before = exact(u, "before compaction_crash")
+        faults.arm_from_spec("compaction_crash@compact:n=1")
+        try:
+            with svc._flip_lock:
+                try:
+                    svc._compact_locked()
+                    crashed = False
+                except RuntimeError:
+                    crashed = True
+        finally:
+            faults.disarm()
+        orphans = [n for n in os.listdir(svc._gen_store.root) if n.endswith(".corrupt")]
+        require(crashed and len(orphans) == 1, f"compaction_crash: {crashed} {orphans}")
+        after = exact(u, "after compaction_crash")
+        require(np.array_equal(before.distances, after.distances),
+                "compaction_crash changed answers")
+        svc.flush_audits()
+        snap = svc.statsz()
+        require(snap["audit_failures"] == 0 and snap["errors"] == 0
+                and snap["dynamic"]["compactions"] == 1, f"dynamic serve: {snap['dynamic']}")
+        out["chaos"] = {"orphans": orphans, "statsz_dynamic": snap["dynamic"],
+                        "quarantines": snap["quarantines"]}
+    finally:
+        svc.close()
+    return out
+
+
+def phase_dynamic(dev, k1, k2, g, ell, traversable, sssp, wide_scale: int, ptxas) -> list:
+    """Dynamic graphs: (a) the overlay wide engine at the flagship's full
+    size, (b) the overlay SsspEngine on the sssp phase's graph, (c) the
+    dynamic serve tier at the wide phase's scale. Returns the two K1
+    entries of the kernels line."""
+    t0 = time.perf_counter()
+    wide, wide_entry = dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sssp_out, sssp_entry = dynamic_sssp(dev, k1, k2, sssp, ptxas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = dynamic_serve(dev, k1, k2, wide_scale)
+    emit({"phase": "dynamic", "capacity": list(DYN_CAP),
+          "graph": "the flagship graph (a); with edge_weights(seed=1, wmax=8) (b)",
+          "scale_cut": f"(c) at RMAT {wide_scale}: every flip materializes the graph for the "
+                       f"staleness ring", "wide": wide, "sssp": sssp_out, "serve": serve,
+          "seconds": time.perf_counter() - t0})
+    return [wide_entry, sssp_entry]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
@@ -2928,6 +3331,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p2p = phase_p2p(dev, k1, k2, g, ell, traversable)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_dynamic(dev, k1, k2, g, ell, traversable, sssp, args.wide_scale, ptxas)
     del ell
     gc.collect()
     torch.cuda.empty_cache()

@@ -280,7 +280,8 @@ def test_port_imports_no_jax():
             "tpu_bfs_torch.parallel.mesh", "tpu_bfs_torch.parallel.collectives",
             "tpu_bfs_torch.parallel.dist_msbfs_wide",
             "tpu_bfs_torch.parallel.dist_msbfs_hybrid",
-            "tpu_bfs_torch.parallel.dist_sssp"} <= set(mods)
+            "tpu_bfs_torch.parallel.dist_sssp", "tpu_bfs_torch.graph.dynamic",
+            "tpu_bfs_torch.integrity.staleness"} <= set(mods)
     code = (
         f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_bfs.')) "

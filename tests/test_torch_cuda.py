@@ -749,3 +749,153 @@ def test_audited_serve_on_cuda_finds_nothing_and_answers_exactly(cuda):
     assert snap["audit_errors"] == 0 and snap["quarantines"] == 0
     for s, r in zip(src, res):
         np.testing.assert_array_equal(r.distances, oracle_bfs(g, s))
+
+
+def _mutated(g, capacity, seed):
+    """A DynamicGraph over ``g`` after one add/re-weight batch and one batch
+    of removals (override rows), with the staged tables of each."""
+    from tpu_bfs_torch.graph.dynamic import DynamicGraph
+
+    dyn = DynamicGraph(g, capacity=capacity)
+    deg = g.degrees
+    mutable = np.flatnonzero((deg > 0) & (deg <= capacity[1] - 2))
+    ends = np.random.default_rng(seed).choice(mutable, size=(24, 2), replace=False)
+    adds = [(int(u), int(v), 1 + i % 5) for i, (u, v) in enumerate(ends[:16])]
+    src, dst = g.coo
+    ok = (deg[src] <= capacity[1] - 2) & (deg[dst] <= capacity[1] - 2) & (src < dst)
+    removes = [(int(u), int(v)) for u, v in zip(src[ok][:8], dst[ok][:8])]
+    tables = [dyn.apply(add=adds)[0], dyn.apply(remove=removes)[0]]
+    return dyn, tables, np.unique(np.concatenate([ends[:16].ravel(), src[ok][:8]]))
+
+
+@pytest.mark.parametrize("op", ["or", "minplus"])
+def test_overlay_fold_on_cuda_equals_cpu(cuda, op):
+    # The plain-torch fold (gather, override, slot loop, index_copy_) over
+    # random tables: the card's result equals the CPU's bit for bit.
+    from tpu_bfs_torch.graph.dynamic import (
+        device_overlay_tables,
+        empty_overlay_tables,
+        make_overlay_fold,
+    )
+
+    rng = np.random.default_rng(3)
+    rows, w, d, ko = 5000, 8 if op == "or" else 64, 256, 32
+    act = rows - 1
+    fw = rng.integers(0, 1 << 20, (rows, w)).astype(np.int32)
+    base = rng.integers(0, 1 << 20, (rows, w)).astype(np.int32)
+    fw[act] = 0 if op == "or" else 1 << 29
+    base[act] = fw[act]
+    tables = empty_overlay_tables((d, ko), act, weighted=op == "minplus")
+    tables["ov_rows"][:200] = rng.choice(act, 200, replace=False)
+    tables["ov_override"][:200] = rng.integers(0, 2, 200)
+    tables["ov_idx"][:200] = rng.integers(0, rows, (200, ko))
+    wkey = None
+    if op == "minplus":
+        tables["ov_w"][:200] = rng.integers(1, 9, (200, ko))
+        wkey = "ov_w"
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        arrs = device_overlay_tables(tables, (d, ko), dev, weighted=op == "minplus")
+        fold = make_overlay_fold(lambda a, f, dev=dev: torch.from_numpy(base.copy()).to(dev),
+                                 op=op, weights_key=wkey)
+        out.append(fold(arrs, torch.from_numpy(fw).to(dev)).cpu())
+    assert torch.equal(out[0], out[1])
+    assert not torch.equal(out[1], torch.from_numpy(base))
+
+
+def test_overlay_wide_engine_on_cuda_equals_cpu_and_rebuild(cuda):
+    # K1 or under the overlay fold on the card: each generation's lanes
+    # equal the same engine on CPU tensors and a fresh engine over the
+    # materialized graph; the empty overlay equals the plain engine.
+    g = rmat_graph(12, 16, seed=6)
+    dyn, tables, touched = _mutated(g, (256, 32), 23)
+    src = np.concatenate([touched, np.arange(256)])[:256]
+    eng = WidePackedMsBfsEngine(g, lanes=256, overlay=(256, 32), device=cuda)
+    cpu = WidePackedMsBfsEngine(g, lanes=256, overlay=(256, 32), device="cpu")
+    plain = WidePackedMsBfsEngine(g, lanes=256, device=cuda).run(src)
+    res = eng.run(src)
+    assert torch.equal(res._vis, plain._vis)
+    for i, t in enumerate(tables):
+        eng.set_overlay(t)
+        cpu.set_overlay(t)
+        before = k1.ell_expand.launches
+        res, want = eng.run(src), cpu.run(src)
+        assert k1.ell_expand.launches > before
+        fresh = WidePackedMsBfsEngine(dyn.materialize(), lanes=256, device=cuda) if i else None
+        assert torch.equal(res._vis.cpu(), want._vis)
+        for lane in (0, 1, 2, 39, 255):
+            np.testing.assert_array_equal(res.distances_int32(lane), want.distances_int32(lane))
+        if fresh is not None:
+            got = fresh.run(src)
+            for lane in (0, 1, 2, 39, 255):
+                np.testing.assert_array_equal(res.distances_int32(lane), got.distances_int32(lane))
+
+
+def test_overlay_sssp_on_cuda_equals_cpu_and_rebuild(cuda):
+    # K1 minplus under both folds (ov_wl in the light sweep, ov_w in the
+    # heavy close): equal to the CPU engine and to a fresh engine over the
+    # materialized weighted graph.
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    g = rmat_graph(12, 16, seed=11, weights=8)
+    dyn, tables, touched = _mutated(g, (256, 32), 29)
+    src = np.concatenate([touched, np.arange(128)])[:128]
+    eng = SsspEngine(g, lanes=128, overlay=(256, 32), device=cuda)
+    cpu = SsspEngine(g, lanes=128, overlay=(256, 32), device="cpu")
+    for t in tables:
+        eng.set_overlay(t)
+        cpu.set_overlay(t)
+        res, want = eng.run(src), cpu.run(src)
+        assert res.rounds == want.rounds and eng.last_closes == cpu.last_closes
+        assert torch.equal(res._dist.cpu(), want._dist)
+    fresh = SsspEngine(dyn.materialize(), lanes=128, delta=eng.delta, device=cuda).run(src)
+    for lane in (0, 1, 59, 127):
+        np.testing.assert_array_equal(res.distances_int32(lane), fresh.distances_int32(lane))
+
+
+def test_dynamic_serve_on_cuda_equals_cpu(cuda):
+    # A mutation stream with queries between the flips (bfs, sssp, cc) on
+    # the card equals the same stream on the CPU: answers, flips and the
+    # staleness audit's counts. BFS answers equal the oracle of their
+    # generation, SSSP answers a fresh engine over it (the overlay's
+    # contract; the delta-stepping loop's own last-bucket fault against
+    # Dijkstra is ROADMAP Queue 3's).
+    from dataclasses import replace
+
+    from tpu_bfs_torch.graph.generate import edge_weights
+    from tpu_bfs_torch.integrity.staleness import oracle_bfs
+    from tpu_bfs_torch.serve import BfsService
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
+    g = rmat_graph(11, 16, seed=4)
+    g = replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    deg = g.degrees
+    mutable = np.flatnonzero((deg > 0) & (deg <= 30))
+    ends = np.random.default_rng(37).choice(mutable, size=(6, 2), replace=False)
+
+    def run(dev):
+        svc = BfsService(g, lanes=64, width_ladder="off", linger_ms=0.0, dynamic=(64, 32),
+                         kinds=("bfs", "sssp", "cc"), audit_rate=1.0, device=dev)
+        out = []
+        try:
+            for u, v in ends:
+                flip = svc.apply_edge_updates(add=[(int(u), int(v), 3)])
+                mat = svc._dynamic.materialize()
+                rb = svc.query(int(u), timeout=120)
+                rs = svc.query(int(v), kind="sssp", timeout=120)
+                rc = svc.query(int(u), kind="cc", timeout=120)
+                np.testing.assert_array_equal(rb.distances, oracle_bfs(mat, int(u)))
+                fresh = SsspEngine(mat, lanes=64, device=dev).run(np.array([int(v)]))
+                np.testing.assert_array_equal(rs.distances, fresh.distances_int32(0))
+                out.append((flip["generation"], flip["overlay_rows"], rb.distances.tolist(),
+                            rs.distances.tolist(), rc.extras))
+            svc.flush_audits()
+            snap = svc.statsz()
+        finally:
+            svc.close()
+        assert snap["audit_failures"] == 0 and snap["errors"] == 0
+        st = snap["dynamic"]["staleness"]
+        assert st["stale"] == 0 and st["over_bound"] == 0 and st["audits"] > 0
+        return out, st
+
+    assert run("cuda") == run("cpu")

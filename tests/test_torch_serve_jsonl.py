@@ -21,9 +21,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from tpu_bfs import faults as jfaults
+from tpu_bfs import obs as jobs
 from tpu_bfs.serve import EngineRegistry as JRegistry
 from tpu_bfs.serve import frontend as jfront
 
+from tpu_bfs_torch import faults as tfaults
+from tpu_bfs_torch import obs as tobs
 from tpu_bfs_torch.cli import load_graph
 from tpu_bfs_torch.reference import bfs_scipy
 from tpu_bfs_torch.serve import EngineRegistry as TRegistry
@@ -35,6 +39,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SPEC = "rmat:scale=8,ef=8,seed=5"
 COMMON = [SPEC, "--lanes", "32", "--ladder", "off", "--linger-ms", "300",
           "--statsz-interval-s", "0"]
+
+
+@pytest.fixture(autouse=True)
+def _disarm():
+    """A server run with --faults or --obs arms its package's schedule and
+    recorder process-wide; disarm both packages' after each test, so a
+    later test file on the same worker starts disarmed."""
+    yield
+    for mod in (jfaults, jobs, tfaults, tobs):
+        mod.disarm()
 
 
 @pytest.fixture(scope="module")
@@ -117,15 +131,76 @@ def test_jsonl_no_distances_flag_equal_jax(regs):
     assert all("distances_npy" not in r for r in got)
 
 
+def _mutate_stream(g) -> str:
+    """Mutations first (the reader applies each before reading on), then
+    queries, so every answer is the last generation's whatever the timing."""
+    deg = g.degrees
+    low = [int(v) for v in np.flatnonzero((deg > 0) & (deg < 8))[:6]]
+    hub = int(np.argmax(deg))
+    hub_nbr = int(g.col_idx[g.row_ptr[hub]])
+    src, dst = g.coo
+    pair = next((int(a), int(b)) for a, b in zip(src, dst) if deg[a] < 8 and deg[b] < 8)
+    lines = [
+        {"id": "m1", "op": "mutate", "add": [[low[0], low[1]], [low[2], low[3], 7]]},
+        {"id": "m2", "op": "mutate", "remove": [list(pair)]},
+        {"id": "m3", "op": "mutate", "add": "x"},
+        {"id": "m4", "op": "mutate", "add": [[0, g.num_vertices]]},
+        # The hub's override row cannot fit kcap, compaction or not.
+        {"id": "m5", "op": "mutate", "remove": [[hub, hub_nbr]]},
+        {"id": "m6", "op": "mutate", "add": [[low[4], low[5]]], "remove": [[low[2], low[3]]]},
+    ]
+    # 32 queries fill one 32-lane batch: its composition does not depend on
+    # timing.
+    sources = [int(v) for v in np.flatnonzero(deg > 0)[:31]] + [hub]
+    lines += [{"id": f"q{i}", "source": s} for i, s in enumerate(sources)]
+    return "".join(json.dumps(r) + "\n" for r in lines)
+
+
+def _no_flip(lines):
+    out = []
+    for r in lines:
+        r = dict(r)
+        if r.get("op") == "mutate" and r.get("ok"):
+            assert r.pop("flip_ms") >= 0
+        out.append(r)
+    return _canon(out)
+
+
 def test_jsonl_refuses_unported_flags_and_ops(regs):
-    for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"], ["--mutations"],
+    for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"],
                  ["--preheat", "d"], ["--export-aot", "d"], ["--engine", "dist2d"]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _run(tfront, regs[1], "", flag)
+    # The mutate op is ported: the round trip equals JAX's server, line for
+    # line but flip_ms (each side's own registry: a compaction replaces the
+    # registry's graph).
+    g = load_graph(SPEC)
+    requests = _mutate_stream(g)
+    mut = ["--mutations", "64x32"]
+    got, tstat = _run(tfront, None, requests, mut)
+    want, jstat = _run(jfront, None, requests, mut)
+    assert _no_flip(got) == _no_flip(want)
+    by_id = {r["id"]: r for r in got}
+    assert [by_id[f"m{i}"]["ok"] for i in range(1, 7)] == [True, True, False, False, False, True]
+    assert by_id["m6"]["generation"] == 3 and by_id["m6"]["compacted"] is False
+    assert tstat["dynamic"] == jstat["dynamic"]
+    assert tstat["dynamic"]["compactions"] == 1
+    # Without --mutations the op answers the static service's refusal.
     lines, _ = _run(tfront, regs[1], '{"id": 1, "op": "mutate", "add": [[1, 2]]}\n')
-    assert lines == [{"id": 1, "op": "mutate", "ok": False, "error":
-                      "NotImplementedError: edge updates wait for ROADMAP Queue 1 "
-                      "item 4 (graph/dynamic.py, dynamic graphs)"}]
+    jlines, _ = _run(jfront, regs[0], '{"id": 1, "op": "mutate", "add": [[1, 2]]}\n')
+    assert lines == jlines and lines[0]["ok"] is False
+
+
+@pytest.mark.parametrize("flag", [["--mutations"], ["--mutations", "8x4"], []])
+def test_mutations_flag_parses_as_in_jax(flag):
+    args = tfront.build_arg_parser().parse_args(["g"] + flag)
+    want = {(): (), ("--mutations",): True}.get(tuple(flag), (8, 4))
+    assert tfront._dynamic_from_args(args) == want
+    for front in (tfront, jfront):
+        args = front.build_arg_parser().parse_args([SPEC, "--mutations", "8by4"])
+        with pytest.raises(SystemExit, match="DxK"):
+            front.run_server(args, stdin=io.StringIO(""), stdout=io.StringIO(),
+                             stderr=io.StringIO())
 
 
 def test_server_subprocess_drains_on_sigterm(tmp_path):

@@ -207,6 +207,22 @@ def test_answer_tier_equal_jax(regs):
     {"staleness_bound": 1}, {"aot_dir": "a"}, {"engine": "dist2d"},
 ])
 def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
+    if {"dynamic", "generation_dir", "staleness_bound"} & set(kw):
+        # Dynamic graphs are ported: construction goes as in JAX (a
+        # generation_dir without dynamic raises JAX's ValueError).
+        outs = []
+        for cls, reg in ((JService, regs[0]), (TService, regs[1])):
+            extra = {"device": "cpu"} if cls is TService else {}
+            try:
+                svc = cls(KEY, registry=reg, autostart=False, **extra, **kw)
+            except ValueError as exc:
+                outs.append(("ValueError", str(exc)))
+                continue
+            outs.append(("ok", svc.kinds, svc.statsz_extras().get("dynamic")))
+            svc.close()
+        assert outs[1] == outs[0]
+        assert outs[0][0] == ("ValueError" if "generation_dir" in kw else "ok")
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
         TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
 

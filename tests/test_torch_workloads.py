@@ -257,8 +257,23 @@ def test_sssp_isolated_source_duplicates_and_errors():
         eng.run(np.array([0, 1, 2]))
     with pytest.raises(RuntimeError, match="still relaxing"):
         SsspEngine(tg, lanes=2, max_rounds=1, device="cpu").run(np.array([live]))
-    with pytest.raises(NotImplementedError, match="overlay"):
-        SsspEngine(tg, lanes=2, overlay=(8, 4), device="cpu")
+    # The dynamic-graph overlay: one mutation's tables on both packages.
+    from tpu_bfs.graph.dynamic import DynamicGraph as JDynamic
+
+    from tpu_bfs_torch.graph.dynamic import DynamicGraph
+
+    a, b = (int(v) for v in np.flatnonzero(tg.degrees > 0)[1:3])
+    tables, _ = DynamicGraph(tg, capacity=(8, 4)).apply(add=[(live, b, 1), (a, b, 2)])
+    jtables, _ = JDynamic(jg, capacity=(8, 4)).apply(add=[(live, b, 1), (a, b, 2)])
+    jeng = jsssp.SsspEngine(jg, lanes=4, overlay=(8, 4))
+    eng = SsspEngine(tg, lanes=4, overlay=(8, 4), device="cpu")
+    jeng.set_overlay(jtables)
+    eng.set_overlay(tables)
+    want, res = jeng.run(sources), eng.run(sources)
+    assert res.rounds == want.rounds
+    for i in range(4):
+        np.testing.assert_array_equal(res.distances_int32(i), want.distances_int32(i))
+    assert res.distances_int32(1)[b] == 1
 
 
 # --- CC --------------------------------------------------------------------------
@@ -468,3 +483,33 @@ def test_build_workload_engine():
         close_mesh()
     with pytest.raises(ValueError, match="unknown workload kind"):
         tw.build_workload_engine("bfs", base, g, Spec())
+
+
+def test_sssp_last_bucket_fault_is_jax_and_the_ports_alike():
+    """A fault of the reference kept by the port (ROADMAP Queue 3): the
+    delta-stepping loop ends when a heavy close changes nothing and no
+    finite distance sits at or above the ADVANCED bound, so vertices
+    reached in [hi, hi + delta) by light sweeps are never expanded. Here
+    vertex 537 settles at 15 in the last band and its leaf 1494 (one edge,
+    weight 2) stays unreached where Dijkstra says 17. Both packages answer
+    the same; the port holds JAX's rounds bit for bit until the reference
+    changes."""
+    import dataclasses as dc
+
+    from tpu_bfs.graph.csr import Graph as JGraph
+
+    from tpu_bfs_torch.integrity.staleness import oracle_sssp
+
+    g = tgen.rmat_graph(11, 16, seed=4)
+    g = dc.replace(g, weights=tgen.edge_weights(*g.coo, seed=1, wmax=8))
+    jg = JGraph(row_ptr=g.row_ptr, col_idx=g.col_idx, num_input_edges=g.num_input_edges,
+                undirected=True, weights=g.weights)
+    src = np.array([919])
+    want = jsssp.SsspEngine(jg, lanes=8).run(src)
+    got = SsspEngine(g, lanes=8, device="cpu").run(src)
+    assert got.rounds == want.rounds
+    np.testing.assert_array_equal(got.distances_int32(0), want.distances_int32(0))
+    truth = oracle_sssp(g, 919)
+    assert np.flatnonzero(got.distances_int32(0) != truth).tolist() == [1494]
+    assert got.distances_int32(0)[537] == 15 and truth[1494] == 17
+    assert got.distances_int32(0)[1494] == INF_DIST

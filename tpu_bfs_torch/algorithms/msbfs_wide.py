@@ -28,6 +28,11 @@ from tpu_bfs_torch.algorithms._packed_common import (
     resolve_device,
 )
 from tpu_bfs_torch.graph.csr import Graph
+from tpu_bfs_torch.graph.dynamic import (
+    device_overlay_tables,
+    empty_overlay_tables,
+    make_overlay_fold,
+)
 from tpu_bfs_torch.graph.ell import EllGraph, build_ell
 
 LANES = 4096
@@ -58,7 +63,12 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
     ``pull_gate=True`` (default off, as in JAX) skips settled rows' bucket
     blocks inside K1 and their state blocks (``make_gated_expand``,
     ``gated_state_update_``): bit-identical distances, reached counts and
-    parents; skipped blocks per level land in ``last_gate_level_counts``."""
+    parents; skipped blocks per level land in ``last_gate_level_counts``.
+
+    ``overlay=(rows, kcap)`` arms the dynamic-graph delta overlay
+    (``graph/dynamic.py``): the engine builds with empty overlay tables in
+    ``arrs`` and folds them over every level's expansion; ``set_overlay``
+    swaps in a mutation's tables. It does not compose with the pull gate."""
 
     def __init__(
         self,
@@ -70,10 +80,17 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         hbm_budget_bytes: int = HBM_BUDGET_BYTES,
         max_lanes: int = DEFAULT_MAX_LANES,
         pull_gate: bool = False,
+        overlay: tuple = (),
         device=None,
     ):
         if not (1 <= num_planes <= 8):
             raise ValueError("num_planes must be in [1, 8]")
+        self.overlay = tuple(int(x) for x in overlay) if overlay else ()
+        if self.overlay and pull_gate:
+            # The gate skips rows and blocks by BASE-graph keys; overlay
+            # edges would escape it and go untraversed (JAX's text, which
+            # also names its adaptive push).
+            raise ValueError("overlay does not compose with pull_gate or adaptive_push")
         if max_lanes % 32 or not (32 <= max_lanes <= MAX_LANES):
             raise ValueError(f"max_lanes must be a multiple of 32 in [32, {MAX_LANES}]")
         self.device = resolve_device(device)
@@ -101,6 +118,10 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         # Pad slots gather the all-zero sentinel row act, which is also the
         # parent scan's all-ones sentinel row: the scan borrows these tables.
         self.arrs = expand_arrays(ell, self._act, self.device)
+        if self.overlay:
+            # Arm the fold with all-pad tables (every row writes the combine
+            # identity into the sentinel row); a mutation swaps values.
+            self.set_overlay(empty_overlay_tables(self.overlay, self._act))
         self._table_rows = self._act + 1
         spec = expand_spec(ell)
         if pull_gate:
@@ -112,9 +133,12 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
                 heavy_rows=nh, heavy_needed_host=lambda need: bool(need[:nh].any()),
             )
         else:
-            self._core, self._core_from, self._deeper = make_packed_loop(
-                make_expand(spec, self.w), num_planes
-            )
+            expand = make_expand(spec, self.w)
+            if self.overlay:
+                # The delta overlay folds over the bucket outputs, a fresh
+                # tensor, in place (plain torch after K1's launches).
+                expand = make_overlay_fold(expand, op="or")
+            self._core, self._core_from, self._deeper = make_packed_loop(expand, num_planes)
         in_deg_ranked = ell.in_degree[ell.old_of_new].astype(np.int32)
         self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
             ell.num_vertices, self._table_rows, self.w, num_planes,
@@ -122,6 +146,19 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         )
         self._rank = ell.rank
         self._warmed = False
+
+    def set_overlay(self, tables) -> None:
+        """Swap the delta-overlay tables: the shapes must match the armed
+        capacity, and the swap is one atomic dict rebind, so a batch
+        dispatched concurrently sees the old tables or the new, never a
+        mix."""
+        if not self.overlay:
+            raise ValueError(
+                "engine built without an overlay — pass overlay=(rows, "
+                "kcap) at construction to serve a dynamic graph"
+            )
+        new = device_overlay_tables(tables, self.overlay, self.device)
+        self.arrs = {**self.arrs, **new}
 
     @property
     def num_vertices(self) -> int:

@@ -21,12 +21,14 @@ sssp_dispatch    workloads/sssp.SsspEngine.dispatch (and DistSsspEngine)
 sssp_fetch       workloads/sssp.SsspEngine.fetch (and DistSsspEngine)
 audit_structural integrity/structural.StructuralAuditor.audit
 audit_shadow     integrity/shadow.ShadowAuditor._replay
+generation_flip  serve/frontend.BfsService._install_overlay_locked
+                 (+ maybe_corrupt_overlay)
+compact          graph/dynamic.DynamicGraph.compact
 ================ ===================================================
 
 The other sites of the table wait for their readers: ``probe`` (the mesh
-serve slice, ROADMAP Queue 1 entry 5), ``generation_flip`` and ``compact``
-(dynamic graphs, entry 4) and ``aot_load`` (entry 6). A clause naming one
-of them parses and never fires.
+serve slice, ROADMAP Queue 1 entry 5) and ``aot_load`` (entry 6). A clause
+naming one of them parses and never fires.
 
 Production code never pays for this when disabled: every site guard is
 one module-attribute check (``if faults.ACTIVE is not None``) against a
@@ -513,6 +515,24 @@ def corruption_offset(path: str) -> int:
         return info.header_offset + 30 + nlen + elen
     except Exception:  # noqa: BLE001 — not a zip: the midpoint
         return os.path.getsize(path) // 2
+
+
+def maybe_corrupt_overlay(tables: dict, **ctx) -> tuple[dict, bool]:
+    """``generation_flip`` site hook for ``corrupt_overlay`` rules: flip one
+    neighbor-slot value of the STAGED overlay tables between the host's CRC
+    computation and the swap, so the CRC re-check fires and the serve tier
+    restages from host truth. Returns ``(tables, fired)``; the input dict's
+    arrays are never mutated in place (the touched plane is copied)."""
+    sched = ACTIVE
+    if sched is None or not sched.take("generation_flip", "corrupt_overlay", **ctx):
+        return tables, False
+    import numpy as np
+
+    out = dict(tables)
+    idx = np.array(out["ov_idx"], copy=True)
+    idx.flat[idx.size // 2] ^= 1
+    out["ov_idx"] = idx
+    return out, True
 
 
 def maybe_corrupt_file(path: str) -> bool:

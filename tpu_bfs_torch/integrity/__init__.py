@@ -15,6 +15,12 @@ serve path, without touching serving latency:
 - **wire checksums** (``wire.py``): an order-sensitive 32-bit fold of
   the audited distance row on both sides of its host-to-device copy,
   behind the ``audit_checksum`` flag;
+- **staleness audits** (``staleness.py``): on a dynamic-graph service,
+  sampled answers replay against CPU oracles of a bounded ring of recent
+  generation snapshots, measuring how many flips behind the served answer
+  sits: the only detector that catches a torn generation flip (a stale
+  answer passes every structural predicate, and a shadow replay on the
+  same torn service reproduces it);
 - **quarantine** (this module): a confirmed finding evicts the suspect
   rung from the registry, force-opens its (width, devices, kind) circuit
   breaker so routing stops offering it, and dumps the flight recorder
@@ -26,11 +32,11 @@ replays disagreeing); errors of the audit itself count apart and never
 quarantine. The fault kinds ``corrupt_result`` and ``corrupt_wire``
 drive every detector red before green.
 
-The staleness arm (the dynamic-graph generation ring,
-``StalenessAuditor``) and the shedding of audits that a graph flip
-superseded wait for dynamic graphs (ROADMAP Queue 1 entry 4);
-the mesh escalation of repeated findings is wired as in JAX and acts only
-on a mesh, which the port's serve tier does not run yet (entry 5).
+On a dynamic service the structural and shadow audits of a batch or
+answer that a graph flip superseded are shed, not judged: the audit's
+tables and engines follow the live generation. The mesh escalation of
+repeated findings is wired as in JAX and acts only on a mesh, which the
+port's serve tier does not run yet (ROADMAP Queue 1 entry 5).
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ from tpu_bfs_torch.integrity.shadow import (  # noqa: F401 — package API
     ShadowAuditor,
     ShadowJob,
     compare_payloads,
+)
+from tpu_bfs_torch.integrity.staleness import (  # noqa: F401 — package API
+    StalenessAuditor,
 )
 from tpu_bfs_torch.integrity.structural import (  # noqa: F401 — package API
     StructuralAuditor,
@@ -149,6 +158,10 @@ class IntegrityTier:
                 on_mismatch=self._on_shadow_mismatch,
                 metrics=service.metrics,
                 log=service._log,
+                current_state=lambda: (
+                    getattr(service, "graph_generation", 0),
+                    getattr(service, "_overlay_epoch", 0),
+                ),
             )
             if self.rate > 0 else None
         )
@@ -252,6 +265,8 @@ class IntegrityTier:
                         reached=r.reached,
                         extras=dict(r.extras) if r.extras else None,
                         t_resolved=now,
+                        generation=int(getattr(pending, "generation", 0)),
+                        epoch=int(getattr(pending, "overlay_epoch", 0)),
                     )
                     self._shadow.offer(job)
             except Exception as exc:  # noqa: BLE001 — the seal: audits never
@@ -270,10 +285,23 @@ class IntegrityTier:
 
     def _audit_structural(self, pending, q, r) -> None:
         svc = self._service
+        # The generation gate: the auditor's edge tables track the LIVE
+        # generation (the flip rebinds them), so a batch stamped with a
+        # superseded generation cannot be judged (its removed edges would
+        # read as violations); the staleness auditor owns it.
+        gen = int(getattr(pending, "generation", 0))
+        if gen != int(getattr(svc, "graph_generation", 0)):
+            return
         t0 = time.monotonic()
         try:
             self._structural.audit(r.kind, r)
         except StructuralFinding as exc:
+            if gen != int(getattr(svc, "graph_generation", 0)):
+                # The flip landed DURING the audit (the tables may have
+                # been rebound mid-check): the graph changed, the rung
+                # did not fail. Shed it.
+                svc.metrics.record_audit_dropped()
+                return
             svc.metrics.record_audit(
                 (time.monotonic() - t0) * 1e3, failed=True
             )
@@ -319,6 +347,8 @@ class IntegrityTier:
                 extras=dict(r.extras) if r.extras else None,
                 t_resolved=time.monotonic(),
                 origin=origin,
+                generation=int(getattr(svc, "graph_generation", 0)),
+                epoch=int(getattr(svc, "_overlay_epoch", 0)),
             )
             self._shadow.offer(job)
         except Exception as exc:  # noqa: BLE001 — audits never become

@@ -123,6 +123,16 @@ class ShadowJob:
     # The quarantine routing keys on this — a stale cached answer
     # indicts the cache generation, never the replay rung.
     origin: str = "serve"
+    # The graph generation the answer was served under. The replay worker
+    # sheds jobs whose generation no longer matches the live service: a
+    # replay engine always syncs to the CURRENT overlay, so comparing a
+    # pre-flip answer against it would indict a healthy rung for the graph
+    # having legitimately changed (the staleness auditor's business).
+    generation: int = 0
+    # The overlay install epoch at resolution: it also moves on a restage
+    # healing a torn flip and on a compaction, which the generation does
+    # not see; a replay across either compares two table installs.
+    epoch: int = 0
 
 
 #: Extras keys that legitimately vary with batch composition (the sssp
@@ -195,9 +205,13 @@ class ShadowAuditor:
     bound by the integrity tier; this class owns only the queue, the
     thread, and the compare."""
 
-    def __init__(self, *, acquire_engine, on_mismatch, metrics, log=None):
+    def __init__(self, *, acquire_engine, on_mismatch, metrics, current_state,
+                 log=None):
         self._acquire_engine = acquire_engine  # (width, kind) -> engine
         self._on_mismatch = on_mismatch  # (job, detail) -> None
+        # () -> (generation, epoch): the service's live overlay state
+        # ((0, 0) on a static service, so no job is shed there).
+        self._current_state = current_state
         self._metrics = metrics
         self._log = log or (lambda msg: None)
         self._q: _queue.Queue = _queue.Queue(maxsize=MAX_PENDING)
@@ -308,6 +322,17 @@ class ShadowAuditor:
         )
 
     def _audit(self, job: ShadowJob) -> None:
+        if (job.generation, job.epoch) != self._current_state():
+            # A flip, restage or compaction landed between resolution and
+            # replay: the served bits came from another table install than
+            # any engine the replay could run on. Not a finding: shed it.
+            self._metrics.record_audit_dropped()
+            self._log(
+                f"shadow audit shed (query {job.query_id!r}): served "
+                f"overlay state (gen {job.generation}, epoch "
+                f"{job.epoch}) superseded"
+            )
+            return
         attempt = 0
         while True:
             try:
@@ -321,6 +346,17 @@ class ShadowAuditor:
                     continue
                 raise
         detail = compare_payloads(job, res)
+        if (detail is not None
+                and (job.generation, job.epoch) != self._current_state()):
+            # The flip or restage landed DURING the replay: the replay
+            # engine may have synced to the new overlay, so the mismatch is
+            # the graph changing, not corruption. Shed, do not indict.
+            self._metrics.record_audit_dropped()
+            self._log(
+                f"shadow audit shed (query {job.query_id!r}): "
+                f"overlay state changed mid-replay"
+            )
+            return
         lag_ms = (time.monotonic() - job.t_resolved) * 1e3
         self._metrics.record_audit(lag_ms, failed=detail is not None)
         if detail is not None:

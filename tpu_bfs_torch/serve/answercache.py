@@ -5,9 +5,12 @@ The :class:`AnswerCache` resolves repeated queries without touching the
 scheduler at all:
 
 - **bounded LRU, byte-budgeted**: entries are whole terminal payloads
-  (distance row, levels, reached, extras) keyed ``(graph_key, kind,
-  source, k, target, want_distances)``; inserting past ``max_bytes``
-  evicts from the cold end;
+  (distance row, levels, reached, extras) keyed ``(graph_key,
+  graph_generation, cache_generation, kind, source, k, target,
+  want_distances)``; inserting past ``max_bytes`` evicts from the cold end.
+  A dynamic graph's flip moves the graph generation
+  (``set_graph_generation``), so every entry of the old graph becomes
+  unreachable by key, not by scan;
 - **CRC32 discipline**: each entry's payload is checksummed at ``put`` and
   re-verified at every hit; a mismatch (storage rot, or the
   ``corrupt_cache_entry`` chaos kind flipping a byte at the
@@ -19,9 +22,6 @@ scheduler at all:
 - **generation quarantine**: a confirmed stale or corrupt cached answer
   (the integrity tier's shadow audit) bumps the cache generation, which
   is part of every key, and drops the store.
-
-The JAX cache's graph-generation axis serves the dynamic-graph flip, not
-ported yet (ROADMAP Queue 1 entry 4).
 
 Thread-safe: client threads call ``get`` concurrently with the extraction
 worker's ``put``; one lock guards the store.
@@ -78,12 +78,13 @@ class AnswerCache:
     :class:`~tpu_bfs_torch.serve.metrics.ServeMetrics`) keeps hits, misses,
     evictions and bytes on statsz."""
 
-    def __init__(self, *, graph_key: str = "",
+    def __init__(self, *, graph_key: str = "", graph_generation: int = 0,
                  max_bytes: int = DEFAULT_MAX_BYTES, metrics=None, log=None):
         if max_bytes < 1:
             raise ValueError(f"cache byte budget must be >= 1, got "
                              f"{max_bytes}")
         self.graph_key = graph_key
+        self.graph_generation = int(graph_generation)
         self.max_bytes = int(max_bytes)
         self.metrics = metrics
         self.log = log or (lambda *_a, **_k: None)
@@ -94,11 +95,19 @@ class AnswerCache:
         self._quarantines = 0  # guarded-by: _lock
 
     def _key(self, kind, source, k, target, want_distances) -> tuple:
-        # Callers hold _lock (the generation is part of the key).
-        return (self.graph_key, self._generation, kind, int(source),
+        # Callers hold _lock (both generations are part of the key).
+        return (self.graph_key, self.graph_generation, self._generation,
+                kind, int(source),
                 None if k is None else int(k),
                 None if target is None else int(target),
                 bool(want_distances))
+
+    def set_graph_generation(self, generation: int) -> None:
+        """A dynamic-graph flip: adopt the new served graph version.
+        Entries keyed under the old one become unreachable at once; their
+        bytes drain off the cold end of the LRU as fresh traffic inserts."""
+        with self._lock:
+            self.graph_generation = int(generation)
 
     def put(self, *, kind: str, source: int, k=None, target=None,
             want_distances: bool = True, distances=None, levels=None,
@@ -193,7 +202,7 @@ class AnswerCache:
         rec = _obs.ACTIVE
         if rec is not None:
             rec.event("cache_corrupt_entry", cat="serve.cache",
-                      kind=key[2], source=key[3])
+                      kind=key[3], source=key[4])
         if self.metrics is not None:
             self.metrics.record_cache_eviction()
             self.metrics.record_cache_miss()
@@ -220,9 +229,9 @@ class AnswerCache:
             self.metrics.set_cache_bytes(0)
         return gen
 
-    def config_summary(self) -> dict:
-        """The statsz echo: entries, resident bytes, the budget, the
-        generation and its quarantines."""
+    def stats(self) -> dict:
+        """Entries, resident bytes, the budget, the cache generation and
+        its quarantines."""
         with self._lock:
             return {
                 "entries": len(self._entries),
@@ -231,6 +240,12 @@ class AnswerCache:
                 "generation": self._generation,
                 "quarantines": self._quarantines,
             }
+
+    def config_summary(self) -> dict:
+        """The statsz echo: :meth:`stats` and the served graph generation."""
+        out = self.stats()
+        out["graph_generation"] = self.graph_generation
+        return out
 
     def __len__(self) -> int:
         with self._lock:

@@ -218,7 +218,8 @@ class PendingBatch:
     shared by both halves."""
 
     __slots__ = ("engine", "queries", "n", "padded", "handle", "ready",
-                 "attempt", "lanes", "bid", "devices", "kind", "params")
+                 "attempt", "lanes", "bid", "devices", "kind", "params",
+                 "generation", "overlay_epoch")
 
     def __init__(self, engine, queries, n: int, padded: np.ndarray,
                  kind: str = "bfs", params: dict | None = None):
@@ -239,6 +240,15 @@ class PendingBatch:
         self.devices = engine_devices(engine)
         # The span-correlation id of every obs event of this batch.
         self.bid = next(_BATCH_SEQ)
+        # The graph generation this batch was admitted under, stamped by
+        # the scheduler inside the flip lock at dispatch, so it names the
+        # tables the batch traversed (the staleness auditor's ground
+        # truth); 0 on a static service.
+        self.generation = 0
+        # The overlay install epoch at the same point: it also moves on
+        # restages and compactions, which the generation does not see, so
+        # the shadow auditor can tell a superseded install.
+        self.overlay_epoch = 0
 
 
 class _Ready:

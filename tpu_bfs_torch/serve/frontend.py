@@ -13,6 +13,13 @@ protocol:
                "reached": 104857, "latency_ms": ..., "batch_lanes": 31,
                "dispatched_lanes": 32, "distances_npy": "<base64 .npy>"}
 
+With ``--mutations`` the wire also takes edge updates:
+
+    request   {"id": 9, "op": "mutate", "add": [[1, 2], [3, 4, 7]],
+               "remove": [[5, 6]]}
+    response  {"id": 9, "op": "mutate", "ok": true, "generation": 3,
+               "flip_ms": 1.8, "overlay_rows": 2, "compacted": false}
+
 Non-ok responses carry ``status`` in {rejected, deadline_exceeded, error,
 shutdown} plus ``error``. Responses are emitted as queries complete;
 ``id`` is the correlation key. stdout carries only protocol lines; logs
@@ -32,11 +39,17 @@ replays that share of resolved queries on a disjoint rung and
 bit-compares them, ``audit_checksum`` folds both sides of each audited
 row's copy; a confirmed finding quarantines the rung that served it.
 
+``dynamic=(rows, kcap)`` serves a mutating graph (``graph/dynamic.py``):
+every engine builds with a bounded delta overlay, ``apply_edge_updates``
+flips the served generation between batches (compacting into a new
+persisted base generation when a batch does not fit), and with
+``audit_rate`` the staleness auditor replays sampled answers against the
+generation they were stamped with.
+
 Not ported yet, each raising ``NotImplementedError`` at construction with
 its ROADMAP item: the mesh (``devices > 1``, ``mesh_shape``,
 ``exchange``, ``wire_pack``, ``delta_bits``, ``sieve``, ``predict``,
-``resume_levels``, ``mesh_probe_interval_s``), dynamic graphs
-(``dynamic``, ``generation_dir``, ``staleness_bound``) and AOT preheat
+``resume_levels``, ``mesh_probe_interval_s``) and AOT preheat
 (``aot_dir``).
 """
 
@@ -103,7 +116,6 @@ MIN_LANES = 32
 # top), bounding pad waste per batch below 3/4 of the dispatched width.
 LADDER_FACTOR = 4
 
-DYNAMIC_ITEM = "ROADMAP Queue 1 item 4 (graph/dynamic.py, dynamic graphs)"
 AOT_ITEM = "ROADMAP Queue 1 item 5 (utils/aot.py preheat)"
 
 
@@ -147,8 +159,7 @@ def build_width_ladder(lanes: int, ladder="auto", *, engine: str = "wide") -> li
 
 def _refuse_unported(*, devices, exchange, wire_pack, delta_bits, sieve,
                      predict, mesh_shape, resume_levels,
-                     mesh_probe_interval_s, dynamic, generation_dir,
-                     staleness_bound, aot_dir) -> None:
+                     mesh_probe_interval_s, aot_dir) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of the first
     constructor argument whose feature is not ported yet."""
     mesh = {"devices": devices > 1, "exchange": exchange,
@@ -156,10 +167,7 @@ def _refuse_unported(*, devices, exchange, wire_pack, delta_bits, sieve,
             "sieve": sieve, "predict": predict,
             "mesh_shape": tuple(mesh_shape), "resume_levels": resume_levels,
             "mesh_probe_interval_s": mesh_probe_interval_s}
-    dyn = {"dynamic": dynamic, "generation_dir": generation_dir,
-           "staleness_bound": staleness_bound}
-    for group, item in ((mesh, MESH_SERVE_ITEM), (dyn, DYNAMIC_ITEM),
-                        ({"aot_dir": aot_dir}, AOT_ITEM)):
+    for group, item in ((mesh, MESH_SERVE_ITEM), ({"aot_dir": aot_dir}, AOT_ITEM)):
         for name, val in group.items():
             if val:
                 raise NotImplementedError(
@@ -190,8 +198,14 @@ class BfsService:
     answer cache and ``landmarks`` the landmark p2p tier; ``single_flight``
     collapses identical in-flight queries. ``audit_rate``,
     ``audit_structural``, ``audit_checksum`` and ``audit_seed`` arm the
-    integrity tier (module docstring). ``device`` is the torch device of
-    the service's own registry (None: CUDA, raising without a card).
+    integrity tier (module docstring). ``dynamic=(rows, kcap)`` (True: the
+    default capacity) serves a mutating graph through
+    ``apply_edge_updates``; ``generation_dir`` persists its compactions
+    (default: a temporary directory the service owns) and
+    ``staleness_bound`` is how many flips a sampled answer may trail
+    before the staleness auditor quarantines it (with ``audit_rate``).
+    ``device`` is the torch device of the service's own registry (None:
+    CUDA, raising without a card).
     """
 
     def __init__(
@@ -245,8 +259,7 @@ class BfsService:
             devices=devices, exchange=exchange, wire_pack=wire_pack,
             delta_bits=delta_bits, sieve=sieve, predict=predict,
             mesh_shape=mesh_shape, resume_levels=resume_levels,
-            mesh_probe_interval_s=mesh_probe_interval_s, dynamic=dynamic, generation_dir=generation_dir,
-            staleness_bound=staleness_bound, aot_dir=aot_dir,
+            mesh_probe_interval_s=mesh_probe_interval_s, aot_dir=aot_dir,
         )
         if engine == "dist2d":
             raise NotImplementedError(
@@ -297,6 +310,79 @@ class BfsService:
             self._kinds = kinds
         if not self._kinds:
             raise ValueError("service must serve at least one kind")
+        # The dynamic-graph tier: ``dynamic=(rows, kcap)`` (True: the
+        # default capacity) builds every engine with a bounded overlay of
+        # that shape, the flip lock serializes flips against batch
+        # dispatch, and ``apply_edge_updates`` is the mutation API. The
+        # flip state exists (cheap, inert) on static services too, so the
+        # scheduler loop stays branch-free.
+        self._flip_lock = threading.RLock()
+        self._dynamic = None
+        self._gen_store = None
+        self._gen_tmp = None
+        self._overlay_cap = ()
+        # Writes serialize under _flip_lock; reads are lock-free (an int
+        # snapshot): _spec and the cache straggler guard run on paths that
+        # also hold _width_lock, and taking the flip lock there would close
+        # a lock-order cycle.
+        self._graph_generation = 0
+        self._overlay_tables = None  # guarded-by: _flip_lock
+        self._overlay_epoch = 0  # guarded-by: _flip_lock
+        self._flips = 0  # guarded-by: _flip_lock
+        self._compactions = 0  # guarded-by: _flip_lock
+        self._staleness = None
+        if dynamic:
+            from tpu_bfs_torch.graph.dynamic import (
+                DEFAULT_CAPACITY,
+                DynamicGraph,
+                GenerationStore,
+            )
+
+            cap = (DEFAULT_CAPACITY if dynamic is True
+                   else (int(dynamic[0]), int(dynamic[1])))
+            self._overlay_cap = cap
+            # Raises on a directed base before any build (the engine and
+            # pull-gate combinations are EngineSpec.validate's, below).
+            self._dynamic = DynamicGraph(self._graph, capacity=cap, log=self._log)
+            if generation_dir is None:
+                import tempfile
+
+                # A service-owned store: compactions keep the crash-safe
+                # commit protocol, in a directory that does not outlive
+                # the service (pass generation_dir for one that does).
+                self._gen_tmp = tempfile.TemporaryDirectory(prefix="tpu-bfs-generations-")
+                generation_dir = self._gen_tmp.name
+            self._gen_store = GenerationStore(generation_dir, log=self._log)
+            if "p2p" in self._kinds:
+                # p2p's path reconstruction scans the build-time edge
+                # tables, which the overlay fold never touches: a path
+                # could walk a removed edge (EngineSpec.validate refuses
+                # the same).
+                self._kinds = tuple(k for k in self._kinds if k != "p2p")
+                self._log(
+                    "dynamic serving: p2p dropped from the served kinds "
+                    "(path reconstruction reads build-time edge tables)"
+                )
+                if not self._kinds:
+                    raise ValueError("dynamic serving cannot serve p2p alone")
+            if audit_rate > 0:
+                from tpu_bfs_torch.integrity.staleness import StalenessAuditor
+
+                # The generation-staleness arm of the integrity tier, at
+                # the shadow audits' rate, replaying against the
+                # generation ring instead of a disjoint rung.
+                self._staleness = StalenessAuditor(
+                    rate=audit_rate, seed=audit_seed,
+                    bound=staleness_bound,
+                    on_over_bound=self._on_stale_generation,
+                    log=self._log,
+                )
+                self._staleness.push_generation(0, self._graph)
+        elif generation_dir is not None:
+            raise ValueError(
+                "generation_dir without dynamic=(rows, kcap): the "
+                "generation store only exists to persist compactions"
+            )
         if registry is None and len(self._kinds) > 1:
             # One resident engine per additional kind next to the ladder.
             self._registry.capacity = max(
@@ -373,6 +459,8 @@ class BfsService:
     def _spec(self, width: int | None = None, kind: str = "bfs") -> EngineSpec:
         return EngineSpec(
             graph_key=self._graph_key,
+            graph_generation=self._graph_generation,
+            overlay=self._overlay_cap,
             kind=kind,
             engine=self._engine,
             lanes=self.lanes if width is None else width,
@@ -441,6 +529,14 @@ class BfsService:
             for q in self._queue.next_batch(self._queue.cap, 0.0):
                 if q.resolve_status(STATUS_SHUTDOWN, error="service closed"):
                     self.metrics.record_shutdown()
+        if self._gen_tmp is not None:
+            # The service-owned generation store: reclaim it now rather
+            # than at interpreter teardown.
+            try:
+                self._gen_tmp.cleanup()
+            except OSError:
+                pass
+            self._gen_tmp = None
 
     def __enter__(self) -> "BfsService":
         return self
@@ -686,6 +782,261 @@ class BfsService:
         if self._cache is not None:
             self._cache.quarantine_generation(detail=detail)
 
+    # --- dynamic graphs -----------------------------------------------------
+
+    @property
+    def graph_generation(self) -> int:
+        """The served graph generation: bumps on every applied mutation
+        batch (0 on a static service, and before the first mutation)."""
+        return self._graph_generation
+
+    def apply_edge_updates(self, add=(), remove=()) -> dict:
+        """One streaming mutation batch: ``add`` edges ``(u, v)`` or
+        ``(u, v, w)``, ``remove`` edges ``(u, v)``. Stages the bounded
+        overlay on the host, CRC-checks it across the hand-off, and flips
+        the served generation atomically BETWEEN batches (the flip lock
+        excludes the scheduler's dispatch section): the registry rekeys
+        resident engines, the answer cache invalidates by key, the
+        landmark columns recompute and the staleness auditor adopts the
+        generation's host truth. When the batch does not fit the overlay a
+        COMPACTION runs first (a new persisted base generation, every
+        engine rebuilt over the verified artifact) and the batch
+        re-applies on the empty overlay; a compaction failure rolls back,
+        serving continues on base + overlay and the error propagates with
+        nothing mutated. Callable from any thread. Returns ``generation``,
+        ``flip_ms``, ``overlay_rows`` and ``compacted``."""
+        if self._dynamic is None:
+            raise RuntimeError(
+                "service is static: construct with dynamic=(rows, kcap) "
+                "(or --mutations) to serve edge updates"
+            )
+        if self._closed:
+            raise RuntimeError("service is closed")
+        from tpu_bfs_torch.graph.dynamic import OverlayCapacityError
+
+        t0 = time.monotonic()
+        with self._flip_lock:
+            compacted = False
+            try:
+                tables, stats = self._dynamic.apply(add=add, remove=remove)
+            except OverlayCapacityError as exc:
+                self._log(
+                    f"overlay at capacity ({str(exc)[:200]}); compacting "
+                    f"before applying the batch"
+                )
+                self._compact_locked()  # raises on failure (rolled back)
+                compacted = True
+                # Re-apply on the empty overlay over the new base. A second
+                # capacity error (one batch larger than the whole overlay)
+                # is the caller's and propagates: the compaction stands.
+                tables, stats = self._dynamic.apply(add=add, remove=remove)
+            self._install_overlay_locked(tables)
+            gen = self._graph_generation
+            flip_ms = (time.monotonic() - t0) * 1e3
+            self._flips += 1
+            overlay_rows = stats["overlay_rows"]
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("generation_flip", cat="serve.dynamic",
+                      generation=gen, overlay_rows=overlay_rows,
+                      compacted=compacted, flip_ms=round(flip_ms, 3))
+        return {
+            "generation": gen,
+            "flip_ms": round(flip_ms, 3),
+            "overlay_rows": overlay_rows,
+            "compacted": compacted,
+        }
+
+    def _install_overlay_locked(self, tables) -> None:  # requires-lock: _flip_lock
+        """The flip proper: CRC the staged tables across the host hand-off,
+        then advance the generation and rekey every serve tier. Engines
+        adopt the new tables at their next acquire
+        (:meth:`_sync_engine_overlay`); under the flip lock that is
+        indistinguishable from an eager swap."""
+        from tpu_bfs_torch.graph.dynamic import overlay_crc32
+
+        dyn = self._dynamic
+        gen = dyn.generation
+        want_crc = overlay_crc32(tables)
+        if _faults.ACTIVE is not None:
+            # The fault site "generation_flip": corrupt_overlay flips one
+            # table word between the CRC and the install, the host-memory
+            # rot window the re-check covers.
+            tables, _fired = _faults.maybe_corrupt_overlay(tables, generation=gen)
+        if overlay_crc32(tables) != want_crc:
+            self._log(
+                "staged overlay failed its CRC re-check before install "
+                "— restaging from the host truth"
+            )
+            rec = _obs.ACTIVE
+            if rec is not None:
+                rec.event("overlay_corrupt", cat="serve.dynamic", generation=gen)
+                rec.flight_dump("overlay_corrupt")
+            tables = dyn.overlay_tables()
+        torn = (_faults.ACTIVE is not None
+                and _faults.ACTIVE.take("generation_flip", "torn_flip", generation=gen))
+        if torn:
+            # torn_flip: the metadata advances (generation, registry keys,
+            # cache) but the tables do not, so every answer is one flip
+            # stale while claiming the new generation. Only the staleness
+            # auditor can catch it.
+            self._log(
+                "TORN FLIP injected: generation advanced without the "
+                "overlay table swap"
+            )
+        else:
+            self._overlay_tables = tables
+        self._overlay_epoch += 1
+        self._graph_generation = gen
+        self._registry.rekey_generation(self._graph_key, gen)
+        if self._cache is not None:
+            self._cache.set_graph_generation(gen)
+        lm = self._landmarks
+        if lm is not None:
+            # One added edge can tighten d(l, v) everywhere: disable the
+            # columns FIRST (no answer over stale bounds), then recompute
+            # them over the flipped engine.
+            lm.invalidate()
+            try:
+                self._rewarm_landmarks_locked(lm)
+            except Exception as exc:  # noqa: BLE001 — optimization tier
+                self._landmarks = None
+                self._log(
+                    f"landmark re-warm failed after the flip "
+                    f"({type(exc).__name__}: {str(exc)[:200]}); tier "
+                    f"disabled"
+                )
+        if self._staleness is not None:
+            self._staleness.push_generation(gen, dyn.materialize())
+        tier = self._integrity
+        if tier is not None and tier._structural is not None:
+            # The structural auditor's edge tables follow the live
+            # generation: a removed edge left in them would read a correct
+            # post-flip answer as a violation. The tier's generation gate
+            # sheds audits of superseded batches.
+            tier._structural.rebind(dyn.materialize())
+
+    def _rewarm_landmarks_locked(self, index) -> None:
+        """Recompute the landmark columns over the flipped graph with one
+        batch (the caller holds the flip lock, so the acquired engine is
+        synced to the new generation)."""
+        engine = self._acquire_engine(self._route_width(index.k), "bfs")
+        index.warm(
+            lambda sources: engine.run(
+                np.asarray(sources, dtype=np.int64), time_it=False
+            )
+        )
+
+    def _sync_engine_overlay(self, engine) -> None:
+        """Bring one engine's overlay tables up to the installed epoch
+        (every acquire path comes here, under the flip lock). Engines build
+        with an EMPTY armed overlay; a lazily built one (a degrade rung, a
+        shadow rung, another kind's first query) would otherwise serve the
+        base graph after a flip. The per-engine epoch stamp closes that,
+        and re-arms every engine after a restage heals a torn flip."""
+        if self._dynamic is None:
+            return
+        with self._flip_lock:
+            epoch = self._overlay_epoch
+            if getattr(engine, "_overlay_epoch", 0) == epoch:
+                return
+            if self._overlay_tables is not None:
+                engine.set_overlay(self._overlay_tables)
+            engine._overlay_epoch = epoch
+
+    def _restage_overlay(self) -> None:
+        """Re-install the CURRENT overlay from the dynamic graph's host
+        truth, the heal after a confirmed torn flip: the epoch bump makes
+        every engine re-adopt the true tables at its next acquire."""
+        with self._flip_lock:
+            if self._dynamic is None:
+                return
+            self._overlay_tables = self._dynamic.overlay_tables()
+            self._overlay_epoch += 1
+
+    def _compact_locked(self) -> None:  # requires-lock: _flip_lock
+        """Fold the overlay into a new persisted base generation (the
+        caller holds the flip lock). On success the registry's graph is the
+        VERIFIED loaded artifact and every resident engine drops (their
+        ELL tables hold the old base; rebuilds are lazy). On ANY failure
+        (the compactor dying at the ``compaction_crash`` site, or the new
+        artifact failing its CRC at load) the previous generation stays
+        served, orphaned uncommitted artifacts are quarantined, and the
+        error propagates to the mutation caller."""
+        dyn = self._dynamic
+        store = self._gen_store
+        t0 = time.monotonic()
+        try:
+            new_graph = dyn.compact(store)
+        except Exception as exc:
+            quarantined = store.quarantine_orphans()
+            err = f"{type(exc).__name__}: {str(exc)[:300]}"
+            self._log(
+                f"compaction FAILED ({err}); rolled back — serving "
+                f"continues on the previous generation"
+                + (f"; quarantined {quarantined}" if quarantined else "")
+            )
+            rec = _obs.ACTIVE
+            if rec is not None:
+                rec.event("compaction_failed", cat="serve.dynamic",
+                          error=err, quarantined=quarantined)
+                rec.flight_dump("compaction_failed")
+            raise
+        self._registry.add_graph(self._graph_key, new_graph)
+        self._graph = new_graph
+        dropped = self._registry.drop_graph_engines(self._graph_key)
+        self._overlay_tables = None
+        self._overlay_epoch += 1
+        self._compactions += 1
+        ms = (time.monotonic() - t0) * 1e3
+        self._log(
+            f"compacted into base generation {store.current()} in "
+            f"{ms:.0f}ms ({dropped} resident engines dropped; rebuilds "
+            f"are lazy)"
+        )
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("compaction", cat="serve.dynamic",
+                      base_generation=store.current(), dropped=dropped,
+                      ms=round(ms, 1))
+
+    def _on_stale_generation(self, *, query_id, kind, source,
+                             served_generation, matched_generation,
+                             staleness, detail) -> None:
+        """A CONFIRMED over-bound stale answer (the staleness auditor's
+        oracle replay). The suspect is the stale serving STATE (an old
+        generation's tables still installed past a flip), not a rung:
+        quarantine the old generation (a flight dump naming its artifact),
+        drop the answer cache's trust, and heal by restaging the true
+        overlay onto every engine."""
+        art = None
+        if self._gen_store is not None:
+            p = self._gen_store._path(matched_generation)
+            art = p if os.path.exists(p) else None
+        self._log(
+            f"STALE GENERATION on query {query_id!r}: {detail[:300]} — "
+            f"quarantining generation {matched_generation}"
+            + (f" (artifact {art})" if art else "")
+        )
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("stale_generation", cat="serve.dynamic",
+                      query=query_id, kind=kind, source=source,
+                      served_generation=served_generation,
+                      stale_generation=matched_generation,
+                      staleness=staleness,
+                      artifact=art or f"generation {matched_generation} "
+                                      f"(in-memory overlay state)",
+                      detail=detail[:300])
+            rec.flight_dump("stale_generation")
+        if self._cache is not None:
+            # Cache entries were admitted under the torn state's keys.
+            self._cache.quarantine_generation(
+                detail=f"stale generation {matched_generation} served "
+                       f"as {served_generation}"
+            )
+        self._restage_overlay()
+
     def query(self, source, *, timeout: float | None = None,
               deadline_ms: float | None = None,
               want_distances: bool | None = None, kind: str = "bfs",
@@ -712,6 +1063,20 @@ class BfsService:
         lm = self._landmarks
         if lm is not None:
             out["landmarks"] = lm.config_summary()
+        if self._dynamic is not None:
+            # The generation the counters on this line were served under,
+            # how full the overlay is, and the staleness audit's verdicts.
+            with self._flip_lock:
+                dyn = {
+                    "generation": self._graph_generation,
+                    "overlay_rows": self._dynamic.overlay_rows_used(),
+                    "overlay_capacity": list(self._overlay_cap),
+                    "flips": self._flips,
+                    "compactions": self._compactions,
+                }
+            if self._staleness is not None:
+                dyn["staleness"] = self._staleness.stats()
+            out["dynamic"] = dyn
         if _faults.ACTIVE is not None:
             # Per-kind injected-fault counts: did every scheduled fault land.
             out["faults"] = _faults.ACTIVE.counts()
@@ -758,7 +1123,9 @@ class BfsService:
         while True:
             width = min(width, self.lanes)
             try:
-                return self._registry.get(self._spec(width, kind=kind))
+                engine = self._registry.get(self._spec(width, kind=kind))
+                self._sync_engine_overlay(engine)
+                return engine
             except Exception as exc:  # noqa: BLE001 — gated by classifiers
                 if is_oom_failure(exc) and self._degrade(width):
                     continue
@@ -911,8 +1278,11 @@ class BfsService:
 
     def _acquire_shadow_engine(self, width: int, kind: str):
         """The shadow auditor's engine: the disjoint rung, warmed and kept
-        resident through the registry."""
-        return self._registry.get(self._shadow_spec(width, kind))
+        resident through the registry, and synced to the SERVED overlay
+        (else every audited answer of a dynamic service would mismatch)."""
+        engine = self._registry.get(self._shadow_spec(width, kind))
+        self._sync_engine_overlay(engine)
+        return engine
 
     def flush_audits(self, timeout: float = 60.0) -> bool:
         """Barrier: every enqueued audit processed (callers read the audit
@@ -929,6 +1299,10 @@ class BfsService:
         try:
             self._executor.finish_batch(pending, stream)
             self._populate_cache(pending)
+            if self._staleness is not None:
+                # The staleness arm: a sampled oracle replay against the
+                # generation ring, on this worker, sealed internally.
+                self._staleness.observe_batch(pending)
             tier = self._integrity
             if tier is not None:
                 # Every query of the batch is resolved: audits add no
@@ -970,6 +1344,13 @@ class BfsService:
         served batch into an incident."""
         cache = self._cache
         if cache is None:
+            return
+        if (self._dynamic is not None
+                and pending.generation != self.graph_generation):
+            # A flip landed while this batch was in flight: its answers are
+            # right for the generation they were pinned to, but caching them
+            # now would file generation G-1 payloads under generation G
+            # keys. Stragglers do not cache.
             return
         for q in pending.queries:
             try:
@@ -1050,13 +1431,22 @@ class BfsService:
                               width=width, kind=kind,
                               queries=[q.id for q in live],
                               queue_depth=self._queue.depth())
-                engine = self._acquire_engine(width, kind)
-                if len(live) > engine.lanes:
-                    # An OOM degraded the cap after this batch was popped:
-                    # serve what fits, re-admit the tail at the front.
-                    self._queue.requeue(live[engine.lanes:])
-                    live = live[: engine.lanes]
-                pending = self._executor.dispatch_batch(engine, live)
+                # The dispatch section runs under the flip lock: generation
+                # flips happen BETWEEN batches, never between an engine's
+                # overlay sync and its dispatch, so the stamp below names
+                # the tables the batch traversed. Uncontended (and
+                # reentrant) on static services.
+                with self._flip_lock:
+                    engine = self._acquire_engine(width, kind)
+                    if len(live) > engine.lanes:
+                        # An OOM degraded the cap after this batch was
+                        # popped: serve what fits, re-admit the tail.
+                        self._queue.requeue(live[engine.lanes:])
+                        live = live[: engine.lanes]
+                    pending = self._executor.dispatch_batch(engine, live)
+                    if pending is not None:
+                        pending.generation = self._graph_generation
+                        pending.overlay_epoch = self._overlay_epoch
             except OomRequeue as exc:
                 # Ladder units (p2p's capacity counts pairs).
                 width = getattr(engine, "ladder_lanes", engine.lanes)
@@ -1155,8 +1545,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     f"{DEFAULT_PLANES})")
     ap.add_argument("--pull-gate", action="store_true",
                     help="frontier-aware pull gate (wide/hybrid engines)")
-    # Refused at construction, naming their ROADMAP item: the mesh, the
-    # integrity tier, dynamic graphs and AOT preheat.
+    # Refused at construction, naming their ROADMAP item: the mesh and AOT
+    # preheat.
     ap.add_argument("--devices", type=int, default=1,
                     help="shard the engines over N devices (refused: the "
                     "mesh serve slice)")
@@ -1230,11 +1620,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     "dispatch. 0 disables (default); needs p2p served")
     ap.add_argument("--mutations", default=None, metavar="DxK", nargs="?",
                     const="default",
-                    help="dynamic-graph serving (refused: dynamic graphs)")
+                    help="dynamic-graph serving: arm streaming edge updates "
+                    "over a bounded overlay of D mutated rows x K neighbor "
+                    "slots (bare --mutations uses 256x16). Requests "
+                    "{\"op\":\"mutate\",\"add\":[[u,v],[u,v,w]...],"
+                    "\"remove\":[[u,v]...]} flip the served generation "
+                    "atomically between batches; an overflowing batch "
+                    "compacts into a new persisted base generation first. "
+                    "Needs the wide engine on an undirected graph; p2p "
+                    "drops from the served kinds")
     ap.add_argument("--generation-dir", default=None, metavar="DIR",
-                    help="compacted generations (refused: dynamic graphs)")
+                    help="persist compacted base generations here through "
+                    "the CRC checkpoint files (atomic writes, CURRENT "
+                    "pointer committed last, corrupt artifacts quarantined "
+                    ".corrupt); default: a temporary directory the service "
+                    "owns")
     ap.add_argument("--staleness-bound", type=int, default=0, metavar="N",
-                    help="staleness audit bound (refused: dynamic graphs)")
+                    help="max generation flips a sampled served answer may "
+                    "trail before the staleness auditor quarantines the "
+                    "stale generation (needs --mutations and --audit-rate "
+                    "> 0; default 0: answers must match the generation "
+                    "they were stamped with)")
     ap.add_argument("--faults", default=None, metavar="SPEC",
                     help="arm a deterministic fault-injection schedule "
                     "(tpu_bfs_torch/faults.py), e.g. 'seed=7:transient@"
@@ -1353,9 +1759,26 @@ def resolve_statsz_interval(args, *, env=None) -> float:
     return float(interval)
 
 
+def _dynamic_from_args(args):
+    """``--mutations``: () when absent, True when bare, else (D, K)."""
+    dyn_raw = getattr(args, "mutations", None)
+    if not dyn_raw:
+        return ()
+    if dyn_raw == "default":
+        return True
+    try:
+        d, k = (int(x) for x in str(dyn_raw).lower().split("x"))
+    except ValueError:
+        raise SystemExit(
+            f"--mutations must look like DxK (e.g. 256x16), got {dyn_raw!r}"
+        ) from None
+    return (d, k)
+
+
 def _service_from_args(args, registry, log) -> BfsService:
     if getattr(args, "export_aot", None):
         raise NotImplementedError(f"--export-aot waits for {AOT_ITEM}")
+    dynamic = _dynamic_from_args(args)
     return BfsService(
         args.graph,
         engine=args.engine,
@@ -1388,7 +1811,7 @@ def _service_from_args(args, registry, log) -> BfsService:
         audit_seed=args.audit_seed,
         cache_bytes=args.cache_bytes,
         landmarks=args.landmarks,
-        dynamic=args.mutations or (),
+        dynamic=dynamic,
         generation_dir=args.generation_dir,
         staleness_bound=args.staleness_bound,
         distances=not args.no_distances,
@@ -1513,17 +1936,33 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
         f"queue_cap={args.queue_cap}")
 
     def mutate_line(line: str) -> bool:
-        """A {"op": "mutate"} request answers a structured refusal (dynamic
-        graphs are not ported); False when the line is not one."""
+        """The {"op": "mutate"} request, handled ON the reader thread:
+        mutations serialize with each other for free, and
+        apply_edge_updates flips between dispatched batches through the
+        flip lock. False when the line is not a mutate op (it falls through
+        to the query path). Every failure answers a structured line."""
         try:
             req = json.loads(line)
         except Exception:  # noqa: BLE001 — the query path answers it
             return False
         if not (isinstance(req, dict) and req.get("op") == "mutate"):
             return False
-        emit({"id": req.get("id"), "op": "mutate", "ok": False,
-              "error": f"NotImplementedError: edge updates wait for "
-                       f"{DYNAMIC_ITEM}"})
+        qid = req.get("id")
+        try:
+            add = req.get("add") or ()
+            remove = req.get("remove") or ()
+            if not isinstance(add, (list, tuple)) or not isinstance(remove, (list, tuple)):
+                raise TypeError("add/remove must be arrays of [u, v] / [u, v, w]")
+            out = service.apply_edge_updates(
+                add=[tuple(int(x) for x in e) for e in add],
+                remove=[tuple(int(x) for x in e) for e in remove],
+            )
+            emit({"id": qid, "op": "mutate", "ok": True, **out})
+        except Exception as exc:  # noqa: BLE001 — answered, never fatal
+            emit({
+                "id": qid, "op": "mutate", "ok": False,
+                "error": f"{type(exc).__name__}: {str(exc)[:300]}",
+            })
         return True
 
     def reader() -> None:

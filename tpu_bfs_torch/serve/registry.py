@@ -4,8 +4,9 @@ the port of ``tpu_bfs/serve/registry.py``.
 An engine build costs an ELL and tile build plus, on the card, the first
 load of the CUDA kernel library; a server cannot pay that per query. The
 registry keys resident engines by ``EngineSpec`` (graph, engine, lanes,
-planes, pull gate, kind), warms each build with one full-width batch plus
-the engine's ``warm_residency`` hook, and bounds residency with an LRU.
+planes, pull gate, kind, graph generation, overlay capacity), warms each
+build with one full-width batch plus the engine's ``warm_residency`` hook,
+and bounds residency with an LRU.
 
 Against JAX: there is no XLA compile cache to arm (the warm batch is the
 whole warm-up), no ``expand_impl`` axis (the port always runs its K1
@@ -73,6 +74,19 @@ class EngineSpec:
     pull_gate: bool = False
     devices: int = 1
     kind: str = "bfs"
+    #: The served graph's version, bumped on every applied mutation batch.
+    #: A key field (post-flip queries must never alias a pre-flip
+    #: residency by key), but the registry REKEYS a resident engine across
+    #: a flip (:meth:`EngineRegistry.rekey_generation`) instead of
+    #: rebuilding it: only the overlay table values change.
+    graph_generation: int = 0
+    #: The delta-overlay capacity ``(rows, kcap)``; () is a static graph.
+    #: The engine's fold runs over fixed-shape tables of this size.
+    overlay: tuple = ()
+
+    def __post_init__(self):
+        # A hashable, stable key whatever sequence the capacity came in.
+        object.__setattr__(self, "overlay", tuple(int(x) for x in self.overlay))
 
     def validate(self) -> None:
         if self.engine not in ENGINE_KINDS:
@@ -98,6 +112,35 @@ class EngineSpec:
                 "pull_gate applies to the wide/hybrid engines (the packed "
                 "engine keeps no settled-mask state)"
             )
+        if self.graph_generation < 0:
+            raise ValueError(
+                f"graph_generation must be >= 0, got {self.graph_generation}"
+            )
+        if self.overlay:
+            if len(self.overlay) != 2 or min(self.overlay) < 1:
+                raise ValueError(
+                    f"overlay must be (rows, kcap) with both >= 1, got "
+                    f"{self.overlay}"
+                )
+            if self.engine != "wide" or self.devices > 1:
+                raise ValueError(
+                    "the delta overlay rides the single-chip wide "
+                    "substrate (dynamic graphs); the mesh generalization "
+                    "follows the partitioned tiles"
+                )
+            if self.pull_gate:
+                raise ValueError(
+                    "overlay does not compose with pull_gate (the gate "
+                    "skips settled BASE rows; overlay edges would escape "
+                    "it untraversed)"
+                )
+            if self.kind == "p2p":
+                raise ValueError(
+                    "kind 'p2p' is excluded from dynamic serving: its "
+                    "path reconstruction scans the BUILD-TIME edge "
+                    "tables, so a post-mutation path could silently "
+                    "traverse removed edges"
+                )
         if self.kind != "bfs":
             from tpu_bfs_torch.workloads import KIND_ENGINES, KINDS
 
@@ -220,7 +263,8 @@ class EngineRegistry:
             # SSSP builds its own weighted tables (no base engine).
             eng = build_workload_engine(
                 "sssp", None, g,
-                types.SimpleNamespace(lanes=spec.lanes, device=self.device),
+                types.SimpleNamespace(lanes=spec.lanes, device=self.device,
+                                      overlay=spec.overlay),
             )
         else:
             if spec.engine == "packed":
@@ -239,7 +283,8 @@ class EngineRegistry:
 
                 eng = WidePackedMsBfsEngine(
                     g, lanes=spec.lanes, num_planes=spec.planes,
-                    pull_gate=spec.pull_gate, device=self.device,
+                    pull_gate=spec.pull_gate, overlay=spec.overlay,
+                    device=self.device,
                 )
             if spec.kind != "bfs":
                 eng = build_workload_engine(spec.kind, eng, g, spec)
@@ -263,6 +308,37 @@ class EngineRegistry:
                 warm()
         self.warm_s[spec] = time.perf_counter() - t0
         self._log(f"engine warmed {spec} in {self.warm_s[spec]:.1f}s")
+
+    def rekey_generation(self, graph_key: str, generation: int) -> int:
+        """Move every resident engine of ``graph_key`` onto the new
+        ``graph_generation`` key WITHOUT a rebuild: a mutation flip swaps
+        overlay table values under the same engine, so the residency
+        survives and only its registry identity moves, atomically under
+        the lock, in LRU order. In-flight batches keep their engine
+        reference. Returns how many residencies moved."""
+        moved = 0
+        with self._lock:
+            items = list(self._engines.items())
+            self._engines.clear()
+            for spec, eng in items:
+                if spec.graph_key == graph_key and spec.graph_generation != generation:
+                    spec = dataclasses.replace(spec, graph_generation=generation)
+                    moved += 1
+                self._engines[spec] = eng
+            return moved
+
+    def drop_graph_engines(self, graph_key: str) -> int:
+        """Evict every resident engine of ``graph_key`` (the compaction
+        path: a new base generation changes the ELL itself, unlike a
+        flip). Returns the eviction count."""
+        dropped = 0
+        with self._lock:
+            for spec in [s for s in self._engines if s.graph_key == graph_key]:
+                self._engines.pop(spec)
+                self.evictions += 1
+                dropped += 1
+                self._log(f"evicted engine {spec} (compaction)")
+            return dropped
 
     def evict(self, spec: EngineSpec) -> bool:
         """Drop ``spec``'s engine (if resident) so its device tables can

@@ -125,6 +125,15 @@ class CcServeEngine(ExchangeRecordDelegate):
                 self._index = CcIndex(labels, n, sweeps)
             return self._index
 
+    def set_overlay(self, tables) -> None:
+        """A dynamic-graph flip: swap the overlay on the base sweep engine
+        AND drop the cached component index (an added edge can merge
+        components, a removed one split them); the next cc query pays the
+        re-label sweeps over the folded graph."""
+        self.base.set_overlay(tables)
+        with self._lock:
+            self._index = None
+
     def dispatch(self, sources, **_ignored) -> np.ndarray:
         return np.asarray(sources, dtype=np.int64)
 

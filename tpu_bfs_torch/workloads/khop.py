@@ -24,6 +24,11 @@ class KhopServeEngine(ExchangeRecordDelegate):
         self.lanes = base.lanes
         self.num_vertices = base.num_vertices
 
+    def set_overlay(self, tables) -> None:
+        """A dynamic-graph flip: pure delegation (the adapter caches nothing
+        derived from the edge set)."""
+        self.base.set_overlay(tables)
+
     def dispatch(self, sources, *, k: int = 1, **_ignored):
         k = int(k)
         if k < 0:

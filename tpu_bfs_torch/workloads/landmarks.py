@@ -82,10 +82,21 @@ class LandmarkIndex:
         self._exact = 0  # guarded-by: _lock
         self._bounded = 0  # guarded-by: _lock
         self._fallback = 0  # guarded-by: _lock
+        self._invalidations = 0  # guarded-by: _lock
 
     @property
     def warmed(self) -> bool:
         return self._columns is not None
+
+    def invalidate(self) -> None:
+        """A dynamic-graph flip: drop the distance columns. They were
+        computed over the pre-mutation edge set, and one added edge can
+        tighten d(l, v) everywhere, so every triangle bound is suspect. The
+        tier answers nothing until its owner re-warms it over the folded
+        graph."""
+        with self._lock:
+            self._columns = None
+            self._invalidations += 1
 
     # --- warm-up ----------------------------------------------------------
 
@@ -188,6 +199,7 @@ class LandmarkIndex:
                 "exact": self._exact,
                 "bounded": self._bounded,
                 "fallback": self._fallback,
+                "invalidations": self._invalidations,
             }
 
     def config_summary(self) -> dict:

@@ -38,6 +38,11 @@ from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch.algorithms._packed_common import expand_arrays, make_expand, resolve_device
 from tpu_bfs_torch.algorithms.msbfs_wide import expand_spec
 from tpu_bfs_torch.graph.csr import INF_DIST, Graph
+from tpu_bfs_torch.graph.dynamic import (
+    device_overlay_tables,
+    empty_overlay_tables,
+    make_overlay_fold,
+)
 from tpu_bfs_torch.graph.ell import build_ell, build_ell_weights, pad_gate_blocks
 from tpu_bfs_torch.ops.ell_expand import MINPLUS_IDENT
 
@@ -125,19 +130,17 @@ class SsspEngine:
     is the bucket width (0: the mean edge weight, rounded); ``max_rounds``
     bounds the loop (a round is one light sweep, or a light sweep and a
     heavy close; exceeding it raises rather than mislabels). ``device`` is
-    CUDA unless named. Dynamic-graph overlays are not ported: a non-empty
-    ``overlay`` raises."""
+    CUDA unless named. ``overlay=(rows, kcap)`` arms the dynamic-graph
+    delta overlay (``graph/dynamic.py``): the light sweep folds the
+    overlay's light plane ``ov_wl`` and the heavy close its full plane
+    ``ov_w`` after K1, as the base tables split ``wl``/``w``."""
 
     kind = "sssp"
 
     def __init__(self, graph: Graph, *, lanes: int = 32, kcap: int = 64,
                  delta: int = 0, max_rounds: int = 4096, overlay: tuple = (),
                  device=None):
-        if overlay:
-            raise NotImplementedError(
-                "dynamic-graph overlays are not ported to tpu_bfs_torch yet "
-                "(ROADMAP Queue 1 item 4)"
-            )
+        self.overlay = tuple(int(x) for x in overlay) if overlay else ()
         if graph.weights is None:
             raise ValueError(
                 "sssp needs a weighted graph (generate with weights=W or "
@@ -161,9 +164,19 @@ class SsspEngine:
                 if len(graph.weights) else 1
         self.delta = int(delta)
         self.arrs = self._build_arrays()
+        if self.overlay:
+            # Arm the fold with all-pad tables; a mutation swaps values.
+            self.set_overlay(empty_overlay_tables(self.overlay, self._act, weighted=True))
         spec = expand_spec(self.ell)
         self._expand_light = make_expand(spec, self.lanes, op="minplus", wsuf="wl")
         self._expand_full = make_expand(spec, self.lanes, op="minplus", wsuf="w")
+        if self.overlay:
+            # The light sweep reads the delta-thresholded ov_wl plane, the
+            # heavy close the full ov_w plane, as the base tables' wl/w.
+            self._expand_light = make_overlay_fold(
+                self._expand_light, op="minplus", weights_key="ov_wl")
+            self._expand_full = make_overlay_fold(
+                self._expand_full, op="minplus", weights_key="ov_w")
         self.last_host_reads = None
         self.last_closes = None
         self._warmed = False
@@ -186,6 +199,21 @@ class SsspEngine:
                 arrs[f"{name}_{suf}_gt"] = torch.from_numpy(
                     pad_gate_blocks(plane, 0)).to(self.device)
         return arrs
+
+    def set_overlay(self, tables) -> None:
+        """Swap the delta-overlay tables. The light plane ``ov_wl`` is
+        derived here from ``ov_w`` and this engine's ``delta`` (pad slots,
+        weight 0, pass the threshold and gather the all-INF sentinel row).
+        One atomic dict rebind; shapes must match the armed capacity."""
+        if not self.overlay:
+            raise ValueError(
+                "engine built without an overlay — pass overlay=(rows, "
+                "kcap) at construction to serve a dynamic graph"
+            )
+        new = device_overlay_tables(tables, self.overlay, self.device, weighted=True)
+        w = new["ov_w"]
+        new["ov_wl"] = torch.where(w <= self.delta, w, int(INF_W))
+        self.arrs = {**self.arrs, **new}
 
     def _iso_of(self, sources: np.ndarray):
         return self._rank[sources] >= self._act
