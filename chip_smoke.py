@@ -24,23 +24,27 @@ Phases, one JSON line each:
     (bit-exact), its time, the twin's time, its device-memory bound, its
     streamed-bytes model and nvcc's register and shared-memory report;
  7. parents: the flagship batch's BFS trees through the device parent scan
-    (K1 op=min over a full ELL, 64 passes of 128 lanes), each pass timed on
-    the device and copied to the host, every lane of the first pass decoded
-    there (timed), the validated lanes of the others; the 5 validated lanes
+    (K1 op=min over a full ELL, passes of 128 lanes): the passes that hold
+    2 of the flagship's validated lanes (first and last; 2 of 64 passes
+    since PR 13, the 8192-lane export stated as per-pass x 64), each timed
+    on the device and copied to the host, every lane of the first pass
+    decoded there (timed), the validated lanes of the others; those 2
+    lanes' trees
     equal validate.min_parent_from_dist and pass certify_bfs; then the
-    public parents_into(device="device") on a 256-lane batch. The K1 min
+    public parents_into(device="device") on a 64-lane batch. The K1 min
     entry of the kernels line is timed here, at the scan's shape;
  8. single: the reference's single-source BFS on the flagship graph,
     through BfsEngine with each of the scan, segment, scatter, delta and
-    dopt backends and through TiledBfsEngine: 4 sources (the hub and 3
-    drawn with default_rng(7) among the traversable vertices), each run
+    dopt backends and through TiledBfsEngine: 2 sources (the hub and 1
+    drawn with default_rng(7) among the traversable vertices; 4 until PR
+    13, cut to pay for the mesh_serve phase), each run
     once to warm and once timed; every distance array equals SciPy's and
     every tree equals the first engine's, which passes check_parents. Per
     backend: ms per BFS, levels, GTEPS, host syncs and peak memory. These
     engines are plain PyTorch: no kernel launches;
  9. packed: the 512-lane PackedMsBfsEngine on the flagship graph, one
     build_ell shared by a 256-lane (w 8) and a 32-lane (w 1) engine, each
-    with the single phase's sources in lanes 0-2 (checked against SciPy)
+    with the single phase's sources in lanes 0-1 (checked against SciPy)
     and lane 0's tree from parents_int32 (the device scan), equal to the
     single phase's checked tree; K1 launches counted, and K1 held
     against its twin bit for bit at both widths on the run's own tables
@@ -66,9 +70,10 @@ Phases, one JSON line each:
     True) from its sources, equal to SciPy and to its checked trees;
 12. ckpt (after packed): a 256-lane hybrid batch on the flagship graph,
     its first --ckpt-every levels (4) on the hybrid, saved, loaded and
-    resumed to the end on the wide engine (one save a mode, cut from one
-    a chunk to keep the script's time), equal on every lane to an
-    uninterrupted run; ungated, then gated. Then a single-source BfsEngine
+    resumed to the end on the wide engine (one save, cut from one a chunk
+    and then from one a mode to keep the script's time), equal on every
+    lane to an uninterrupted run; ungated, then gated (resumed from the
+    checkpoint in memory). Then a single-source BfsEngine
     (scan) started, advanced to level 2, saved, loaded and finished, equal
     to run; the same level-2 state saved as 4 shards
     (save_checkpoint_sharded), reloaded and finished, equal to run; and the
@@ -106,7 +111,7 @@ Phases, one JSON line each:
     DistHybridMsBfsEngine at the same scale, equal to a single-device batch.
 15. mesh_single (after single): the single-source mesh engines on a
     one-rank NCCL group on cuda:0 at the flagship's full size, from the
-    single phase's 4 sources: DistBfsEngine with the ring, allreduce and
+    single phase's 2 sources: DistBfsEngine with the ring, allreduce and
     sparse exchanges (scan) and with dopt (ring), and Dist2DBfsEngine 1x1
     with ring and sparse. Each BFS runs once to warm and once timed; every
     distance array equals SciPy's and every tree the single phase's checked
@@ -127,7 +132,8 @@ Phases, one JSON line each:
     lanes on the sssp phase's weighted graph and sources, with the ring,
     allreduce and sparse (delta ids 8/16, prediction) exchanges: a warm
     batch, a timed one (its K1 launches exactly buckets x (rounds +
-    closes)), 2 more in turns with the sssp phase's SsspEngine; every lane's
+    closes)), 1 more in turns with the sssp phase's SsspEngine (2 until PR
+    13); every lane's
     distances equal SsspEngine's bit for bit on the device and the checked
     lanes SciPy's dijkstra; rounds, closes, host reads a round, the exchange
     ms a round (CUDA events) and peak memory per engine. The ring engine's
@@ -146,7 +152,8 @@ Phases, one JSON line each:
     width_ladder="auto" (32/64/256), linger_ms=2) on the flagship graph, the
     JAX bench_serve protocol not cut: 64 client threads x 8 queries, closed
     loop, sources from default_rng(7) among the traversable vertices;
-    pipelined, then the same loop unpipelined on the same warmed rungs. Every
+    pipelined, then unpipelined on the same warmed rungs (64 clients x 2
+    queries since PR 13, to pay for the mesh_serve phase). Every
     response's reached and levels equal the 256-lane rung engine's direct
     batches, 8 rows of distances those batches' and 3 SciPy's. QPS, p50/p99,
     fill, routing, extract p50, peak memory, K1 launches, each rung's build
@@ -161,7 +168,8 @@ Phases, one JSON line each:
     a kind, each equal to that kind's engine run directly), a hybrid service
     (4096 lanes, 64 queries, K2 on the serve path) and the answer tier (a
     repeat is a cache hit, a landmark-exact p2p pair needs no dispatch).
-    The integrity arm: (a) the flagship loop once more, pipelined, with
+    The integrity arm: (a) the flagship loop once more (64 clients x 2
+    queries since PR 13), pipelined, with
     audit_rate=0.1, audit_structural and audit_checksum: zero findings and
     audit errors, every answer equal to the direct batches; audits run,
     the audit p50 lag, the structural audit's ms, QPS and p50 beside the
@@ -190,7 +198,7 @@ Phases, one JSON line each:
     plain-torch fold's ms a level and the batch ms with and without the
     overlay. (b) SsspEngine(lanes=256, overlay=...) on the sssp phase's
     weighted graph and sources after a batch of 48 adds and 16 re-weights:
-    5 lanes equal to Dijkstra on materialize(); K1 minplus and the fold's
+    2 lanes equal to Dijkstra on materialize() (5 until PR 13); K1 minplus and the fold's
     ms a light sweep. Their K1 launches give the "K1 or, dynamic wide w 8"
     and "K1 minplus, dynamic sssp w 256" kernels entries, each bit-exact
     against its twin on the engine's own tables. (c) At the wide phase's
@@ -204,6 +212,30 @@ Phases, one JSON line each:
     staleness finding, then healed), corrupt_overlay (restaged from host
     truth, no finding) and compaction_crash (rolled back, the orphan
     quarantined, answers unchanged).
+20. mesh_serve (after serve): the serve tier on a mesh. This process joins
+    as rank 0 of 4 gloo ranks sharing the card (``serve_mesh``; NCCL takes
+    one rank a card, so this measures the mesh serving machinery, not
+    scaling) on RMAT --wide-scale (18, cut from the flagship's 21; every
+    rank builds its own shard tables and gloo stages rows through the
+    host). (a) BfsService(wide, devices=2, 256 lanes, ladder auto = 64/256)
+    under JAX's bench_serve loop, 64 clients x 8 queries: every answer's
+    reached and levels equal a single-device WidePackedMsBfsEngine batch,
+    8 rows of distances too and 3 SciPy's, every traversal record devices
+    2 with the engine's edges and a wire-bytes share; QPS, p50/p99, fill,
+    routing; then a 192-query batch queued before start() takes the
+    256-lane rung, and rank 0's shard of it gives the "K1 or, mesh serve
+    rung w 8 (shard)" kernels entry. (b) That service under
+    device_lost@fetch@rank=1:n=1 armed after start: it degrades 2 -> 1
+    with no failed query, mesh_faults = mesh_degrades = 1; a probe fault
+    holds mesh_restore(2); cleared, it serves on 2 ranks again, answers
+    equal. (e) A hybrid service on 2 ranks, 4096 lanes, three batches
+    equal to a single-device HybridMsBfsEngine; rank 0's row tiles give the
+    "K2, mesh serve rung (shard)" entry. (c) dist2d on 2x2, 32 lanes,
+    resume_levels=2, a resume spool, device_lost@fetch@level=2: the query
+    answers from the degraded 1x2 mesh equal to SciPy, resumed at the
+    level-2 snapshot, every spooled snapshot reloaded through its CRC.
+    (d) ``python -m tpu_bfs_torch.serve rmat:scale=16 --devices 2`` as a
+    subprocess: three answers with devices 2, SIGTERM drains, exit 0.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -233,6 +265,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # the rest decode only the validated lanes (a whole pass takes seconds).
 # One pass keeps the whole script near 9 minutes.
 DECODE_PASSES = 1
+# Lanes of the parents phase's public parents_into export (256 until PR 13).
+PARENTS_INTO_LANES = 64
+# Sources of the single phase (the hub and draws), which the mesh_single,
+# pullgate (tiled), packed and ckpt phases reuse: a source costs each of
+# them its warm and timed runs and its host checks at scale 21.
+SINGLE_SOURCES = 2
 # Threads checking BFS trees on the host side by side (a lane's check is
 # a few O(E) numpy passes, some 2 GB of temporaries at scale 21).
 CHECK_THREADS = 4
@@ -240,12 +278,16 @@ CHECK_THREADS = 4
 # turns with BfsEngine's: the spread of a ~10 ms BFS driven from the host.
 REPEATS = 3
 # Turns of each mesh SSSP engine with SsspEngine in the mesh_kinds phase
-# (a ~0.7 s batch: two keep the phase near its 100 s).
-MESH_KINDS_TURNS = 2
+# (a ~0.7 s batch; one since PR 13, to pay for the mesh_serve phase).
+MESH_KINDS_TURNS = 1
 # The serve phase's closed loop (the JAX bench_serve's: 64 clients x 8
 # queries) and its chaos arm's fault spec (scripts/chip_session.sh:203-204).
 SERVE_CLIENTS = 64
 SERVE_PER_CLIENT = 8
+# Queries a client in the unpipelined and audited loops, which run beside
+# the pipelined one at its concurrency (8 until PR 13, cut to pay for the
+# mesh_serve phase).
+SERVE_SHORT_PER_CLIENT = 2
 SERVE_SPEC = "seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4"
 # The dynamic phase's overlay capacity (rows, kcap): JAX's bench default.
 DYN_CAP = (256, 32)
@@ -729,10 +771,16 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     host half decoding into one reused [128, V] buffer instead of a
     [S, V] array: every lane in the first DECODE_PASSES passes, only the
     validated lanes after), then the public parents_into on a 256-lane
-    batch. Returns the K1 min entry of the kernels line."""
+    batch. Only the passes that hold a validated lane (and the first) run:
+    every pass is the same work on other lanes, so the whole 8192-lane
+    export is stated as the per-pass figures times the pass count. Returns
+    the K1 min entry of the kernels line."""
     from tpu_bfs_torch.algorithms._packed_common import _decode_pass, acquire_parent_scanner
 
     require(res._iso is None, "flagship sources are traversable: none isolated")
+    # The first and last of the flagship's validated lanes (a tree check at
+    # scale 21 takes 5-6 s of host work).
+    picks = sorted({picks[0], picks[-1]})
     t0 = time.perf_counter()
     scanner = acquire_parent_scanner(eng, "device")  # builds and moves a full ELL
     torch.cuda.synchronize()
@@ -745,11 +793,13 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     trees = {}
     pass_ms, k1_ms, d2h_ms, decode_ms = [], [], [], []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    all_passes = -(-n // lpp)
+    scanned = sorted({0} | {i // lpp for i in picks})
     torch.cuda.synchronize()
     reset_counts(k1, k2)
     k1.ell_expand.timings = []
     t_scan = time.perf_counter()
-    for lane0 in range(0, n, lpp):
+    for lane0 in (p * lpp for p in scanned):
         m = min(lpp, n - lane0)
         ev0 = len(k1.ell_expand.timings)
         start.record()
@@ -788,20 +838,27 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
         unit=f"one parent-scan pass: every bucket of the full ELL, w {lpp}")
     del scanner, buf, trees
 
-    # The public export on a 256-lane batch of the same engine; it builds
-    # its own scanner (the hybrid's is not cached) and a 2.1 GB [S, V] array.
-    res2 = eng.run(sources[:256])
-    out = np.empty((256, g.num_vertices), np.int32)
+    # The public export on a small batch of the same engine; it builds its
+    # own scanner (the hybrid's is not cached) and an [S, V] host array.
+    res2 = eng.run(sources[:PARENTS_INTO_LANES])
+    out = np.empty((PARENTS_INTO_LANES, g.num_vertices), np.int32)
     reset_counts(k1, k2)
     t0 = time.perf_counter()
     res2.parents_into(out, device="device")
     export_s = time.perf_counter() - t0
     export_launches = k1.ell_expand.launches
-    require(export_launches == 2 * buckets, f"parents_into launched {export_launches} K1")
-    checked = [0, 128, 255]
+    require(export_launches == -(-PARENTS_INTO_LANES // lpp) * buckets,
+            f"parents_into launched {export_launches} K1")
+    checked = [0, PARENTS_INTO_LANES - 1]
     _check_trees(g, res2, sources, checked, out)
+    per_pass_s = scan_s / len(pass_ms)
     emit({
-        "phase": "parents", "lanes": n, "passes": len(pass_ms), "lanes_per_pass": lpp,
+        "phase": "parents", "lanes": n, "passes": len(pass_ms), "passes_scanned": scanned,
+        "passes_of_the_batch": all_passes, "lanes_per_pass": lpp,
+        "cut": f"{len(pass_ms)} of {all_passes} passes (those of the validated lanes and "
+               f"the first); the export figures below are per pass x {all_passes}",
+        "export_s_est": per_pass_s * all_passes,
+        "export_device_ms_est": sum(pass_ms) / len(pass_ms) * all_passes,
         "full_ell": {"kcap": ell.kcap, "buckets": buckets, "slots": ell.total_slots,
                      "active": ell.num_active},
         "row_map": "identity" if perm is None else "permuted",
@@ -813,15 +870,16 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
         "host_decode_ms_per_pass": sum(decode_ms) / len(decode_ms),
         "host_decode_passes_timed": len(decode_ms),
         "validated_lanes": sorted(picks), "validate_s": validate_s,
-        "parents_into_256": {"seconds": export_s, "ell_expand_launches": export_launches,
-                             "checked_lanes": checked, "host_bytes": out.nbytes},
+        f"parents_into_{PARENTS_INTO_LANES}": {
+            "seconds": export_s, "ell_expand_launches": export_launches,
+            "checked_lanes": checked, "host_bytes": out.nbytes},
     })
     return entry
 
 
 def phase_single(dev, k1, k2, g, traversable):
     """The reference's run, one source at a time, on the flagship graph:
-    each single-source backend from 4 sources, warm then timed, every
+    each single-source backend from SINGLE_SOURCES sources, warm then timed, every
     distance array against SciPy and every tree checked. Returns the
     sources, their SciPy distances, their checked trees and the
     DeviceGraph."""
@@ -832,7 +890,8 @@ def phase_single(dev, k1, k2, g, traversable):
     from tpu_bfs_torch.validate import check_distances, check_parents
 
     hub = int(np.argmax(g.degrees))
-    draws = np.random.default_rng(7).choice(traversable, size=3, replace=False)
+    draws = np.random.default_rng(7).choice(traversable, size=SINGLE_SOURCES - 1,
+                                            replace=False)
     sources = [hub] + [int(x) for x in draws]
     t0 = time.perf_counter()
     csr = g.to_scipy()
@@ -1084,7 +1143,7 @@ def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> 
     ell_s = time.perf_counter() - t0
     names = bucket_names(ell)
     rest = np.random.default_rng(7).choice(traversable, size=256, replace=False)
-    batch = np.concatenate([np.asarray(sources[:3]), rest])[:256]
+    batch = np.concatenate([np.asarray(sources), rest])[:256]
     out, entries = {}, []
     for lanes in (256, 32):
         t0 = time.perf_counter()
@@ -1099,7 +1158,7 @@ def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> 
         require(launches == len(names) * (res.num_levels + 1),
                 f"packed w {eng.w}: {launches} K1 launches, not {len(names)} per level")
         require(k2.tile_spmm.launches == 0, "the packed engine launched tile_spmm")
-        for i in range(3):
+        for i in range(len(sources)):
             check_distances(res.distances_int32(i), golden[int(src[i])])
         t0 = time.perf_counter()
         tree = res.parents_int32(0)  # the device scan (K1 min) over the engine's tables
@@ -1109,7 +1168,7 @@ def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> 
         out[f"w{eng.w}"] = {"lanes": lanes, "build_s": build_s, "levels": res.num_levels,
                             "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
                             "k1_launches": launches, "tree_s": tree_s,
-                            "validated_lanes": [0, 1, 2]}
+                            "validated_lanes": list(range(len(sources)))}
         entries.append(k1_entry(
             k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2,
             name=f"K1 or, packed w {eng.w}",
@@ -1410,8 +1469,8 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
     """Checkpoint and resume on the flagship graph: a 256-lane hybrid batch
     started, advanced ``every`` levels, saved, loaded and resumed on the
     wide engine to its end, its finish equal to an uninterrupted hybrid run
-    on every lane; ungated, then gated. One save a mode: the saves are host
-    zlib, the phase's cost. Then a single-source BfsEngine (scan): start,
+    on every lane; ungated, then gated, whose checkpoint resumes from
+    memory: the saves are host zlib, the phase's cost. Then a single-source BfsEngine (scan): start,
     advance to level 2, save, load, advance, finish, equal to run."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
     from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
@@ -1432,13 +1491,18 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
         t_all = time.perf_counter()
         st = heng.advance(heng.start(src), every)  # the first chunk, on the hybrid
         require(not st.done, "the batch ended in its first chunk: nothing resumed")
-        t0 = time.perf_counter()
-        ck.save_packed_checkpoint(path, st)
-        save_s = [time.perf_counter() - t0]
-        sizes = [Path(path).stat().st_size]
-        t0 = time.perf_counter()
-        st = ck.load_packed_checkpoint(path)
-        load_s = [time.perf_counter() - t0]
+        save_s, sizes, load_s = [], [], []
+        if not gate:
+            # The file round trip once (one host zlib save is ~13 s at
+            # this size); the gated mode resumes the same checkpoint class
+            # from memory.
+            t0 = time.perf_counter()
+            ck.save_packed_checkpoint(path, st)
+            save_s = [time.perf_counter() - t0]
+            sizes = [Path(path).stat().st_size]
+            t0 = time.perf_counter()
+            st = ck.load_packed_checkpoint(path)
+            load_s = [time.perf_counter() - t0]
         levels = [st.level]
         st = weng.advance(st)  # the rest, resumed on the wide engine
         levels.append(st.level)
@@ -2397,6 +2461,7 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
         traversable, size=(SERVE_CLIENTS, SERVE_PER_CLIENT), replace=False)
     out, direct = {}, None
     for pipeline in (True, False):
+        rows = picks if pipeline else picks[:, :SERVE_SHORT_PER_CLIENT]
         t0 = time.perf_counter()
         svc = BfsService(g, engine="wide", lanes=256, width_ladder="auto",
                          pipeline=pipeline, linger_ms=2.0, queue_cap=1024,
@@ -2407,7 +2472,7 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         reset_counts(k1, k2)
-        flat, seconds = closed_loop(svc, picks)
+        flat, seconds = closed_loop(svc, rows)
         launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
         peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         snap = svc.statsz()
@@ -2437,7 +2502,8 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
             "peak_above_start_gb": peak_gb, "launches": launches,
             "rows_equal_direct": compared, "rows_equal_scipy": 3,
         }
-    out["audited"] = serve_audited(dev, k1, k2, g, reg, picks, direct, out["pipelined"])
+    out["audited"] = serve_audited(dev, k1, k2, g, reg, picks[:, :SERVE_SHORT_PER_CLIENT],
+                                   direct, out["pipelined"])
     out["ladder"] = [32, 64, 256]
     out["rung_build_s"] = {str(s.lanes): reg.build_s[s] for s in reg.build_s if s.kind == "bfs"}
     out["rung_warm_s"] = {str(s.lanes): reg.warm_s[s] for s in reg.warm_s if s.kind == "bfs"}
@@ -2771,7 +2837,7 @@ def serve_kinds(dev, k1, k2, scale: int) -> dict:
         mine = [(q, r) for (kd, q), (_, r) in zip(queries, res) if kd == kind]
         widths = {r.dispatched_lanes for _, r in mine}
         require(len(widths) == 1 and all(r.ok for _, r in mine), f"{kind}: {widths}")
-        eng = reg.get(svc._spec(widths.pop(), kind))
+        eng = reg.get(svc._spec(widths.pop(), kind=kind))
         s = np.asarray([q["source"] for q, _ in mine])
         if kind == "p2p":
             d = eng.run(s, targets=np.asarray([q["target"] for q, _ in mine]))
@@ -2868,6 +2934,355 @@ def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return entry
+
+
+# --- the mesh_serve phase -------------------------------------------------------
+
+
+def mesh_serve_tables(rank, eng, sources):
+    """Rank entry (every rank of a serving-mesh rung runs it on its replica
+    of the rung's engine): a batch from ``sources`` and the replicated
+    frontier table of its visited rows, gathered over the rung; for the
+    hybrid engine also the residual OR its K2 launch accumulates into.
+    Returns this rank's tensors."""
+    res = eng.run(sources)
+    if hasattr(eng, "hd"):
+        fw = eng._gather(res._vis, 0)
+        return fw, eng._expand(eng.arrs, fw).index_select(0, eng.arrs["perm"])
+    return (eng._exchange_rows(res._vis, 0),)
+
+
+def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
+    """(a) BfsService(devices=2) on the wide engine, 256 lanes, ladder
+    auto (64/256 at 2 ranks): JAX's bench_serve closed loop, every answer
+    held to a single-device WidePackedMsBfsEngine batch; then a 192-query
+    batch on the 256-lane rung and the "K1 or, mesh serve rung w 8
+    (shard)" entry on rank 0's own tables."""
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.serve import BfsService, EngineRegistry
+
+    reg = EngineRegistry(capacity=8, device=dev)
+    t0 = time.perf_counter()
+    svc = BfsService(g, engine="wide", devices=2, lanes=256, width_ladder="auto",
+                     linger_ms=2.0, queue_cap=1024, registry=reg, device=dev)
+    up_s = time.perf_counter() - t0
+    require(svc.width_ladder == [64, 256], f"mesh ladder {svc.width_ladder}")
+    reset_counts(k1, k2)
+    commands = ctl.commands
+    flat, seconds = closed_loop(svc, picks)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    commands = ctl.commands - commands
+    snap = svc.statsz()
+    svc.close()
+    require(launches["ell_expand"] > 0 and launches["tile_spmm"] == 0,
+            f"mesh serve loop launches {launches}")
+    require(snap["completed"] == len(flat) and snap["errors"] == 0 and snap["devices"] == 2,
+            f"statsz {snap}")
+    single = WidePackedMsBfsEngine(g, lanes=256, num_planes=8, device=dev)
+    direct = direct_answers(single, picks.reshape(-1))
+    compared = same_as_direct(flat, direct, "mesh serve loop", sample=8)
+    csr = g.to_scipy()
+    for r in [r for r in flat if r.distances is not None][:3]:
+        require(np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+                f"mesh serve loop: source {r.source} != SciPy")
+    for r in flat:
+        _, _, res, i = direct[r.source]
+        require(r.devices == 2 and r.edges == int(res.edges_traversed[i])
+                and r.wire_bytes and r.wire_bytes > 0,
+                f"mesh serve loop: traversal record of {r.source}: {r.devices} "
+                f"{r.edges} {r.wire_bytes}")
+    rec = [{"source": r.source, "devices": r.devices, "edges": r.edges, "gteps": r.gteps,
+            "wire_bytes": r.wire_bytes} for r in flat[:3]]
+    # The closed loop's batches fit the 64-lane rung: a 192-query batch
+    # queued before start() takes the 256-lane rung (w 8), whose K1 launches
+    # on rank 0's shard give the kernels entry.
+    burst = BfsService(g, engine="wide", devices=2, lanes=256, width_ladder="auto",
+                       registry=reg, device=dev, autostart=False)
+    batch = picks.reshape(-1)[:192]
+    pend = [burst.submit(int(s)) for s in batch]
+    reset_counts(k1, k2)
+    burst.start()
+    wide_res = [p.result(600) for p in pend]
+    w8_launches = k1.ell_expand.launches
+    burst_routing = burst.statsz()["routing"]
+    burst.close()
+    require(burst_routing == {"256": 1}, f"the 192-query batch routed {burst_routing}")
+    same_as_direct(wide_res, direct, "mesh serve w 8 batch", sample=2)
+    # K1 on rank 0's shard of the 256-lane rung, its frontier the batch's
+    # replicated visited table.
+    rung = reg.get(svc._spec(256))
+    (fw,) = ctl.build(2, mesh_serve_tables, rung, batch)._local
+    eng = rung._local
+    names = (["virtual"] if eng.sell.virtual is not None else []) + [
+        f"light{i}" for i in range(len(eng.sell.light))]
+    require(eng.w == 8 and fw.shape[1] == 8, f"the 256-lane rung has w {eng.w}")
+    require(w8_launches > 0 and w8_launches % len(names) == 0,
+            f"w 8 batch: {w8_launches} K1 launches over {len(names)} buckets")
+    entry = k1_entry(k1, eng.arrs, names, fw, "or", w8_launches, ptxas,
+                     name="K1 or, mesh serve rung w 8 (shard)",
+                     unit="one level of the 2-rank serve ladder's 256-lane rung: every "
+                          "bucket of rank 0's shard, w 8, the batch's visited table")
+    entry["launches_per"] = "one 192-query batch at the 256-lane rung (rank 0's launches)"
+    out = {"arm": "a", "engine": "wide", "devices": 2, "lanes": 256, "ladder": [64, 256],
+           "service_up_s": up_s, "queries": len(flat), "seconds": seconds,
+           "qps": len(flat) / seconds, "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+           "fill_ratio": snap["fill_ratio"], "routing": snap["routing"],
+           "batches": snap["batches"], "extract_p50_ms": snap["extract_p50_ms"],
+           "launches_rank0": launches, "mesh_commands": commands,
+           "w8_batch": {"queries": 192, "routing": burst_routing,
+                        "k1_launches_rank0": w8_launches},
+           "rows_equal_direct": compared, "rows_equal_scipy": 3,
+           "traversal_record_first3": rec,
+           "rung_build_s": {str(k.lanes): v for k, v in reg.build_s.items()}}
+    return entry, out, reg, direct
+
+
+def mesh_serve_chaos(dev, ctl, g, reg, picks, direct) -> dict:
+    """(b) The (a) service under device_lost@fetch@rank=1:n=1 armed after
+    start: it degrades 2 -> 1 with no failed query; a probe fault holds
+    mesh_restore(2) at 1; cleared, the service returns to 2 ranks."""
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.serve import BfsService
+    from tpu_bfs_torch.utils.recovery import COUNTERS
+
+    svc = BfsService(g, engine="wide", devices=2, lanes=256, width_ladder="auto",
+                     linger_ms=2.0, registry=reg, device=dev)
+    COUNTERS.reset()
+    try:
+        faults.arm_from_spec("device_lost@fetch@rank=1:n=1")
+        t0 = time.perf_counter()
+        hit, hit_s = closed_loop(svc, picks[:16, :4])
+        snap1 = svc.statsz()
+        require(snap1["devices"] == 1 and snap1["mesh_faults"] == 1
+                and snap1["mesh_degrades"] == 1 and snap1["errors"] == 0,
+                f"chaos statsz {snap1}")
+        require(all(r.devices in (None, 1) for r in hit[-4:]), "answers after the degrade")
+        faults.arm_from_spec("device_lost@probe:n=8")
+        held = svc.mesh_restore(2)
+        require(not held and svc.statsz()["devices"] == 1, "restore passed a dead probe")
+        faults.disarm()
+        restored = svc.mesh_restore(2)
+        require(restored and svc.statsz()["devices"] == 2, "restore after the probe cleared")
+        back, back_s = closed_loop(svc, picks[16:32, :4])
+        require(all(r.devices == 2 for r in back), "answers after the restore")
+        snap2 = svc.statsz()
+        chaos_s = time.perf_counter() - t0
+    finally:
+        faults.disarm()
+        svc.close()
+    same_as_direct(hit + back, direct, "mesh chaos", sample=4)
+    c = COUNTERS.as_dict()
+    return {"arm": "b", "spec": "device_lost@fetch@rank=1:n=1", "queries": len(hit) + len(back),
+            "degraded_loop_s": hit_s, "restored_loop_s": back_s, "seconds": chaos_s,
+            "devices_after_fault": snap1["devices"], "mesh_faults": snap1["mesh_faults"],
+            "mesh_degrades": snap1["mesh_degrades"], "restore_held_by_probe": not held,
+            "devices_after_restore": snap2["devices"], "errors": snap2["errors"],
+            "counters": {k: v for k, v in c.items() if v}}
+
+
+def mesh_serve_dist2d(dev, ctl, g, src: int, spool: Path) -> dict:
+    """(c) BfsService(engine="dist2d", devices=4 as 2x2, lanes 32,
+    resume_levels=2, --resume-dir spool) under device_lost@fetch@level=2:
+    the query is answered from the degraded 1x2 mesh, equal to SciPy,
+    resumed from its level-2 snapshot (recompute <= 2 levels); every
+    snapshot written to the spool reloads through the CRC check."""
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.resilience import resume
+    from tpu_bfs_torch.serve import BfsService
+    from tpu_bfs_torch.utils.checkpoint import load_checkpoint
+
+    shutil.rmtree(spool, ignore_errors=True)
+    resume.set_default_dir(str(spool))
+    spooled, starts = [], []
+    put, advance = resume.ResumeCache.put, Dist2DBfsEngine.advance
+
+    def checked_put(cache, source, ckpt):  # every spool file reloads through its CRC
+        put(cache, source, ckpt)
+        back = load_checkpoint(cache._path(source))
+        spooled.append((int(source), int(back.level),
+                        bool(np.array_equal(back.distance, ckpt.distance))))
+
+    def logged_advance(eng, ckpt, levels=None):  # rank 0's chunk starts
+        starts.append((eng.mesh.num_shards, int(ckpt.source), int(ckpt.level)))
+        return advance(eng, ckpt, levels)
+
+    resume.ResumeCache.put, Dist2DBfsEngine.advance = checked_put, logged_advance
+    try:
+        t0 = time.perf_counter()
+        svc = BfsService(g, engine="dist2d", devices=4, lanes=32, width_ladder="off",
+                         resume_levels=2, linger_ms=2.0, device=dev, autostart=False)
+        svc.start()
+        up_s = time.perf_counter() - t0
+        faults.arm_from_spec("device_lost@fetch@level=2:n=1")
+        t0 = time.perf_counter()
+        r = svc.query(src, timeout=900)
+        query_s = time.perf_counter() - t0
+        faults.disarm()
+        snap = svc.statsz()
+        svc.close()
+    finally:
+        faults.disarm()
+        resume.ResumeCache.put, Dist2DBfsEngine.advance = put, advance
+        resume.set_default_dir(None)
+    require(r.ok and r.devices == 2, f"dist2d resume query: {r.status} {r.error} {r.devices}")
+    require(np.array_equal(r.distances, bfs_scipy(g, src)), "dist2d resume answer != SciPy")
+    require(snap["devices"] == 2 and snap["mesh_degrades"] == 1 and snap["errors"] == 0
+            and snap["query_resumes"] >= 1, f"dist2d statsz {snap}")
+    # The faulted chunk began at level 2 on the 4-rank mesh; the degraded
+    # mesh's first chunk must begin there too (from the level-2 snapshot),
+    # so at most that chunk's K levels run twice.
+    before = [lv for n, s, lv in starts if n == 4 and s == src]
+    resumed = [lv for n, s, lv in starts if n == 2 and s == src]
+    mine = [e for e in spooled if e[0] == src]
+    require(bool(resumed) and before[-1] == 2 and resumed[0] == before[-1],
+            f"chunk starts {starts}: the degraded mesh did not resume at level 2")
+    require(bool(mine) and mine[0][1] == 2 and all(ok for _, _, ok in spooled),
+            f"spool files {spooled}")
+    require(not list(spool.glob("q*.npz")), "a finished query left its spool file")
+    return {"arm": "c", "engine": "dist2d", "mesh": "2x2", "lanes": 32, "resume_levels": 2,
+            "spec": "device_lost@fetch@level=2:n=1", "source": src, "service_up_s": up_s,
+            "query_s": query_s, "devices_answered": r.devices, "levels": r.levels,
+            "query_resumes": snap["query_resumes"], "resume_snapshots": snap["resume_snapshots"],
+            "spool_files_crc_checked": mine, "chunk_starts": {
+                "four_ranks": before, "two_ranks": resumed},
+            "recompute_levels_at_most": 2}
+
+
+def mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas):
+    """(e) BfsService(engine="hybrid", devices=2, lanes 4096, ladder auto):
+    three batches, every answer held to a single-device HybridMsBfsEngine
+    batch; then the "K2, mesh serve rung (shard)" entry on rank 0's row
+    tiles."""
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.serve import BfsService, EngineRegistry
+
+    reg = EngineRegistry(capacity=4, device=dev)
+    t0 = time.perf_counter()
+    svc = BfsService(g, engine="hybrid", devices=2, lanes=4096, width_ladder="auto",
+                     linger_ms=2.0, registry=reg, device=dev)
+    up_s = time.perf_counter() - t0
+    require(svc.width_ladder == [4096], f"hybrid mesh ladder {svc.width_ladder}")
+    srcs = picks.reshape(-1)[:192]
+    reset_counts(k1, k2)
+    t0 = time.perf_counter()
+    flat = []
+    for lo in range(0, len(srcs), 64):
+        pend = [svc.submit(int(s)) for s in srcs[lo:lo + 64]]
+        flat += [p.result(900) for p in pend]
+    seconds = time.perf_counter() - t0
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    snap = svc.statsz()
+    svc.close()
+    require(all(r.ok and r.devices == 2 for r in flat), "hybrid mesh answers")
+    require(launches["tile_spmm"] > 0, f"hybrid mesh serve launches {launches}")
+    single = HybridMsBfsEngine(g, lanes=4096, num_planes=8, device=dev)
+    direct = direct_answers(single, srcs)
+    compared = same_as_direct(flat, direct, "hybrid mesh serve", sample=3)
+    rung = reg.get(svc._spec(4096))
+    fw, prior = ctl.build(2, mesh_serve_tables, rung, srcs)._local
+    eng = rung._local
+    entry = k2_entry(k2, eng.arrs, fw, prior, eng._nrt, launches["tile_spmm"], ptxas,
+                     name="K2, mesh serve rung (shard)",
+                     unit="one launch on rank 0's row tiles of the 2-rank serve ladder's "
+                          "4096-lane hybrid rung, out= form")
+    entry["launches_per"] = "three batches of the 2-rank hybrid service (rank 0's launches)"
+    del fw, prior
+    return entry, {"arm": "e", "engine": "hybrid", "devices": 2, "lanes": 4096,
+                   "service_up_s": up_s, "queries": len(flat), "batches": snap["batches"],
+                   "seconds": seconds, "launches_rank0": launches,
+                   "rows_equal_direct": compared}
+
+
+def mesh_serve_jsonl(dev) -> dict:
+    """(d) ``python -m tpu_bfs_torch.serve rmat:scale=16 --devices 2`` as a
+    subprocess (its own two gloo ranks on the card): three queries answered
+    with ``devices`` 2, then SIGTERM drains it with exit code 0."""
+    import threading
+
+    spec = "rmat:scale=16"
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_bfs_torch.serve", spec, "--lanes", "256",
+         "--devices", "2", "--device", str(dev), "--statsz-interval-s", "0"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=here, env=dict(os.environ, PYTHONPATH=str(here)))
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    try:
+        proc.stdin.write("".join(json.dumps({"id": i, "source": s}) + "\n"
+                                 for i, s in enumerate((0, 5, 9))))
+        proc.stdin.flush()
+        got = [json.loads(proc.stdout.readline()) for _ in range(3)]
+        answered_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"mesh serve subprocess exited {proc.returncode}: "
+                                  f"{err[-2000:]}")
+    require("SIGTERM received: draining" in err, "no SIGTERM drain in the server's log")
+    require(all(r["status"] == "ok" and r["devices"] == 2 for r in got),
+            f"mesh serve subprocess answers {got}")
+    final = [ln for ln in err.splitlines() if ln.startswith("statsz ")]
+    stat = json.loads(final[-1][7:]) if final else {}
+    require(stat.get("completed") == 3 and stat.get("devices") == 2, f"final statsz {stat}")
+    return {"arm": "d", "graph": spec, "devices": 2, "answered_s": answered_s,
+            "seconds": time.perf_counter() - t0,
+            "answers": [{k: r.get(k) for k in ("id", "levels", "reached", "devices", "edges",
+                                               "wire_bytes")} for r in got],
+            "drain": "SIGTERM, final statsz, exit 0"}
+
+
+def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
+    """The serve tier on a mesh (see the module docstring, phase 20).
+    Returns the "K1 or, mesh serve rung w 8 (shard)" and "K2, mesh serve
+    rung (shard)" kernels entries."""
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.graph.generate import rmat_graph
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.parallel.mesh import serve_mesh
+
+    t_phase = time.perf_counter()
+    g = rmat_graph(scale, 16, seed=1)
+    pilot = WidePackedMsBfsEngine(g, lanes=32, num_planes=8, device=dev)
+    _, traversable = hub_component_sources(pilot, 32, seed=7, with_component=True)
+    del pilot
+    picks = np.random.default_rng(7).choice(
+        traversable, size=(SERVE_CLIENTS, SERVE_PER_CLIENT), replace=False)
+    t0 = time.perf_counter()
+    ctl = serve_mesh(4, device=str(dev))
+    mesh_up_s = time.perf_counter() - t0
+    note = (f"gloo ranks sharing {dev} (NCCL takes one rank a card): this measures the "
+            f"mesh serving machinery, not multi-card scaling")
+    try:
+        k1e, wide, reg, direct = mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas)
+        emit({"phase": "mesh_serve", "graph": f"RMAT {scale} (cut from the flagship's 21)",
+              "ranks_started": 4, "backend": ctl.backend, "mesh_up_s": mesh_up_s,
+              "note": note, **wide})
+        chaos = mesh_serve_chaos(dev, ctl, g, reg, picks, direct)
+        del reg, direct
+        gc.collect()
+        emit({"phase": "mesh_serve", **chaos})
+        k2e, hyb = mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas)
+        emit({"phase": "mesh_serve", **hyb})
+        gc.collect()
+        # A drawn source, not vertex 0: the registry's warm-up batch runs
+        # from vertex 0 (and would drop a snapshot of it).
+        d2 = mesh_serve_dist2d(dev, ctl, g, int(picks[0, 0]), BUILD_DIR / "mesh_serve_spool")
+        emit({"phase": "mesh_serve", **d2})
+    finally:
+        ctl.close()
+    torch.cuda.empty_cache()
+    jsonl = mesh_serve_jsonl(dev)
+    emit({"phase": "mesh_serve", **jsonl, "phase_seconds": time.perf_counter() - t_phase})
+    return [k1e, k2e]
 
 
 # --- the dynamic phase ----------------------------------------------------------
@@ -2997,7 +3412,7 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
 def dynamic_sssp(dev, k1, k2, sssp, ptxas):
     """(b) SsspEngine(overlay=DYN_CAP) on the sssp phase's weighted flagship
     graph and sources, 256 lanes: one batch after an add and re-weight
-    batch (re-weights make override rows), 5 lanes against Dijkstra on
+    batch (re-weights make override rows), 2 lanes against Dijkstra on
     materialize()."""
     from tpu_bfs_torch.graph.dynamic import DynamicGraph, make_overlay_fold
     from tpu_bfs_torch.workloads.sssp import SsspEngine
@@ -3036,7 +3451,7 @@ def dynamic_sssp(dev, k1, k2, sssp, ptxas):
     t0 = time.perf_counter()
     mat = dyn.materialize()
     mat_s = time.perf_counter() - t0
-    picks = [0, 1, 64, 128, 255]
+    picks = [0, 255]
     t0 = time.perf_counter()
     oracle = _dijkstra_oracle(mat, src[picks])
     for j, i in enumerate(picks):
@@ -3344,6 +3759,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.append(phase_serve(dev, k1, k2, g, traversable, args.wide_scale, ptxas))
     del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_mesh_serve(dev, k1, k2, args.wide_scale, ptxas)
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)

@@ -899,3 +899,49 @@ def test_dynamic_serve_on_cuda_equals_cpu(cuda):
         return out, st
 
     assert run("cuda") == run("cpu")
+
+
+def test_mesh_serve_on_cuda_equals_wide_engine(cuda):
+    # BfsService(devices=2) on two gloo ranks sharing cuda:0 (this process
+    # is rank 0): 100 queries answer as a single-device wide engine's
+    # batches; a device_lost on the serving fetch degrades it to one
+    # device with every answer still equal; and K1 on each rank's own
+    # shard equals its twin.
+    import torch_mesh_cases as cases
+
+    from tpu_bfs_torch import faults
+    from tpu_bfs_torch.parallel.mesh import serve_mesh
+    from tpu_bfs_torch.serve import BfsService
+
+    g = rmat_graph(12, 16, seed=4)
+    src = np.random.default_rng(2).choice(np.flatnonzero(g.degrees > 0), 100, replace=False)
+    ctl = serve_mesh(2, device="cuda:0")
+    try:
+        with BfsService(g, devices=2, lanes=64, width_ladder="auto", device="cuda:0",
+                        autostart=False) as svc:
+            pend = [svc.submit(int(s)) for s in src]
+            svc.start()
+            got = [p.result(300) for p in pend]
+            faults.arm_from_spec("device_lost@fetch@rank=1:n=1")
+            try:
+                after = [svc.query(int(s), timeout=300) for s in src[:4]]
+            finally:
+                faults.disarm()
+            snap = svc.statsz()
+        mismatched = ctl.build(2, cases.mesh_serve_shard_k1, ctl.share(g), 64, src[:64])
+    finally:
+        ctl.close()
+    eng = WidePackedMsBfsEngine(g, lanes=64, num_planes=8, device="cuda")
+    want = {}
+    for lo in range(0, len(src), 64):
+        res = eng.run(src[lo:lo + 64])
+        for i, s in enumerate(src[lo:lo + 64]):
+            want[int(s)] = (int(res.reached[i]), int(res.ecc[i]), res.distances_int32(i))
+    for r in got + after:
+        assert r.ok, r.error
+        reached, levels, dist = want[r.source]
+        assert (r.reached, r.levels) == (reached, levels)
+        np.testing.assert_array_equal(r.distances, dist)
+    assert all(r.devices == 2 for r in got) and all(r.devices == 1 for r in after[1:])
+    assert snap["devices"] == 1 and snap["mesh_faults"] == snap["mesh_degrades"] == 1
+    assert mismatched == 0

@@ -167,10 +167,40 @@ def _no_flip(lines):
 
 
 def test_jsonl_refuses_unported_flags_and_ops(regs):
-    for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"],
-                 ["--preheat", "d"], ["--export-aot", "d"], ["--engine", "dist2d"]):
+    # The AOT flags stay refused by name.
+    for flag in (["--preheat", "d"], ["--export-aot", "d"]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _run(tfront, regs[1], "", flag)
+    # The mesh flags are ported: --engine dist2d on one device raises JAX's
+    # ValueError, and --devices 2 serves (the port on two gloo ranks this
+    # process starts) the lines JAX serves on two virtual devices.
+    errs = []
+    for front, reg in ((tfront, regs[1]), (jfront, regs[0])):
+        with pytest.raises(ValueError) as ei:
+            _run(front, reg, "", ["--engine", "dist2d"])
+        errs.append(str(ei.value))
+    assert errs[0] == errs[1] and "devices >= 2" in errs[0]
+    queries = "".join(json.dumps({"id": i, "source": s}) + "\n"
+                      for i, s in enumerate((0, 3, 7)))
+    from tpu_bfs_torch.parallel.mesh import serve_mesh
+
+    # One pair of ranks for both servers (a server that finds the process's
+    # serving mesh uses it; one that does not would start its own).
+    ctl = serve_mesh(2, device="cpu")
+    try:
+        runs = [(_run(tfront, None, queries, flag), _run(jfront, None, queries, flag))
+                for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"])]
+    finally:
+        ctl.close()
+    for (got, tstat), (want, jstat) in runs:
+        for lines in (got, want):
+            for r in lines:  # timings are each package's own; an isolated
+                # source traverses no edge and reports no rate
+                r["gteps"] = r.get("gteps", 0) > 0
+        assert _canon(got) == _canon(want)
+        assert [r["devices"] for r in got] == [2, 2, 2]
+        for key in ("completed", "devices", "mesh_degraded", "mesh_faults"):
+            assert tstat[key] == jstat[key], key
     # The mutate op is ported: the round trip equals JAX's server, line for
     # line but flip_ms (each side's own registry: a compaction replaces the
     # registry's graph).
@@ -189,6 +219,24 @@ def test_jsonl_refuses_unported_flags_and_ops(regs):
     lines, _ = _run(tfront, regs[1], '{"id": 1, "op": "mutate", "add": [[1, 2]]}\n')
     jlines, _ = _run(jfront, regs[0], '{"id": 1, "op": "mutate", "add": [[1, 2]]}\n')
     assert lines == jlines and lines[0]["ok"] is False
+
+
+def test_resume_dir_flag_sets_the_resume_spool_as_in_jax(regs, tmp_path):
+    """``--resume-dir D`` parses on one device and points newly made resume
+    caches at D, in both servers (JAX's parser has always taken it)."""
+    from tpu_bfs.resilience import resume as jres
+
+    from tpu_bfs_torch.resilience import resume as tres
+
+    for front, reg, res in ((tfront, regs[1], tres), (jfront, regs[0], jres)):
+        spool = tmp_path / res.__name__
+        try:
+            lines, stat = _run(front, reg, json.dumps({"id": 1, "source": 3}) + "\n",
+                               ["--resume-dir", str(spool)])
+            assert [r["status"] for r in lines] == ["ok"] and stat["devices"] == 1
+            assert res._DEFAULT_DIR == str(spool)
+        finally:
+            res.set_default_dir(None)
 
 
 @pytest.mark.parametrize("flag", [["--mutations"], ["--mutations", "8x4"], []])

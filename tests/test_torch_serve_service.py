@@ -207,24 +207,30 @@ def test_answer_tier_equal_jax(regs):
     {"staleness_bound": 1}, {"aot_dir": "a"}, {"engine": "dist2d"},
 ])
 def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
-    if {"dynamic", "generation_dir", "staleness_bound"} & set(kw):
-        # Dynamic graphs are ported: construction goes as in JAX (a
-        # generation_dir without dynamic raises JAX's ValueError).
-        outs = []
-        for cls, reg in ((JService, regs[0]), (TService, regs[1])):
-            extra = {"device": "cpu"} if cls is TService else {}
-            try:
-                svc = cls(KEY, registry=reg, autostart=False, **extra, **kw)
-            except ValueError as exc:
-                outs.append(("ValueError", str(exc)))
-                continue
-            outs.append(("ok", svc.kinds, svc.statsz_extras().get("dynamic")))
-            svc.close()
-        assert outs[1] == outs[0]
-        assert outs[0][0] == ("ValueError" if "generation_dir" in kw else "ok")
+    if "aot_dir" in kw:
+        # AOT preheat is not ported (ROADMAP Queue 1 entry 6).
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
+            TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
-        TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
+    # The mesh knobs and dynamic graphs are ported: construction goes as in
+    # JAX (a mesh knob on one device, dist2d without a mesh and a
+    # generation_dir without dynamic raise JAX's ValueError; devices=2 and
+    # the probe cadence construct, and nothing starts before start()).
+    outs = []
+    for cls, reg in ((JService, regs[0]), (TService, regs[1])):
+        extra = {"device": "cpu"} if cls is TService else {}
+        try:
+            svc = cls(KEY, registry=reg, autostart=False, **extra, **kw)
+        except ValueError as exc:
+            outs.append(("ValueError", str(exc)))
+            continue
+        ext = svc.statsz_extras()
+        outs.append(("ok", svc.kinds, svc.width_ladder, ext.get("dynamic"),
+                     ext["devices"], ext.get("mesh_degraded")))
+        svc.close()
+    assert outs[1] == outs[0]
+    accepted = {"devices", "mesh_probe_interval_s", "dynamic", "staleness_bound"}
+    assert outs[0][0] == ("ok" if accepted & set(kw) else "ValueError")
 
 
 @pytest.mark.parametrize("kw", [
@@ -233,16 +239,20 @@ def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
 ])
 def test_audit_arguments_are_accepted_on_one_device(regs, kw):
     # The integrity tier is ported: the knobs arm it (audit_seed alone arms
-    # nothing, as in JAX); on a mesh the service is still refused by name.
-    svc = TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
-    try:
-        armed = any(kw.get(k) for k in ("audit_rate", "audit_structural", "audit_checksum"))
-        assert (svc._integrity is not None) == armed
-        assert ("audit" in svc.statsz_extras()) == armed
-    finally:
-        svc.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        TService(KEY, registry=regs[1], autostart=False, device="cpu", devices=2, **kw)
+    # nothing, as in JAX), on one device and, as in JAX, on a mesh.
+    armed = any(kw.get(k) for k in ("audit_rate", "audit_structural", "audit_checksum"))
+    for devices in (1, 2):
+        outs = []
+        for cls, reg in ((JService, regs[0]), (TService, regs[1])):
+            extra = {"device": "cpu"} if cls is TService else {}
+            svc = cls(KEY, registry=reg, autostart=False, devices=devices, **extra, **kw)
+            try:
+                ext = svc.statsz_extras()
+                outs.append((svc._integrity is not None, ext.get("audit"), ext["devices"]))
+            finally:
+                svc.close()
+        assert outs[1] == outs[0]
+        assert outs[0][0] == armed and outs[0][2] == devices
 
 
 def test_pipeline_dispatches_the_next_batch_while_extracting(regs):

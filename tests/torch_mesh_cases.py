@@ -874,3 +874,43 @@ def run_trace_cases(mesh, shape, cases, packed=()) -> dict:
     finally:
         obs.disarm()
     return out
+
+
+def mesh_serve_shard_k1(rank, g, lanes: int, sources) -> int:
+    """Serving-mesh entry (``parallel/mesh.MeshController.build`` runs it on
+    each rank of the 2-rank rung): a ``DistWideMsBfsEngine`` batch on the
+    rank's device, then K1 on the rank's own shard tables against its twin
+    over the batch's gathered visited table. Returns the mismatched words
+    summed over the rung."""
+    import torch
+
+    from tpu_bfs_torch.ops import ell_expand as k1
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+
+    mesh = rank.mesh(2)
+    eng = DistWideMsBfsEngine(g, mesh, lanes=lanes, num_planes=8)
+    res = eng.run(np.asarray(sources))
+    fw = eng._exchange_rows(res._vis, 0)
+    names = (["virtual"] if eng.sell.virtual is not None else []) + [
+        f"light{i}" for i in range(len(eng.sell.light))]
+    bad = torch.zeros(1, dtype=torch.int64, device=mesh.device)
+    for n in names:
+        got = k1.ell_expand(eng.arrs[f"{n}_need"], eng.arrs[f"{n}_gt"], fw, op="or")
+        want = k1.ell_expand_plain(eng.arrs[f"{n}_need"], eng.arrs[f"{n}_gt"], fw, op="or")
+        bad += (got != want).sum()
+    return int(mesh.all_reduce_(bad, "sum").item())
+
+
+def fail_dispatch_on_rank(rank, target: int) -> None:
+    """Serving-mesh entry (``MeshController.build`` on every rank): from now
+    on ``DistWideMsBfsEngine.dispatch`` raises on rank ``target`` alone, as
+    an out-of-memory on one of several ranks sharing a card would."""
+    if rank.rank != target:
+        return
+
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+
+    def dispatch(self, *args, **kw):
+        raise RuntimeError(f"rank {target} alone cannot dispatch")
+
+    DistWideMsBfsEngine.dispatch = dispatch

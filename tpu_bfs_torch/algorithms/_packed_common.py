@@ -50,6 +50,27 @@ from tpu_bfs_torch.validate import min_parent_from_dist
 UNREACHED = np.uint8(255)  # uint8 distance sentinel; see distances_int32()
 
 
+#: ``min_lane``'s value for a row no lane visited.
+NO_LANE = np.int32(1 << 30)
+
+
+def min_lane(vis: torch.Tensor, act: int) -> torch.Tensor:
+    """[rows, w] word-major visited table -> [act] int32 smallest visiting
+    lane of each real row, ``NO_LANE`` where no lane visited: the lowest
+    set bit of the row's first nonzero word. A fixed handful of passes over
+    the table, whatever its width."""
+    if act == 0:
+        return torch.zeros(0, dtype=torch.int32, device=vis.device)
+    v = vis[:act]
+    nz = v != 0
+    first = nz.to(torch.uint8).argmax(dim=1)  # the first nonzero word (0 if none)
+    word = v.gather(1, first[:, None]).squeeze(1).long() & 0xFFFFFFFF
+    low = word & -word  # its lowest set bit, exactly a power of two (or 0)
+    _, exp = torch.frexp(low.double())  # low == 2**(exp - 1)
+    lane = first * 32 + exp.long() - 1
+    return torch.where(nz.any(dim=1), lane, int(NO_LANE)).to(torch.int32)
+
+
 def ripple_increment_(planes, carry_bits) -> None:
     """Bit-sliced ripple-carry: planes + 1 wherever carry_bits is set. The
     JAX ``ripple_increment`` (``msbfs_packed.py``) returns new planes; this

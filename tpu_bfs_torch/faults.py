@@ -24,11 +24,18 @@ audit_shadow     integrity/shadow.ShadowAuditor._replay
 generation_flip  serve/frontend.BfsService._install_overlay_locked
                  (+ maybe_corrupt_overlay)
 compact          graph/dynamic.DynamicGraph.compact
+probe            resilience/probe.mesh_heartbeat
 ================ ===================================================
 
-The other sites of the table wait for their readers: ``probe`` (the mesh
-serve slice, ROADMAP Queue 1 entry 5) and ``aot_load`` (entry 6). A clause
-naming one of them parses and never fires.
+The ``aot_load`` site waits for its reader (ROADMAP Queue 1 entry 6): a
+clause naming it parses and never fires.
+
+On a mesh served from one controller (``parallel/mesh.MeshController``)
+only rank 0 holds a schedule. A command of the mesh stream that visits a
+site names it, and rank 0 consults it BEFORE posting the command, so an
+injected fault stops every rank at the same point (none is left inside a
+collective); inside the command rank 0's sites are silenced
+(:func:`decided`), so a site is never consulted twice.
 
 Production code never pays for this when disabled: every site guard is
 one module-attribute check (``if faults.ACTIVE is not None``) against a
@@ -389,6 +396,8 @@ class FaultSchedule:
         """Consult the schedule at ``site``. Sleeps for slow rules, then
         raises for at most one transient/oom rule — messages routed by the
         shared classifier exactly like real infrastructure failures."""
+        if getattr(_DECIDED, "on", False):
+            return
         raising = None
         # Only the kinds hit() can act on — in-place kinds (corrupt_ckpt)
         # keep their budget for the dedicated take() consultation.
@@ -442,6 +451,8 @@ class FaultSchedule:
     def take(self, site: str, kind: str, **ctx) -> bool:
         """Non-raising consultation for in-place kinds (corrupt_ckpt):
         True when a matching rule fired (budget consumed)."""
+        if getattr(_DECIDED, "on", False):
+            return False
         return bool(self._select(site, ctx, kinds=(kind,)))
 
     def counts(self) -> dict:
@@ -459,6 +470,25 @@ class FaultSchedule:
                 r.remaining is not None and r.remaining <= 0
                 for r in self.rules
             )
+
+
+# Per thread: inside a mesh command whose sites rank 0 already consulted.
+_DECIDED = threading.local()
+
+
+class decided:
+    """Context manager: the sites this thread visits inside are already
+    decided (a mesh command rank 0 consulted them for before posting it),
+    so ``hit`` and ``take`` pass without consuming the schedule."""
+
+    def __enter__(self):
+        self._prev = getattr(_DECIDED, "on", False)
+        _DECIDED.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _DECIDED.on = self._prev
+        return False
 
 
 # --- process-wide arming ---------------------------------------------------

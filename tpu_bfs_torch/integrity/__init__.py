@@ -34,9 +34,8 @@ drive every detector red before green.
 
 On a dynamic service the structural and shadow audits of a batch or
 answer that a graph flip superseded are shed, not judged: the audit's
-tables and engines follow the live generation. The mesh escalation of
-repeated findings is wired as in JAX and acts only on a mesh, which the
-port's serve tier does not run yet (ROADMAP Queue 1 entry 5).
+tables and engines follow the live generation. Repeated findings on a
+mesh escalate to the service's mesh degrade ladder, as in JAX.
 """
 
 from __future__ import annotations
@@ -341,7 +340,7 @@ class IntegrityTier:
                 k=getattr(q, "k", None),
                 target=getattr(q, "target", None),
                 width=svc.width_ladder[0],
-                devices=1,  # the port's serve tier runs on one device
+                devices=svc._mesh_cfg.devices,
                 distances=r.distances, levels=r.levels,
                 reached=r.reached,
                 extras=dict(r.extras) if r.extras else None,

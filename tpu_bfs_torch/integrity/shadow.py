@@ -8,9 +8,8 @@ correct-shaped wrong tree, or a corrupted reduction that misreports a
 count, can pass properties while still lying. The shadow auditor closes
 that hole the way the fuzz suite does, continuously and in production:
 a deterministic sample of resolved queries is re-executed on a warm
-engine of a DIFFERENT shape — another width rung of the ladder (the
-alternate exchange family of a mesh comes with the mesh serve tier) —
-and the two
+engine of a DIFFERENT shape — another width rung of the ladder, or the
+alternate exchange family of a mesh — and the two
 answers are compared bit-for-bit per kind (distances for bfs/sssp,
 reached counts and extras for the metadata kinds, met/distance for p2p,
 whose meet vertex is legitimately batch-composition-dependent). Two

@@ -23,20 +23,27 @@ the row exchange: its values are MAX-reduced over the mesh row only, so
 rows may take different branches, each on its own subgroup; ``wire_pack``
 also packs the column all-gather.
 
-``Dist2DServeEngine`` (the serve tier's adapter) is not ported: it comes
-with its first reader (ROADMAP Queue 1 item 4).
+``Dist2DServeEngine`` is the serve tier's adapter (JAX's, at
+``tpu_bfs/parallel/dist_bfs2d.py:652``): one loop per unique source of a
+padded batch, and, with ``resume_levels=K``, the level loop driven K
+levels a chunk with a real-id snapshot at each boundary
+(``resilience/resume.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
 import numpy as np
 import torch
 
+from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch.algorithms.frontier import (
     INT32_MAX,
     expand_or,
 )
-from tpu_bfs_torch.graph.csr import Graph
+from tpu_bfs_torch.graph.csr import INF_DIST, Graph
 from tpu_bfs_torch.obs.engine_trace import DistTraceHost, LevelRecord
 from tpu_bfs_torch.parallel.collectives import (
     column_gather_wire_bytes,
@@ -221,6 +228,42 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
         self._record_exchange(counts, resumed_level=level0, chain_nonce=chain_nonce)
         return frontier, visited, dist, level
 
+    def serve_runs(self, sources, max_levels: int) -> "Runs2D":
+        """One level loop from each of ``sources`` (the serve adapter's
+        unique sources), to ``max_levels`` at most; every rank keeps its
+        distance slices in the returned :class:`Runs2D`, whose per-run
+        summaries are reduced over the mesh here. ``last_exchange_bytes``
+        ends as the sum over the runs."""
+        world = self.mesh.world
+        if getattr(self, "_deg_loc", None) is None:
+            part = self.part
+            deg_pad = np.zeros(part.vp, dtype=np.int64)
+            deg_pad[part.to_padded(np.arange(part.num_vertices))] = self._degrees
+            self._deg_loc = self._local(deg_pad)
+        dists, wire = [], 0.0
+        sums = torch.zeros((max(len(sources), 1), 2), dtype=torch.int64, device=self.device)
+        ecc = torch.zeros(max(len(sources), 1), dtype=torch.int64, device=self.device)
+        for u, s in enumerate(sources):
+            frontier, visited, dist, col_frontier, first = self._fresh_state(int(s))
+            _, _, counts = self._loop(frontier, visited, dist, col_frontier, 0, max_levels,
+                                      first, 1)
+            self._record_exchange(counts)
+            wire += float(self.last_exchange_bytes or 0.0)
+            dists.append(dist)
+            # Padded phantoms are never reached, so the sums over the
+            # padded slice are the real-vertex figures.
+            fin = dist != INT32_MAX
+            sums[u, 0] = fin.sum()
+            sums[u, 1] = self._deg_loc[fin].sum()
+            ecc[u] = torch.where(fin, dist, 0).max().long()
+        world.all_reduce_(sums, "sum")
+        world.all_reduce_(ecc, "max")
+        self.last_exchange_bytes = wire
+        n = len(sources)
+        sums_h, ecc_h = sums.cpu().numpy()[:n], ecc.cpu().numpy()[:n]
+        return Runs2D(self, dists, reached=sums_h[:, 0].astype(np.int64),
+                      ecc=ecc_h.astype(np.int32), slots=sums_h[:, 1].astype(np.int64))
+
     def _parents_loc(self, dist_loc: torch.Tensor) -> torch.Tensor:
         """This rank's parent slice: the distances all-gathered over the
         mesh, the min candidate of the rank's edges scattered into its row
@@ -239,3 +282,253 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
         parent = reduce_scatter_min(contrib, self.mesh.c, impl=self._parent_impl)
         parent = torch.where(parent == INT32_MAX, -1, parent)
         return torch.where(dist_loc == INT32_MAX, -1, parent)
+
+
+# --- the serve adapter ----------------------------------------------------
+
+
+class Runs2D:
+    """Every rank's distance slices of one batch's unique runs, with their
+    mesh-reduced summaries (``reached``, ``ecc``, the degree-slot sum
+    ``slots``); :meth:`unshard` gathers one run's row."""
+
+    def __init__(self, engine: Dist2DBfsEngine, slices, *, reached, ecc, slots):
+        self._engine = engine
+        self._slices = slices
+        self.reached, self.ecc, self.slots = reached, ecc, slots
+
+    def unshard(self, u: int) -> np.ndarray:
+        """[V] int32 distances of run ``u`` (INF_DIST unreached), gathered
+        over the mesh."""
+        eng = self._engine
+        return eng.part.unshard(eng._gather_vec(self._slices[u])).astype(np.int32)
+
+
+@dataclasses.dataclass
+class _Pending2D:
+    """A dispatched 2D serving batch: the lane -> unique-run map, and either
+    the unique runs (:class:`Runs2D`) or, with resume armed, each run's
+    latest chunk (a real-id checkpoint) and its cursor."""
+
+    sources: np.ndarray  # [S] the padded lane sources
+    uniq: np.ndarray  # [U] unique sources
+    inv: np.ndarray  # [S] lane -> unique-run index
+    runs: object = None  # Runs2D (no resume)
+    chunks: list | None = None  # per-unique BfsCheckpoint (resume)
+    cursors: list | None = None  # per-unique chunk state (resume)
+    total_cap: int = 0  # absolute level cap of the whole query
+
+
+class Dist2DServeResult:
+    """The serve protocol's result over the unique runs: lane-mapped
+    ``reached``/``ecc``/``edges_traversed``, and each unique run's row
+    fetched (unsharded) once, when a lane of it is asked for."""
+
+    def __init__(self, rows, inv, sources, reached, ecc, edges):
+        self._rows = rows  # u -> [V] int32 (a Runs2D's unshard, or host rows)
+        self._inv = inv
+        self.sources = sources
+        self.reached = reached  # [S] int64
+        self.ecc = ecc  # [S] int32
+        self.edges_traversed = edges  # [S] int64
+        self._cache: dict = {}
+
+    def _dist_of(self, u: int) -> np.ndarray:
+        d = self._cache.get(u)
+        if d is None:
+            d = self._cache[u] = self._rows(u)
+        return d
+
+    def distances_int32(self, i: int) -> np.ndarray:
+        """[V] int32 distances of lane ``i`` (INF_DIST unreached)."""
+        if not (0 <= i < len(self.sources)):
+            raise IndexError(i)
+        return self._dist_of(int(self._inv[i]))
+
+
+class Dist2DServeEngine:
+    """The 2D engine behind the serve executor's batch protocol. A batch
+    becomes one level loop per UNIQUE source (the executor pads a partial
+    batch by repeating a real source, so 3 queries padded to 32 lanes run 3
+    loops); ``fetch`` assembles a result whose lanes index the unique runs.
+
+    ``resume_levels=K`` arms level-checkpointed resume: each run advances
+    K levels a chunk (``advance``) and its state is snapshotted at each
+    boundary into the process-wide per-graph resume cache, so a later
+    dispatch of the same source (the service's re-admission after a mesh
+    fault, on an engine over the degraded mesh) starts from the last
+    snapshot; a completed run drops its snapshot.
+
+    ``engine`` is the ``Dist2DBfsEngine`` over ``graph``: the serve tier
+    passes the handle of one replicated on every rank of a mesh
+    controller's rung (``parallel/mesh.Remote``), and this adapter then
+    runs on rank 0 alone, each collective step a command of the stream. Its
+    fault sites are consulted here, between the commands, as JAX consults
+    them."""
+
+    def __init__(self, graph: Graph, engine, *, lanes: int = 32, resume_levels: int = 0):
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        if resume_levels < 0:
+            raise ValueError(f"resume_levels must be >= 0, got {resume_levels}")
+        self.lanes = int(lanes)
+        self.resume_levels = int(resume_levels)
+        if resume_levels:
+            from tpu_bfs_torch.resilience.resume import ResumePolicy, cache_for_graph
+
+            self._resume = ResumePolicy(every_levels=int(resume_levels))
+            self._resume_cache = cache_for_graph(graph)
+        else:
+            self._resume = None
+            self._resume_cache = None
+        self.engine = engine
+        self.device = engine.device
+        self._num_vertices = graph.num_vertices
+        self._undirected = graph.undirected
+        self._degrees = np.asarray(graph.degrees, dtype=np.int64)
+        #: Modeled bytes one rank moved for the last fetched batch (summed
+        #: over its unique runs): the serve tier's wire-bytes record.
+        self.last_exchange_bytes: float | None = None
+
+    # --- passthroughs the serve and obs layers read ----------------------
+
+    @property
+    def mesh(self):
+        return self.engine.mesh
+
+    @property
+    def num_vertices(self) -> int:
+        return self._num_vertices
+
+    @property
+    def max_levels_cap(self) -> int:
+        """The deepest level bound of a dispatch: the padded vertex count
+        (the 2D loop labels int32 distances, with no plane cap)."""
+        return int(self.engine.part.vp)
+
+    @property
+    def last_run_trace(self):
+        return self.engine.last_run_trace
+
+    def exchange_branch_labels(self):
+        return self.engine.exchange_branch_labels()
+
+    def wire_bytes_per_level(self):
+        return self.engine.wire_bytes_per_level()
+
+    # --- dispatch / fetch -------------------------------------------------
+
+    @property
+    def _devices_n(self) -> int:
+        return _faults.mesh_devices(self)
+
+    def dispatch(self, sources, *, max_levels: int | None = None) -> _Pending2D:
+        if _faults.ACTIVE is not None:
+            # The mesh kinds target this engine's launches; ``devices``
+            # feeds the rank qualifiers.
+            _faults.ACTIVE.hit("dispatch", lanes=self.lanes, devices=self._devices_n)
+        sources = np.asarray(sources, dtype=np.int64)
+        if len(sources) > self.lanes:
+            raise ValueError(f"batch of {len(sources)} exceeds {self.lanes} lanes")
+        nv = self.num_vertices
+        if sources.size and (sources.min() < 0 or sources.max() >= nv):
+            raise ValueError(f"source out of range [0, {nv})")
+        uniq, inv = np.unique(sources, return_inverse=True)
+        total_cap = int(max_levels if max_levels is not None else self.max_levels_cap)
+        if self._resume is None:
+            runs = self.engine.serve_runs(uniq, total_cap)
+            return _Pending2D(sources=sources, uniq=uniq, inv=inv, runs=runs,
+                              total_cap=total_cap)
+        # Resume: each run's first chunk (K levels) now, the rest in fetch.
+        # A source with an intact snapshot (left by a mesh-faulted engine
+        # over the same graph) starts from its last snapshotted level.
+        from tpu_bfs_torch.utils.checkpoint import initial_checkpoint
+
+        k = self._resume.every_levels
+        chunks, cursors = [], []
+        for s in uniq:
+            s = int(s)
+            state = self._resume_cache.get(s)
+            if (state is not None and state.source == s and len(state.frontier) == nv
+                    # A snapshot deeper than this call's cap cannot be
+                    # adopted: the capped loop would return levels beyond
+                    # the requested bound. Start over instead.
+                    and int(state.level) <= total_cap):
+                self._resume_cache.mark_resumed(s)
+            else:
+                state = initial_checkpoint(nv, s)
+            start = int(state.level)
+            chunks.append(self.engine.advance(state, min(start + k, total_cap) - start))
+            cursors.append({"source": s, "start": start, "t0": time.monotonic()})
+        return _Pending2D(sources=sources, uniq=uniq, inv=inv, chunks=chunks,
+                          cursors=cursors, total_cap=total_cap)
+
+    def _drive_chunks(self, pend: _Pending2D, u: int):
+        """Complete run ``u``: at each chunk boundary consult the fault site
+        (``level`` = the chunk's start level), snapshot the state, advance
+        the next chunk; returns the final checkpoint. A mesh kind injected
+        here fires mid-query, after at least one snapshot."""
+        from tpu_bfs_torch.utils.checkpoint import BfsCheckpoint
+
+        cur = pend.cursors[u]
+        k = self._resume.every_levels
+        while True:
+            if _faults.ACTIVE is not None:
+                _faults.ACTIVE.hit("fetch", lanes=self.lanes, devices=self._devices_n,
+                                   level=cur["start"])
+            out = pend.chunks[u]
+            level = int(out.level)
+            if not out.frontier.any() or level >= pend.total_cap:
+                self._resume_cache.drop(cur["source"])
+                return out
+            if self._resume.should_snapshot(level, time.monotonic() - cur["t0"]):
+                self._resume_cache.put(cur["source"], BfsCheckpoint(
+                    source=cur["source"], level=level, frontier=out.frontier,
+                    visited=out.visited, distance=out.distance, nonce=out.nonce))
+            cur["start"] = level
+            pend.chunks[u] = self.engine.advance(out, min(level + k, pend.total_cap) - level)
+
+    def fetch(self, pend: _Pending2D, *, check_cap: bool = True,
+              **_ignored) -> Dist2DServeResult:
+        # ``check_cap`` is accepted for protocol uniformity (the k-hop
+        # adapter passes it): the bound is the padded vertex count, so a
+        # capped run is always the caller's explicit max_levels.
+        if _faults.ACTIVE is not None:
+            # The blocking half's site (the chunked drive consults it per
+            # chunk, with ``level``).
+            _faults.ACTIVE.hit("fetch", lanes=self.lanes, devices=self._devices_n)
+        u_count = len(pend.uniq)
+        if pend.cursors is None:
+            runs = pend.runs
+            reached_u, ecc_u, slots_u = runs.reached, runs.ecc, runs.slots
+            self.last_exchange_bytes = float(self.engine.last_exchange_bytes or 0.0)
+            rows = runs.unshard
+        else:
+            reached_u = np.empty(u_count, dtype=np.int64)
+            ecc_u = np.empty(u_count, dtype=np.int32)
+            slots_u = np.empty(u_count, dtype=np.int64)
+            finals, wire = [], 0.0
+            for u in range(u_count):
+                out = self._drive_chunks(pend, u)
+                # The chunks' exchange records chain on the query's nonce,
+                # so the engine's last record covers the whole query.
+                wire += float(self.engine.last_exchange_bytes or 0.0)
+                dist = np.asarray(out.distance, dtype=np.int32)
+                fin = dist != INF_DIST
+                reached_u[u] = int(fin.sum())
+                ecc_u[u] = int(dist[fin].max()) if fin.any() else 0
+                slots_u[u] = int(self._degrees[fin].sum())
+                finals.append(dist)
+            self.last_exchange_bytes = wire
+            rows = finals.__getitem__
+        inv = pend.inv
+        edges = slots_u[inv]
+        if self._undirected:
+            edges = edges // 2
+        return Dist2DServeResult(rows, inv, pend.sources, reached_u[inv], ecc_u[inv], edges)
+
+    def run(self, sources, *, max_levels: int | None = None,
+            time_it: bool = False) -> Dist2DServeResult:
+        """The blocking batch entry (the registry's warm-up, one-shot
+        callers); ``time_it`` is accepted for protocol uniformity."""
+        return self.fetch(self.dispatch(sources, max_levels=max_levels))

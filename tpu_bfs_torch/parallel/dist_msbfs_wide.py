@@ -38,6 +38,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     lazy_full_parent_ell,
     make_expand,
     make_state_kernels,
+    min_lane,
     ripple_increment_,
     seed_scatter_args,
 )
@@ -101,6 +102,12 @@ class MeshTableHost:
     def _own_rows(self, table: np.ndarray) -> np.ndarray:
         r0 = self.mesh.rank * self._rows_loc
         return table[r0 : r0 + self._rows_loc]
+
+    def row_min_lanes(self, pend) -> np.ndarray:
+        """[rows] smallest visiting lane of every chip-major table row of a
+        dispatched batch (the CC label fold): each rank folds its own rows
+        and the folds are all-gathered."""
+        return self._gather_rows(min_lane(pend.vis, pend.vis.shape[0])).cpu().numpy()
 
     def _any(self, t: torch.Tensor) -> bool:
         """Whether any rank's ``t`` holds a set bit (a psum > 0 in JAX)."""

@@ -21,9 +21,10 @@ a long-lived query service:
 - ``metrics``     — /statsz counters and the /metricz export;
 - ``answercache`` — the byte-budgeted, CRC-checked answer cache.
 
-The serve tier on a mesh (with ``resilience/``), the integrity tier,
-dynamic graphs and AOT preheat wait for later slices (ROADMAP Queue 1
-items 4 and 5); their arguments raise ``NotImplementedError``.
+``devices > 1`` serves on a mesh of ranks (``parallel/mesh.serve_mesh``)
+with the failover ladder, the health probe and level-checkpointed resume
+of ``tpu_bfs_torch/resilience``. AOT preheat waits for a later slice
+(ROADMAP Queue 1 entry 6); its arguments raise ``NotImplementedError``.
 """
 
 from tpu_bfs_torch.serve.executor import CircuitBreaker  # noqa: F401

@@ -50,6 +50,7 @@ import torch
 
 from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch import obs as _obs
+from tpu_bfs_torch.parallel.mesh import local_of
 from tpu_bfs_torch.serve.scheduler import (
     STATUS_ERROR,
     STATUS_EXPIRED,
@@ -58,6 +59,7 @@ from tpu_bfs_torch.serve.scheduler import (
 )
 from tpu_bfs_torch.utils.recovery import (
     COUNTERS,
+    is_mesh_fault,
     is_oom_failure,
     is_transient_failure,
 )
@@ -200,14 +202,32 @@ class CircuitBreaker:
 _BATCH_SEQ = itertools.count(1)
 
 
-class OomRequeue(Exception):
-    """The batch ran out of memory; its queries ride up UNRESOLVED for the
-    service to degrade the lane count and re-admit them."""
+class BatchRequeue(Exception):
+    """A batch outcome that leaves its queries UNRESOLVED and hands them up:
+    which width and which mesh they are re-admitted on is the service's
+    call. Both pipeline halves close their open spans on any subclass."""
 
     def __init__(self, queries, cause: BaseException):
         super().__init__(str(cause))
         self.queries = queries
         self.cause = cause
+
+
+class OomRequeue(BatchRequeue):
+    """The batch ran out of memory; the service degrades the lane count and
+    re-admits its queries."""
+
+
+class MeshFaultRequeue(BatchRequeue):
+    """The batch's MESH died under it (a lost participant, a hung
+    collective, a backend restart: ``utils/recovery.is_mesh_fault``). A
+    retry on the same mesh shape would meet the same dead collective, so
+    the service rebuilds its ladder one mesh rung down and re-admits the
+    queries. ``devices`` is the mesh span the fault hit."""
+
+    def __init__(self, queries, cause: BaseException, devices: int):
+        super().__init__(queries, cause)
+        self.devices = devices
 
 
 class PendingBatch:
@@ -218,8 +238,9 @@ class PendingBatch:
     shared by both halves."""
 
     __slots__ = ("engine", "queries", "n", "padded", "handle", "ready",
-                 "attempt", "lanes", "bid", "devices", "kind", "params",
-                 "generation", "overlay_epoch")
+                 "attempt", "lanes", "bid", "devices", "t_dispatch",
+                 "device_ms", "wire_bytes", "kind", "params", "generation",
+                 "overlay_epoch")
 
     def __init__(self, engine, queries, n: int, padded: np.ndarray,
                  kind: str = "bfs", params: dict | None = None):
@@ -238,6 +259,13 @@ class PendingBatch:
         # publishes ``ladder_lanes``, the service's width grid.
         self.lanes = getattr(engine, "ladder_lanes", engine.lanes)
         self.devices = engine_devices(engine)
+        # Dispatch stamp to fetch return: the batch's time on the device,
+        # the per-query GTEPS denominator.
+        self.t_dispatch: float | None = None
+        self.device_ms: float | None = None
+        # The modeled bytes the batch's exchanges moved (mesh engines;
+        # None on one device, which has no wire).
+        self.wire_bytes: float | None = None
         # The span-correlation id of every obs event of this batch.
         self.bid = next(_BATCH_SEQ)
         # The graph generation this batch was admitted under, stamped by
@@ -259,6 +287,11 @@ class _Ready:
 
     def __init__(self, res):
         self.res = res
+
+
+def _requeue_tag(brq: BatchRequeue) -> dict:
+    """The span-end tag of a handed-up batch."""
+    return {"oom": True} if isinstance(brq, OomRequeue) else {"mesh_fault": True}
 
 
 def _stream_ctx(stream):
@@ -357,6 +390,7 @@ class BatchExecutor:
                 if _faults.ACTIVE is not None:
                     _faults.ACTIVE.hit("serve_batch", lanes=pending.lanes,
                                        n=pending.n)
+                pending.t_dispatch = time.monotonic()
                 pending.handle, pending.ready = self._watched(
                     lambda: self._dispatch(engine, padded, pending.params),
                     pending, "dispatch")
@@ -367,10 +401,13 @@ class BatchExecutor:
             except Exception as exc:  # noqa: BLE001 — gated by the classifier
                 try:
                     retry = self._classify_failure(pending, exc)
-                except OomRequeue:
+                except BatchRequeue as brq:
+                    # The OOM or mesh fault rides up to the service; the
+                    # open dispatch span must not dangle in the trace.
                     if rec is not None:
                         rec.end("dispatch", f"b{pending.bid}",
-                                cat="serve.batch", batch=pending.bid, oom=True)
+                                cat="serve.batch", batch=pending.bid,
+                                **_requeue_tag(brq))
                     raise
                 if not retry:
                     if rec is not None:
@@ -399,6 +436,7 @@ class BatchExecutor:
         while True:
             try:
                 if pending.handle is None:  # re-dispatch after a retry
+                    pending.t_dispatch = time.monotonic()
                     pending.handle, pending.ready = self._watched(
                         lambda: self._dispatch(engine, pending.padded,
                                                pending.params),
@@ -407,15 +445,16 @@ class BatchExecutor:
                 handle = pending.handle
                 res = self._watched(lambda: self._fetch(engine, handle),
                                     pending, "fetch", stream)
+                self._record_device_time(pending, engine)
                 break
             except Exception as exc:  # noqa: BLE001 — gated by the classifier
                 pending.handle = None
                 try:
                     retry = self._classify_failure(pending, exc)
-                except OomRequeue:
+                except BatchRequeue as brq:
                     if rec is not None:
                         rec.end("fetch", f"b{pending.bid}", cat="serve.batch",
-                                batch=pending.bid, oom=True)
+                                batch=pending.bid, **_requeue_tag(brq))
                     raise
                 if not retry:
                     if rec is not None:
@@ -458,13 +497,32 @@ class BatchExecutor:
         return handle, ready
 
     @staticmethod
+    def _record_device_time(pending: PendingBatch, engine) -> None:
+        """The batch's device time and its modeled exchange bytes. Under
+        pipelining a dispatch may wait behind the previous batch, so the
+        window starts no earlier than the previous fetch's return on this
+        engine (as in JAX)."""
+        t_done = time.monotonic()
+        state = local_of(engine).__dict__
+        if pending.t_dispatch is not None:
+            start = pending.t_dispatch
+            prev_done = state.get("_serve_prev_fetch_done")
+            if prev_done is not None and prev_done > start:
+                start = prev_done
+            pending.device_ms = (t_done - start) * 1e3
+        state["_serve_prev_fetch_done"] = t_done
+        taker = getattr(engine, "completed_exchange_record", None)
+        wb = taker()[1] if taker is not None else getattr(engine, "last_exchange_bytes", None)
+        pending.wire_bytes = None if wb is None else float(wb)
+
+    @staticmethod
     def _order_after_dispatch(pending: PendingBatch, stream) -> None:
         """Order ``stream`` after the dispatch and mark the handle's tensors
         as used on it (no-op off the card or on the dispatching stream)."""
         if stream is None or pending.ready is None:
             return
         stream.wait_event(pending.ready)
-        for t in _handle_tensors(pending.handle):
+        for t in _handle_tensors(local_of(pending.handle)):
             if t.device.type == "cuda":
                 t.record_stream(stream)
 
@@ -548,6 +606,34 @@ class BatchExecutor:
                 rec.end("batch", f"b{pending.bid}", cat="serve.batch",
                         batch=pending.bid, oom=True)
             raise OomRequeue(list(pending.queries), exc) from exc
+        if pending.devices > 1 and is_mesh_fault(exc):
+            # A mesh-death marker on a batch spanning a mesh: the whole
+            # mesh shape is suspect, and a retry in place would meet the
+            # same dead collective. Feed the (width, devices) breaker and
+            # hand the queries up for the degraded-mesh rebuild. On one
+            # device the same markers are a plain transient (below).
+            err = f"{type(exc).__name__}: {str(exc)[:200]}"
+            COUNTERS.bump("mesh_faults")
+            self.metrics.record_mesh_fault()
+            self._log(
+                f"MESH FAULT on a {pending.devices}-device batch "
+                f"(width {pending.lanes}): {err} — degrading the mesh"
+            )
+            if self.breaker is not None:
+                self.breaker.record_failure(
+                    breaker_key(pending.lanes, pending.devices, pending.kind)
+                )
+            if rec is not None:
+                rec.event("mesh_fault", cat="serve.batch",
+                          batch=pending.bid, width=pending.lanes,
+                          devices=pending.devices, error=err,
+                          queries=[q.id for q in pending.queries])
+                rec.end("batch", f"b{pending.bid}", cat="serve.batch",
+                        batch=pending.bid, mesh_fault=True)
+                rec.flight_dump("mesh_fault")
+            raise MeshFaultRequeue(
+                list(pending.queries), exc, pending.devices
+            ) from exc
         if is_transient_failure(exc) and pending.attempt < self.max_retries:
             pending.attempt += 1
             wait = min(self.backoff_s * pending.attempt, self.backoff_cap_s)
@@ -617,6 +703,15 @@ class BatchExecutor:
             else None
         )
         extras_fn = getattr(res, "extras", None)
+        # The per-query traversal record: the on-device per-lane edge
+        # counts and the batch's device time give each query its GTEPS
+        # under the batch time share; mesh engines add their modeled wire
+        # bytes, split evenly over the real queries.
+        edges_arr = getattr(res, "edges_traversed", None)
+        wire_share = (
+            pending.wire_bytes / n
+            if pending.wire_bytes is not None and n else None
+        )
         t_x0 = time.monotonic()
         latencies = []
         for i, q in enumerate(queries):
@@ -651,6 +746,11 @@ class BatchExecutor:
                 batch_lanes=n,
                 dispatched_lanes=width,
                 devices=pending.devices,
+                edges=(
+                    int(edges_arr[i]) if edges_arr is not None else None
+                ),
+                device_ms=pending.device_ms,
+                wire_bytes=wire_share,
             ))
             latencies.append(latency_ms)
         extract_ms = (time.monotonic() - t_x0) * 1e3

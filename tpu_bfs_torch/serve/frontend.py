@@ -1,6 +1,5 @@
 """The serving front end: the in-process ``BfsService`` and the
-stdin/stdout JSONL server, the port of ``tpu_bfs/serve/frontend.py`` on
-one device.
+stdin/stdout JSONL server, the port of ``tpu_bfs/serve/frontend.py``.
 
 ``BfsService`` is the API tests and benchmarks drive; the JSONL loop
 (``python -m tpu_bfs_torch.serve``) is the same service behind a line
@@ -46,17 +45,27 @@ persisted base generation when a batch does not fit), and with
 ``audit_rate`` the staleness auditor replays sampled answers against the
 generation they were stamped with.
 
-Not ported yet, each raising ``NotImplementedError`` at construction with
-its ROADMAP item: the mesh (``devices > 1``, ``mesh_shape``,
-``exchange``, ``wire_pack``, ``delta_bits``, ``sieve``, ``predict``,
-``resume_levels``, ``mesh_probe_interval_s``) and AOT preheat
-(``aot_dir``).
+``devices=N`` serves on a mesh of N ranks (``parallel/mesh.serve_mesh``:
+this process is rank 0 and keeps the queries; ranks 1 .. N-1 are followers
+that replay its command stream). The ladder's rungs are then the mesh
+engines (wide and hybrid on the 1D partition, ``engine='dist2d'`` on the
+2D one, with ``exchange``, ``wire_pack``, ``delta_bits``, ``sieve``,
+``predict`` and ``mesh_shape``). A mesh fault runs the failover ladder
+(``resilience/failover.py``): the service rebuilds its rungs on half the
+ranks, down to rank 0 alone, and re-admits the batch; with
+``mesh_probe_interval_s`` a background heartbeat climbs back once the
+wider mesh answers, and ``resume_levels=K`` (dist2d) continues a
+re-admitted query from its last snapshot (``resilience/resume.py``).
+
+Not ported yet, raising ``NotImplementedError`` at construction with its
+ROADMAP item: AOT preheat (``aot_dir``).
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import io
 import json
 import os
@@ -71,10 +80,12 @@ import torch
 
 from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch import obs as _obs
+from tpu_bfs_torch.resilience.failover import floor_config, next_mesh_rung
 from tpu_bfs_torch.serve.answercache import AnswerCache
 from tpu_bfs_torch.serve.executor import (
     BatchExecutor,
     CircuitBreaker,
+    MeshFaultRequeue,
     OomRequeue,
     _stream_ctx,
     breaker_key,
@@ -84,7 +95,6 @@ from tpu_bfs_torch.serve.metrics import ServeMetrics
 from tpu_bfs_torch.serve.registry import (
     DEFAULT_PLANES,
     HYBRID_LANE_QUANTUM,
-    MESH_SERVE_ITEM,
     EngineRegistry,
     EngineSpec,
 )
@@ -101,6 +111,7 @@ from tpu_bfs_torch.serve.scheduler import (
 )
 from tpu_bfs_torch.utils.recovery import (
     COUNTERS,
+    is_mesh_fault,
     is_oom_failure,
     is_transient_failure,
 )
@@ -119,23 +130,30 @@ LADDER_FACTOR = 4
 AOT_ITEM = "ROADMAP Queue 1 item 5 (utils/aot.py preheat)"
 
 
-def ladder_bounds(lanes: int, *, engine: str = "wide") -> tuple[int, int]:
-    """``(floor, quantum)`` of the serving widths on one device: the hybrid
-    engine serves whole 4096-lane steps, the others 32-lane ones from 32."""
+def ladder_bounds(lanes: int, *, devices: int = 1,
+                  engine: str = "wide") -> tuple[int, int]:
+    """``(floor, quantum)`` of the serving widths for this engine and mesh:
+    the hybrid engines serve whole 4096-lane steps (one device or a mesh);
+    the others 32-lane steps from 32 on one device, and from ``32 *
+    devices`` (at most ``lanes``) on a mesh, where a narrower batch pays
+    every rank's collectives for work one device holds."""
     if engine == "hybrid":
         return HYBRID_LANE_QUANTUM, HYBRID_LANE_QUANTUM
+    if devices > 1:
+        return min(lanes, MIN_LANES * devices), MIN_LANES
     return MIN_LANES, MIN_LANES
 
 
-def build_width_ladder(lanes: int, ladder="auto", *, engine: str = "wide") -> list:
+def build_width_ladder(lanes: int, ladder="auto", *, devices: int = 1,
+                       engine: str = "wide") -> list:
     """The service's resident widths, ascending, topped by ``lanes``.
 
     ``"auto"`` walks down from ``lanes`` by :data:`LADDER_FACTOR` to the
-    engine's floor (:func:`ladder_bounds`); ``"off"``/None serves one fixed
-    width; an explicit sequence (or a comma-separated string) gives the
-    rungs directly, each a multiple of the width quantum in [floor,
-    lanes]."""
-    floor, quantum = ladder_bounds(lanes, engine=engine)
+    engine and mesh floor (:func:`ladder_bounds`); ``"off"``/None serves
+    one fixed width; an explicit sequence (or a comma-separated string)
+    gives the rungs directly, each a multiple of the width quantum in
+    [floor, lanes]."""
+    floor, quantum = ladder_bounds(lanes, devices=devices, engine=engine)
     if ladder in (None, "off"):
         return [lanes]
     if isinstance(ladder, str) and ladder != "auto":
@@ -157,27 +175,46 @@ def build_width_ladder(lanes: int, ladder="auto", *, engine: str = "wide") -> li
     return rungs
 
 
-def _refuse_unported(*, devices, exchange, wire_pack, delta_bits, sieve,
-                     predict, mesh_shape, resume_levels,
-                     mesh_probe_interval_s, aot_dir) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    constructor argument whose feature is not ported yet."""
-    mesh = {"devices": devices > 1, "exchange": exchange,
-            "wire_pack": wire_pack, "delta_bits": tuple(delta_bits),
-            "sieve": sieve, "predict": predict,
-            "mesh_shape": tuple(mesh_shape), "resume_levels": resume_levels,
-            "mesh_probe_interval_s": mesh_probe_interval_s}
-    for group, item in ((mesh, MESH_SERVE_ITEM), ({"aot_dir": aot_dir}, AOT_ITEM)):
-        for name, val in group.items():
-            if val:
-                raise NotImplementedError(
-                    f"BfsService({name}=...) waits for {item}"
-                )
+@dataclasses.dataclass(frozen=True)
+class MeshServeConfig:
+    """The service's CURRENT engine and mesh configuration: everything
+    ``_spec`` stamps into a registry key. One immutable object swapped
+    whole by the failover ladder (degrade) and the health probe (restore),
+    so every reader sees a consistent config with no lock on routing."""
+
+    engine: str
+    devices: int
+    exchange: str
+    wire_pack: bool
+    delta_bits: tuple
+    sieve: bool
+    predict: bool
+    mesh_shape: tuple
+    resume_levels: int
+
+    def degraded(self, new_devices: int) -> "MeshServeConfig":
+        """This config one mesh rung down. At one device the exchange knobs
+        drop and mesh-only engines map to their single-device twin
+        (``resilience.failover.floor_config``); a rung still on a mesh
+        keeps the exchange family, on the smaller mesh."""
+        if new_devices == 1:
+            engine, exchange = floor_config(self.engine, self.exchange)
+            return MeshServeConfig(
+                engine=engine, devices=1, exchange=exchange,
+                wire_pack=False, delta_bits=(), sieve=False, predict=False,
+                mesh_shape=(), resume_levels=0,
+            )
+        return dataclasses.replace(
+            self, devices=new_devices,
+            # An explicit RxC described the FULL mesh; the degraded shape
+            # re-derives most-square.
+            mesh_shape=(),
+        )
 
 
 class BfsService:
-    """Long-lived lane-batching BFS query service over one graph on one
-    device.
+    """Long-lived lane-batching BFS query service over one graph, on one
+    device or a mesh.
 
     ``graph`` is a loaded ``Graph`` or a CLI graph spec string (path /
     ``rmat:scale=...`` / ``random:n=...``). Queries submitted from any
@@ -206,6 +243,21 @@ class BfsService:
     before the staleness auditor quarantines it (with ``audit_rate``).
     ``device`` is the torch device of the service's own registry (None:
     CUDA, raising without a card).
+
+    With ``devices > 1`` the rungs are mesh engines over the process's
+    serving mesh (``parallel/mesh.serve_mesh``, started by ``start()`` on
+    ``device`` unless one of at least ``devices`` ranks exists, and then
+    closed with the service): wide and hybrid on the 1D partition,
+    ``engine='dist2d'`` on the 2D one; ``exchange``, ``wire_pack``,
+    ``delta_bits``, ``sieve`` and ``predict`` pick the exchange,
+    ``mesh_shape`` the R x C
+    factorization, and the ladder floor, the OOM halving grid and the
+    breaker keys follow the mesh. A MESH FAULT (``utils/recovery
+    .is_mesh_fault``) rebuilds the ladder on half the ranks (down to one
+    device) and re-admits the batch; ``mesh_probe_interval_s > 0``
+    heartbeats the wider rungs in the background and promotes back once
+    they answer; ``resume_levels=K`` (dist2d) continues re-admitted queries
+    from their last snapshot.
     """
 
     def __init__(
@@ -255,27 +307,21 @@ class BfsService:
         autostart: bool = True,
         log=None,
     ):
-        _refuse_unported(
-            devices=devices, exchange=exchange, wire_pack=wire_pack,
-            delta_bits=delta_bits, sieve=sieve, predict=predict,
-            mesh_shape=mesh_shape, resume_levels=resume_levels,
-            mesh_probe_interval_s=mesh_probe_interval_s, aot_dir=aot_dir,
-        )
-        if engine == "dist2d":
-            raise NotImplementedError(
-                f"BfsService(engine='dist2d') waits for {MESH_SERVE_ITEM}"
-            )
+        if aot_dir:
+            raise NotImplementedError(f"BfsService(aot_dir=...) waits for {AOT_ITEM}")
         self._log = log or (lambda msg: None)
-        self._engine = engine
         # Widths and the degrade cap share one lock: the scheduler routes
-        # while the extraction worker may shrink the ladder after an OOM.
+        # while the extraction worker may shrink the ladder after an OOM
+        # (or a mesh fault rebuild it on fewer devices).
         self._width_lock = threading.Lock()
         self._ladder = build_width_ladder(  # guarded-by: _width_lock
-            lanes, width_ladder, engine=engine
+            lanes, width_ladder, devices=devices, engine=engine
         )
         self._max_lanes = self._ladder[-1]  # guarded-by: _width_lock
+        # The engine and mesh width grid: the OOM halving quantizes onto it
+        # and stops at its floor.
         self._width_floor, self._width_quantum = ladder_bounds(
-            lanes, engine=engine
+            lanes, devices=devices, engine=engine
         )
         # An internally created registry holds the whole ladder (plus one
         # degrade slot); a caller-supplied registry keeps its own policy.
@@ -291,7 +337,21 @@ class BfsService:
         self._graph = self._registry.graph(self._graph_key)
         self._planes = planes
         self._pull_gate = pull_gate
-        auto_kinds = supported_kinds(engine, 1, self._graph)
+        # The CURRENT engine and mesh config, swapped whole by the failover
+        # ladder (degrade) and the health probe (restore); _cfg0 is the
+        # as-launched config a restore climbs back to, and _ladder_arg lets
+        # a degraded ladder re-derive from the operator's intent.
+        self._mesh_cfg = self._cfg0 = MeshServeConfig(
+            engine=engine, devices=devices, exchange=exchange,
+            wire_pack=bool(wire_pack), delta_bits=tuple(delta_bits),
+            sieve=bool(sieve), predict=bool(predict),
+            mesh_shape=tuple(mesh_shape),
+            resume_levels=int(resume_levels),
+        )
+        self._ladder_arg = width_ladder
+        self._mesh_probe_interval_s = max(mesh_probe_interval_s, 0.0)
+        self._mesh_probe = None  # guarded-by: _lock (lifecycle state)
+        auto_kinds = supported_kinds(engine, devices, self._graph)
         if kinds is None:
             self._kinds = auto_kinds
         else:
@@ -302,7 +362,7 @@ class BfsService:
                         f"unknown kind {kind!r} (one of {KINDS})"
                     )
                 if kind not in auto_kinds:
-                    why = kind_unsupported_reason(kind, engine, 1, self._graph)
+                    why = kind_unsupported_reason(kind, engine, devices, self._graph)
                     raise ValueError(
                         f"kind {kind!r} is not servable by this config: "
                         f"{why} (servable: {auto_kinds})"
@@ -391,6 +451,8 @@ class BfsService:
             )
         for w in self._ladder:
             self._spec(w).validate()  # fail at construction, not first dispatch
+        self._device = device
+        self._owned_mesh = None  # guarded-by: _lock (lifecycle state)
         self._linger_s = max(linger_ms, 0.0) / 1e3
         self._default_deadline_s = max(deadline_ms, 0.0) / 1e3
         self._queue = AdmissionQueue(queue_cap)
@@ -456,16 +518,47 @@ class BfsService:
 
     # --- lifecycle --------------------------------------------------------
 
-    def _spec(self, width: int | None = None, kind: str = "bfs") -> EngineSpec:
+    def _spec(self, width: int | None = None,
+              cfg: MeshServeConfig | None = None,
+              kind: str = "bfs") -> EngineSpec:
+        cfg = self._mesh_cfg if cfg is None else cfg
+        if kind == "sssp" and cfg.devices > 1:
+            # The service's exchange config speaks the OR family's dialect;
+            # the mesh SSSP engine exchanges under (min, +). Queue-style
+            # stays queue-style (sparse with delta_bits and predict);
+            # everything dense-like becomes the engine default; wire_pack
+            # and sieve have no min twin and drop.
+            sparse = cfg.exchange == "sparse"
+            return EngineSpec(
+                graph_key=self._graph_key,
+                graph_generation=self._graph_generation,
+                kind=kind,
+                engine=cfg.engine,
+                lanes=self.lanes if width is None else width,
+                planes=self._planes,
+                devices=cfg.devices,
+                exchange=cfg.exchange if sparse else "",
+                delta_bits=cfg.delta_bits if sparse else (),
+                predict=cfg.predict if sparse else False,
+                mesh_shape=cfg.mesh_shape,
+            )
         return EngineSpec(
             graph_key=self._graph_key,
             graph_generation=self._graph_generation,
             overlay=self._overlay_cap,
             kind=kind,
-            engine=self._engine,
+            engine=cfg.engine,
             lanes=self.lanes if width is None else width,
             planes=self._planes,
             pull_gate=self._pull_gate,
+            devices=cfg.devices,
+            exchange=cfg.exchange,
+            wire_pack=cfg.wire_pack,
+            delta_bits=cfg.delta_bits,
+            sieve=cfg.sieve,
+            predict=cfg.predict,
+            mesh_shape=cfg.mesh_shape,
+            resume_levels=cfg.resume_levels,
         )
 
     def start(self) -> "BfsService":
@@ -479,11 +572,36 @@ class BfsService:
                 raise RuntimeError("service is closed")
             if self._thread is not None:
                 return self
+            if self._cfg0.devices > 1 and self._owned_mesh is None:
+                from tpu_bfs_torch.parallel.mesh import active_controller, serve_mesh
+
+                # The serving mesh: this process as rank 0 of at least
+                # ``devices`` ranks, started here (and closed with the
+                # service) unless the process already serves one.
+                had = active_controller()
+                ctl = serve_mesh(self._cfg0.devices, device=self._device)
+                if ctl is not had:
+                    self._owned_mesh = ctl
             for w in sorted(self.width_ladder, reverse=True):
                 if w <= self.lanes:  # rungs above a degraded cap died
                     self._acquire_engine(w, self._primary_kind)
             if self._landmark_k > 0:
                 self._warm_landmarks()
+            if (self._mesh_probe_interval_s > 0
+                    and self._cfg0.devices > 1
+                    and self._mesh_probe is None):
+                from tpu_bfs_torch.resilience.probe import MeshHealthProbe
+
+                # The background prober: heartbeats the rungs above a
+                # degraded service and promotes back onto the widest that
+                # answers (a no-op at full width).
+                self._mesh_probe = MeshHealthProbe(
+                    self._cfg0.devices,
+                    interval_s=self._mesh_probe_interval_s,
+                    current=lambda: self._mesh_cfg.devices,
+                    on_healthy=self._on_mesh_healthy,
+                    log=self._log,
+                ).start()
             if self._pipe_q is not None:
                 self._extract_thread = threading.Thread(
                     target=self._extract_loop, name="bfs-serve-extract",
@@ -514,6 +632,9 @@ class BfsService:
             self._closed = True
             thread = self._thread
             extract_thread = self._extract_thread
+            probe, self._mesh_probe = self._mesh_probe, None
+        if probe is not None:
+            probe.stop()
         self._queue.stop()
         if thread is not None:
             thread.join()
@@ -537,6 +658,15 @@ class BfsService:
             except OSError:
                 pass
             self._gen_tmp = None
+        with self._lock:
+            owned, self._owned_mesh = self._owned_mesh, None
+        if owned is not None:
+            # The engines go with the mesh they span: drop this service's
+            # mesh residencies, then stop the followers.
+            for spec in self._registry.resident() or []:
+                if spec.devices > 1:
+                    self._registry.evict(spec)
+            owned.close()
 
     def __enter__(self) -> "BfsService":
         return self
@@ -639,12 +769,13 @@ class BfsService:
         if kind not in KINDS:
             return f"unknown kind {kind!r} (one of {KINDS})"
         if kind not in self._kinds:
-            why = kind_unsupported_reason(kind, self._engine, 1, self._graph)
+            cfg = self._mesh_cfg
+            why = kind_unsupported_reason(kind, cfg.engine, cfg.devices, self._graph)
             return (
                 f"kind {kind!r} is not served by this service: "
                 + (why if why is not None else
                    f"excluded by this service's kinds= selection "
-                   f"(engine={self._engine!r}, devices=1)")
+                   f"(engine={cfg.engine!r}, devices={cfg.devices})")
                 + f"; serving {self._kinds}"
             )
         if not (0 <= q.source < self._graph.num_vertices):
@@ -1050,12 +1181,23 @@ class BfsService:
     def statsz_extras(self) -> dict:
         """Service-level observations beyond the metrics counters, merged
         into statsz() and the JSONL server's statsz lines."""
+        cfg = self._mesh_cfg
         out = {
             "breaker_open": self._breaker.open_keys(),
             "breaker_opens": self._breaker.opens,
             "draining": self._draining,
-            "devices": 1,
+            # The CURRENT device count (down on a degrade, up on a
+            # restore) and, when armed, the resume audit.
+            "devices": cfg.devices,
         }
+        if self._cfg0.devices > 1:
+            out["mesh_degraded"] = cfg.devices < self._cfg0.devices
+        if cfg.resume_levels:
+            from tpu_bfs_torch.resilience.resume import cache_for_graph
+
+            counts = cache_for_graph(self._graph).counts()
+            out["query_resumes"] = counts["resumes"]
+            out["resume_snapshots"] = counts["snapshots"]
         if self._integrity is not None:
             out["audit"] = self._integrity.config_summary()
         if self._cache is not None:
@@ -1110,8 +1252,9 @@ class BfsService:
         need = 2 * n if kind == "p2p" else n
         with self._width_lock:
             fits = [w for w in self._ladder if w >= need] or [self._max_lanes]
+        devices = self._mesh_cfg.devices
         for w in fits:
-            if self._breaker.allow(breaker_key(w, 1, kind)):
+            if self._breaker.allow(breaker_key(w, devices, kind)):
                 return w
         return fits[0]
 
@@ -1129,6 +1272,22 @@ class BfsService:
             except Exception as exc:  # noqa: BLE001 — gated by classifiers
                 if is_oom_failure(exc) and self._degrade(width):
                     continue
+                devices = self._mesh_cfg.devices
+                if devices > 1 and is_mesh_fault(exc):
+                    # A mesh death during the build or its warm batch:
+                    # degrade the mesh and rebuild on the smaller shape
+                    # instead of retrying into the same dead collective.
+                    COUNTERS.bump("mesh_faults")
+                    self.metrics.record_mesh_fault()
+                    rec = _obs.ACTIVE
+                    if rec is not None:
+                        rec.event("mesh_fault", cat="serve.mesh",
+                                  site="engine_build", devices=devices,
+                                  error=f"{type(exc).__name__}: "
+                                        f"{str(exc)[:120]}")
+                        rec.flight_dump("mesh_fault")
+                    if self._degrade_mesh(devices, exc):
+                        continue
                 if is_transient_failure(exc) and attempt < self._max_retries:
                     attempt += 1
                     self.metrics.record_retry()
@@ -1182,9 +1341,23 @@ class BfsService:
                       to_width=new, requeued=requeued)
         return True
 
-    def _shed_over_budget(self, queries, at_width: int) -> list:
-        """Count this OOM re-admission on every query; resolve the
-        over-budget ones with their attempt history; return the rest."""
+    def _drop_resume_snapshots(self, queries) -> None:
+        """Evict the resume snapshots of queries that will never finish a
+        resumable drive (resolved terminally, or re-admitted onto a config
+        without resume), so they do not pin the per-graph cache; dropping
+        is always safe (a resume degrades to starting over)."""
+        if not self._cfg0.resume_levels:
+            return
+        from tpu_bfs_torch.resilience.resume import cache_for_graph
+
+        cache = cache_for_graph(self._graph)
+        for q in queries:
+            cache.drop(q.source)
+
+    def _shed_over_budget(self, queries, at_width: int, why: str) -> list:
+        """The bounded re-admission budget of the OOM and mesh failover
+        paths: count this attempt on every query, resolve the over-budget
+        ones with their attempt history, return the rest."""
         live = []
         shed = 0
         for q in queries:
@@ -1194,7 +1367,7 @@ class BfsService:
                 if q.resolve_status(
                     STATUS_ERROR,
                     error=(
-                        f"requeue budget exhausted: {q.requeues} OOM "
+                        f"requeue budget exhausted: {q.requeues} {why} "
                         f"re-admissions (attempted widths "
                         f"{q.attempt_widths}) — every remaining rung is "
                         f"failing"
@@ -1204,6 +1377,9 @@ class BfsService:
             else:
                 live.append(q)
         if shed:
+            self._drop_resume_snapshots(
+                [q for q in queries if q not in live]
+            )
             self._log(f"shed {shed} queries at the requeue budget "
                       f"({self._max_requeues})")
             COUNTERS.bump("requeue_sheds", shed)
@@ -1220,7 +1396,7 @@ class BfsService:
         """Degrade below the OOM'd width and re-admit, or resolve with
         errors at the floor; shared by the dispatch half (scheduler thread)
         and the fetch half (extraction worker)."""
-        queries = self._shed_over_budget(queries, at_width)
+        queries = self._shed_over_budget(queries, at_width, "OOM")
         if not queries:
             self._degrade(at_width)
             return
@@ -1243,6 +1419,7 @@ class BfsService:
             f"({at_width}): {str(cause)[:200]}"
         )
         self._log(err)
+        self._drop_resume_snapshots(queries)
         n = 0
         for q in queries:
             if q.resolve_status(STATUS_ERROR, error=err):
@@ -1250,26 +1427,216 @@ class BfsService:
         if n:
             self.metrics.record_errors(n)
 
+    # --- mesh failover ----------------------------------------------------
+
+    def _rebuild_ladder(self, new_cfg: MeshServeConfig) -> list:  # requires-lock: _width_lock
+        """Swap in ``new_cfg`` with its width ladder: the operator's ladder
+        at the new device count under the current width cap (an OOM cap
+        survives), re-derived geometrically when it does not fit the new
+        grid. Returns the specs of the old ladder, for eviction."""
+        old_specs = [self._spec(w, self._mesh_cfg) for w in self._ladder]
+        top = self._max_lanes
+        try:
+            ladder = build_width_ladder(top, self._ladder_arg, devices=new_cfg.devices,
+                                        engine=new_cfg.engine)
+        except ValueError:
+            ladder = build_width_ladder(top, "auto", devices=new_cfg.devices,
+                                        engine=new_cfg.engine)
+        self._mesh_cfg = new_cfg
+        self._ladder = ladder
+        self._max_lanes = ladder[-1]
+        self._width_floor, self._width_quantum = ladder_bounds(
+            top, devices=new_cfg.devices, engine=new_cfg.engine)
+        return old_specs
+
+    def _degrade_mesh(self, at_devices: int, cause, requeued: int = 0) -> bool:
+        """Rebuild the serving ladder one MESH rung down after a mesh fault
+        at ``at_devices`` (full, half, ..., one device). True when the
+        service now serves from a smaller mesh (or another batch already
+        moved it), so re-admission makes sense; False at the one-device
+        floor. The rebuild is an eviction and a config swap: the next
+        dispatch builds the smaller mesh's engines through the registry,
+        while the (width, devices) breaker keys the fault fed keep routing
+        off the dead shape."""
+        with self._width_lock:
+            cfg = self._mesh_cfg
+            if cfg.devices != at_devices:
+                # Another batch already degraded (or restored) the mesh:
+                # nothing to rebuild, the queries re-admit onto the live one.
+                return True
+            new_devices = next_mesh_rung(at_devices)
+            if new_devices is None:
+                return False
+            new_cfg = cfg.degraded(new_devices)
+            old_specs = self._rebuild_ladder(new_cfg)
+            ladder = list(self._ladder)
+        for spec in old_specs:
+            # Free the dead mesh shape's tables before the rebuilds.
+            self._registry.evict(spec)
+        COUNTERS.bump("mesh_degrades")
+        self.metrics.record_mesh_degrade(requeued)
+        self._log(
+            f"MESH DEGRADE: {at_devices} -> {new_devices} devices "
+            f"(engine {new_cfg.engine}, ladder {ladder}) after: "
+            f"{str(cause)[:200]}"
+        )
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("mesh_degrade", cat="serve.mesh",
+                      from_devices=at_devices, to_devices=new_devices,
+                      engine=new_cfg.engine, ladder=ladder,
+                      requeued=requeued)
+        return True
+
+    def _handle_mesh_fault(self, queries, at_width: int, at_devices: int,
+                           cause) -> None:
+        """Degrade the mesh one rung and re-admit, under the OOM path's
+        bounded requeue budget; at the floor (never expected: the executor
+        classifies one-device batches as transients) resolve with errors."""
+        queries = self._shed_over_budget(queries, at_width, "mesh-fault")
+        if self._degrade_mesh(at_devices, cause, requeued=len(queries)):
+            if not self._mesh_cfg.resume_levels:
+                # Re-admitted onto a config without resume: its engine
+                # never drops snapshots, so evict theirs now.
+                self._drop_resume_snapshots(queries)
+            if queries:
+                self._queue.requeue(queries)
+                if self._queue.stopped:
+                    # The scheduler may have exited: re-admitted queries
+                    # must still resolve exactly once.
+                    n = 0
+                    for q in self._queue.next_batch(self._queue.cap, 0.0):
+                        if q.resolve_status(
+                            STATUS_SHUTDOWN, error="service closed"
+                        ):
+                            n += 1
+                    if n:
+                        self.metrics.record_shutdown(n)
+            return
+        err = (
+            f"mesh fault with no smaller mesh to fail over to "
+            f"({at_devices} devices): {str(cause)[:200]}"
+        )
+        self._log(err)
+        self._drop_resume_snapshots(queries)
+        n = 0
+        for q in queries:
+            if q.resolve_status(STATUS_ERROR, error=err):
+                n += 1
+        if n:
+            self.metrics.record_errors(n)
+
+    def mesh_restore(self, devices: int | None = None, *,
+                     probe: bool = True) -> bool:
+        """Promote a degraded service back onto a wider mesh: the widest
+        rung of the original ladder that heartbeats healthy (or exactly
+        ``devices``). Its engines rebuild through the registry at the next
+        dispatch. False when the service is not degraded or nothing wider
+        answers; ``probe=False`` skips the heartbeat its caller just ran
+        (the background prober)."""
+        from tpu_bfs_torch.resilience.failover import degrade_ladder
+        from tpu_bfs_torch.resilience.probe import mesh_heartbeat
+
+        target0 = self._cfg0.devices
+        current = self._mesh_cfg.devices
+        if current >= target0:
+            return False
+        rungs = degrade_ladder(target0)
+        if devices and int(devices) not in rungs:
+            # Only the halving ladder's rungs are restore targets: the
+            # ladders and breaker keys are defined rung by rung.
+            self._log(
+                f"mesh restore: {devices} is not a failover rung of the "
+                f"{target0}-device mesh ({rungs}); refusing"
+            )
+            return False
+        candidates = (
+            [int(devices)] if devices
+            else [d for d in rungs if d > current]
+        )
+        chosen = None
+        for d in candidates:
+            if not (current < d <= target0):
+                continue
+            if probe:
+                try:
+                    mesh_heartbeat(d)
+                except Exception as exc:  # noqa: BLE001 — a dead mesh is expected
+                    self._log(
+                        f"mesh restore: {d}-device heartbeat failed "
+                        f"({type(exc).__name__}: {str(exc)[:120]})"
+                    )
+                    continue
+            chosen = d
+            break
+        if chosen is None:
+            return False
+        with self._width_lock:
+            if self._mesh_cfg.devices >= chosen:
+                return False
+            new_cfg = self._cfg0
+            while new_cfg.devices > chosen:
+                new_cfg = new_cfg.degraded(next_mesh_rung(new_cfg.devices))
+            old_specs = self._rebuild_ladder(new_cfg)
+            ladder = list(self._ladder)
+        for spec in old_specs:
+            self._registry.evict(spec)
+        self._log(
+            f"MESH RESTORE: {current} -> {chosen} devices "
+            f"(engine {new_cfg.engine}, ladder {ladder})"
+        )
+        rec = _obs.ACTIVE
+        if rec is not None:
+            rec.event("mesh_restore", cat="serve.mesh",
+                      from_devices=current, to_devices=chosen,
+                      engine=new_cfg.engine)
+        return True
+
+    def _on_mesh_healthy(self, devices: int) -> None:
+        """The background prober's promotion hook (it already ran the
+        heartbeat on ``devices``)."""
+        self.mesh_restore(devices, probe=False)
+
     # --- integrity tier ---------------------------------------------------
 
     def _quarantine_rung(self, width: int, kind: str) -> None:
         """Corruption quarantine: evict the suspect rung (its rebuild clears
-        its device state) and force-open its breaker so routing stops
-        offering it until the cooldown's probe batch."""
+        its device state) and force-open its (width, devices, kind) breaker
+        so routing stops offering it until the cooldown's probe batch."""
         self._registry.evict(self._spec(width, kind=kind))
-        self._breaker.trip(breaker_key(width, 1, kind))
+        self._breaker.trip(breaker_key(width, self._mesh_cfg.devices, kind))
 
     def _escalate_mesh(self, devices: int, cause) -> None:
-        """Repeated corruption on a mesh runs the mesh degrade ladder in
-        JAX; a one-device service has no mesh to degrade."""
+        """Repeated device-attributed corruption on a mesh runs the mesh
+        degrade ladder, as a mesh death does (smaller mesh, rebuilt
+        engines, probe-gated restore)."""
+        if devices > 1:
+            self._degrade_mesh(devices, cause)
 
     def _shadow_spec(self, width: int, kind: str) -> EngineSpec:
         """The DISJOINT engine a shadow replay of a ``width``-lane answer
-        runs on: another ladder rung when one exists, else a width off the
-        ladder (half, or one quantum more at the floor)."""
+        runs on, so a corrupted rung cannot reproduce its own wrong answer:
+        another ladder rung when one exists, else on a mesh the other
+        exchange family (another collective program over the same ranks),
+        else a width off the ladder (half, or one quantum more at the
+        floor)."""
         others = [w for w in self.width_ladder if w != width]
         if others:
             return self._spec(others[0], kind=kind)
+        cfg = self._mesh_cfg
+        if cfg.devices > 1:
+            alt = {
+                "": "allreduce", "ring": "allreduce", "allreduce": "ring",
+            }.get(cfg.exchange) if cfg.engine == "dist2d" else {
+                "": "sparse", "dense": "sparse", "sparse": "dense",
+                "sliced": "dense",
+            }.get(cfg.exchange)
+            if alt:
+                return dataclasses.replace(
+                    self._spec(width, kind=kind), exchange=alt,
+                    wire_pack=False, delta_bits=(), sieve=False,
+                    predict=False,
+                )
         floor, quantum = self._width_floor, self._width_quantum
         w2 = max(floor, (width // 2) // quantum * quantum)
         if w2 == width:
@@ -1319,6 +1686,12 @@ class BfsService:
             pending.engine = None
             pending.handle = None
             self._handle_batch_oom(exc.queries, width, exc.cause)
+        except MeshFaultRequeue as exc:
+            width = pending.lanes
+            # The dead mesh shape's engines evict during the degrade.
+            pending.engine = None
+            pending.handle = None
+            self._handle_mesh_fault(exc.queries, width, exc.devices, exc.cause)
         except Exception as exc:  # noqa: BLE001 — resolve, never strand
             err = f"{type(exc).__name__}: {str(exc)[:300]}"
             self._log(f"batch extraction failed: {err}")
@@ -1453,6 +1826,11 @@ class BfsService:
                 engine = None  # noqa: F841 — releases device tables
                 self._handle_batch_oom(exc.queries, width, exc.cause)
                 continue
+            except MeshFaultRequeue as exc:
+                width = getattr(engine, "ladder_lanes", engine.lanes)
+                engine = None  # noqa: F841 — releases device tables
+                self._handle_mesh_fault(exc.queries, width, exc.devices, exc.cause)
+                continue
             except Exception as exc:  # noqa: BLE001 — engine build failed
                 engine = None  # noqa: F841 — don't pin a half-built engine
                 err = f"{type(exc).__name__}: {str(exc)[:300]}"
@@ -1496,6 +1874,18 @@ def result_to_response(r, *, with_distances: bool = True) -> dict:
         out["latency_ms"] = round(r.latency_ms, 3)
         out["batch_lanes"] = r.batch_lanes
         out["dispatched_lanes"] = r.dispatched_lanes
+        if r.devices is not None and r.devices > 1:
+            # A mesh-served response carries its traversal record: the
+            # mesh span, the query's edges, GTEPS under the batch time
+            # share, and its share of the batch's modeled exchange bytes.
+            out["devices"] = r.devices
+            if r.edges is not None:
+                out["edges"] = r.edges
+            if r.gteps is not None:
+                # Significant digits: CPU-mesh figures sit near 1e-5.
+                out["gteps"] = float(f"{r.gteps:.6g}")
+            if r.wire_bytes is not None:
+                out["wire_bytes"] = round(r.wire_bytes, 1)
         if getattr(r, "extras", None):
             # Kind-specific fields; protocol keys always win.
             for key, val in r.extras.items():
@@ -1525,7 +1915,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="wide",
                     choices=["wide", "hybrid", "packed", "dist2d"],
                     help="serving engine (default wide; hybrid needs "
-                    ">= 4096 lanes; dist2d waits for the mesh serve slice)")
+                    ">= 4096 lanes; dist2d is the 2D-partition mesh engine "
+                    "and needs --devices >= 2)")
     ap.add_argument("--lanes", type=int, default=512,
                     help="maximum batch width = max queries per dispatch "
                     "(multiple of 32; default 512)")
@@ -1545,35 +1936,47 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     f"{DEFAULT_PLANES})")
     ap.add_argument("--pull-gate", action="store_true",
                     help="frontier-aware pull gate (wide/hybrid engines)")
-    # Refused at construction, naming their ROADMAP item: the mesh and AOT
-    # preheat.
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the engines over N devices (refused: the "
-                    "mesh serve slice)")
+                    help="serve on a mesh of N ranks (default 1): this "
+                    "process is rank 0 and spawns the rest; wide/hybrid run "
+                    "the 1D-partition engines, dist2d the 2D edge partition")
     ap.add_argument("--mesh", default=None, metavar="RxC",
-                    help="2D mesh shape (refused: the mesh serve slice)")
+                    help="explicit 2D mesh shape for --engine dist2d (e.g. "
+                    "2x2; default: the most-square factorization of "
+                    "--devices)")
     ap.add_argument("--exchange", default="",
-                    help="mesh exchange family (refused: the mesh serve "
-                    "slice)")
+                    help="mesh exchange family (engine default when "
+                    "omitted): dense|sparse (wide), dense|sparse|sliced "
+                    "(hybrid), ring|allreduce|sparse (dist2d)")
     ap.add_argument("--wire-pack", action="store_true",
-                    help="bit-packed exchange wire (refused: the mesh "
-                    "serve slice)")
+                    help="bit-packed exchange wire (mesh engines)")
     ap.add_argument("--sparse-delta", default=None, metavar="BITS",
-                    help="delta-encoded sparse ids (refused: the mesh "
-                    "serve slice)")
+                    help="delta-encoded sparse-exchange ids, e.g. '8,16'; "
+                    "needs --exchange sparse")
     ap.add_argument("--sparse-sieve", action="store_true",
-                    help="sparse-exchange sieve (refused: the mesh serve "
-                    "slice)")
+                    help="backward visited sieve on the dist2d sparse row "
+                    "exchange (the planner)")
     ap.add_argument("--sparse-predict", action="store_true",
-                    help="sparse-exchange prediction (refused: the mesh "
-                    "serve slice)")
+                    help="history-predictive dense selection on the dist2d "
+                    "sparse row exchange (the planner)")
     ap.add_argument("--resume-levels", type=int, default=0, metavar="K",
-                    help="level-checkpointed query resume (refused: the "
-                    "mesh serve slice)")
+                    help="level-checkpointed query resume (--engine "
+                    "dist2d): snapshot each query's state every K levels "
+                    "so a mid-query mesh fault resumes from the last "
+                    "snapshot on the degraded mesh (recompute <= K); 0 "
+                    "disables (default)")
+    ap.add_argument("--resume-dir", default=None, metavar="DIR",
+                    help="also persist resume snapshots to DIR through the "
+                    "CRC checkpoint files (atomic writes, quarantine on "
+                    "corruption), so a restarted replica can resume too; "
+                    "default: in memory only (or the TPU_BFS_RESUME_DIR "
+                    "env var)")
     ap.add_argument("--mesh-probe-interval-s", type=float, default=0.0,
                     metavar="S",
-                    help="mesh health probe cadence (refused: the mesh "
-                    "serve slice)")
+                    help="background mesh health probe: a degraded service "
+                    "heartbeats the wider mesh rungs every S seconds and "
+                    "promotes back onto the widest that answers; 0 "
+                    "disables (default)")
     ap.add_argument("--linger-ms", type=float, default=2.0,
                     help="max wait for batch fill before dispatching a "
                     "partial batch (default 2.0)")
@@ -1775,9 +2178,40 @@ def _dynamic_from_args(args):
     return (d, k)
 
 
+def _mesh_from_args(args) -> tuple[tuple, tuple]:
+    """``(mesh_shape, delta_bits)`` from ``--mesh RxC`` and
+    ``--sparse-delta 8,16``."""
+    mesh_shape = ()
+    if getattr(args, "mesh", None):
+        try:
+            r, c = (int(x) for x in str(args.mesh).lower().split("x"))
+            mesh_shape = (r, c)
+        except ValueError:
+            raise SystemExit(
+                f"--mesh must look like RxC (e.g. 2x4), got {args.mesh!r}"
+            ) from None
+    delta_bits = ()
+    delta_raw = getattr(args, "sparse_delta", None)
+    if delta_raw:
+        try:
+            delta_bits = tuple(int(b) for b in str(delta_raw).replace(",", " ").split())
+        except ValueError:
+            raise SystemExit(
+                f"--sparse-delta must be comma-separated bit widths "
+                f"(e.g. 8,16), got {delta_raw!r}"
+            ) from None
+    return mesh_shape, delta_bits
+
+
 def _service_from_args(args, registry, log) -> BfsService:
     if getattr(args, "export_aot", None):
         raise NotImplementedError(f"--export-aot waits for {AOT_ITEM}")
+    mesh_shape, delta_bits = _mesh_from_args(args)
+    resume_dir = getattr(args, "resume_dir", None)
+    if resume_dir:
+        from tpu_bfs_torch.resilience.resume import set_default_dir
+
+        set_default_dir(resume_dir)
     dynamic = _dynamic_from_args(args)
     return BfsService(
         args.graph,
@@ -1788,10 +2222,10 @@ def _service_from_args(args, registry, log) -> BfsService:
         devices=args.devices,
         exchange=args.exchange or "",
         wire_pack=args.wire_pack,
-        delta_bits=(args.sparse_delta,) if args.sparse_delta else (),
+        delta_bits=delta_bits,
         sieve=args.sparse_sieve,
         predict=args.sparse_predict,
-        mesh_shape=(args.mesh,) if args.mesh else (),
+        mesh_shape=mesh_shape,
         resume_levels=args.resume_levels,
         mesh_probe_interval_s=args.mesh_probe_interval_s,
         width_ladder=args.ladder,
@@ -2045,9 +2479,16 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
 
             # A level track for each resident engine that recorded a
             # per-level trace (armed runs only).
-            level_traces = [(f"{spec.engine}/w{spec.lanes}", eng.last_run_trace)
-                            for spec, eng in service._registry.resident_engines()
-                            if getattr(eng, "last_run_trace", None)]
+            level_traces = []
+            for spec, eng in service._registry.resident_engines():
+                trace = getattr(eng, "last_run_trace", None)
+                if trace:
+                    # A mesh rung's track names its span, so single-device
+                    # and mesh rungs of one width stay apart.
+                    label = f"{spec.engine}/w{spec.lanes}"
+                    if spec.devices > 1:
+                        label += f"/d{spec.devices}"
+                    level_traces.append((label, trace))
             try:
                 write_perfetto(
                     recorder.snapshot(), args.trace_out, t0=recorder.t0,

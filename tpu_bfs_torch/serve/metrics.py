@@ -16,9 +16,7 @@ two-window recent span (``RECENT_WINDOW_S``), so a slow cold batch ages
 out of p99.
 
 The snapshot carries the JAX package's keys, so the two statsz lines and
-Prometheus texts compare key for key. The mesh-failover counters
-(``mesh_*``) stay 0 until the mesh serve tier is ported (ROADMAP Queue 1
-entry 5).
+Prometheus texts compare key for key.
 """
 
 from __future__ import annotations
@@ -179,10 +177,8 @@ class ServeMetrics:
         self.requeued = 0  # guarded-by: _lock — re-admitted after OOM'd batch
         self.watchdog_trips = 0  # guarded-by: _lock — watchdog firings
         self.requeue_shed = 0  # guarded-by: _lock — shed at requeue budget
-        # Mesh failover: not ported yet, so these stay 0 (the snapshot
-        # keeps the JAX package's keys).
-        self.mesh_faults = 0  # guarded-by: _lock
-        self.mesh_degrades = 0  # guarded-by: _lock
+        self.mesh_faults = 0  # guarded-by: _lock — mesh-death classifications
+        self.mesh_degrades = 0  # guarded-by: _lock — mesh failover rebuilds
         # Integrity tier: audits run and failed, audit errors, audits
         # shed, and rung quarantines. The lag histogram prices how far
         # behind the served answer its verdict lands (audit_p50_lag_ms).
@@ -270,6 +266,15 @@ class ServeMetrics:
     def record_retry(self) -> None:
         with self._lock:
             self.retries += 1
+
+    def record_mesh_fault(self) -> None:
+        with self._lock:
+            self.mesh_faults += 1
+
+    def record_mesh_degrade(self, requeued: int = 0) -> None:
+        with self._lock:
+            self.mesh_degrades += 1
+            self.requeued += requeued
 
     def record_oom_degrade(self, requeued: int) -> None:
         with self._lock:

@@ -4,17 +4,25 @@ the port of ``tpu_bfs/serve/registry.py``.
 An engine build costs an ELL and tile build plus, on the card, the first
 load of the CUDA kernel library; a server cannot pay that per query. The
 registry keys resident engines by ``EngineSpec`` (graph, engine, lanes,
-planes, pull gate, kind, graph generation, overlay capacity), warms each
-build with one full-width batch plus the engine's ``warm_residency`` hook,
-and bounds residency with an LRU.
+planes, pull gate, mesh span and exchange configuration, kind, graph
+generation, overlay capacity, resume cadence), warms each build with one
+full-width batch plus the engine's ``warm_residency`` hook, and bounds
+residency with an LRU.
+
+A mesh spec (``devices > 1``) builds its engine on the first ``devices``
+ranks of the process's serving mesh (``parallel/mesh.serve_mesh``): every
+rank builds its replica from the same command, and the registry keeps rank
+0's handle (``parallel/mesh.Remote``). The 2D engine's serve adapter and
+the k-hop and cc adapters run on rank 0 over such a handle, so their fault
+sites are rank 0's as in JAX; the p2p adapter, which steps the base's
+level loop on its device tables, is replicated with its base.
 
 Against JAX: there is no XLA compile cache to arm (the warm batch is the
 whole warm-up), no ``expand_impl`` axis (the port always runs its K1
 kernel, JAX's ``xla``/``pallas`` choice has no counterpart), and no
-artifact store (``aot_dir``, ROADMAP Queue 1 item 5). Mesh specs
-(``devices > 1``, the ``dist2d`` engine) wait for the mesh serve slice
-(ROADMAP Queue 1 item 4) and raise ``NotImplementedError``. The registry
-builds every engine on one torch device (``device``; None is CUDA).
+artifact store (``aot_dir``, ROADMAP Queue 1 entry 6). The registry builds
+every single-device engine on one torch ``device`` (None is CUDA), and a
+mesh's ranks on the serving mesh's devices.
 """
 
 from __future__ import annotations
@@ -36,12 +44,26 @@ ENGINE_KINDS = ("wide", "hybrid", "packed", "dist2d")
 # the JAX package (its dense kernel's quantum there).
 HYBRID_LANE_QUANTUM = 4096
 
+# Per-engine legal exchange families ("" = the engine's own default).
+# Mesh-only: single-device engines run no exchange at all.
+ENGINE_EXCHANGES = {
+    "wide": ("", "dense", "sparse"),
+    "hybrid": ("", "dense", "sparse", "sliced"),
+    "dist2d": ("", "ring", "allreduce", "sparse"),
+    "packed": ("",),
+}
+
+# Kind-specific mesh exchange families: sssp on a mesh runs the (min, +)
+# delta-stepping engine (parallel/dist_sssp.py), whose value exchanges are
+# ring/allreduce/sparse, not the wide family's OR row gathers.
+KIND_EXCHANGES = {
+    "sssp": ("", "ring", "allreduce", "sparse"),
+}
+
 # Serving engines default to 8 planes (254-level depth cap) where the
 # one-shot CLI defaults to 5: one high-eccentricity query truncating a
 # whole batch into errors costs more than the 3 extra planes.
 DEFAULT_PLANES = 8
-
-MESH_SERVE_ITEM = "ROADMAP Queue 1 item 4 (the serve tier on a mesh)"
 
 
 def mesh_shape_2d(devices: int, mesh_shape=()) -> tuple[int, int]:
@@ -55,17 +77,19 @@ def mesh_shape_2d(devices: int, mesh_shape=()) -> tuple[int, int]:
                 f"mesh_shape {r}x{c} does not cover {devices} devices"
             )
         return r, c
-    r = int(np.sqrt(devices))
-    while devices % r:
-        r -= 1
-    return r, devices // r
+    from tpu_bfs_torch.parallel.mesh import square_shape
+
+    return square_shape(devices)
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """One resident engine's identity: everything that changes its tables
-    or the answers it computes. ``kind`` selects a workload adapter over
-    the base engine (sssp builds its own weighted tables)."""
+    or the answers it computes. The mesh axes (``devices``, ``mesh_shape``)
+    and the exchange configuration (``exchange``, ``wire_pack``,
+    ``delta_bits``, ``sieve``, ``predict``) are key fields, so two configs
+    never alias one resident engine. ``kind`` selects a workload adapter
+    over the base engine (sssp builds its own weighted tables)."""
 
     graph_key: str
     engine: str = "wide"
@@ -74,6 +98,19 @@ class EngineSpec:
     pull_gate: bool = False
     devices: int = 1
     kind: str = "bfs"
+    #: The exchange family ("" = the engine's default): wide/hybrid row
+    #: gathers (dense/sparse; hybrid also 'sliced'), the dist2d row
+    #: exchange (ring/allreduce/sparse). Mesh engines only.
+    exchange: str = ""
+    #: The bit-packed wire (mesh engines).
+    wire_pack: bool = False
+    #: The planner's pieces (sparse exchanges only; sieve/predict are the
+    #: 2D planner's, the row gathers take delta_bits alone).
+    delta_bits: tuple = ()
+    sieve: bool = False
+    predict: bool = False
+    #: Explicit (rows, cols) of the dist2d engine; () = most-square.
+    mesh_shape: tuple = ()
     #: The served graph's version, bumped on every applied mutation batch.
     #: A key field (post-flip queries must never alias a pre-flip
     #: residency by key), but the registry REKEYS a resident engine across
@@ -83,20 +120,21 @@ class EngineSpec:
     #: The delta-overlay capacity ``(rows, kcap)``; () is a static graph.
     #: The engine's fold runs over fixed-shape tables of this size.
     overlay: tuple = ()
+    #: The level-checkpointed resume cadence K (dist2d only; 0 = off): a
+    #: key field, so a resuming and a non-resuming service never alias one
+    #: resident engine.
+    resume_levels: int = 0
 
     def __post_init__(self):
-        # A hashable, stable key whatever sequence the capacity came in.
+        # A hashable, stable key whatever sequence the knobs came in.
+        object.__setattr__(self, "delta_bits", tuple(self.delta_bits))
+        object.__setattr__(self, "mesh_shape", tuple(self.mesh_shape))
         object.__setattr__(self, "overlay", tuple(int(x) for x in self.overlay))
 
     def validate(self) -> None:
         if self.engine not in ENGINE_KINDS:
             raise ValueError(
                 f"engine must be one of {ENGINE_KINDS}, got {self.engine!r}"
-            )
-        if self.devices > 1 or self.engine == "dist2d":
-            raise NotImplementedError(
-                f"serving on a mesh (devices={self.devices}, engine="
-                f"{self.engine!r}) waits for {MESH_SERVE_ITEM}"
             )
         if self.lanes % 32 or self.lanes < 32:
             raise ValueError(
@@ -111,6 +149,91 @@ class EngineSpec:
             raise ValueError(
                 "pull_gate applies to the wide/hybrid engines (the packed "
                 "engine keeps no settled-mask state)"
+            )
+        if self.engine == "packed" and self.devices > 1:
+            raise ValueError("the packed engine is single-device")
+        if self.engine == "dist2d" and self.devices < 2:
+            raise ValueError(
+                "the dist2d engine is the 2D-partition mesh path; "
+                "use devices >= 2 (single-chip serving has no exchange "
+                "to partition)"
+            )
+        if self.engine == "wide" and self.devices > 1 and self.pull_gate:
+            raise ValueError(
+                "pull_gate on a mesh runs through the distributed hybrid "
+                "engine; use engine='hybrid' with devices > 1"
+            )
+        if self.engine == "dist2d" and self.pull_gate:
+            raise ValueError(
+                "pull_gate gates the packed MS engines' pull expansion; "
+                "the 2D engine has no settled-mask machinery"
+            )
+        if self.devices == 1 and (
+            self.exchange or self.wire_pack or self.delta_bits
+            or self.sieve or self.predict
+        ):
+            raise ValueError(
+                "exchange/wire_pack/delta_bits/sieve/predict shape the "
+                "MESH exchanges; single-chip engines (devices=1) run none"
+            )
+        legal_exchanges = (
+            KIND_EXCHANGES.get(self.kind, ENGINE_EXCHANGES[self.engine])
+            if self.devices > 1 else ENGINE_EXCHANGES[self.engine]
+        )
+        if self.exchange not in legal_exchanges:
+            raise ValueError(
+                f"exchange {self.exchange!r} is not one of "
+                f"{legal_exchanges} for engine {self.engine!r}"
+                + (f" serving kind {self.kind!r}"
+                   if self.kind in KIND_EXCHANGES and self.devices > 1
+                   else "")
+            )
+        if self.delta_bits and self.exchange != "sparse":
+            raise ValueError(
+                "delta_bits compresses the SPARSE exchanges' id streams; "
+                f"set exchange='sparse' (got {self.exchange!r})"
+            )
+        if (self.sieve or self.predict) and not (
+            (self.engine == "dist2d" and self.exchange == "sparse")
+            or (self.kind == "sssp" and self.devices > 1
+                and self.exchange == "sparse" and not self.sieve)
+        ):
+            raise ValueError(
+                "sieve/predict are the exchange planner's pieces; on the "
+                "serve tier they apply to engine='dist2d' with "
+                "exchange='sparse', plus predict (alone — min carries no "
+                "sieve residue to compact) on the distributed sssp "
+                "engine's sparse exchange (the MS row gathers take "
+                "delta_bits only)"
+            )
+        if self.mesh_shape:
+            if self.engine != "dist2d" and not (
+                self.kind == "sssp" and self.devices > 1
+            ):
+                raise ValueError(
+                    "mesh_shape picks a 2D (rows, cols) partition — the "
+                    "dist2d engine's, or the distributed sssp engine's "
+                    f"(kind='sssp', devices > 1); engine {self.engine!r} "
+                    "runs a 1D mesh"
+                )
+            mesh_shape_2d(self.devices, self.mesh_shape)  # raises on mismatch
+            if self.kind == "sssp" and self.exchange not in ("", "allreduce"):
+                raise ValueError(
+                    "the 2D distributed sssp engine exchanges "
+                    "hierarchically (pmin over both axes) — exchange must "
+                    f"be '' or 'allreduce', got {self.exchange!r}"
+                )
+        if self.resume_levels < 0:
+            raise ValueError(
+                f"resume_levels must be >= 0, got {self.resume_levels}"
+            )
+        if self.resume_levels and self.engine != "dist2d":
+            raise ValueError(
+                "resume_levels drives the dist2d serve adapter's chunked "
+                "level loop (one single-source loop per unique lane); the "
+                "packed MS engines answer a whole batch in one fused loop "
+                "with no per-query carry to snapshot — a mesh fault there "
+                "re-traverses the batch on the degraded mesh instead"
             )
         if self.graph_generation < 0:
             raise ValueError(
@@ -153,6 +276,13 @@ class EngineSpec:
                     f"kind {self.kind!r} runs on engines "
                     f"{KIND_ENGINES[self.kind]}, not {self.engine!r}"
                 )
+            if (self.devices > 1 and self.kind == "sssp"
+                    and self.wire_pack):
+                raise ValueError(
+                    "wire_pack packs the OR exchanges' frontier words; "
+                    "the distributed sssp engine ships int32 distance "
+                    "rows (delta_bits compresses its id stream instead)"
+                )
             if self.kind in ("p2p", "sssp") and self.pull_gate:
                 raise ValueError(
                     f"kind {self.kind!r} does not compose with pull_gate "
@@ -162,9 +292,69 @@ class EngineSpec:
                 )
 
 
+def _mesh_sites(spec: EngineSpec) -> dict:
+    """The fault sites a mesh engine's calls visit, consulted on rank 0
+    before each call is posted (``parallel/mesh.Remote``): the packed
+    engines' dispatch and fetch, or SSSP's."""
+    if spec.kind == "sssp":
+        d, f = ("sssp_dispatch", {"lanes": spec.lanes}), ("sssp_fetch", {"lanes": spec.lanes})
+    elif spec.kind in ("bfs", "khop", "cc") and spec.engine in ("wide", "hybrid"):
+        ctx = {"lanes": spec.lanes, "devices": spec.devices}
+        d, f = ("dispatch", ctx), ("fetch", ctx)
+    else:
+        return {}
+    return {"dispatch": [d], "fetch": [f], "run": [d, f]}
+
+
+def build_mesh_engine(rank, graph, spec: EngineSpec):
+    """One rank's replica of a mesh spec's engine (run on each of the
+    first ``spec.devices`` ranks of the serving mesh; ``rank`` is its
+    ``parallel/mesh.RankContext``): the distributed engine of the spec's
+    engine family, or of its kind (SSSP; p2p over its base). The 2D engine
+    is the bare ``Dist2DBfsEngine``: its serve adapter runs on rank 0."""
+    d = spec.devices
+    if spec.kind == "sssp":
+        from tpu_bfs_torch.workloads import build_workload_engine
+
+        mesh = (rank.mesh_2d(*mesh_shape_2d(d, spec.mesh_shape)) if spec.mesh_shape
+                else rank.mesh(d))
+        return build_workload_engine("sssp", None, graph, types.SimpleNamespace(
+            lanes=spec.lanes, devices=d, mesh=mesh, mesh_shape=spec.mesh_shape,
+            exchange=spec.exchange, delta_bits=spec.delta_bits, predict=spec.predict))
+    if spec.engine == "dist2d":
+        from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+
+        return Dist2DBfsEngine(
+            graph, rank.mesh_2d(*mesh_shape_2d(d, spec.mesh_shape)),
+            exchange=spec.exchange or "ring", backend="dopt", wire_pack=spec.wire_pack,
+            delta_bits=spec.delta_bits, sieve=spec.sieve, predict=spec.predict)
+    if spec.engine == "wide":
+        from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+
+        eng = DistWideMsBfsEngine(
+            graph, rank.mesh(d), num_planes=spec.planes, lanes=spec.lanes,
+            exchange=spec.exchange or "dense", wire_pack=spec.wire_pack,
+            delta_bits=spec.delta_bits)
+    else:
+        from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+
+        eng = DistHybridMsBfsEngine(
+            graph, rank.mesh(d), num_planes=spec.planes, lanes=spec.lanes,
+            pull_gate=spec.pull_gate, exchange=spec.exchange or "dense",
+            wire_pack=spec.wire_pack, delta_bits=spec.delta_bits)
+    if spec.kind == "p2p":
+        # p2p steps the base's level loop on its own device tables, so
+        # every rank runs its adapter (k-hop and cc run on rank 0).
+        from tpu_bfs_torch.workloads import build_workload_engine
+
+        return build_workload_engine(spec.kind, eng, graph, spec)
+    return eng
+
+
 class EngineRegistry:
-    """LRU-bounded store of warmed engines over once-loaded graphs, all on
-    one torch ``device`` (None: CUDA, raising without a card)."""
+    """LRU-bounded store of warmed engines over once-loaded graphs: the
+    single-device ones on one torch ``device`` (None: CUDA, raising without
+    a card), the mesh ones on the serving mesh."""
 
     def __init__(self, *, capacity: int = 4, warm: bool = True, log=None,
                  device=None):
@@ -259,7 +449,9 @@ class EngineRegistry:
         t0 = time.perf_counter()
         from tpu_bfs_torch.workloads import build_workload_engine
 
-        if spec.kind == "sssp":
+        if spec.devices > 1:
+            eng = self._build_mesh(spec, g)
+        elif spec.kind == "sssp":
             # SSSP builds its own weighted tables (no base engine).
             eng = build_workload_engine(
                 "sssp", None, g,
@@ -291,6 +483,35 @@ class EngineRegistry:
         self.builds += 1
         self.build_s[spec] = time.perf_counter() - t0
         self._log(f"engine built {spec} in {self.build_s[spec]:.1f}s")
+        return eng
+
+    def _build_mesh(self, spec: EngineSpec, g):  # requires-lock: _lock
+        """A mesh spec's engine on the first ``spec.devices`` ranks of the
+        process's serving mesh (``BfsService.start`` or an explicit
+        ``serve_mesh`` starts it and owns its life): the replicated
+        engine's rank-0 handle, with the 2D serve adapter or the k-hop or
+        cc adapter on rank 0 over it."""
+        from tpu_bfs_torch.parallel.mesh import active_controller
+
+        ctl = active_controller()
+        if ctl is None:
+            raise RuntimeError(
+                f"a {spec.devices}-device engine needs the process's serving mesh: "
+                f"start one with parallel.mesh.serve_mesh (BfsService.start does)")
+        ctl.ensure_rung(spec.devices)
+        if spec.engine == "dist2d" or spec.mesh_shape:
+            ctl.ensure_2d(*mesh_shape_2d(spec.devices, spec.mesh_shape))
+        eng = ctl.build(spec.devices, build_mesh_engine, ctl.share(g), spec,
+                        sites=_mesh_sites(spec))
+        if spec.engine == "dist2d" and spec.kind != "sssp":
+            from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DServeEngine
+
+            eng = Dist2DServeEngine(g, eng, lanes=spec.lanes,
+                                    resume_levels=spec.resume_levels)
+        if spec.kind in ("khop", "cc"):
+            from tpu_bfs_torch.workloads import build_workload_engine
+
+            eng = build_workload_engine(spec.kind, eng, g, spec)
         return eng
 
     def _warm_up(self, spec: EngineSpec, eng) -> None:

@@ -64,11 +64,25 @@ class QueryResult:
     batch_lanes: int | None = None  # real queries in the serving batch
     dispatched_lanes: int | None = None  # width the batch was routed to
     devices: int | None = None  # mesh span of the serving engine
+    edges: int | None = None  # input edges this query's traversal covered
+    device_ms: float | None = None  # its batch's dispatch -> fetch time
+    wire_bytes: float | None = None  # modeled exchange bytes, per-query share
     error: str | None = None
 
     @property
     def ok(self) -> bool:
         return self.status == STATUS_OK
+
+    @property
+    def gteps(self) -> float | None:
+        """Per-query GTEPS under the batch time share (the batch's device
+        time divides evenly over its real queries, so the mean of a
+        batch's per-query figures is its aggregate rate). None when the
+        engine gives no edge counts or the batch was not timed."""
+        if not self.edges or not self.device_ms or not self.batch_lanes:
+            return None
+        share_s = self.device_ms / 1e3 / self.batch_lanes
+        return self.edges / share_s / 1e9
 
 
 _QUERY_SEQ = itertools.count(1)

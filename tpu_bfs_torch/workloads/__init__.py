@@ -22,9 +22,9 @@ p2p       point-to-point shortest path: source and target on two lanes
 Every kind also runs on a mesh: sssp as ``parallel/dist_sssp.py``'s
 ``DistSsspEngine`` (``devices > 1``), cc, k-hop and p2p over a
 ``DistWideMsBfsEngine`` base, every rank running every sweep, level and
-scan pass in the same order. ``landmarks.py`` is the serve tier's
-landmark distance tier. Not ported yet: the dynamic-graph overlays
-(ROADMAP Queue 1 item 4).
+scan pass in the same order, and k-hop also over the 2D serve adapter
+(``parallel/dist_bfs2d.Dist2DServeEngine``). ``landmarks.py`` is the serve
+tier's landmark distance tier.
 """
 
 from __future__ import annotations
@@ -177,9 +177,9 @@ def build_workload_engine(kind: str, base, graph, spec):
     is None for sssp, which builds its own weighted tables). ``spec``
     carries ``lanes``, and optionally ``devices``, ``device`` and
     ``overlay``; for sssp on a mesh (``devices > 1``, built inside each
-    rank of a group of that size) ``mesh_shape`` (R, C), ``exchange``
-    (default 'allreduce' on a 2D mesh, else 'ring'), ``delta_bits`` and
-    ``predict``."""
+    rank of a group of that size, or on the rank's ``mesh`` when given)
+    ``mesh_shape`` (R, C), ``exchange`` (default 'allreduce' on a 2D mesh,
+    else 'ring'), ``delta_bits`` and ``predict``."""
     if kind == "sssp":
         devices = int(getattr(spec, "devices", 1))
         if devices > 1:
@@ -187,10 +187,14 @@ def build_workload_engine(kind: str, base, graph, spec):
             from tpu_bfs_torch.parallel.mesh import make_mesh, make_mesh_2d
 
             device = getattr(spec, "device", None)
-            mesh = make_mesh(devices, device=device)
             mesh_shape = tuple(getattr(spec, "mesh_shape", ()) or ())
-            if mesh_shape:
-                mesh = make_mesh_2d(*mesh_shape, mesh=mesh)
+            # A serving rank passes its rung's mesh; otherwise this rank's
+            # process group is the mesh.
+            mesh = getattr(spec, "mesh", None)
+            if mesh is None:
+                mesh = make_mesh(devices, device=device)
+                if mesh_shape:
+                    mesh = make_mesh_2d(*mesh_shape, mesh=mesh)
             return DistSsspEngine(
                 graph, mesh, lanes=spec.lanes,
                 exchange=getattr(spec, "exchange", "") or (

@@ -26,40 +26,21 @@ import threading
 import numpy as np
 import torch
 
-from tpu_bfs_torch.algorithms._packed_common import check_not_truncated
+from tpu_bfs_torch.algorithms._packed_common import NO_LANE, check_not_truncated, min_lane
 from tpu_bfs_torch.workloads import (
     ExchangeRecordDelegate,
     WorkloadResult,
     id_of_row_map,
 )
 
-_NO_LANE = np.int32(1 << 30)
-
-
-def min_lane(vis: torch.Tensor, act: int) -> torch.Tensor:
-    """[rows, w] word-major visited table -> [act] int32 smallest visiting
-    lane of each real row, ``_NO_LANE`` where no lane visited: the lowest
-    set bit of the row's first nonzero word. A fixed handful of passes over
-    the table, whatever its width."""
-    if act == 0:
-        return torch.zeros(0, dtype=torch.int32, device=vis.device)
-    v = vis[:act]
-    nz = v != 0
-    first = nz.to(torch.uint8).argmax(dim=1)  # the first nonzero word (0 if none)
-    word = v.gather(1, first[:, None]).squeeze(1).long() & 0xFFFFFFFF
-    low = word & -word  # its lowest set bit, exactly a power of two (or 0)
-    _, exp = torch.frexp(low.double())  # low == 2**(exp - 1)
-    lane = first * 32 + exp.long() - 1
-    return torch.where(nz.any(dim=1), lane, int(_NO_LANE)).to(torch.int32)
-
-
-def _row_min_lanes(engine, vis: torch.Tensor) -> np.ndarray:
-    """[rows] smallest visiting lane of every table row, on the host; a mesh
-    engine's rank folds its own rows and the fold is all-gathered."""
-    gather = getattr(engine, "_gather_rows", None)
-    if gather is None:
-        return min_lane(vis, engine._act).cpu().numpy()
-    return gather(min_lane(vis, vis.shape[0])).cpu().numpy()
+def _row_min_lanes(engine, pend) -> np.ndarray:
+    """[rows] smallest visiting lane of every table row of a dispatched
+    sweep, on the host; a mesh engine folds each rank's own rows and
+    all-gathers the folds (``row_min_lanes``)."""
+    fold = getattr(engine, "row_min_lanes", None)
+    if fold is not None:
+        return fold(pend)
+    return min_lane(pend.vis, engine._act).cpu().numpy()
 
 
 def connected_components(engine):
@@ -78,9 +59,9 @@ def connected_components(engine):
         # truncation check, and no per-lane summaries.
         pend = engine.dispatch(seeds)
         check_not_truncated(engine, pend)
-        ml = _row_min_lanes(engine, pend.vis)
+        ml = _row_min_lanes(engine, pend)
         del pend
-        hit = (ml < _NO_LANE) & (id_of_row >= 0)
+        hit = (ml < NO_LANE) & (id_of_row >= 0)
         vids = id_of_row[hit]
         labels[vids] = seeds[ml[hit]]
         unseen[vids] = False
