@@ -61,7 +61,8 @@ Phases, one JSON line each:
 11. pullgate (run after parents): HybridMsBfsEngine(pull_gate=True) on the
     flagship's HybridGraph, a gated and an ungated batch on the flagship's
     8192 sources: visited tables equal and plane bits equal on real rows of
-    active lanes (compared on the device), 3 lanes against SciPy; both batch
+    active lanes (compared on the device), 1 lane against SciPy (3 before
+    the adaptive phase was added: the state check covers them); both batch
     times, hmean GTEPS, the skipped blocks (gated_tiles), state blocks and
     host reads per level, K1's time per level in each and peak memory; then
     the wide engine at the wide phase's scale, gated against ungated. The
@@ -84,7 +85,7 @@ Phases, one JSON line each:
     sssp, SsspEngine at 256 lanes on the flagship graph with
     edge_weights(seed=1, wmax=8) attached, from the hub and sources drawn
     with default_rng(7) among the traversable vertices, a warm batch (CUDA
-    events on every K1 launch) and a timed one, 3 lanes equal to SciPy's
+    events on every K1 launch) and a timed one, 2 lanes equal to SciPy's
     dijkstra; both halves of every round are K1 minplus launches, and the
     run's distances against its light-plane tables are the "K1 minplus,
     sssp w 256" kernels entry (bit-exact against its twin on those tables
@@ -193,12 +194,13 @@ Phases, one JSON line each:
     engine's; then an add-only batch of 64 edges between mutable vertices
     (default_rng(23), degree 1 to kcap - 2, JAX's bench rule) and a batch
     of 16 base-edge removals (override rows), each followed by one batch
-    from the mutated endpoints: 5 lanes equal to SciPy on materialize(),
+    from the mutated endpoints: 2 lanes (an added and a removed edge's
+    endpoint; 5 before the adaptive phase) equal to SciPy on materialize(),
     some lane's distances changed; K1 ms a level (CUDA events), the
     plain-torch fold's ms a level and the batch ms with and without the
     overlay. (b) SsspEngine(lanes=256, overlay=...) on the sssp phase's
     weighted graph and sources after a batch of 48 adds and 16 re-weights:
-    2 lanes equal to Dijkstra on materialize() (5 until PR 13); K1 minplus and the fold's
+    1 lane equal to Dijkstra on materialize() (5, then 2, before); K1 minplus and the fold's
     ms a light sweep. Their K1 launches give the "K1 or, dynamic wide w 8"
     and "K1 minplus, dynamic sssp w 256" kernels entries, each bit-exact
     against its twin on the engine's own tables. (c) At the wide phase's
@@ -236,6 +238,29 @@ Phases, one JSON line each:
     level-2 snapshot, every spooled snapshot reloaded through its CRC.
     (d) ``python -m tpu_bfs_torch.serve rmat:scale=16 --devices 2`` as a
     subprocess: three answers with devices 2, SIGTERM drains, exit 0.
+21. adaptive (after pullgate): the flagship as JAX's bench runs it.
+    (a) HybridMsBfsEngine(max_lanes=8192, adaptive_push=(8192, 64)) built
+    from the flagship graph (its push table needs the edge list), on the
+    flagship's sources, a timed batch in turns with the plain flagship
+    engine (plain, adaptive, adaptive, plain): its visited table and every
+    counter plane equal the plain batch's on the device, levels, reached
+    and traversed edges too, lane 0 equal to SciPy; one host read a level;
+    K1 launches fewer by the buckets a level and K2's by one for each
+    light level. Each light level is replayed on its own frontier: the push
+    pass equals the pull hit on the card, both timed with CUDA events.
+    The "K1 or, adaptive flagship (pull levels)" and "K2, adaptive flagship
+    (pull levels)" kernels entries are the adaptive batch's launch counts
+    with the kernels phase's measurements: the adaptive engine's kernel
+    tables are checked equal to the flagship engine's, and its frontiers
+    are the plain batch's. (b) The roofline (tpu_bfs_torch/utils/roofline.py) on
+    that engine: per-phase totals, shares, achieved GB/s, the binding term,
+    the ceiling at 3.35 TB/s; its stepped level count equals the batch's
+    (the guard) and its push levels the loop's. (c) The wide phase's scale-18
+    engine with the same caps against its plain run: state equal.
+    The obs phase's traced CLI run also writes a torch.profiler trace
+    (--profile-dir) that must parse and name both CUDA kernels, and the
+    serve phase's JSONL subprocess runs with --xprof-dir: its trace must
+    exist after the SIGTERM drain and name K1.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -260,7 +285,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# The H100's HBM rate (3.35 TB/s, NVIDIA data sheet), the package's one constant.
+from tpu_bfs_torch.utils.roofline import HBM_BYTES_PER_S
+
+# The adaptive push caps JAX's bench runs the flagship at (bench.py:543-566).
+ADAPTIVE_CAPS = (8192, 64)
 # Parent-scan passes whose 128 lanes are all decoded on the host (timed);
 # the rest decode only the validated lanes (a whole pass takes seconds).
 # One pass keeps the whole script near 9 minutes.
@@ -487,19 +516,9 @@ def phase_wide(dev, k1, k2, scale: int) -> None:
 
 def flagship_graph(scale: int):
     """RMAT scale/ef16/seed1 (numpy generator), cached as .npz under build/."""
-    from tpu_bfs_torch.graph.generate import rmat_graph
-    from tpu_bfs_torch.graph.io import load_npz, save_npz
-    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.tools.roofline import load_rmat
 
-    path = BUILD_DIR / f"rmat{scale}_ef16_seed1.npz"
-    if path.is_file():
-        return load_npz(str(path)), True
-    g = rmat_graph(scale, 16, seed=1)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.stem + ".tmp.npz")
-    save_npz(str(tmp), g)
-    tmp.replace(path)
-    return g, False
+    return load_rmat(scale, 16)
 
 
 def phase_flagship(dev, k1, k2, scale: int, lanes: int):
@@ -1320,6 +1339,189 @@ def k1_gated_entry(k1, calls, launches: int, ptxas) -> dict:
     return entry
 
 
+def same_state(a, b, name: str) -> None:
+    """Require two batches' raw state equal on the device: the visited
+    tables and every counter plane, whole."""
+    require(torch.equal(a._vis, b._vis), f"{name}: visited tables differ")
+    require(len(a._planes) == len(b._planes)
+            and all(torch.equal(p, q) for p, q in zip(a._planes, b._planes)),
+            f"{name}: counter planes differ")
+
+
+def timed_batch(k1, k2, eng, sources) -> dict:
+    """One timed batch: ms, hmean GTEPS, levels, K1 and K2 launches, and the
+    result."""
+    reset_counts(k1, k2)
+    res = eng.run(sources, time_it=True)
+    return {"res": res, "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
+            "ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+
+
+def push_levels(k1, k2, aeng, sources) -> list:
+    """Each light level of one adaptive batch, replayed on its own frontier:
+    the push pass against the pull hit it replaces, bit for bit on the
+    card, then both timed with CUDA events (the push with the plan the
+    loop read; the pull as make_hit composes it, K1 then K2)."""
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import make_hit
+
+    push, caught = aeng._push, []
+    real = push.hit
+
+    def capture(arrs, fw, plan, active=None):
+        caught.append((fw.clone(), plan))
+        return real(arrs, fw, plan, active)
+
+    push.hit = capture
+    try:
+        aeng.run(sources)
+    finally:
+        del push.hit
+    pull = make_hit(aeng.hg, aeng.w)
+    arrs, saved = aeng.arrs, (k1.ell_expand.launches, k2.tile_spmm.launches)
+    light = [i for i, p in enumerate(aeng.last_push_levels) if p]
+    require(len(light) == len(caught), f"{len(caught)} push passes for light levels {light}")
+    out = []
+    for level, (fw, plan) in zip(light, caught):
+        got, want = real(arrs, fw, plan), pull(arrs, fw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"level {level}: push pass != pull hit on the card")
+        del got, want
+        out.append({"level": level, "rows": plan.rows, "pairs": plan.pairs,
+                    "push_ms": cuda_ms(lambda: real(arrs, fw, plan), 5),
+                    "pull_hit_ms": cuda_ms(lambda: pull(arrs, fw), 3)})
+    k1.ell_expand.launches, k2.tile_spmm.launches = saved  # comparisons do not count
+    return out
+
+
+def phase_adaptive(dev, k1, k2, g, eng, sources, picks, wide, flagship_entries) -> list:
+    """The flagship as JAX's bench runs it: HybridMsBfsEngine with
+    adaptive_push at ADAPTIVE_CAPS on the flagship graph and sources,
+    against the plain flagship engine in turns (see the module docstring,
+    phase 21). Returns the kernels-line entries of K1 and K2 on its pull
+    levels: the kernels phase's entries (``flagship_entries``, measured in
+    this run), since those launches have the same tables and frontiers."""
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.utils.roofline import roofline_hybrid
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    aeng = HybridMsBfsEngine(g, max_lanes=eng.lanes, adaptive_push=ADAPTIVE_CAPS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require((aeng.lanes, aeng.num_planes) == (eng.lanes, eng.num_planes),
+            f"adaptive engine sized {aeng.lanes} lanes, {aeng.num_planes} planes")
+    aeng.run(sources)  # warm
+    # In turns: plain, adaptive, adaptive, plain; the first of each is kept.
+    turns = {"plain": [], "adaptive": []}
+    for name, e in (("plain", eng), ("adaptive", aeng), ("adaptive", aeng), ("plain", eng)):
+        turns[name].append(timed_batch(k1, k2, e, sources))
+        if len(turns[name]) > 1:
+            del turns[name][-1]["res"]
+    plain, adap = turns["plain"][0], turns["adaptive"][0]
+    rp, ra = plain.pop("res"), adap.pop("res")
+    same_state(ra, rp, "adaptive flagship against the plain one")
+    require(ra.num_levels == rp.num_levels and np.array_equal(ra.reached, rp.reached)
+            and np.array_equal(ra.edges_traversed, rp.edges_traversed),
+            "adaptive levels, reached or traversed edges != the plain flagship's")
+    hg = aeng.hg
+    per_level = (1 if hg.res_heavy else 0) + len(hg.res_light)
+    pushed = list(aeng.last_push_levels)
+    nlev = ra.num_levels
+    light = sum(pushed)
+    require(aeng.last_host_syncs == len(pushed) == ra.num_levels + 1,
+            f"adaptive loop: {aeng.last_host_syncs} host reads over {len(pushed)} levels")
+    require(adap["ell_expand"] == plain["ell_expand"] - per_level * light
+            and adap["tile_spmm"] == plain["tile_spmm"] - light,
+            f"launches {adap} against {plain} with {light} light levels")
+    t0 = time.perf_counter()
+    validate_lanes(g, ra, sources, picks)
+    validate_s = time.perf_counter() - t0
+    del rp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    levels = push_levels(k1, k2, aeng, sources)
+    # K1 and K2 on the pull levels launch on the flagship engine's tables
+    # (one build_hybrid of one graph: checked equal here) and frontiers (the
+    # state is the plain batch's, checked above), so their entries are the
+    # kernels phase's measurements with this batch's launch counts.
+    names = (["virtual"] if hg.res_heavy else []) + [f"light{i}" for i in range(len(hg.res_light))]
+    keys = [f"{n}_{t}" for n in names for t in ("gt", "need")] + [
+        "inv_perm_ext", "row_start", "col_tile", "a_masks"]
+    require(all(torch.equal(aeng.arrs[k], eng.arrs[k]) for k in keys),
+            "the adaptive engine's kernel tables != the flagship engine's")
+    k1e, k2e = flagship_entries
+    require((k1e["name"], k2e["name"]) == ("ell_expand", "tile_spmm"), "flagship entries")
+    entries = [
+        dict(k1e, name=f"K1 or, adaptive flagship (pull levels), w {aeng.w}",
+             launches=adap["ell_expand"], unit=k1e["unit"] + " (the kernels phase's timing)"),
+        dict(k2e, name="K2, adaptive flagship (pull levels)", launches=adap["tile_spmm"],
+             unit=k2e["unit"] + " (the kernels phase's timing)"),
+    ]
+    del ra
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The roofline attribution on the adaptive engine, anchored to its batch.
+    t0 = time.perf_counter()
+    rep = roofline_hybrid(aeng, sources, measured_gteps=adap["hmean_gteps"])
+    roofline_s = time.perf_counter() - t0
+    require(rep["num_levels"] in (nlev, nlev + 1),
+            f"roofline stepped {rep['num_levels']} levels, the batch {nlev}")
+    require([la["took"] == "push" for la in rep["levels"]] == pushed,
+            "roofline's push levels != the loop's")
+    roofline = {k: rep[k] for k in (
+        "num_levels", "t_full_sum_s", "t_attributed_sum_s", "fusion_dividend_s", "phase_share",
+        "phase_achieved_gbs", "binding_term", "unmeasured_phase_slices", "peak_gbs",
+        "hbm_bytes_total", "t_at_peak_bw_s", "measured_gteps", "ceiling_gteps_at_peak_bw",
+        "expand_kernel_t_at_peak_bw_s")}
+    totals = {}
+    for la in rep["levels"]:
+        for n in (["push"] if la["took"] == "push" else ["residual", "dense"]) + ["state"]:
+            if la["phases_s"].get(n) is not None:
+                totals[n] = totals.get(n, 0.0) + la["phases_s"][n]
+    roofline["phase_totals_s"] = totals
+    roofline["per_level"] = [{"level": la["level"], "rows": la["frontier_rows"],
+                              "took": la["took"], "t_full_s": la["t_full_s"],
+                              "phases_s": la["phases_s"]} for la in rep["levels"]]
+    roofline["seconds"] = roofline_s
+    del aeng, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The wide engine at the wide phase's scale, adaptive against plain.
+    wg, weng, wres, wsrc = wide
+    t0 = time.perf_counter()
+    aw = WidePackedMsBfsEngine(wg, lanes=weng.lanes, num_planes=weng.num_planes,
+                               adaptive_push=ADAPTIVE_CAPS, device=dev)
+    wbuild_s = time.perf_counter() - t0
+    aw.run(wsrc)  # warm
+    wa = timed_batch(k1, k2, aw, wsrc)
+    wp = timed_batch(k1, k2, weng, wsrc)
+    rw = wa.pop("res")
+    del wp["res"]
+    same_state(rw, wres, "adaptive wide engine against the plain one")
+    require(rw.num_levels == wres.num_levels, "adaptive wide levels differ")
+    wide_out = {"scale": int(np.log2(wg.num_vertices)), "lanes": aw.lanes,
+                "engine_build_s": wbuild_s, "adaptive": wa, "plain": wp,
+                "light_levels": int(sum(aw.last_push_levels)),
+                "levels_run": len(aw.last_push_levels), "host_syncs": aw.last_host_syncs}
+    del aw, rw
+    emit({"phase": "adaptive", "graph": "the flagship graph", "caps": list(ADAPTIVE_CAPS),
+          "lanes": eng.lanes, "engine_build_s": build_s, "levels": nlev,
+          "levels_run": len(pushed), "light_levels": light, "pull_levels": len(pushed) - light,
+          "pushed": pushed, "host_syncs": len(pushed), "k1_per_pull_level": per_level,
+          # The fastest turn of each: the first batch after the other
+          # engine's result can pay fresh allocations.
+          "turns": turns, "adaptive_over_plain": min(t["batch_ms"] for t in turns["adaptive"])
+          / min(t["batch_ms"] for t in turns["plain"]) - 1,
+          "push_levels": levels, "validated_lanes": picks, "validate_s": validate_s,
+          "roofline": roofline, "wide": wide_out,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return entries
+
+
 def compare_state(gated, plain, act: int, lane_mask) -> int:
     """Require the gated batch's raw state to equal the ungated batch's on
     the device: the visited tables whole, the counter planes on real rows of
@@ -1580,6 +1782,25 @@ def run_cli(argv) -> list:
     return buf.getvalue().splitlines()
 
 
+def profile_kernels(prof_dir: Path, want) -> dict:
+    """The torch.profiler Chrome traces in ``prof_dir``: each parses, and
+    their kernels name every entry of ``want``. Returns the files, the
+    event count and the kernels named (``kernel_name`` of each)."""
+    from tpu_bfs_torch.utils.profile import kernel_names
+
+    files = sorted(prof_dir.glob("*.json"))
+    require(bool(files), f"no profiler trace in {prof_dir}")
+    names, events = set(), 0
+    for f in files:
+        events += len(json.loads(f.read_text())["traceEvents"])
+        names |= kernel_names(f)
+    for k in want:
+        require(any(k in n for n in names), f"the profiler trace names no {k}")
+    return {"files": [f.name for f in files], "events": events, "kernel_launch_names":
+            len(names), "our_kernels": sorted({kernel_name(n) for n in names
+                                               if any(k in n for k in want)})}
+
+
 def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
     """The operations surface (see the module docstring, phase 18)."""
     from tpu_bfs_torch import faults, obs
@@ -1600,9 +1821,11 @@ def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
     # The CLI as a subprocess: a gated hybrid batch, --stats --trace-out.
     trace_path = d / "cli_trace.json"
     here = Path(__file__).resolve().parent
+    prof_dir = d / "prof"
     argv = [sys.executable, "-m", "tpu_bfs_torch", str(src[0]), spec, "--multi-source",
             ",".join(map(str, src[1:])), "--engine", "hybrid", "--lanes", "4096",
-            "--pull-gate", "--stats", "--trace-out", str(trace_path)]
+            "--pull-gate", "--stats", "--trace-out", str(trace_path),
+            "--profile-dir", str(prof_dir)]
     t0 = time.perf_counter()
     proc = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=here,
                           env=dict(os.environ, PYTHONPATH=str(here)))
@@ -1622,7 +1845,8 @@ def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
             f"Perfetto level track: {len(rows)} rows for {trace[0]['levels']} levels")
     out["cli"] = {"engine": "hybrid", "lanes": 4096, "sources": len(src), "pull_gate": True,
                   "seconds": cli_s, "trace": trace[0], "perfetto_level_rows": len(rows),
-                  "perfetto_events": len(doc["traceEvents"])}
+                  "perfetto_events": len(doc["traceEvents"]),
+                  "profile": profile_kernels(prof_dir, ("ell_expand_kernel", "tile_spmm_kernel"))}
 
     # A 256-lane gated wide batch on the flagship ELL, recorder disarmed and
     # armed in turns (an armed fetch copies the gate counters off the card).
@@ -1679,18 +1903,21 @@ def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
 
 def _dijkstra_oracle(g, sources):
     """SciPy dijkstra over the weighted graph, duplicate slots min-folded
-    (parallel edges hash to one weight, but keep the oracle honest)."""
+    (parallel edges hash to one weight, but keep the oracle honest). The
+    CSR's rows, once column-sorted, hold each (row, col) run together, so
+    the fold is one ``minimum.reduceat`` (the same matrix as a lexsort of
+    the slots, at a third of the time)."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
-    m = g.to_scipy(weighted=True).tocoo()
-    key = m.row.astype(np.int64) * g.num_vertices + m.col
-    order = np.lexsort((m.data, key))
-    k2, d2 = key[order], m.data[order]
-    first = np.ones(len(k2), bool)
-    first[1:] = k2[1:] != k2[:-1]
+    m = g.to_scipy(weighted=True)
+    m.sort_indices()
+    m = m.tocoo()
+    first = np.ones(m.nnz, bool)
+    first[1:] = (m.row[1:] != m.row[:-1]) | (m.col[1:] != m.col[:-1])
+    starts = np.flatnonzero(first)
     mm = sp.csr_matrix(
-        (d2[first], (k2[first] // g.num_vertices, k2[first] % g.num_vertices)),
+        (np.minimum.reduceat(m.data, starts), (m.row[starts], m.col[starts])),
         shape=(g.num_vertices, g.num_vertices),
     )
     return csgraph.dijkstra(mm, directed=True, indices=sources)
@@ -1957,7 +2184,8 @@ def phase_shared_card(dev, scale: int, ranks: int = 2) -> dict:
 def phase_sssp(dev, k1, k2, g, traversable, ptxas):
     """SSSP at 256 lanes on the flagship graph with edge_weights(seed=1,
     wmax=8) attached (the JAX bench's kinds graph): a warm batch with CUDA
-    events around every K1 launch, then a timed batch; 3 lanes against
+    events around every K1 launch, then a timed batch; 2 lanes (3 before
+    the adaptive phase) against
     SciPy's dijkstra. Returns the "K1 minplus, sssp w 256" kernels entry,
     K1 on the engine's own light-plane tables and the run's distances, and
     held bit for bit against its twin on the heavy close's plane too; and
@@ -1995,7 +2223,7 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas):
             f"sssp: {launches} K1 launches, not {len(names)} x {bodies} expansions")
     require(launches["tile_spmm"] == 0, "sssp launched tile_spmm")
     require(eng.last_host_reads == bodies, f"sssp: {eng.last_host_reads} host reads")
-    picks = [0, 128, 255]
+    picks = [0, 255]
     t0 = time.perf_counter()
     oracle = _dijkstra_oracle(gw, src[picks])
     for j, i in enumerate(picks):
@@ -2319,7 +2547,7 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
           "graph": "the flagship graph, edge_weights(seed=1, wmax=8) for sssp",
           "sssp_lanes": 256, "shard_build_s": shard_s, "weights_build_s": weights_s,
           "sssp": out, "kinds": kinds,
-          "validated": "sssp: every lane = SsspEngine's, 3 lanes = dijkstra; cc labels, khop "
+          "validated": "sssp: every lane = SsspEngine's, 2 lanes = dijkstra; cc labels, khop "
                        "reached and p2p answers = the single-device phases'; every p2p path "
                        "walked", "seconds": time.perf_counter() - t_phase})
     # Two gloo ranks sharing the card, correctness only.
@@ -2721,10 +2949,14 @@ def serve_jsonl(dev) -> dict:
              json.dumps({"id": 2, "source": 9, "want_distances": False}), bad,
              json.dumps({"id": "far", "source": v + 5})]
     here = Path(__file__).resolve().parent
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+
+    xprof = BUILD_DIR / "serve_xprof"
+    shutil.rmtree(xprof, ignore_errors=True)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpu_bfs_torch.serve", spec, "--lanes", "256",
-         "--device", str(dev), "--statsz-interval-s", "0"],
+         "--device", str(dev), "--statsz-interval-s", "0", "--xprof-dir", str(xprof)],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=here, env=dict(os.environ, PYTHONPATH=str(here)))
     killer = threading.Timer(300, proc.kill)
@@ -2763,8 +2995,11 @@ def serve_jsonl(dev) -> dict:
                                    want.distances_int32(i)), f"query {i}: distances_npy")
         else:
             require("distances_npy" not in r, "a distance-free query carried distances")
+    require("torch.profiler trace stopped" in err, "the server did not stop its profiler")
+    profile = profile_kernels(xprof, ("ell_expand_kernel",))
+    shutil.rmtree(xprof)
     return {"graph": spec, "V": v, "lines": len(lines), "answered_s": answered_s,
-            "drain": "SIGTERM, final statsz, exit 0"}
+            "drain": "SIGTERM, final statsz, exit 0", "xprof": profile}
 
 
 def serve_chaos(dev, g, reg, picks, direct) -> dict:
@@ -3362,7 +3597,7 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
     plain.run(src)
     plain_res = plain.run(src, time_it=True)
     lanes = same_lanes(eng, base, plain, plain_res, "dynamic: empty overlay vs plain")
-    picks = [0, 1, 64, 128, 200]
+    picks = [0, 64]  # an added edge's endpoint and a removed edge's
     out = {"engine_build_s": build_s, "dynamic_graph_s": dyn_s, "mutable": len(mutable),
            "empty_overlay_lanes_equal_plain": lanes,
            "plain_batch_ms": plain_res.elapsed_s * 1e3,
@@ -3412,7 +3647,7 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
 def dynamic_sssp(dev, k1, k2, sssp, ptxas):
     """(b) SsspEngine(overlay=DYN_CAP) on the sssp phase's weighted flagship
     graph and sources, 256 lanes: one batch after an add and re-weight
-    batch (re-weights make override rows), 2 lanes against Dijkstra on
+    batch (re-weights make override rows), 1 lane against Dijkstra on
     materialize()."""
     from tpu_bfs_torch.graph.dynamic import DynamicGraph, make_overlay_fold
     from tpu_bfs_torch.workloads.sssp import SsspEngine
@@ -3451,7 +3686,7 @@ def dynamic_sssp(dev, k1, k2, sssp, ptxas):
     t0 = time.perf_counter()
     mat = dyn.materialize()
     mat_s = time.perf_counter() - t0
-    picks = [0, 255]
+    picks = [0]
     t0 = time.perf_counter()
     oracle = _dijkstra_oracle(mat, src[picks])
     for j, i in enumerate(picks):
@@ -3484,8 +3719,10 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
     """(c) At the wide phase's scale: BfsService(wide, 256 lanes, ladder auto,
     dynamic=DYN_CAP, kinds bfs/sssp/cc, audit_rate=0.1, staleness_bound=0).
     JAX's mutation soak (16 closed-loop clients, 32 one-edge flips 0.05 s
-    apart): zero dropped, zero staleness findings, 8 answers equal to SciPy
-    on their generation's graph; one forced compaction; then torn_flip (one
+    apart): zero dropped, zero staleness findings (an answer audited after
+    its generation left the auditor's ring must be exact for that
+    generation), 8 answers equal to SciPy on their generation's graph; one
+    forced compaction; then torn_flip (one
     finding, then healed), corrupt_overlay (restaged, no finding) and
     compaction_crash (rolled back, answers unchanged)."""
     import threading
@@ -3531,6 +3768,29 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
                 errs.append(exc)
             flat.extend(got)
 
+        # The auditor's ring holds WINDOW generations: a sampled answer whose
+        # audit runs more flips after its dispatch than that (the extraction
+        # worker replays each sampled answer on the host, so it can lag the
+        # flips) matches no ringed generation and counts as unmatched. Keep
+        # every generation's host graph and each unmatched answer, so an
+        # unmatched answer passes only if it is exact for its own stamp.
+        aud = svc._staleness
+        kept, unmatched, audit_lock = dict(aud._ring), [], threading.Lock()
+        push_generation, audit_one = aud.push_generation, aud._audit_one
+
+        def keep_generation(generation, graph):
+            kept[int(generation)] = graph
+            push_generation(generation, graph)
+
+        def audit_keeping_unmatched(q, r, served_gen):
+            with audit_lock:
+                before = aud.stats()["unmatched"]
+                audit_one(q, r, served_gen)
+                if aud.stats()["unmatched"] > before:
+                    unmatched.append((served_gen, r.kind, int(r.source),
+                                      np.asarray(r.distances, np.int32).copy()))
+
+        aud.push_generation, aud._audit_one = keep_generation, audit_keeping_unmatched
         threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
         flip_ms, occupancy, checked = [], 0, 0
         reset_counts(k1, k2)
@@ -3558,15 +3818,25 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
         require(k1.ell_expand.launches > 0, "dynamic serve launched no K1")
         svc.flush_audits()
         snap = svc.statsz()
+        with audit_lock:
+            del aud.push_generation, aud._audit_one
         st = snap["dynamic"]["staleness"]
         require(st["stale"] == 0 and st["over_bound"] == 0 and st["errors"] == 0
-                and st["unmatched"] == 0, f"dynamic serve soak: staleness {st}")
+                and st["unmatched"] == len(unmatched), f"dynamic serve soak: staleness {st}")
+        for served_gen, kind, src, dist in unmatched:
+            require(kind == "bfs" and served_gen in kept
+                    and np.array_equal(dist, bfs_scipy(kept[served_gen], src)),
+                    f"dynamic serve soak: a {kind} answer for source {src} stamped "
+                    f"generation {served_gen} matches no ringed generation and is not "
+                    f"exact for its own")
+        kept.clear()
         require(snap["audit_failures"] == 0 and snap["errors"] == 0, "dynamic serve: findings")
         out["soak"] = {"flips": len(flip_ms), "flip_p50_ms": float(np.percentile(flip_ms, 50)),
                        "flip_max_ms": float(max(flip_ms)),
                        "occupancy": occupancy / DYN_CAP[0], "queries": len(flat),
                        "seconds": soak_s, "qps": len(flat) / soak_s, "dropped": dropped,
                        "answers_equal_scipy": checked, "staleness": st,
+                       "late_audits_exact": len(unmatched),
                        "audits_run": snap["audits_run"], "audit_dropped": snap["audit_dropped"],
                        "k1_launches": k1.ell_expand.launches}
         # One forced compaction: answer-neutral.
@@ -3718,7 +3988,10 @@ def main(argv=None) -> int:
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:3], wide, ptxas))
+    kernels.append(phase_pullgate(dev, k1, k2, g, eng, sources, picks[:1], wide, ptxas))
+    kernels += phase_adaptive(dev, k1, k2, g, eng, sources, picks[:1], wide, kernels[:2])
+    gc.collect()
+    torch.cuda.empty_cache()
     khop_reached = phase_khop(dev, k1, k2, g, eng, sources)
     kernels += phase_mesh(dev, k1, k2, g, eng, sources, picks[:3], wide, args.wide_scale,
                           ptxas)

@@ -226,7 +226,7 @@ def test_cli_default_engine_rule_equals_jax(n_sources, pull_gate, ckpt, monkeypa
                   ckpt=ckpt, resume=None)
     jargs = argparse.Namespace(expand_impl="xla", devices=1, wire_pack=False,
                                sparse_delta=False, adaptive_push=None, **common)
-    targs = argparse.Namespace(device="cpu", devices=1, **common)
+    targs = argparse.Namespace(device="cpu", devices=1, adaptive_push=None, **common)
     jcli._make_ms_engine(jargs, None, n_sources)
     cli._make_ms_engine(targs, None, n_sources)
     assert tlog == jlog

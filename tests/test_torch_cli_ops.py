@@ -102,6 +102,10 @@ def test_single_source_mesh_prints_the_jax_trace_line(flags):
 @pytest.mark.parametrize("flags", [
     ["--engine", "hybrid"], ["--engine", "wide", "--pull-gate"], ["--engine", "packed"],
     ["--engine", "wide", "--devices", "2", "--exchange", "sparse"],
+    # The hybrid's trace says "pull+adaptive-push"; the wide engine keeps
+    # its caps private and says "pull", in both packages.
+    ["--engine", "hybrid", "--adaptive-push", "64,16"],
+    ["--engine", "wide", "--adaptive-push", "64,16"],
 ])
 def test_armed_multi_source_trace_line_equals_jax(flags):
     got, want = _both(["3", GRAPH, "--stats", "--obs"] + MS + flags)
@@ -235,3 +239,30 @@ def test_advance_site_and_recovery_line_equal_jax():
         lines.append((restarts, st.level, counters.as_dict(), faults.ACTIVE.counts()))
         faults.disarm()
     assert lines[0] == lines[1] and lines[0][0] == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["3", GRAPH, "--engine", "hybrid", "--repeat", "2"] + MS,
+    ["3", GRAPH, "--backend", "dopt"],
+])
+def test_profile_dir_writes_a_trace_each_timed_run(argv, tmp_path):
+    """``--profile-dir``: one parseable torch.profiler Chrome trace a timed
+    run, holding the run's operators (CPU activity off the card)."""
+    lines = _run(cli.main, argv + ["--device", "cpu", "--profile-dir", str(tmp_path)])
+    assert "Output OK" in lines
+    reps = 2 if "--repeat" in argv else 1
+    files = sorted(tmp_path.glob("*.json"))
+    assert [f.name for f in files] == [f"trace_rep{i}.json" for i in range(reps)]
+    for f in files:
+        events = json.loads(f.read_text())["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_profile_dir_refusal_with_checkpoints_equals_jax(tmp_path, capsys):
+    msgs = []
+    for main, extra in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
+        with pytest.raises(SystemExit):
+            main(["0", GRAPH, "--ckpt", str(tmp_path / "c.npz"), "--profile-dir",
+                  str(tmp_path)] + extra)
+        msgs.append(capsys.readouterr().err.splitlines()[-1].split("error: ")[1])
+    assert msgs[0] == msgs[1] == "--repeat/--profile-dir do not apply to checkpointed runs"

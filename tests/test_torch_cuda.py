@@ -395,6 +395,61 @@ def test_gated_engine_on_cuda_equals_cpu(cuda, engine):
         np.testing.assert_array_equal(res.distances_int32(i), plain.distances_int32(i))
 
 
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_adaptive_engine_on_cuda_equals_plain_and_cpu(cuda, engine):
+    # The adaptive loop on the card: raw state equal to the plain engine's
+    # on the card and to the same adaptive engine's on CPU tensors, with
+    # light levels taken (the caps admit the late levels), the same levels
+    # pushed on both devices and one host read a level.
+    g = rmat_graph(12, 16, seed=11)
+    kw = dict(lanes=256, kcap=8, num_planes=5)
+    if engine == "hybrid":
+        kw["tile_thr"] = 16
+    make = WidePackedMsBfsEngine if engine == "wide" else HybridMsBfsEngine
+    src = np.random.default_rng(5).choice(np.flatnonzero(g.degrees > 0), size=200,
+                                          replace=False)
+    plain = make(g, device=cuda, **kw).run(src)
+    cpu = make(g, device="cpu", adaptive_push=(4096, 64), **kw)
+    want = cpu.run(src)
+    eng = make(g, device=cuda, adaptive_push=(4096, 64), **kw)
+    res = eng.run(src)
+    assert any(eng.last_push_levels) and not all(eng.last_push_levels)
+    assert eng.last_push_levels == cpu.last_push_levels
+    assert eng.last_host_syncs == len(eng.last_push_levels) == res.num_levels + 1
+    for a, b in ((res._vis, plain._vis), *zip(res._planes, plain._planes)):
+        assert torch.equal(a, b)
+    for a, b in ((res._vis, want._vis), *zip(res._planes, want._planes)):
+        assert torch.equal(a.cpu(), b)
+    np.testing.assert_array_equal(res.reached, want.reached)
+
+
+def test_push_pass_on_cuda_equals_cpu_and_pull(cuda):
+    # The push pass on the card against the same pass on CPU tensors and
+    # against the pull it replaces, on frontiers whose rows share
+    # out-neighbours (every destination of a hub's neighbourhood repeats).
+    g = rmat_graph(11, 16, seed=3)
+    # A degree cap above every out-degree: every row is eligible.
+    cap = int(np.bincount(g.coo[0], minlength=g.num_vertices).max())
+    eng = HybridMsBfsEngine(g, lanes=64, kcap=8, tile_thr=16, num_planes=5,
+                            adaptive_push=(4096, cap), device=cuda)
+    cpu_arrs = {k: v.cpu() for k, v in eng.arrs.items()}
+    from tpu_bfs_torch.algorithms.msbfs_hybrid import make_hit
+
+    pull = make_hit(eng.hg, eng.w)
+    rng = np.random.default_rng(1)
+    for density in (0.002, 0.05, 0.5):
+        fw = rng.integers(0, 2**32, size=(eng._table_rows, eng.w), dtype=np.uint32)
+        fw[rng.random(eng._table_rows) >= density] = 0
+        fw[eng._act:] = 0
+        fw_dev = i32(fw, cuda)
+        plan = eng._push.plan_of(eng._push.probe(eng.arrs, fw_dev)[1].tolist())
+        assert plan.rows > 0 and plan.pairs > plan.rows
+        got = eng._push.hit(eng.arrs, fw_dev, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), eng._push.hit(cpu_arrs, fw_dev.cpu(), plan))
+        assert torch.equal(got, pull(eng.arrs, fw_dev))
+
+
 @pytest.mark.parametrize("gate", [False, True])
 def test_checkpoint_resume_on_cuda(cuda, gate, tmp_path):
     # Save, load and resume on the card: the chunked batch equals one run,

@@ -239,6 +239,22 @@ def test_resume_dir_flag_sets_the_resume_spool_as_in_jax(regs, tmp_path):
             res.set_default_dir(None)
 
 
+def test_xprof_dir_parses_as_in_jax_and_writes_a_trace_at_shutdown(regs, tmp_path):
+    """``--xprof-dir DIR``: both parsers take it; the port's server holds a
+    torch.profiler session from start-up to shutdown and writes its Chrome
+    trace into DIR when it shuts down, answers unchanged."""
+    for front in (tfront, jfront):
+        args = front.build_arg_parser().parse_args([SPEC, "--xprof-dir", "d"])
+        assert args.xprof_dir == "d"
+    queries = "".join(json.dumps({"id": i, "source": s}) + "\n" for i, s in enumerate((0, 3)))
+    prof = tmp_path / "xprof"
+    lines, _ = _run(tfront, regs[1], queries, ["--xprof-dir", str(prof)])
+    plain, _ = _run(tfront, regs[1], queries)
+    assert _canon(lines) == _canon(plain)
+    events = json.loads((prof / "serve_trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
 @pytest.mark.parametrize("flag", [["--mutations"], ["--mutations", "8x4"], []])
 def test_mutations_flag_parses_as_in_jax(flag):
     args = tfront.build_arg_parser().parse_args(["g"] + flag)

@@ -10,9 +10,10 @@ on the device; distances decode lazily, one 32-lane word at a time.
 
 The JAX ``lax.while_loop`` becomes a host loop with exactly one
 device-to-host sync per level (the ``alive`` flag; with the pull gate, also
-the next level's gate counts, in the same read). The JAX ``lax.cond``
-choices of the gate become device masks (K1's ``need_blk``) or host
-branches on those counts.
+the next level's gate counts, in the same read; with the adaptive push,
+the next level's push plan). The JAX ``lax.cond`` choices of the gate
+become device masks (K1's ``need_blk``) or host branches on those counts,
+and the adaptive push's a host branch on its plan.
 
 A batch's state checkpoints to the host (``start`` / ``advance`` /
 ``finish``) in real-vertex-id row order as uint32, the JAX package's
@@ -666,6 +667,245 @@ class PullGateHost:
         return self._gate_loop[2](arrs, fw, vis, self._lane_mask_dev)
 
 
+# --- Level-adaptive push -----------------------------------------------------
+#
+# A light level (at most ``row_cap`` active frontier rows, none with
+# out-degree above ``deg_cap``) ORs each active row's frontier words into
+# its out-neighbours' hit rows instead of running the whole pull (every K1
+# bucket, and K2 in the hybrid). Pushing over out-edges equals pulling over
+# in-edges bit for bit: the push table is edge-exact, directed or not. The
+# JAX package decides on the device with ``lax.cond``; here the next
+# level's decision is computed right after the claim and read in the same
+# transfer as ``alive``, so a level keeps its one host read.
+
+
+def build_push_table(host_graph, rank: np.ndarray, act: int, deg_cap: int):
+    """Out-CSR push table in rank space for the level-adaptive expansion:
+    ``([act+1, deg_cap] int32 out-neighbor rows (pad/sentinel = act),
+    [act] bool ineligibility mask — rows with out-degree > deg_cap)``.
+    Rank space must be active-first (every edge endpoint < act). The JAX
+    package's ``build_push_table``, host NumPy."""
+    src, dst = host_graph.coo
+    rs = rank[src].astype(np.int64)
+    rd = rank[dst].astype(np.int32)
+    out_deg = np.bincount(rs, minlength=act)[:act]
+    elig = out_deg <= deg_cap
+    order = np.argsort(rs, kind="stable")
+    rs_s, rd_s = rs[order], rd[order]
+    rp = np.zeros(act + 1, np.int64)
+    np.cumsum(out_deg, out=rp[1:])
+    pos = np.arange(len(rs_s), dtype=np.int64) - rp[rs_s]
+    keep = elig[rs_s]
+    pt = np.full((act + 1, deg_cap), act, np.int32)
+    pt[rs_s[keep], pos[keep]] = rd_s[keep]
+    return pt, ~elig
+
+
+class PushPlan(NamedTuple):
+    """What the host knows of a level's frontier before the level runs."""
+
+    light: bool  # the level takes the push pass
+    rows: int  # active frontier rows
+    pairs: int  # their out-edges in the push table (every slot that is not a pad)
+
+
+class AdaptivePush:
+    """The push pass and its gate (the JAX ``make_adaptive_hit``) over the
+    push table of :func:`build_push_table`, whose device arrays ride in the
+    engine's ``arrs`` (:meth:`device_arrays`): ``push_t``, ``push_inelig``
+    and ``push_deg`` (each row's push slots in use).
+
+    The push is plain PyTorch. PyTorch has no bitwise-OR scatter, and two
+    active rows often share an out-neighbour, so the (destination, source)
+    pairs are sorted by destination and OR-reduced within each run of equal
+    destinations by doubling steps (after step s, each pair holds the OR of
+    the next 2**s pairs of its run); the head of each run then holds its
+    whole OR, and one ``index_add_`` of the heads (the other pairs zeroed)
+    writes every destination row once. OR is commutative and idempotent,
+    so this equals JAX's sequential scatter, repeated edges included. The
+    number of steps is bounded on the host by the pairs and by the most
+    pairs any row can receive."""
+
+    def __init__(self, push_cfg, pt: np.ndarray, inelig: np.ndarray, *, act: int,
+                 out_rows: int):
+        self.row_cap, self.deg_cap = (int(x) for x in push_cfg)
+        self.act, self.out_rows = act, out_rows
+        self._pt, self._inelig = pt, inelig
+        used = pt[:act] != act
+        self._deg = used.sum(axis=1).astype(np.int32)
+        received = np.bincount(pt[:act][used], minlength=1)
+        self.max_mult = max(int(received.max()), 1)
+
+    def device_arrays(self, device) -> dict:
+        return {
+            "push_t": torch.from_numpy(self._pt).to(device),
+            "push_inelig": torch.from_numpy(self._inelig).to(device),
+            "push_deg": torch.from_numpy(self._deg).to(device),
+        }
+
+    def nbytes(self) -> int:
+        return self._pt.nbytes + self._inelig.nbytes + self._deg.nbytes
+
+    def _plan(self, rows: int, bad: bool, pairs: int) -> PushPlan:
+        return PushPlan(rows <= self.row_cap and not bad, int(rows), int(pairs))
+
+    def host_plan(self, table_rows) -> PushPlan:
+        """The plan of a frontier whose active table rows the host knows (a
+        batch's seed rows, or a checkpoint's frontier rows)."""
+        rows = np.asarray(table_rows, dtype=np.int64)
+        live = np.unique(rows[rows < self.act])
+        return self._plan(len(live), bool(self._inelig[live].any()), self._deg[live].sum())
+
+    def probe(self, arrs, fw):
+        """``(active, stats)`` of a frontier on the device: its [act] active
+        rows and the int64 (light, rows, pairs) the next level's plan reads."""
+        active = fw[: self.act].any(dim=1)
+        rows = active.sum()
+        bad = (active & arrs["push_inelig"]).any()
+        pairs = (arrs["push_deg"] * active).sum(dtype=torch.int64)
+        light = (rows <= self.row_cap) & ~bad
+        return active, torch.stack([light.long(), rows, pairs])
+
+    @staticmethod
+    def plan_of(stats) -> PushPlan:
+        """The host :class:`PushPlan` of ``probe``'s stats, read back."""
+        light, rows, pairs = stats
+        return PushPlan(bool(light), int(rows), int(pairs))
+
+    def hit(self, arrs, fw, plan: PushPlan, active=None):
+        """The push pass: a fresh [out_rows, w] hit table of the frontier's
+        out-edges. ``plan`` (the frontier's row and pair counts) sizes every
+        compaction, so no host read happens here; ``active`` is the
+        frontier's active-row mask when the caller has it."""
+        hit = torch.zeros((self.out_rows, fw.shape[1]), dtype=torch.int32, device=fw.device)
+        if plan.pairs == 0:
+            return hit
+        if active is None:
+            active = fw[: self.act].any(dim=1)
+        rows = _nonzero_static(active, plan.rows).long()
+        nb = arrs["push_t"].index_select(0, rows)  # [rows, deg_cap], pads = act
+        slot = _nonzero_static((nb != self.act).view(-1), plan.pairs).long()
+        dst, order = torch.sort(nb.view(-1).index_select(0, slot).long())
+        src = rows.index_select(0, slot.index_select(0, order) // self.deg_cap)
+        vals = fw.index_select(0, src)  # [pairs, w], the source words
+        for i in range((min(plan.pairs, self.max_mult) - 1).bit_length()):
+            s = 1 << i
+            vals[:-s] |= torch.where((dst[s:] == dst[:-s])[:, None], vals[s:], 0)
+        head = torch.ones_like(dst, dtype=torch.bool)
+        head[1:] = dst[1:] != dst[:-1]
+        # One nonzero contribution per destination: the add is the OR.
+        hit.index_add_(0, dst, torch.where(head[:, None], vals, 0))
+        return hit
+
+
+class AdaptiveRun(NamedTuple):
+    """An adaptive loop's record besides the state."""
+
+    pushed: list  # per level run, whether it took the push pass
+    syncs: int  # device-to-host reads in the loop: one a level
+
+
+def make_adaptive_packed_loop(hit_of, push: AdaptivePush, num_planes: int):
+    """The level loop with the adaptive push (the JAX ``make_packed_loop``
+    over ``make_adaptive_hit``). A light level runs ``push.hit``, any other
+    ``hit_of``. Each level ends with one device-to-host read: the next
+    level's plan (light, active rows, pairs), computed right after the
+    claim; ``alive`` is its row count, since a claim lands only on real
+    rows. The first level's plan is the caller's (``plan0``). Returns
+    ``(core, core_from, deeper)`` with the plain signatures plus ``plan0``;
+    ``core`` and ``core_from`` also return an :class:`AdaptiveRun`."""
+
+    def deeper(arrs, fw, vis):
+        # The pull: the push pass equals it bit for bit.
+        return bool((hit_of(arrs, fw) & ~vis).any())
+
+    def core_from(arrs, fw, vis, planes, level0, max_levels, plan0):
+        plan, level, alive, active, pushed = plan0, int(level0), True, None, []
+        while alive and level < max_levels:
+            pushed.append(plan.light)
+            nxt = push.hit(arrs, fw, plan, active) if plan.light else hit_of(arrs, fw)
+            nxt &= ~vis
+            vis |= nxt
+            ripple_increment_(planes, ~vis)
+            active, stats = push.probe(arrs, nxt)
+            plan = push.plan_of(stats.tolist())  # the level's one device-to-host sync
+            alive = plan.rows > 0
+            fw = nxt
+            level += 1
+        return fw, vis, planes, level, alive, AdaptiveRun(pushed, len(pushed))
+
+    def core(arrs, fw0, max_levels, plan0):
+        planes = tuple(torch.zeros_like(fw0) for _ in range(num_planes))
+        fw, vis, planes, levels, alive, run = core_from(
+            arrs, fw0, fw0.clone(), planes, 0, max_levels, plan0
+        )
+        truncated = alive and levels >= max_levels and deeper(arrs, fw, vis)
+        return planes, vis, levels, alive, truncated, run
+
+    return core, core_from, deeper
+
+
+class AdaptivePushHost:
+    """Adaptive-push bookkeeping of the wide and hybrid engines: the first
+    level's plan (from the batch's seed rows or a checkpoint's frontier,
+    on the host) and the core wrappers that thread it into the loop and
+    keep its record: ``last_push_levels`` (per level run, whether it took
+    the push pass) and ``last_host_syncs``. An engine calls
+    :meth:`_install_push` when built with ``adaptive_push``; it needs
+    ``_rank``, ``_act``, ``num_planes`` and ``arrs``."""
+
+    _push = None
+    _push_plan0 = None
+    last_push_levels = None
+
+    def _install_push(self, hit_of, push: AdaptivePush) -> None:
+        self._push = push
+        self._push_loop = make_adaptive_packed_loop(hit_of, push, self.num_planes)
+        self._core, self._core_from, self._deeper = (
+            self._adaptive_core, self._adaptive_core_from, self._push_loop[2])
+
+    def _note_push_sources(self, sources) -> None:
+        """The first level's plan of a fresh batch, from its seed rows."""
+        if self._push is not None:
+            self._push_plan0 = self._push.host_plan(
+                np.asarray(self._rank)[np.asarray(sources, dtype=np.int64)])
+
+    def _note_push_frontier(self, real: np.ndarray) -> None:
+        """The first level's plan of a resumed batch, from its checkpoint's
+        real-id [V, w] frontier."""
+        if self._push is not None:
+            live = np.flatnonzero(real.any(axis=1))
+            self._push_plan0 = self._push.host_plan(np.asarray(self._rank)[live])
+
+    def _note_push_plan(self, plan: PushPlan) -> None:
+        """The next level's plan, from a caller that stepped the loop itself."""
+        self._push_plan0 = plan
+
+    def _take_push_plan0(self, arrs, fw) -> PushPlan:
+        """The noted plan, consumed; without one, the frontier's plan read
+        from the device (one extra read, for a caller that noted nothing)."""
+        plan, self._push_plan0 = self._push_plan0, None
+        if plan is None:
+            plan = self._push.plan_of(self._push.probe(arrs, fw)[1].tolist())
+        return plan
+
+    def _adaptive_core(self, arrs, fw0, max_levels):
+        planes, vis, levels, alive, truncated, run = self._push_loop[0](
+            arrs, fw0, max_levels, self._take_push_plan0(arrs, fw0))
+        self._record_push(run)
+        return planes, vis, levels, alive, truncated
+
+    def _adaptive_core_from(self, arrs, fw, vis, planes, level0, max_levels):
+        fw, vis, planes, level, alive, run = self._push_loop[1](
+            arrs, fw, vis, planes, level0, max_levels, self._take_push_plan0(arrs, fw))
+        self._record_push(run)
+        return fw, vis, planes, level, alive
+
+    def _record_push(self, run: AdaptiveRun) -> None:
+        self.last_push_levels = run.pushed
+        self.last_host_syncs = run.syncs
+
+
 def seed_scatter_args(rows_of_sources: np.ndarray, act: int):
     """Host (rows, words, bits) of word-major lane seeding; entries without a
     row (>= ``act``: isolated sources) get a zero bit at row 0, and the
@@ -1149,6 +1389,7 @@ def dispatch_packed_batch(engine, sources, *, max_levels: int | None = None) -> 
     max_levels = cap if max_levels is None else min(max_levels, cap)
     with _engine_dispatch_lock(engine):
         engine._note_batch_sources(sources)  # the pull gate's lane mask
+        engine._note_push_sources(sources)  # the adaptive push's first plan
         fw0 = engine._seed_dev(sources)
         t0 = time.perf_counter()
         planes, vis, levels, alive, truncated = engine._core(engine.arrs, fw0, max_levels)
@@ -1297,6 +1538,7 @@ def advance_packed_batch(engine, ckpt, levels: int | None = None):
     engine._note_resume_state(vis_host)
     vis = _device_table(engine, vis_host)
     planes = tuple(packed_real_to_table(engine, p) for p in ckpt.planes)
+    engine._note_push_frontier(ckpt.frontier)
     to_fw, from_fw = _fw_hooks(engine)
     fw = to_fw(ckpt.frontier)
     # The chain identity of the mesh engines' exchange accounting.
@@ -1338,10 +1580,11 @@ def finish_packed_batch(engine, ckpt) -> PackedBatchResult:
     )
 
 
-class PackedRunProtocol(PullGateHost):
+class PackedRunProtocol(PullGateHost, AdaptivePushHost):
     """``run`` / ``dispatch`` / ``fetch`` and checkpoint ``start`` /
     ``advance`` / ``finish`` for every packed engine, plus the shared
-    seeding and lane-map hooks and the pull gate's bookkeeping.
+    seeding and lane-map hooks and the pull gate's and the adaptive push's
+    bookkeeping.
     ``result_cls`` is the class of a batch's result."""
 
     result_cls = PackedBatchResult

@@ -30,11 +30,13 @@ import torch
 
 from tpu_bfs_torch.algorithms._packed_common import (
     HBM_BUDGET_BYTES,
+    AdaptivePush,
     ExpandSpec,
     PackedRunProtocol,
     arrs_nbytes,
     auto_lanes,
     auto_planes,
+    build_push_table,
     expand_arrays,
     floor_lanes,
     lazy_full_parent_ell,
@@ -280,7 +282,15 @@ class HybridMsBfsEngine(PackedRunProtocol):
     ``pull_gate=True`` (default off, as in JAX) keys the residual buckets
     (K1's ``need_blk``) and the state pass on the per-row settled mask; the
     dense K2 pass stays ungated. Bit-identical distances, reached counts and
-    parents; skipped blocks per level land in ``last_gate_level_counts``."""
+    parents; skipped blocks per level land in ``last_gate_level_counts``.
+
+    ``adaptive_push=(row_cap, deg_cap)`` (JAX's bench runs the flagship so,
+    at (8192, 64)) sends light levels (at most ``row_cap`` active rows, none
+    of out-degree above ``deg_cap``) through a push pass over those rows'
+    out-edges, skipping both K1 and K2 (``_packed_common.AdaptivePush``):
+    bit-identical results; per level run, whether it pushed lands in
+    ``last_push_levels``. It needs the edge list (an engine built from a
+    ``Graph``) and does not combine with the pull gate."""
 
     def __init__(
         self,
@@ -294,10 +304,14 @@ class HybridMsBfsEngine(PackedRunProtocol):
         hbm_budget_bytes: int = HBM_BUDGET_BYTES,
         max_lanes: int = DEFAULT_MAX_LANES,
         pull_gate: bool = False,
+        adaptive_push: tuple[int, int] | None = None,
         device=None,
     ):
         if num_planes != "auto" and not (1 <= num_planes <= 8):
             raise ValueError("num_planes must be in [1, 8]")
+        if pull_gate and adaptive_push is not None:
+            # Both gate the per-level scan, by different keys (JAX's rule).
+            raise ValueError("pull_gate and adaptive_push cannot combine (yet): pick one")
         if max_lanes % 32 or not (32 <= max_lanes <= MAX_LANES):
             raise ValueError(f"max_lanes must be a multiple of 32 in [32, {MAX_LANES}]")
         self.device = resolve_device(device)
@@ -309,12 +323,27 @@ class HybridMsBfsEngine(PackedRunProtocol):
         hg = self.hg
         # The edge list for the parent scan's full ELL and the host path.
         self.host_graph = graph if isinstance(graph, Graph) else None
+        if adaptive_push is not None and self.host_graph is None:
+            raise ValueError(
+                "adaptive_push needs the edge list: construct the engine "
+                "from a Graph (a prebuilt HybridGraph has dropped it)"
+            )
         rows = hg.vt * TILE
         sentinel = rows - 1
         host_tables = pallas_expand_arrays(hg, sentinel)
         fixed_bytes = (  # the tiles as K2's row masks, as large as the JAX layout
             arrs_nbytes(host_tables) + hg.a_tiles.nbytes + hg.inv_perm_ext.size * 8
         )
+        push = None
+        if adaptive_push is not None:
+            push = AdaptivePush(
+                adaptive_push,
+                *build_push_table(self.host_graph, hg.rank, hg.num_active,
+                                  int(adaptive_push[1])),
+                act=hg.num_active, out_rows=rows,
+            )
+            # The push table is a lane-independent resident, like the ELL.
+            fixed_bytes += push.nbytes()
         sizing = dict(fixed_bytes=fixed_bytes, hbm_budget_bytes=hbm_budget_bytes)
         if num_planes == "auto" and lanes == "auto":
             # Trade depth (2**planes levels) for width, walking the width
@@ -336,6 +365,7 @@ class HybridMsBfsEngine(PackedRunProtocol):
             raise ValueError(f"lanes must be a multiple of 32 in [32, {MAX_LANES}]")
         self.w = lanes // 32
         self.lanes = lanes
+        self.adaptive_push = adaptive_push
         self.undirected = hg.undirected
         dev = self.device
         arrs = expand_arrays(hg, sentinel, dev)
@@ -366,6 +396,9 @@ class HybridMsBfsEngine(PackedRunProtocol):
                 make_hit(hg, self.w, gated=True), needed_of=needed_of, heavy_rows=nh,
                 heavy_needed_host=lambda need: bool(np.append(need, False)[gate_fwd[:nh]].any()),
             )
+        elif push is not None:
+            arrs.update(push.device_arrays(dev))
+            self._install_push(make_hit(hg, self.w), push)
         else:
             self._core, self._core_from, self._deeper = make_packed_loop(
                 make_hit(hg, self.w), num_planes)

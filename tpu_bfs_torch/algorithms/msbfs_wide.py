@@ -15,10 +15,12 @@ import numpy as np
 
 from tpu_bfs_torch.algorithms._packed_common import (
     HBM_BUDGET_BYTES,
+    AdaptivePush,
     ExpandSpec,
     PackedRunProtocol,
     arrs_nbytes,
     auto_lanes,
+    build_push_table,
     expand_arrays,
     make_expand,
     make_gated_expand,
@@ -68,7 +70,15 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
     ``overlay=(rows, kcap)`` arms the dynamic-graph delta overlay
     (``graph/dynamic.py``): the engine builds with empty overlay tables in
     ``arrs`` and folds them over every level's expansion; ``set_overlay``
-    swaps in a mutation's tables. It does not compose with the pull gate."""
+    swaps in a mutation's tables. It does not compose with the pull gate.
+
+    ``adaptive_push=(row_cap, deg_cap)`` sends light levels (at most
+    ``row_cap`` active rows, none of out-degree above ``deg_cap``) through a
+    push pass over those rows' out-edges instead of every K1 bucket
+    (``_packed_common.AdaptivePush``): bit-identical results; per level run,
+    whether it pushed lands in ``last_push_levels``. It needs the edge list
+    (an engine built from a ``Graph``) and combines with neither the pull
+    gate nor the overlay."""
 
     def __init__(
         self,
@@ -81,16 +91,19 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         max_lanes: int = DEFAULT_MAX_LANES,
         pull_gate: bool = False,
         overlay: tuple = (),
+        adaptive_push: tuple[int, int] | None = None,
         device=None,
     ):
         if not (1 <= num_planes <= 8):
             raise ValueError("num_planes must be in [1, 8]")
         self.overlay = tuple(int(x) for x in overlay) if overlay else ()
-        if self.overlay and pull_gate:
-            # The gate skips rows and blocks by BASE-graph keys; overlay
-            # edges would escape it and go untraversed (JAX's text, which
-            # also names its adaptive push).
+        if self.overlay and (pull_gate or adaptive_push is not None):
+            # Both choose rows and blocks by BASE-graph keys; overlay edges
+            # would escape them and go untraversed.
             raise ValueError("overlay does not compose with pull_gate or adaptive_push")
+        if pull_gate and adaptive_push is not None:
+            # Both gate the per-level scan, by different keys (JAX's rule).
+            raise ValueError("pull_gate and adaptive_push cannot combine (yet): pick one")
         if max_lanes % 32 or not (32 <= max_lanes <= MAX_LANES):
             raise ValueError(f"max_lanes must be a multiple of 32 in [32, {MAX_LANES}]")
         self.device = resolve_device(device)
@@ -104,10 +117,25 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         ell = self.ell
         self._act = ell.num_active
         host_tables = pallas_expand_arrays(ell, self._act)
+        push = None
+        if adaptive_push is not None:
+            if self.host_graph is None:
+                raise ValueError(
+                    "adaptive_push needs the edge list: construct the engine "
+                    "from a Graph (a prebuilt ELL has dropped it)"
+                )
+            push = AdaptivePush(
+                adaptive_push,
+                *build_push_table(self.host_graph, ell.rank, self._act, int(adaptive_push[1])),
+                act=self._act, out_rows=self._act + 1,
+            )
         if lanes == "auto":
+            # The push table is a lane-independent resident, like the ELL.
+            push_bytes = push.nbytes() if push is not None else 0
             lanes = auto_lanes(
                 self._act + 1, num_planes,
-                fixed_bytes=arrs_nbytes(host_tables), hbm_budget_bytes=hbm_budget_bytes,
+                fixed_bytes=arrs_nbytes(host_tables) + push_bytes,
+                hbm_budget_bytes=hbm_budget_bytes,
                 max_lanes=max_lanes, on_unfit="raise",
             )
         if lanes % 32 or not (32 <= lanes <= MAX_LANES):
@@ -138,7 +166,11 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
                 # The delta overlay folds over the bucket outputs, a fresh
                 # tensor, in place (plain torch after K1's launches).
                 expand = make_overlay_fold(expand, op="or")
-            self._core, self._core_from, self._deeper = make_packed_loop(expand, num_planes)
+            if push is not None:
+                self.arrs.update(push.device_arrays(self.device))
+                self._install_push(expand, push)
+            else:
+                self._core, self._core_from, self._deeper = make_packed_loop(expand, num_planes)
         in_deg_ranked = ell.in_degree[ell.old_of_new].astype(np.int32)
         self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
             ell.num_vertices, self._table_rows, self.w, num_planes,

@@ -15,6 +15,8 @@ tree on request. ``--backend`` picks the single-source engine;
     python -m tpu_bfs_torch 2 graph.txt --multi-source 5,9 --engine wide --device cpu
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --certify --save-parent p.npy
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine hybrid --pull-gate --stats
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine hybrid --adaptive-push 8192,64
+    python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2 --engine wide --profile-dir prof
     python -m tpu_bfs_torch 0 rmat:scale=14 --ckpt state.npz --ckpt-every 2
     python -m tpu_bfs_torch 0 rmat:scale=14 --resume state.npz
     python -m tpu_bfs_torch 0 rmat:scale=14 --multi-source 1,2,3 --devices 2 --exchange sparse
@@ -25,7 +27,10 @@ Graph sources: a file path, ``-`` for stdin, or ``rmat:scale=..,ef=..,seed=..``
 / ``random:n=..,m=..,seed=..``. With no ``--engine``, a batch of 512
 sources or fewer runs the 512-lane packed engine and a larger one the
 hybrid, as in the JAX CLI (the wide engine with ``--ckpt``/``--resume``,
-the hybrid with ``--pull-gate``). Checkpoint files are the JAX CLI's: a
+the hybrid with ``--pull-gate``); ``--adaptive-push ROWS,DEG`` needs
+``--engine wide|hybrid`` on one device. ``--profile-dir DIR`` writes a
+``torch.profiler`` Chrome trace of each timed run into DIR (CUDA activity
+on the card, or the run fails). Checkpoint files are the JAX CLI's: a
 run checkpointed by one resumes in the other. A transient failure mid-chunk
 rebuilds the engine and resumes from the last chunk
 (``utils/recovery.advance_with_recovery``).
@@ -186,6 +191,14 @@ def _make_ms_engine(args, g, n_sources: int):
         kw["lanes"] = args.lanes
     if args.pull_gate:
         kw["pull_gate"] = True
+    if args.adaptive_push:
+        if g.num_input_edges < 10_000:
+            # The push pass wins by skipping a whole-table scan, which a
+            # tiny table barely costs (the JAX CLI's condition and advice).
+            print(f"WARNING: --adaptive-push on a tiny graph ({g.num_input_edges} edges < 1e4) "
+                  "usually LOSES; it pays off when light levels skip a large table scan.",
+                  file=sys.stderr, flush=True)
+        kw["adaptive_push"] = args.adaptive_push
     if engine == "wide":
         from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
 
@@ -280,18 +293,34 @@ def _finish_obs(args, engine, label: str) -> None:
         print(f"[obs] trace written -> {args.trace_out}", file=sys.stderr)
 
 
-def _timed_runs(args, run, **span):
+def _maybe_profile(profile_dir, device, name: str):
+    """A ``torch.profiler`` session around one timed run that writes its
+    Chrome trace to ``profile_dir/name`` on exit, or a no-op without a
+    directory. CPU activity always; on a CUDA device also CUDA activity,
+    which must be available and must record at least one kernel, or this
+    raises (a CPU-only trace of a card run would hide the device)."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from tpu_bfs_torch.utils.profile import profiled
+
+    return profiled(os.path.join(profile_dir, name), device)
+
+
+def _timed_runs(args, run, device=None, **span):
     """``run()`` ``--repeat`` times, each inside a "run" span when the
-    recorder is armed; the last result."""
+    recorder is armed and a profiler session with ``--profile-dir``; the
+    last result."""
     from tpu_bfs_torch import obs
 
     res = None
+    rank = "" if _MESH is None else f"_rank{_MESH.rank}"
     for rep in range(max(1, args.repeat)):
         rec = obs.ACTIVE
         if rec is not None:
             rec.begin("run", "cli", cat="cli", rep=rep, **span)
         try:
-            res = run()
+            with _maybe_profile(args.profile_dir, device, f"trace{rank}_rep{rep}.json"):
+                res = run()
         finally:
             # finally: a handled truncation must not leave the span open.
             if rec is not None:
@@ -331,7 +360,7 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
                       f"{res.elapsed_s * 1e3:.3f} ({len(sources)} sources)")
                 return res
 
-            res = _timed_runs(args, run, sources=len(sources))
+            res = _timed_runs(args, run, engine.device, sources=len(sources))
     except RuntimeError as exc:
         if "truncated" not in str(exc):
             raise
@@ -419,7 +448,7 @@ def _run_single_source(args, g, golden, resume_st=None) -> int:
                       f"{res.elapsed_s * 1e3:.3f}")
             return res
 
-        res = _timed_runs(args, run, source=args.source)
+        res = _timed_runs(args, run, engine.device, source=args.source)
     if res.teps:
         print(f"Traversed edges: {res.edges_traversed}  GTEPS: {res.teps / 1e9:.4f}")
     print(f"Reached {res.reached} vertices in {res.num_levels} levels")
@@ -498,6 +527,14 @@ def main(argv=None) -> int:
                     "dense-tile passes, are skipped per level, bit-identical to the plain "
                     "scan. --multi-source wide/hybrid engines and --backend tiled; --stats "
                     "adds per-level gated_tiles counts")
+    ap.add_argument("--adaptive-push", default=None, metavar="ROWS,DEG",
+                    help="level-adaptive expansion for --multi-source --engine wide|hybrid "
+                    "(single device): levels with <= ROWS active rows, all with out-degree "
+                    "<= DEG, take a push pass over those rows' out-edges instead of the "
+                    "full ELL/tile scan; bit-identical results")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of each timed run into DIR "
+                    "(CPU activity, and CUDA activity on the card)")
     ap.add_argument("--ckpt", default=None, metavar="PATH",
                     help="checkpoint the traversal state to PATH (npz, the JAX CLI's "
                     "format) every --ckpt-every levels")
@@ -555,6 +592,22 @@ def main(argv=None) -> int:
                     "tiles, exchange choice, modeled wire bytes; implies --obs)")
     args = ap.parse_args(argv)
     multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
+    # The JAX CLI's guards and texts.
+    if args.adaptive_push is not None:
+        if args.engine not in ("wide", "hybrid") or args.devices > 1 or not multi:
+            ap.error("--adaptive-push pairs with --multi-source --engine wide|hybrid on a "
+                     "single device")
+        try:
+            r, d = (int(t) for t in args.adaptive_push.split(","))
+            if r < 1 or d < 1:
+                raise ValueError
+        except ValueError:
+            ap.error(f"--adaptive-push must be ROWS,DEG positive ints, got "
+                     f"{args.adaptive_push!r}")
+        args.adaptive_push = (r, d)
+    if args.pull_gate and args.adaptive_push is not None:
+        ap.error("--pull-gate and --adaptive-push cannot combine (both gate the per-level "
+                 "scan; measure them separately)")
     if args.pull_gate and not multi and (args.backend != "tiled" or on_mesh):
         ap.error("--pull-gate for single-source runs needs --backend tiled on a single "
                  "device (the other single-source backends have no tile pass to gate)")
@@ -597,8 +650,8 @@ def main(argv=None) -> int:
     if (args.ckpt or args.resume) and args.multi_source is not None and args.engine == "packed":
         ap.error("--ckpt/--resume with --multi-source needs the wide or hybrid engine (the "
                  "512-lane packed engine keeps no resumable state)")
-    if (args.ckpt or args.resume) and args.repeat > 1:
-        ap.error("--repeat does not apply to checkpointed runs")
+    if (args.ckpt or args.resume) and (args.repeat > 1 or args.profile_dir):
+        ap.error("--repeat/--profile-dir do not apply to checkpointed runs")
 
     sources = None
     if args.multi_source is not None:

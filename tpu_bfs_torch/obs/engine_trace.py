@@ -168,6 +168,10 @@ def assemble_packed_trace(engine, levels: int) -> list[dict]:
     if gc is not None:
         gc = _host(gc)
     direction = "pull-gated" if getattr(engine, "pull_gate", False) else "pull"
+    if getattr(engine, "adaptive_push", None):
+        # JAX's rule: the hybrid's public attribute (the wide engine keeps
+        # its configuration private in both packages, and says "pull").
+        direction = "pull+adaptive-push"
     counts = getattr(engine, "last_exchange_level_counts", None)
     caps = tuple(getattr(engine, "sparse_caps", ()) or ())
     hook = getattr(engine, "exchange_branch_labels", None)

@@ -2076,6 +2076,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metricz-out", default=None, metavar="PATH",
                     help="write the Prometheus-style /metricz text here, "
                     "replaced every statsz interval and once at exit")
+    ap.add_argument("--xprof-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the serving "
+                    "session (CPU activity, and CUDA activity on the card) "
+                    "from start-up to shutdown into DIR/serve_trace.json, so "
+                    "device profiles line up with the host spans in "
+                    "--trace-out")
     ap.add_argument("--registry-cap", type=int, default=4,
                     help="LRU bound on resident warmed engines (default 4, "
                     "raised to fit the ladder plus one degrade slot)")
@@ -2292,7 +2298,19 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
             f"{recorder.capacity}, flight window "
             f"{recorder.window_s:.0f}s, dump dir {recorder.dump_dir!r})")
     statsz_interval = resolve_statsz_interval(args)
-    service = _service_from_args(args, registry, log)
+    xprof = None
+    if args.xprof_dir:
+        from tpu_bfs_torch.utils.profile import ProfileSession
+
+        xprof = ProfileSession(os.path.join(args.xprof_dir, "serve_trace.json"), args.device)
+        xprof.start()
+        log(f"torch.profiler trace started -> {args.xprof_dir}")
+    try:
+        service = _service_from_args(args, registry, log)
+    except BaseException:
+        if xprof is not None:
+            xprof.stop(check=False)
+        raise
     log(f"READY engine={args.engine} lanes={args.lanes} "
         f"ladder={service.width_ladder} "
         f"kinds={','.join(service.kinds)}")
@@ -2449,6 +2467,7 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
     reader_t = threading.Thread(
         target=reader, name="bfs-serve-reader", daemon=True
     )
+    xprof_error = None
     try:
         reader_t.start()
         while not stop.wait(0.2):
@@ -2474,6 +2493,12 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
                 log(f"drain timeout: {outstanding[0]} responses unemitted")
         stop_statsz.set()
         emit_telemetry()  # the final statsz line + --metricz-out text
+        if xprof is not None:
+            try:
+                log(f"torch.profiler trace stopped -> {xprof.stop()}")
+            except (RuntimeError, OSError) as exc:  # raised once the shutdown is done
+                log(f"torch.profiler stop failed ({exc!r})")
+                xprof_error = exc
         if args.trace_out and recorder is not None:
             from tpu_bfs_torch.obs.exporters import write_perfetto
 
@@ -2503,6 +2528,10 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
                 signal.signal(sig, handler)
             except (ValueError, OSError):
                 pass
+    if xprof_error is not None:
+        # A failed profile fails the run (after a full shutdown): on the
+        # card it means the trace lacks the device.
+        raise xprof_error
     return 0
 
 
