@@ -1000,3 +1000,76 @@ def test_mesh_serve_on_cuda_equals_wide_engine(cuda):
     assert all(r.devices == 2 for r in got) and all(r.devices == 1 for r in after[1:])
     assert snap["devices"] == 1 and snap["mesh_faults"] == snap["mesh_degrades"] == 1
     assert mismatched == 0
+
+
+def test_registered_ops_on_cuda_equal_their_twins(cuda):
+    # The ops a torch.export graph names, called as such: K1 through
+    # tpu_bfs_torch::ell_expand, K2 through tpu_bfs_torch::tile_spmm
+    # accumulating into its declared-mutated out table.
+    rng = np.random.default_rng(15)
+    nb, rows, w, k = 4, 700, 8, 5
+    need = np.array([1, 0, 1, 1], np.int32)
+    gt = rng.integers(0, rows, size=(k, nb * 128)).astype(np.int32)
+    fw = rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+    args = [i32(need, cuda), i32(gt, cuda), i32(fw, cuda)]
+    before = k1.ell_expand.launches
+    got = torch.ops.tpu_bfs_torch.ell_expand(*args, None, "or")
+    torch.cuda.synchronize()
+    assert k1.ell_expand.launches == before + 1
+    want = k1.ell_expand_plain(*[a.cpu() for a in args])
+    assert torch.equal(got.cpu(), want)
+    vt, nt = 3, 7
+    row_start = np.sort(rng.integers(0, nt + 1, size=vt + 1)).astype(np.int32)
+    row_start[0], row_start[-1] = 0, nt
+    col_tile = rng.integers(0, vt, size=nt).astype(np.int32)
+    dense = (rng.random((nt, 128, 128)) < 0.05).astype(np.int8)
+    masks = k2.row_masks(i32(k2.pack_a_tiles(dense), cuda))
+    fw2 = i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32), cuda)
+    prior = i32(rng.integers(0, 2**32, size=(vt * 128, w), dtype=np.uint32), cuda)
+    out = prior.clone()
+    before = k2.tile_spmm.launches
+    torch.ops.tpu_bfs_torch.tile_spmm(i32(row_start, cuda), i32(col_tile, cuda), masks, fw2,
+                                      out, vt)
+    torch.cuda.synchronize()
+    assert k2.tile_spmm.launches == before + 1
+    hit = k2.tile_spmm_plain(i32(row_start, "cpu"), i32(col_tile, "cpu"), None, fw2.cpu(),
+                             num_row_tiles=vt, masks=masks.cpu())
+    assert torch.equal(out.cpu(), prior.cpu() | hit)
+
+
+@pytest.mark.parametrize("engine", ["wide", "hybrid"])
+def test_adopted_programs_on_cuda_equal_the_eager_engine(cuda, engine, tmp_path):
+    # An exported level step adopted on the card runs the same kernels the
+    # same number of times and leaves the same state, bit for bit.
+    from tpu_bfs_torch.utils import aot
+
+    g = rmat_graph(11, 16, seed=3)
+    make = ((lambda: WidePackedMsBfsEngine(g, lanes=256, num_planes=5)) if engine == "wide"
+            else (lambda: HybridMsBfsEngine(g, lanes=256, num_planes=5, tile_thr=8)))
+    spec = {"graph_key": "g", "engine": engine, "lanes": 256, "planes": 5}
+    store = aot.ArtifactStore(tmp_path / "store")
+    eager = make()
+    assert aot.export_engine_programs(eager, spec, store) == [
+        "core", "seed", "lane_stats", "extract_word", "lane_ecc"]
+    adopted = make()
+    assert len(aot.adopt_engine_programs(adopted, spec, store)) == 5
+    targets = adopted._step.graph_targets()
+    assert "tpu_bfs_torch.ell_expand.default" in targets
+    assert ("tpu_bfs_torch.tile_spmm.default" in targets) == (engine == "hybrid")
+    assert not any("copy_" in t for t in targets)
+    src = np.random.default_rng(2).choice(g.num_vertices, 256, replace=False)
+    runs = []
+    for eng in (eager, adopted):
+        k1.ell_expand.launches = k2.tile_spmm.launches = 0
+        res = eng.run(src)
+        torch.cuda.synchronize()
+        runs.append((res, k1.ell_expand.launches, k2.tile_spmm.launches))
+    (a, la1, la2), (b, lb1, lb2) = runs
+    assert (la1, la2) == (lb1, lb2) and la1 > 0
+    assert adopted._step.calls == a.num_levels + 1 and adopted._step.fallback_calls == 0
+    assert torch.equal(a._vis, b._vis)
+    assert all(torch.equal(p, q) for p, q in zip(a._planes, b._planes))
+    np.testing.assert_array_equal(a.reached, b.reached)
+    np.testing.assert_array_equal(a.ecc, b.ecc)
+    for i in (0, 100, 255):
+        np.testing.assert_array_equal(a.distances_int32(i), b.distances_int32(i))

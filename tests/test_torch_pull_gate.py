@@ -147,6 +147,7 @@ def expand_case():
     jarrs = {**jpc.expand_arrays(jell),
              **{k: jnp.asarray(v) for k, v in jpc.pallas_expand_arrays(jell, act).items()}}
     tarrs = tpc.expand_arrays(tell, act, "cpu")
+    tarrs.update(tpc.gate_block_arrays(spec, tarrs))  # the gated expansion's block maps
     rng = np.random.default_rng(4)
     fw = rng.integers(0, 2**32, size=(act + 1, w), dtype=np.uint32)
     fw[rng.random(act + 1) < 0.6] = 0

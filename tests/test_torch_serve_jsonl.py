@@ -167,10 +167,10 @@ def _no_flip(lines):
 
 
 def test_jsonl_refuses_unported_flags_and_ops(regs):
-    # The AOT flags stay refused by name.
-    for flag in (["--preheat", "d"], ["--export-aot", "d"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            _run(tfront, regs[1], "", flag)
+    # The AOT preheat is ported on one device; on a mesh it stays refused by
+    # name.
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6 \(mesh AOT"):
+        _run(tfront, regs[1], "", ["--preheat", "d", "--devices", "2"])
     # The mesh flags are ported: --engine dist2d on one device raises JAX's
     # ValueError, and --devices 2 serves (the port on two gloo ranks this
     # process starts) the lines JAX serves on two virtual devices.

@@ -204,12 +204,13 @@ def test_answer_tier_equal_jax(regs):
     {"wire_pack": True}, {"delta_bits": (8,)}, {"sieve": True},
     {"predict": True}, {"resume_levels": 2}, {"mesh_probe_interval_s": 1.0},
     {"dynamic": (8, 4)}, {"generation_dir": "g"},
-    {"staleness_bound": 1}, {"aot_dir": "a"}, {"engine": "dist2d"},
+    {"staleness_bound": 1}, {"aot_dir": "a", "devices": 2}, {"engine": "dist2d"},
+    {"aot_dir": "a"},
 ])
 def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
-    if "aot_dir" in kw:
-        # AOT preheat is not ported (ROADMAP Queue 1 entry 6).
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
+    if "aot_dir" in kw and kw.get("devices", 1) > 1:
+        # AOT preheat on a mesh is not ported (ROADMAP Queue 1 item 6).
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6 \(mesh AOT"):
             TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
         return
     # The mesh knobs and dynamic graphs are ported: construction goes as in
@@ -229,7 +230,7 @@ def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
                      ext["devices"], ext.get("mesh_degraded")))
         svc.close()
     assert outs[1] == outs[0]
-    accepted = {"devices", "mesh_probe_interval_s", "dynamic", "staleness_bound"}
+    accepted = {"devices", "mesh_probe_interval_s", "dynamic", "staleness_bound", "aot_dir"}
     assert outs[0][0] == ("ok" if accepted & set(kw) else "ValueError")
 
 

@@ -25,9 +25,16 @@ or, on the CPU or when asked for, one host scatter-min per lane.
 
 Engines plug in through attributes ``arrs``, ``lanes``, ``w``,
 ``max_levels_cap``, ``num_planes``, ``undirected``, ``device``, ``_rank``,
-``_act``, ``_warmed``, ``num_vertices``, ``host_graph`` and the callables
-``_core``, ``_core_from``, ``_deeper``, ``_seed_dev``, ``_lane_stats``,
-``_extract_word``, ``_lane_ecc``, ``_full_parent_ell``, and ``_table_rows``.
+``_act``, ``_warmed``, ``num_vertices``, ``host_graph``, ``_in_deg`` and the
+callables ``_step``, ``_core``, ``_core_from``, ``_deeper``, ``_seed_dev``,
+``_lane_stats``, ``_extract_word``, ``_lane_ecc``, ``_full_parent_ell``, and
+``_table_rows``.
+
+Every fixed-shape program the loop and the extraction call (the level
+step ``_step``, ``_seed``, ``_lane_stats``, ``_extract_word``,
+``_lane_ecc``) takes its tables as arguments, so it exports as a
+``torch.export`` program (:func:`packed_aot_programs`, ``utils/aot.py``);
+the loops call ``_step`` anew each level, so an adopted program stands in.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from tpu_bfs_torch.algorithms.frontier import _nonzero_static
 from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.graph.ell import build_ell, pad_gate_blocks
 from tpu_bfs_torch.ops.ell_expand import COMBINE, KERNEL_OPS, TILE, ell_expand
+from tpu_bfs_torch.utils.aot import AotProgramProtocol, ArgSpec
 from tpu_bfs_torch.validate import min_parent_from_dist
 
 UNREACHED = np.uint8(255)  # uint8 distance sentinel; see distances_int32()
@@ -349,6 +357,34 @@ def seed_row_unsettled(rows_of_sources: np.ndarray, act: int, rows: int) -> np.n
     return need
 
 
+def _gate_bucket_starts(spec: ExpandSpec) -> np.ndarray:
+    """The first gate block of each light bucket, and their total."""
+    nbs = [-(-n // GATE_TILE) for _k, n in spec.light_meta]
+    return np.concatenate([[0], np.cumsum(nbs)]).astype(np.int64)
+
+
+def gate_block_arrays(spec: ExpandSpec, arrs: dict) -> dict:
+    """The block-id maps of :func:`make_gated_expand`, device tables an
+    engine adds to its ``arrs`` (so an exported gated step takes them as
+    arguments): ``gate_row_block``, the block of each output row, with the
+    heavy and tail rows at a dump block; ``gate_block_bucket``, the bucket
+    of each block; ``gate_bucket_blocks``, each bucket's block count."""
+    if not spec.light_meta:
+        return {}
+    starts = _gate_bucket_starts(spec)
+    nbs = np.diff(starts)
+    nh = arrs["heavy_pick"].shape[0] if spec.heavy else 0
+    ids = [np.full(nh, starts[-1], np.int64)]
+    for i, (_k, n) in enumerate(spec.light_meta):
+        ids.append(starts[i] + np.arange(n, dtype=np.int64) // GATE_TILE)
+    ids.append(np.full(spec.tail_rows, starts[-1], np.int64))
+    bucket = np.repeat(np.arange(len(nbs), dtype=np.int64), nbs)
+    device = next(iter(arrs.values())).device
+    return {k: torch.from_numpy(x).to(device) for k, x in (
+        ("gate_row_block", np.concatenate(ids)), ("gate_block_bucket", bucket),
+        ("gate_bucket_blocks", nbs.astype(np.int64)))}
+
+
 def make_gated_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
     """The gated form of :func:`make_expand` (the JAX
     ``make_gated_pallas_expand``): the gate rides into K1 as its
@@ -360,34 +396,18 @@ def make_gated_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
     whole when none of its output rows is needed, which the host learned in
     the previous level's sync.
 
-    Every bucket's mask comes out of one pass over ``needed`` (a block-id
-    map built on first use): a level pays a fixed handful of small ops for
-    the gate, not a handful per bucket.
+    Every bucket's mask comes out of one pass over ``needed`` (the block-id
+    maps of :func:`gate_block_arrays`, in ``arrs``): a level pays a fixed
+    handful of small ops for the gate, not a handful per bucket.
 
     Returns ``expand(arrs, fw, needed, heavy) -> (outputs, skipped)``:
     ``needed`` is [outputs' rows] bool on the device, ``heavy`` a host
     bool, ``skipped`` the skipped blocks (a device int64 scalar). Skipped
     rows come out as the identity, whose claim the caller masks away."""
     full, heavy_section = _expand_pieces(spec, w, op)
-    T = GATE_TILE
-    heavy_blocks = -(-spec.num_virtual // T) if spec.heavy else 0
-    nbs = [-(-n // T) for _k, n in spec.light_meta]
-    starts = np.concatenate([[0], np.cumsum(nbs)]).astype(np.int64)
-    maps = {}
-
-    def block_maps(arrs, device):
-        """(block of each output row, with the heavy and tail rows at a dump
-        block; bucket of each block; each bucket's block count)."""
-        if device not in maps:
-            nh = arrs["heavy_pick"].shape[0] if spec.heavy else 0
-            ids = [np.full(nh, starts[-1], np.int64)]
-            for i, (_k, n) in enumerate(spec.light_meta):
-                ids.append(starts[i] + np.arange(n, dtype=np.int64) // T)
-            ids.append(np.full(spec.tail_rows, starts[-1], np.int64))
-            bucket = np.repeat(np.arange(len(nbs), dtype=np.int64), nbs)
-            maps[device] = tuple(torch.from_numpy(x).to(device) for x in
-                                 (np.concatenate(ids), bucket, np.asarray(nbs, np.int64)))
-        return maps[device]
+    heavy_blocks = -(-spec.num_virtual // GATE_TILE) if spec.heavy else 0
+    starts = _gate_bucket_starts(spec)
+    nbs = np.diff(starts)
 
     def expand(arrs, fw, needed, heavy):
         parts = []
@@ -399,7 +419,8 @@ def make_gated_expand(spec: ExpandSpec, w: int, *, op: str = "or"):
                 parts.append(full(arrs["heavy_pick"].shape[0], fw))
                 skipped += heavy_blocks
         if spec.light_meta:
-            row_block, block_bucket, nb = block_maps(arrs, fw.device)
+            row_block, block_bucket, nb = (
+                arrs["gate_row_block"], arrs["gate_block_bucket"], arrs["gate_bucket_blocks"])
             hits = torch.zeros(int(starts[-1]) + 1, dtype=torch.int32, device=fw.device)
             hits.index_add_(0, row_block, needed.to(torch.int32))
             blk = hits[:-1] > 0
@@ -485,10 +506,34 @@ class GatedRun(NamedTuple):
     active_blocks: list  # per level, the state blocks holding an unsettled row
 
 
-def make_packed_loop(hit_of, num_planes: int):
-    """The level loop of the wide and hybrid engines. ``hit_of(arrs, fw)``
-    returns a fresh [rows, w] hit table, which the loop overwrites in place.
-    Returns ``(core, core_from, deeper)``:
+def level_step(hit_of):
+    """One level of the plain loop as a fixed-shape program:
+    ``step(arrs, fw, vis, planes) -> (nxt, alive)``. The hit (``hit_of``,
+    the kernels), the claim ``hit & ~vis``, the visited OR and the plane
+    ripple, updating ``vis`` and ``planes`` in place; ``alive`` is the claim's
+    any() as a 0-d tensor, for the host to read. This is the engine's
+    ``_step``, the ``core`` program of its AOT inventory
+    (:func:`packed_aot_programs`)."""
+
+    def step(arrs, fw, vis, planes):
+        nxt = hit_of(arrs, fw)
+        nxt &= ~vis
+        vis |= nxt
+        # Pad/sentinel rows count up harmlessly (never visited, never
+        # decoded).
+        ripple_increment_(planes, ~vis)
+        return nxt, nxt.any()
+
+    return step
+
+
+def make_packed_loop(step, hit_of, num_planes: int):
+    """The level loop of the wide and hybrid engines: a host loop over
+    ``step(arrs, fw, vis, planes) -> (nxt, alive)`` (:func:`level_step`,
+    called anew each level, so an adopted program stands in for it), with
+    the level's one device-to-host read of ``alive``. ``hit_of(arrs, fw)``
+    is the step's hit, which ``deeper`` runs alone. Returns ``(core,
+    core_from, deeper)``:
 
     - ``core(arrs, fw0, max_levels) -> (planes, vis, levels, alive,
       truncated)``: a fresh traversal (visited starts as the seed table,
@@ -506,14 +551,8 @@ def make_packed_loop(hit_of, num_planes: int):
     def core_from(arrs, fw, vis, planes, level0, max_levels):
         level, alive = int(level0), True
         while alive and level < max_levels:
-            nxt = hit_of(arrs, fw)
-            nxt &= ~vis
-            vis |= nxt
-            # Pad/sentinel rows count up harmlessly (never visited, never
-            # decoded).
-            ripple_increment_(planes, ~vis)
-            alive = bool(nxt.any())  # the level's one device-to-host sync
-            fw = nxt
+            fw, alive = step(arrs, fw, vis, planes)
+            alive = bool(alive)  # the level's one device-to-host sync
             level += 1
         return fw, vis, planes, level, alive
 
@@ -532,13 +571,55 @@ def make_packed_loop(hit_of, num_planes: int):
     return core, core_from, deeper
 
 
-def make_gated_packed_loop(hit_of, num_planes: int, *, act: int, gate_levels: int,
-                           needed_of, heavy_rows: int):
-    """The pull-gated level loop (the gated mode of the JAX
+def make_gated_level(hit_of, *, act: int, needed_of, heavy_rows: int):
+    """One level of the pull-gated loop (the gated mode of the JAX
     ``make_packed_loop``). ``hit_of(arrs, fw, needed, heavy) -> (hit,
     skipped)`` is the gated expansion; ``needed_of(arrs, need)`` maps the
     per-row unsettled mask to bucket-output order, whose first
-    ``heavy_rows`` rows are the heavy section's.
+    ``heavy_rows`` rows are the heavy section's. Returns ``(probe, level,
+    step)``:
+
+    - ``probe(arrs, vis, lane_mask) -> (need, needed)``;
+    - ``level(arrs, fw, vis, planes, need, needed, lane_mask, heavy, nzt)
+      -> (nxt, skipped, need, needed, stats)``: the expansion, the gated
+      state pass (updating ``vis`` and ``planes`` in place) and the next
+      level's probe; ``stats`` is the int64 (alive, unsettled blocks, heavy
+      needed) the host reads. ``heavy`` and ``nzt`` are the host's gate;
+    - ``step(arrs, fw, vis, planes, needed, lane_mask)``: ``level`` with
+      the heavy section on and the dense state pass, the fixed-shape form
+      that is the engine's ``_step`` and its ``core`` program. The gate's
+      other forms (a skipped heavy section, the compacted state pass, whose
+      shape is the host's count) run eagerly, as the push pass does."""
+    T = GATE_TILE
+
+    def probe(arrs, vis, lane_mask):
+        need = row_unsettled(vis, act, lane_mask)
+        return need, needed_of(arrs, need)
+
+    def level(arrs, fw, vis, planes, need, needed, lane_mask, heavy, nzt):
+        hit, skipped = hit_of(arrs, fw, needed, heavy)
+        nxt = gated_state_update_(hit, vis, planes, need, nzt)
+        need, needed = probe(arrs, vis, lane_mask)
+        nt = need.shape[0] // T
+        stats = torch.stack([
+            nxt.any().long(),
+            need[: nt * T].view(nt, T).any(dim=1).sum(),
+            needed[:heavy_rows].any().long(),
+        ])
+        return nxt, skipped, need, needed, stats
+
+    def step(arrs, fw, vis, planes, needed, lane_mask):
+        return level(arrs, fw, vis, planes, None, needed, lane_mask, True, vis.shape[0] // T)
+
+    return probe, level, step
+
+
+def make_gated_packed_loop(step, hit_of, probe, level, num_planes: int, *,
+                           gate_levels: int, heavy_rows: int):
+    """The pull-gated level loop over :func:`make_gated_level`'s pieces: a
+    level whose gate needs the heavy section and the dense state pass
+    calls ``step`` (anew each level, so an adopted program stands in for
+    it), any other ``level``.
 
     Each level ends with one device-to-host read: ``alive``, and the next
     level's unsettled block count and heavy flag, computed right after the
@@ -549,19 +630,6 @@ def make_gated_packed_loop(hit_of, num_planes: int, *, act: int, gate_levels: in
     (the skipped blocks per level, at the absolute level index as in JAX)."""
     T = GATE_TILE
 
-    def probe(arrs, vis, lane_mask):
-        need = row_unsettled(vis, act, lane_mask)
-        return need, needed_of(arrs, need)
-
-    def read(nxt, need, needed):
-        nt = need.shape[0] // T
-        alive, nzt, heavy = torch.stack([
-            nxt.any().long(),
-            need[: nt * T].view(nt, T).any(dim=1).sum(),
-            needed[:heavy_rows].any().long(),
-        ]).tolist()
-        return bool(alive), GateRead(int(nzt), bool(heavy))
-
     def deeper(arrs, fw, vis, lane_mask):
         # The heavy section runs: its settled rows claim nothing anyway.
         _, needed = probe(arrs, vis, lane_mask)
@@ -570,18 +638,24 @@ def make_gated_packed_loop(hit_of, num_planes: int, *, act: int, gate_levels: in
     def core_from(arrs, fw, vis, planes, level0, max_levels, lane_mask, gate0):
         counts = torch.zeros(max(gate_levels, 1), dtype=torch.int32, device=vis.device)
         need, needed = probe(arrs, vis, lane_mask)
-        gate, level, alive, syncs, active = gate0, int(level0), True, 0, []
-        while alive and level < max_levels:
+        nt = vis.shape[0] // T
+        gate, lvl, alive, syncs, active = gate0, int(level0), True, 0, []
+        while alive and lvl < max_levels:
             active.append(gate.nzt)
-            hit, skipped = hit_of(arrs, fw, needed, gate.heavy)
-            counts[min(level, gate_levels - 1)] = skipped
-            nxt = gated_state_update_(hit, vis, planes, need, gate.nzt)
-            need, needed = probe(arrs, vis, lane_mask)
-            alive, gate = read(nxt, need, needed)  # the level's one sync
+            dense = nt == 0 or gate.nzt * GATE_DENSE_DEN > nt
+            if dense and (gate.heavy or not heavy_rows):
+                nxt, skipped, need, needed, stats = step(arrs, fw, vis, planes, needed,
+                                                         lane_mask)
+            else:
+                nxt, skipped, need, needed, stats = level(
+                    arrs, fw, vis, planes, need, needed, lane_mask, gate.heavy, gate.nzt)
+            counts[min(lvl, gate_levels - 1)] = skipped
+            a, nzt, heavy = stats.tolist()  # the level's one sync
+            alive, gate = bool(a), GateRead(int(nzt), bool(heavy))
             syncs += 1
             fw = nxt
-            level += 1
-        return fw, vis, planes, level, alive, GatedRun(counts, syncs, active)
+            lvl += 1
+        return fw, vis, planes, lvl, alive, GatedRun(counts, syncs, active)
 
     def core(arrs, fw0, max_levels, lane_mask, gate0):
         planes = tuple(torch.zeros_like(fw0) for _ in range(num_planes))
@@ -616,9 +690,15 @@ class PullGateHost:
         needs a heavy output row (``needed_of`` on the host)."""
         self.pull_gate = True
         self._gate_heavy_host = heavy_needed_host
+        probe, level, self._step = make_gated_level(
+            hit_of, act=self._act, needed_of=needed_of, heavy_rows=heavy_rows)
+        # The step's ``needed`` length: the expansion's output rows.
+        self._gate_needed_rows = needed_of(
+            self.arrs, torch.zeros(self._table_rows, dtype=torch.bool, device=self.device)
+        ).shape[0]
         self._gate_loop = make_gated_packed_loop(
-            hit_of, self.num_planes, act=self._act, gate_levels=self.max_levels_cap,
-            needed_of=needed_of, heavy_rows=heavy_rows,
+            self._call_step, hit_of, probe, level, self.num_planes,
+            gate_levels=self.max_levels_cap, heavy_rows=heavy_rows,
         )
         self._core, self._core_from, self._deeper = (
             self._gated_core, self._gated_core_from, self._gated_deeper)
@@ -805,15 +885,40 @@ class AdaptiveRun(NamedTuple):
     syncs: int  # device-to-host reads in the loop: one a level
 
 
-def make_adaptive_packed_loop(hit_of, push: AdaptivePush, num_planes: int):
+def make_adaptive_level(hit_of, push: AdaptivePush):
+    """One level of the adaptive loop. Returns ``(settle, step)``:
+    ``settle(arrs, hit, vis, planes) -> (nxt, active, stats)`` claims a hit
+    table (``hit & ~vis``), ORs it into ``vis``, ripples the planes (both in
+    place) and probes the claim for the next level's plan (``push.probe``);
+    ``step(arrs, fw, vis, planes)`` is ``settle`` over the pull hit
+    (``hit_of``, the kernels), the fixed-shape form that is the engine's
+    ``_step`` and its ``core`` program. The push pass, whose shapes are the
+    plan's counts, runs eagerly."""
+
+    def settle(arrs, nxt, vis, planes):
+        nxt &= ~vis
+        vis |= nxt
+        ripple_increment_(planes, ~vis)
+        active, stats = push.probe(arrs, nxt)
+        return nxt, active, stats
+
+    def step(arrs, fw, vis, planes):
+        return settle(arrs, hit_of(arrs, fw), vis, planes)
+
+    return settle, step
+
+
+def make_adaptive_packed_loop(step, hit_of, settle, push: AdaptivePush, num_planes: int):
     """The level loop with the adaptive push (the JAX ``make_packed_loop``
-    over ``make_adaptive_hit``). A light level runs ``push.hit``, any other
-    ``hit_of``. Each level ends with one device-to-host read: the next
-    level's plan (light, active rows, pairs), computed right after the
-    claim; ``alive`` is its row count, since a claim lands only on real
-    rows. The first level's plan is the caller's (``plan0``). Returns
-    ``(core, core_from, deeper)`` with the plain signatures plus ``plan0``;
-    ``core`` and ``core_from`` also return an :class:`AdaptiveRun`."""
+    over ``make_adaptive_hit``). A light level settles ``push.hit``, any
+    other calls ``step`` (:func:`make_adaptive_level`, anew each level, so
+    an adopted program stands in for it). Each level ends with one
+    device-to-host read: the next level's plan (light, active rows, pairs),
+    computed right after the claim; ``alive`` is its row count, since a
+    claim lands only on real rows. The first level's plan is the caller's
+    (``plan0``). Returns ``(core, core_from, deeper)`` with the plain
+    signatures plus ``plan0``; ``core`` and ``core_from`` also return an
+    :class:`AdaptiveRun`."""
 
     def deeper(arrs, fw, vis):
         # The pull: the push pass equals it bit for bit.
@@ -823,11 +928,10 @@ def make_adaptive_packed_loop(hit_of, push: AdaptivePush, num_planes: int):
         plan, level, alive, active, pushed = plan0, int(level0), True, None, []
         while alive and level < max_levels:
             pushed.append(plan.light)
-            nxt = push.hit(arrs, fw, plan, active) if plan.light else hit_of(arrs, fw)
-            nxt &= ~vis
-            vis |= nxt
-            ripple_increment_(planes, ~vis)
-            active, stats = push.probe(arrs, nxt)
+            if plan.light:
+                nxt, active, stats = settle(arrs, push.hit(arrs, fw, plan, active), vis, planes)
+            else:
+                nxt, active, stats = step(arrs, fw, vis, planes)
             plan = push.plan_of(stats.tolist())  # the level's one device-to-host sync
             alive = plan.rows > 0
             fw = nxt
@@ -860,7 +964,9 @@ class AdaptivePushHost:
 
     def _install_push(self, hit_of, push: AdaptivePush) -> None:
         self._push = push
-        self._push_loop = make_adaptive_packed_loop(hit_of, push, self.num_planes)
+        settle, self._step = make_adaptive_level(hit_of, push)
+        self._push_loop = make_adaptive_packed_loop(self._call_step, hit_of, settle, push,
+                                                    self.num_planes)
         self._core, self._core_from, self._deeper = (
             self._adaptive_core, self._adaptive_core_from, self._push_loop[2])
 
@@ -917,26 +1023,47 @@ def seed_scatter_args(rows_of_sources: np.ndarray, act: int):
     return np.where(keep, ranks, 0), lanes // 32, bits.view(np.int32)
 
 
+def _or_rows(t: torch.Tensor) -> torch.Tensor:
+    """[n, w] int32 -> [w]: the bitwise OR over the rows (bitwise OR has no
+    torch reduction), as a halving tree: the first step folds the rows
+    past the largest power of two below n onto the first ones, the rest
+    halve. Zero for no rows."""
+    n = t.shape[0]
+    if n == 0:
+        return t.new_zeros(t.shape[1])
+    if n > 1:
+        h = 1 << ((n - 1).bit_length() - 1)  # h < n <= 2h
+        t = t[: n - h] | t[h:n] if n == 2 * h else torch.cat([t[: n - h] | t[h:n], t[n - h: h]])
+        while h > 1:
+            h //= 2
+            t = t[:h] | t[h:]
+    return t[0]
+
+
 def make_state_kernels(v: int, rows: int, w: int, num_planes: int, *,
                        active: int | None = None,
                        in_deg_host: np.ndarray | None = None,
                        device=None):
-    """``(seed, lane_stats, extract_word, lane_ecc)`` over a [rows, w] table
-    whose first ``act`` rows are real vertices in rank order.
+    """``(seed, lane_stats, extract_word, lane_ecc, in_deg)`` over a [rows,
+    w] table whose first ``act`` rows are real vertices in rank order;
+    ``in_deg`` is the [act] int32 device in-degree table that
+    ``lane_stats(vis, in_deg)`` takes (None without ``in_deg_host``).
 
-    ``lane_stats`` sums degrees in int64 directly (the JAX package sums int32
-    row blocks because the TPU has no int64); the totals are equal."""
+    Every table comes in as an argument (``extract_word``'s word column
+    ``wi`` as a 0-d device tensor, the engine's ``_word(wi)``), so each
+    function exports as a program that holds no table
+    (:func:`packed_aot_programs`). The lane
+    reductions loop over the 32 lane bits of a word, a fixed 32 steps over
+    the whole [act, w] table, so a program's size does not grow with the
+    graph. ``lane_stats`` sums degrees in int64 directly (the JAX package
+    sums int32 row blocks because the TPU has no int64); the totals are
+    equal."""
     act = v if active is None else min(active, v)
     in_deg = (
         None if in_deg_host is None
-        else torch.from_numpy(np.asarray(in_deg_host[:act], dtype=np.int64)).to(device)
+        else torch.from_numpy(np.asarray(in_deg_host[:act], dtype=np.int32)).to(device)
     )
     shifts = torch.arange(32, dtype=torch.int32, device=device)
-    # Row chunk of the [chunk, w, 32] bit-unpacked transients: <= 2**24 entries.
-    chunk = max(1, (1 << 24) // (w * 32))
-
-    def bits_of(table, s, e):
-        return (table[s:e, :, None] >> shifts) & 1  # [e-s, w, 32]
 
     def seed(rws, words, bits):
         fw0 = torch.zeros((rows, w), dtype=torch.int32, device=device)
@@ -945,47 +1072,53 @@ def make_state_kernels(v: int, rows: int, w: int, num_planes: int, *,
         fw0.index_put_((rws, words), bits, accumulate=True)
         return fw0
 
-    def lane_stats(vis):
-        """Per-lane reached count and degree sum, [w, 32] int64 each."""
+    def lane_stats(vis, in_deg):
+        """Per-lane reached count and degree sum, [w, 32] int64 each (a
+        degree times a 0/1 bit fits int32; the sums are taken in int64)."""
         if in_deg is None:
             raise ValueError("make_state_kernels needs in_deg_host for lane_stats")
-        reached = torch.zeros((w, 32), dtype=torch.int64, device=device)
-        deg = torch.zeros((w, 32), dtype=torch.int64, device=device)
-        for s in range(0, act, chunk):
-            e = min(s + chunk, act)
-            bits = bits_of(vis, s, e)
-            reached += bits.sum(0)
-            deg += (bits * in_deg[s:e, None, None]).sum(0)
-        return reached, deg
-
-    def decode(planes, s, e, dtype):
-        cnt = torch.zeros((e - s, w, 32), dtype=dtype, device=device)
-        for i, p in enumerate(planes):
-            cnt += bits_of(p, s, e).to(dtype) << i
-        return cnt
+        v, deg_col = vis[:act], in_deg[:, None]
+        reached, deg = [], []
+        for b in range(32):
+            bit = (v >> b) & 1  # [act, w]
+            reached.append(bit.sum(0, dtype=torch.int64))
+            deg.append((bit * deg_col).sum(0, dtype=torch.int64))
+        return torch.stack(reached, 1), torch.stack(deg, 1)
 
     def extract_word(planes, vis, src_bits, wi):
         """Distances of word-column ``wi``'s 32 lanes as [act, 32] uint8."""
+        col = wi.reshape(1)
+
+        def lanes(t):
+            return (t[:act].index_select(1, col) >> shifts) & 1  # [act, 32]
+
         cnt = torch.zeros((act, 32), dtype=torch.uint8, device=device)
         for i, p in enumerate(planes):
-            cnt += ((p[:act, wi, None] >> shifts) & 1).to(torch.uint8) << i
-        visw = ((vis[:act, wi, None] >> shifts) & 1) != 0
-        srcw = ((src_bits[:act, wi, None] >> shifts) & 1) != 0
+            cnt += lanes(p).to(torch.uint8) << i
+        visw = lanes(vis) != 0
+        srcw = lanes(src_bits) != 0
         unreached = torch.full_like(cnt, int(UNREACHED))
         return torch.where(srcw, torch.zeros_like(cnt), torch.where(visw, cnt + 1, unreached))
 
     def lane_ecc(planes, vis, src_bits):
-        """Per-lane eccentricity (max finite distance) as [w, 32] int32."""
-        out = torch.zeros((w, 32), dtype=torch.int32, device=device)
-        for s in range(0, act, chunk):
-            e = min(s + chunk, act)
-            dist = decode(planes, s, e, torch.int32) + 1
-            dist = torch.where(bits_of(vis, s, e) != 0, dist, 0)
-            dist = torch.where(bits_of(src_bits, s, e) != 0, 0, dist)
-            out = torch.maximum(out, dist.amax(0))
-        return out
+        """Per-lane eccentricity (max finite distance) as [w, 32] int32: a
+        bit-sliced max over the rows, from the top counter plane down. The
+        candidates (visited, not the source) keep only the rows holding a
+        plane's bit wherever some candidate holds it, and that plane's OR
+        over the rows is the max's bit; no lane is unpacked."""
+        cand = vis[:act] & ~src_bits[:act]
+        any_cand = _or_rows(cand)
+        top = []
+        for p in reversed(planes):
+            hit = _or_rows(cand & p[:act])
+            cand = cand & (p[:act] | ~hit)
+            top.append(hit)
+        cnt = torch.zeros((w, 32), dtype=torch.int32, device=device)
+        for i, hit in enumerate(reversed(top)):
+            cnt |= ((hit[:, None] >> shifts) & 1) << i
+        return torch.where(((any_cand[:, None] >> shifts) & 1) != 0, cnt + 1, 0)
 
-    return seed, lane_stats, extract_word, lane_ecc
+    return seed, lane_stats, extract_word, lane_ecc, in_deg
 
 
 @dataclasses.dataclass
@@ -1046,7 +1179,8 @@ class PackedBatchResult:
             return d
         wi, col = divmod(i, 32)
         if wi not in self._word_cache:
-            dr = eng._extract_word(self._planes, self._vis, self._src_bits, wi).cpu().numpy()
+            dr = eng._extract_word(self._planes, self._vis, self._src_bits,
+                                   eng._word(wi)).cpu().numpy()
             # A vertex has a row iff rank < act; isolated ones stay UNREACHED.
             full = np.full((eng.num_vertices, 32), UNREACHED, np.uint8)
             m = eng._rank < eng._act
@@ -1208,7 +1342,7 @@ class PackedBatchResult:
         ``perm`` (see :meth:`_scan_row_map`) and UNREACHED-padded to
         [act, lanes_per_pass] uint8."""
         eng = self._engine
-        cols = [eng._extract_word(self._planes, self._vis, self._src_bits, wi)
+        cols = [eng._extract_word(self._planes, self._vis, self._src_bits, eng._word(wi))
                 for wi in range(w0, w0 + nw)]
         dist_cols = torch.cat(cols, dim=1) if nw > 1 else cols[0]
         if perm is not None:
@@ -1322,7 +1456,7 @@ def _assemble_packed_result(engine, sources, planes, vis, src_bits, levels, aliv
     (the last level found an empty frontier iff not alive). ``iso_override``
     (a checkpoint's recorded isolated lanes) wins over the engine's own."""
     s = len(sources)
-    r, d = engine._lane_stats(vis)
+    r, d = engine._lane_stats(vis, engine._in_deg)
     reached = r.cpu().numpy().reshape(-1)[:s].astype(np.int64)
     slot_sum = d.cpu().numpy().reshape(-1)[:s]
     edges = slot_sum // 2 if engine.undirected else slot_sum
@@ -1580,16 +1714,105 @@ def finish_packed_batch(engine, ckpt) -> PackedBatchResult:
     )
 
 
-class PackedRunProtocol(PullGateHost, AdaptivePushHost):
+def packed_layout(engine, spec: ExpandSpec, **extra) -> dict:
+    """The engine's static layout (``aot_layout()``, checked by the AOT
+    store through ``utils/aot.layout_digest``): every Python constant its
+    programs bake in, which no argument shape shows. The expansion's bucket
+    boundaries (a bucket's real rows, sliced out of its 128-row-padded
+    output), heavy section and tail rows, the active and table rows, the
+    vertex count, words and planes, and the engine's own (``extra``). A
+    compaction that moves vertices between buckets keeps every table's
+    padded shape but changes this."""
+    def plain(x):
+        return [plain(v) for v in x] if isinstance(x, (tuple, list)) else int(x)
+
+    return {"expand": plain(spec), "act": int(engine._act),
+            "table_rows": int(engine._table_rows),
+            "num_vertices": int(engine.num_vertices), "w": int(engine.w),
+            "planes": int(engine.num_planes), **{k: int(v) for k, v in extra.items()}}
+
+
+def packed_aot_programs(engine):
+    """The serving-path program inventory of the single-device packed
+    engines (the JAX ``packed_aot_programs``, under its names): ``core``,
+    one level step (``_step``: :func:`level_step`, the gated
+    :func:`make_gated_level` step carrying the lane mask when
+    ``pull_gate``, the adaptive engine's pull step); ``seed``;
+    ``lane_stats``; ``extract_word``; ``lane_ecc``. Each is ``(name, attr,
+    fn, example_args)``: the engine attribute it lives on, the callable (the
+    original under an adopted program), and example arguments, the engine's
+    own tables (``arrs``, the in-degree table) and :class:`ArgSpec` shapes
+    for the state tables, so the export shapes are the serving shapes (the
+    executor pads every dispatch to ``lanes`` sources) and no table is a
+    constant of a program. The level loop stays on the host: its one read a
+    level decides whether to step again."""
+    dev, lanes = engine.device, engine.lanes
+    table = ArgSpec((engine._table_rows, engine.w), torch.int32, dev)
+    planes = (table,) * engine.num_planes
+
+    def orig(attr):
+        fn = getattr(engine, attr)
+        return getattr(fn, "_aot_original", fn)
+
+    if engine.pull_gate:
+        needed = ArgSpec((engine._gate_needed_rows,), torch.bool, dev)
+        lane_mask = ArgSpec((engine.w,), torch.int32, dev)
+        core_args = (engine.arrs, table, table, planes, needed, lane_mask)
+    else:
+        core_args = (engine.arrs, table, table, planes)
+    return [
+        ("core", "_step", orig("_step"), core_args),
+        ("seed", "_seed", orig("_seed"),
+         (ArgSpec((lanes,), torch.int64, dev), ArgSpec((lanes,), torch.int64, dev),
+          ArgSpec((lanes,), torch.int32, dev))),
+        ("lane_stats", "_lane_stats", orig("_lane_stats"), (table, engine._in_deg)),
+        ("extract_word", "_extract_word", orig("_extract_word"),
+         (planes, table, table, ArgSpec((), torch.int64, dev))),
+        ("lane_ecc", "_lane_ecc", orig("_lane_ecc"), (planes, table, table)),
+    ]
+
+
+class PackedRunProtocol(PullGateHost, AdaptivePushHost, AotProgramProtocol):
     """``run`` / ``dispatch`` / ``fetch`` and checkpoint ``start`` /
     ``advance`` / ``finish`` for every packed engine, plus the shared
-    seeding and lane-map hooks and the pull gate's and the adaptive push's
-    bookkeeping.
+    seeding and lane-map hooks, the pull gate's and the adaptive push's
+    bookkeeping, and the AOT program inventory (:func:`packed_aot_programs`;
+    the mesh engines have none yet).
     ``result_cls`` is the class of a batch's result."""
 
     result_cls = PackedBatchResult
     #: Whether an armed fetch records ``last_run_trace`` (obs/engine_trace).
     records_run_trace = True
+    #: The [act] device in-degree table ``_lane_stats`` takes.
+    _in_deg = None
+    #: The programs' static layout (:func:`packed_layout`), set at build.
+    _aot_layout = None
+
+    def aot_layout(self) -> dict:
+        if self._aot_layout is None:
+            raise NotImplementedError(f"{type(self).__name__} has no AOT layout")
+        return self._aot_layout
+
+    def export_programs(self):
+        if not hasattr(self, "_step"):
+            # The mesh engines step their own loops, collectives inside: no
+            # inventory yet (utils/aot.MESH_AOT_ITEM).
+            return super().export_programs()
+        return packed_aot_programs(self)
+
+    def _call_step(self, *args):
+        """One level through ``_step``, read anew each call: an adopted
+        program installed over ``_step`` takes over the loop."""
+        return self._step(*args)
+
+    def _word(self, wi: int) -> torch.Tensor:
+        """Word column ``wi`` as a 0-d device tensor (a view of a cached
+        arange), the form ``_extract_word``'s program takes."""
+        ids = self.__dict__.get("_word_ids")
+        if ids is None:
+            ids = self.__dict__.setdefault(
+                "_word_ids", torch.arange(self.w, device=self.device))
+        return ids[wi]
 
     def start(self, sources):
         """Level-0 batch state as a host checkpoint (real-id rows)."""

@@ -39,11 +39,14 @@ from tpu_bfs_torch.algorithms._packed_common import (
     build_push_table,
     expand_arrays,
     floor_lanes,
+    gate_block_arrays,
     lazy_full_parent_ell,
+    level_step,
     make_expand,
     make_gated_expand,
     make_packed_loop,
     make_state_kernels,
+    packed_layout,
     pallas_expand_arrays,
     resolve_device,
 )
@@ -380,6 +383,9 @@ class HybridMsBfsEngine(PackedRunProtocol):
         self.arrs = arrs
         self._act = hg.num_active
         self._table_rows = rows
+        self._aot_layout = packed_layout(
+            self, expand_spec(hg), heavy_rows=hg.res_heavy, row_tiles=hg.vt,
+            tiles=hg.num_tiles)
         if pull_gate:
             # Residual outputs are in bucket order: the build-time forward
             # map routes the per-row unsettled mask there (pad and tail
@@ -388,6 +394,7 @@ class HybridMsBfsEngine(PackedRunProtocol):
             gate_fwd = gate_forward_map(hg.inv_perm_ext, num_real + hg.res_tail_rows, num_real)
             arrs["gate_fwd"] = torch.from_numpy(gate_fwd.astype(np.int64)).to(dev)
             nh = hg.res_heavy
+            arrs.update(gate_block_arrays(expand_spec(hg), arrs))
 
             def needed_of(arrs, need):
                 return torch.cat([need, need.new_zeros(1)]).index_select(0, arrs["gate_fwd"])
@@ -400,10 +407,13 @@ class HybridMsBfsEngine(PackedRunProtocol):
             arrs.update(push.device_arrays(dev))
             self._install_push(make_hit(hg, self.w), push)
         else:
+            hit_of = make_hit(hg, self.w)
+            self._step = level_step(hit_of)
             self._core, self._core_from, self._deeper = make_packed_loop(
-                make_hit(hg, self.w), num_planes)
+                self._call_step, hit_of, num_planes)
         in_deg_ranked = hg.in_degree[hg.old_of_new].astype(np.int32)
-        self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
+        (self._seed, self._lane_stats, self._extract_word, self._lane_ecc,
+         self._in_deg) = make_state_kernels(
             hg.num_vertices, rows, self.w, num_planes,
             active=self._act, in_deg_host=in_deg_ranked, device=dev,
         )

@@ -27,6 +27,7 @@ import numpy as np
 from tpu_bfs_torch.algorithms._packed_common import (
     UNREACHED,
     PackedBatchResult,
+    packed_aot_programs,
     ripple_increment_,
 )
 from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
@@ -63,8 +64,9 @@ class PackedMsBfsEngine(WidePackedMsBfsEngine):
     """Runs up to ``lanes`` BFS sources concurrently, bit-packed (``lanes``
     a multiple of 32; 256 is the JAX package's default, w = 8 words).
     ``graph`` is a ``Graph`` or a prebuilt ``EllGraph`` (which several
-    engines may share); ``undirected`` overrides the ELL's flag for the
-    TEPS count. ``device`` is CUDA unless named."""
+    engines may share; ``ell`` shares one beside a ``Graph``); ``undirected``
+    overrides the ELL's flag for the TEPS count. ``device`` is CUDA unless
+    named."""
 
     result_cls = PackedBfsResult
     # The JAX engine runs its own loop outside the packed fetch, so it
@@ -72,9 +74,18 @@ class PackedMsBfsEngine(WidePackedMsBfsEngine):
     records_run_trace = False
 
     def __init__(self, graph: Graph | EllGraph, *, lanes: int = 256, kcap: int = 64,
-                 undirected: bool | None = None, device=None):
+                 undirected: bool | None = None, ell: EllGraph | None = None, device=None):
         if lanes % 32 or lanes < 32:
             raise ValueError("lanes must be a multiple of 32")
-        super().__init__(graph, lanes=lanes, kcap=kcap, num_planes=8, device=device)
+        super().__init__(graph, lanes=lanes, kcap=kcap, num_planes=8, ell=ell, device=device)
         if undirected is not None:
             self.undirected = undirected
+
+    def export_programs(self):
+        """JAX's inventory of this engine (``msbfs_packed.py``): ``core``,
+        ``extract`` (here the per-word extraction the result decodes with),
+        ``lane_stats`` and ``lane_ecc``; the seed is absent, as in JAX, where
+        it is a host pass."""
+        progs = {name: entry for name, *entry in packed_aot_programs(self)}
+        return [("extract" if name == "extract_word" else name, *progs[name])
+                for name in ("core", "extract_word", "lane_stats", "lane_ecc")]

@@ -22,10 +22,13 @@ from tpu_bfs_torch.algorithms._packed_common import (
     auto_lanes,
     build_push_table,
     expand_arrays,
+    gate_block_arrays,
+    level_step,
     make_expand,
     make_gated_expand,
     make_packed_loop,
     make_state_kernels,
+    packed_layout,
     pallas_expand_arrays,
     resolve_device,
 )
@@ -78,7 +81,11 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
     (``_packed_common.AdaptivePush``): bit-identical results; per level run,
     whether it pushed lands in ``last_push_levels``. It needs the edge list
     (an engine built from a ``Graph``) and combines with neither the pull
-    gate nor the overlay."""
+    gate nor the overlay.
+
+    ``ell``, with ``graph`` a ``Graph``, is its prebuilt ``build_ell(graph,
+    kcap=kcap)``, which does not depend on the lanes: the serve registry's
+    rungs of one graph share one."""
 
     def __init__(
         self,
@@ -92,6 +99,7 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         pull_gate: bool = False,
         overlay: tuple = (),
         adaptive_push: tuple[int, int] | None = None,
+        ell: EllGraph | None = None,
         device=None,
     ):
         if not (1 <= num_planes <= 8):
@@ -111,7 +119,11 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
         # A vertex claimed in level i carries counter i and distance i+1, so
         # p planes label distances up to 2**p; 254 keeps them below UNREACHED.
         self.max_levels_cap = min(1 << num_planes, 254)
-        self.ell = build_ell(graph, kcap=kcap) if isinstance(graph, Graph) else graph
+        if ell is None:
+            ell = build_ell(graph, kcap=kcap) if isinstance(graph, Graph) else graph
+        elif ell.kcap != kcap:
+            raise ValueError(f"ell was built with kcap={ell.kcap}, the engine asks {kcap}")
+        self.ell = ell
         # The edge list for the host parent path; a prebuilt ELL has none.
         self.host_graph = graph if isinstance(graph, Graph) else None
         ell = self.ell
@@ -152,10 +164,12 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
             self.set_overlay(empty_overlay_tables(self.overlay, self._act))
         self._table_rows = self._act + 1
         spec = expand_spec(ell)
+        self._aot_layout = packed_layout(self, spec, heavy_rows=ell.num_heavy)
         if pull_gate:
             # Bucket outputs are table rows in order (no permutation), so
             # the per-row unsettled mask is the needed vector itself.
             nh = ell.num_heavy
+            self.arrs.update(gate_block_arrays(spec, self.arrs))
             self._install_gate(
                 make_gated_expand(spec, self.w), needed_of=lambda arrs, need: need,
                 heavy_rows=nh, heavy_needed_host=lambda need: bool(need[:nh].any()),
@@ -170,9 +184,12 @@ class WidePackedMsBfsEngine(PackedRunProtocol):
                 self.arrs.update(push.device_arrays(self.device))
                 self._install_push(expand, push)
             else:
-                self._core, self._core_from, self._deeper = make_packed_loop(expand, num_planes)
+                self._step = level_step(expand)
+                self._core, self._core_from, self._deeper = make_packed_loop(
+                    self._call_step, expand, num_planes)
         in_deg_ranked = ell.in_degree[ell.old_of_new].astype(np.int32)
-        self._seed, self._lane_stats, self._extract_word, self._lane_ecc = make_state_kernels(
+        (self._seed, self._lane_stats, self._extract_word, self._lane_ecc,
+         self._in_deg) = make_state_kernels(
             ell.num_vertices, self._table_rows, self.w, num_planes,
             active=self._act, in_deg_host=in_deg_ranked, device=self.device,
         )

@@ -329,6 +329,10 @@ def _timed_runs(args, run, device=None, **span):
     return res
 
 
+def _aot_log(msg: str) -> None:
+    print(f"[aot] {msg}", file=sys.stderr, flush=True)
+
+
 def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
     """<source> plus the listed keys in one packed batch, lane 0 validated;
     with ``--ckpt``/``--resume``, a chunked batch through start/advance/finish."""
@@ -336,6 +340,25 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
 
     with obs.maybe_span("engine_build", "cli", cat="cli", lanes=args.lanes, engine=args.engine):
         engine = _make_ms_engine(args, g, len(sources))
+    aot_store = aot_spec = None
+    if args.aot:
+        # One-shot AOT: adopt this engine's programs from the store when an
+        # earlier run exported them, and export them back after the run.
+        from tpu_bfs_torch.utils import aot as aot_mod
+
+        aot_store = aot_mod.ArtifactStore(args.aot, log=_aot_log)
+        aot_spec = {
+            "graph_key": args.graph,
+            "engine": type(engine).__name__,
+            "lanes": engine.lanes,
+            "planes": getattr(engine, "num_planes", 8),
+            "pull_gate": bool(getattr(engine, "pull_gate", False)),
+            "devices": args.devices,
+        }
+        adopted = aot_mod.adopt_engine_programs(engine, aot_spec, aot_store, log=_aot_log)
+        if not adopted:
+            _aot_log(f"no adoptable artifacts in {args.aot}; running JIT "
+                     "(the store is populated after this run)")
     try:
         if args.ckpt or resume_st is not None:
             from tpu_bfs_torch.utils import checkpoint as ck
@@ -376,6 +399,14 @@ def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
                              "checkpoints from this run cannot be resumed deeper")
         alt = "" if args.devices > 1 else " or --engine packed"
         raise SystemExit(f"{exc}\nhint: rerun with --planes 8 (depth 254){alt}")
+    if aot_store is not None:
+        # Export after the run: the engine is warmed, and one rebuilt by the
+        # recovery path exports its final programs (adopted entries
+        # re-export their originals).
+        from tpu_bfs_torch.utils import aot as aot_mod
+
+        names = aot_mod.export_engine_programs(engine, aot_spec, aot_store, log=_aot_log)
+        _aot_log(f"exported {len(names)} programs -> {args.aot}")
     for i, s in enumerate(sources):
         print(f"source {int(s)}: reached {int(res.reached[i])} vertices, "
               f"traversed edges {int(res.edges_traversed[i])}")
@@ -590,8 +621,23 @@ def main(argv=None) -> int:
                     help="write a Chrome/Perfetto trace-event JSON of the run here (host spans "
                     "and a per-level engine-trace track: frontier count, direction, gated "
                     "tiles, exchange choice, modeled wire bytes; implies --obs)")
+    ap.add_argument("--aot", default=None, metavar="DIR",
+                    help="AOT artifact store (utils/aot): install this run's engine "
+                    "programs from DIR when exported there before (skipping the "
+                    "torch.export trace), and export them back after the run: the "
+                    "one-shot analog of the server's --preheat/--export-aot "
+                    "(multi-source packed engines on one device; stale or corrupt "
+                    "artifacts fall back to the eager programs)")
     args = ap.parse_args(argv)
     multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
+    if args.aot is not None and not multi:
+        ap.error("--aot pairs with --multi-source (the packed MS engines "
+                 "are the AOT-exportable family; single-source engines "
+                 "compile in seconds)")
+    if args.aot is not None and on_mesh:
+        from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM
+
+        ap.error(f"--aot on a mesh waits for {MESH_AOT_ITEM}")
     # The JAX CLI's guards and texts.
     if args.adaptive_push is not None:
         if args.engine not in ("wide", "hybrid") or args.devices > 1 or not multi:

@@ -17,6 +17,7 @@ cache_lookup     serve/answercache.AnswerCache.get
 ckpt_save        utils/checkpoint._atomic_savez (+ maybe_corrupt_file)
 ckpt_load        utils/checkpoint._load_npz_verified
 advance          utils/recovery.advance_with_recovery
+aot_load         utils/aot.ArtifactStore.get (+ maybe_corrupt_payload)
 sssp_dispatch    workloads/sssp.SsspEngine.dispatch (and DistSsspEngine)
 sssp_fetch       workloads/sssp.SsspEngine.fetch (and DistSsspEngine)
 audit_structural integrity/structural.StructuralAuditor.audit
@@ -26,9 +27,6 @@ generation_flip  serve/frontend.BfsService._install_overlay_locked
 compact          graph/dynamic.DynamicGraph.compact
 probe            resilience/probe.mesh_heartbeat
 ================ ===================================================
-
-The ``aot_load`` site waits for its reader (ROADMAP Queue 1 entry 6): a
-clause naming it parses and never fires.
 
 On a mesh served from one controller (``parallel/mesh.MeshController``)
 only rank 0 holds a schedule. A command of the mesh stream that visits a
@@ -610,6 +608,21 @@ def _flip_answer(dist, extras, reached):
                 extras[key] = val + 1
                 return dist, extras, reached
     return dist, extras, (reached if reached is None else reached + 1)
+
+
+def maybe_corrupt_payload(payload: bytes, **ctx) -> bytes:
+    """``aot_load`` site hook for ``corrupt_aot`` rules: flip one byte of a
+    just-read artifact payload in memory, so the store's CRC check fires
+    and its quarantine and fallback run, as for a rotten file
+    (``utils/aot.ArtifactStore.get``). Returns the (possibly corrupted)
+    payload."""
+    sched = ACTIVE
+    if sched is None or not sched.take("aot_load", "corrupt_aot", **ctx):
+        return payload
+    if not payload:
+        return b"\x00"  # an empty payload corrupts to a non-empty one
+    off = len(payload) // 2
+    return payload[:off] + bytes([payload[off] ^ 0xFF]) + payload[off + 1:]
 
 
 def maybe_corrupt_result(dist, extras, reached, **ctx):

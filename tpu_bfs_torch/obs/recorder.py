@@ -117,6 +117,14 @@ class Recorder:
         with self._lock:
             return [ev for ev in self._events if ev["t"] >= t]
 
+    def counts_by_name(self) -> dict:
+        """Events in the ring by name (a span's begin and end count two)."""
+        with self._lock:
+            out: dict = {}
+            for ev in self._events:
+                out[ev["name"]] = out.get(ev["name"], 0) + 1
+            return out
+
     # --- flight recorder --------------------------------------------------
 
     def flight_dump(self, reason: str, *, path: str | None = None) -> str | None:

@@ -1,14 +1,18 @@
 """Build and load the port's CUDA kernels (``tpu_bfs_torch/csrc/*.cu``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` (all sources in parallel),
-then one link makes ``tpu_bfs_torch/build/libtpubfs_torch.so``, loaded with
-``ctypes``; the kernels' C entry points take raw pointers and the CUDA
-stream. The library is rebuilt whenever the sources' hash changes, at first
-use. There is no fallback: a missing ``nvcc`` or a failed build raises.
+then one link makes ``libtpubfs_torch.so`` in the kernel build cache
+(``utils/compile_cache``: ``tpu_bfs_torch/build`` unless the environment
+names another, or a private temporary directory when it disables the
+cache), loaded with ``ctypes``; the kernels' C entry points take raw
+pointers and the CUDA stream. The library is rebuilt whenever the sources'
+hash changes, at first use, and reused from the cache otherwise. There is
+no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
@@ -21,7 +25,7 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "build"
+BUILD_DIR = PKG_DIR / "build"  # the package's scratch: graph caches, the default kernel cache
 LIB_NAME = "libtpubfs_torch.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,20 +58,40 @@ def find_nvcc() -> str:
     )
 
 
+_PRIVATE_DIR: Path | None = None
+
+
+def kernel_dir() -> Path:
+    """The directory the library is built into: the resolved kernel build
+    cache, or, with the cache disabled, one private temporary directory for
+    the process, removed at exit."""
+    from tpu_bfs_torch.utils.compile_cache import enable_compile_cache
+
+    path = enable_compile_cache()
+    if path is not None:
+        return Path(path)
+    global _PRIVATE_DIR
+    if _PRIVATE_DIR is None:
+        _PRIVATE_DIR = Path(tempfile.mkdtemp(prefix="tpu_bfs_torch_kernels_"))
+        atexit.register(shutil.rmtree, _PRIVATE_DIR, True)
+    return _PRIVATE_DIR
+
+
 def build(*, force: bool = False, log=None) -> Path:
     """Compile the kernels if the sources changed; returns the library path.
 
     ``log`` (a callable) receives the compiler's output, which includes the
     ``-Xptxas -v`` register and shared-memory report of every kernel."""
     digest = source_hash()
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha")
+    out_dir = kernel_dir()
+    lib = out_dir / LIB_NAME
+    stamp = out_dir / (LIB_NAME + ".sha")
     if not force and lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
         return lib
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs, procs = [], []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
@@ -93,7 +117,7 @@ def build(*, force: bool = False, log=None) -> Path:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib)
-    stamp_tmp = BUILD_DIR / f"{LIB_NAME}.sha.{os.getpid()}"
+    stamp_tmp = out_dir / f"{LIB_NAME}.sha.{os.getpid()}"
     stamp_tmp.write_text(digest)
     os.replace(stamp_tmp, stamp)
     if log is not None:

@@ -1,9 +1,11 @@
 """Kernel K1: gated gather-combine over one bucket's padded ELL table.
 
 The port of ``tpu_bfs/ops/ell_expand.py:ell_expand`` (a Pallas TPU kernel).
-``ell_expand`` launches the CUDA kernel in ``csrc/ell_expand.cu`` for CUDA
-tensors and runs ``ell_expand_plain``, its plain PyTorch twin, for CPU
-tensors; it raises for anything else.
+``ell_expand`` calls the registered op ``tpu_bfs_torch::ell_expand``, which
+launches the CUDA kernel in ``csrc/ell_expand.cu`` for CUDA tensors and runs
+``ell_expand_plain``, its plain PyTorch twin, for CPU tensors; it raises for
+anything else. The op is what a ``torch.export`` graph of an engine's
+level step names (``utils/aot.py``).
 
 Packed words travel as int32, never ``torch.uint32``: on the CPU that type
 lacks ``~``, ``minimum``, ``>>`` and ``index_put``. So the ``min`` identity
@@ -79,14 +81,21 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
 
     ``need_blk`` [nb], ``gt`` [k, nb*128] (sentinel-padded rows of ``fw``),
     ``fw`` [rows, w] and ``wt`` [k, nb*128], all int32 and contiguous. Every
-    index in ``gt`` must be a row of ``fw``. Each CUDA launch adds one to
+    index in ``gt`` must be a row of ``fw``. The call goes through the
+    registered op ``tpu_bfs_torch::ell_expand``, so a ``torch.export`` trace
+    of a caller keeps it as one node. Each CUDA launch adds one to
     ``ell_expand.launches``; when ``ell_expand.timings`` is a list, the launch
     appends its (start, end) CUDA events to it."""
     _check(need_blk, gt, fw, wt, op)
-    if fw.device.type == "cpu":
-        return ell_expand_plain(need_blk, gt, fw, wt, op=op)
-    if fw.device.type != "cuda":
+    if fw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ell_expand: no kernel for device {fw.device}")
+    return ell_expand_op(need_blk, gt, fw, wt, op)
+
+
+def _ell_expand_cuda(need_blk, gt, fw, wt, op):
+    """The op's CUDA kernel (operands already checked): one launch of
+    ``csrc/ell_expand.cu`` on the current stream. The kernel library loads
+    at the first call."""
     from tpu_bfs_torch.ops._build import check_launch, load_library
 
     lib = load_library()
@@ -110,6 +119,28 @@ def ell_expand(need_blk, gt, fw, wt=None, *, op: str = "or") -> torch.Tensor:
         ev[1].record(stream)
         timings.append(ev)
     return out
+
+
+def _ell_expand_cpu(need_blk, gt, fw, wt, op):
+    return ell_expand_plain(need_blk, gt, fw, wt, op=op)
+
+
+def _ell_expand_fake(need_blk, gt, fw, wt, op):
+    _check(need_blk, gt, fw, wt, op)
+    return fw.new_empty((gt.shape[1], fw.shape[1]))
+
+
+# The registered op behind :func:`ell_expand`: a schema with one kernel a
+# dispatch key (the CUDA launch, the CPU twin) and a fake (shape) kernel for
+# ``torch.export``. Registered through ``torch.library.Library`` rather than
+# ``torch.library.custom_op``, whose Python autograd and view layers cost
+# some 10 us a call on the launch-bound rows. Registering builds nothing.
+LIB = torch.library.Library("tpu_bfs_torch", "FRAGMENT")
+LIB.define("ell_expand(Tensor need_blk, Tensor gt, Tensor fw, Tensor? wt, str op) -> Tensor")
+LIB.impl("ell_expand", _ell_expand_cuda, "CUDA")
+LIB.impl("ell_expand", _ell_expand_cpu, "CPU")
+torch.library.register_fake("tpu_bfs_torch::ell_expand", _ell_expand_fake, lib=LIB)
+ell_expand_op = torch.ops.tpu_bfs_torch.ell_expand.default
 
 
 ell_expand.launches = 0

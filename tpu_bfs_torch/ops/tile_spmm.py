@@ -1,9 +1,11 @@
 """Kernel K2: dense-tile frontier expansion over bit-packed 128x128 tiles.
 
 The port of ``tpu_bfs/ops/tile_spmm.py:tile_spmm`` (a Pallas TPU kernel).
-``tile_spmm`` launches the CUDA kernel in ``csrc/tile_spmm.cu`` for CUDA
-tensors and runs ``tile_spmm_plain``, its plain PyTorch twin, for CPU
-tensors; it raises for anything else.
+``tile_spmm`` calls the registered op ``tpu_bfs_torch::tile_spmm``, which
+launches the CUDA kernel in ``csrc/tile_spmm.cu`` for CUDA tensors and runs
+``tile_spmm_plain``, its plain PyTorch twin, for CPU tensors; it raises for
+anything else. The op is what a ``torch.export`` graph of an engine's
+level step names (``utils/aot.py``).
 
 For row tile j, output row r is the OR over the dense tiles b in
 ``[row_start[j], row_start[j+1])`` and the columns c with ``A_b[r, c] = 1``
@@ -20,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_bfs_torch.ops.ell_expand import MAX_W, aligned16
+from tpu_bfs_torch.ops.ell_expand import LIB, MAX_W, aligned16
 
 TILE = 128
 AW = TILE // 32  # u32 words per packed A row group
@@ -72,29 +74,34 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
     tiles come as ``a_tiles`` (JAX layout, turned into row masks on every
     call) or as ``masks`` = ``row_masks(a_tiles)`` with ``a_tiles=None``.
     With ``out`` the hits are ORed into it, in place, and ``out`` is
-    returned; without, they land in a fresh zeroed table. Each CUDA launch
-    adds one to ``tile_spmm.launches``; when ``tile_spmm.timings`` is a
-    list, the launch appends its (start, end) CUDA events to it."""
+    returned; without, they land in a fresh zeroed table. The call goes
+    through the registered op ``tpu_bfs_torch::tile_spmm``, which declares
+    ``out`` mutated, so a ``torch.export`` trace of a caller keeps the
+    accumulation in place and in order. Each CUDA launch adds one to
+    ``tile_spmm.launches``; when ``tile_spmm.timings`` is a list, the launch
+    appends its (start, end) CUDA events to it."""
     _check(row_start, col_tile, a_tiles, masks, fw, num_row_tiles, out)
     if masks is None:
         masks = row_masks(a_tiles)
-    if fw.device.type == "cpu":
-        hit = tile_spmm_plain(row_start, col_tile, None, fw, num_row_tiles=num_row_tiles,
-                              masks=masks)
-        if out is None:
-            return hit
-        out |= hit
-        return out
-    if fw.device.type != "cuda":
+    if fw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tile_spmm: no kernel for device {fw.device}")
+    if out is None:
+        out = torch.zeros((num_row_tiles * TILE, fw.shape[1]), dtype=torch.int32,
+                          device=fw.device)
+    tile_spmm_op(row_start, col_tile, masks, fw, out, num_row_tiles)
+    return out
+
+
+def _tile_spmm_cuda(row_start, col_tile, masks, fw, out, num_row_tiles):
+    """The op's CUDA kernel (operands already checked, tiles as row masks):
+    one launch of ``csrc/tile_spmm.cu`` on the current stream, ORing the
+    hits into ``out``. The kernel library loads at the first call."""
     from tpu_bfs_torch.ops._build import check_launch, load_library
 
     lib = load_library()
     w = fw.shape[1]
     if not aligned16(masks):
         raise ValueError("tile_spmm: masks must start on a 16-byte boundary")
-    if out is None:
-        out = torch.zeros((num_row_tiles * TILE, w), dtype=torch.int32, device=fw.device)
     # Segments of <= SEG tiles per row tile (none for a row tile without
     # tiles, which the kernel leaves untouched); their count is bounded by
     # vt + NT // SEG without reading the prefix sum back to the host.
@@ -116,7 +123,26 @@ def tile_spmm(row_start, col_tile, a_tiles, fw, *, num_row_tiles: int,
     if timings is not None:
         ev[1].record(stream)
         timings.append(ev)
-    return out
+
+
+def _tile_spmm_cpu(row_start, col_tile, masks, fw, out, num_row_tiles):
+    out |= tile_spmm_plain(row_start, col_tile, None, fw, num_row_tiles=num_row_tiles,
+                           masks=masks)
+
+
+def _tile_spmm_fake(row_start, col_tile, masks, fw, out, num_row_tiles):
+    _check(row_start, col_tile, None, masks, fw, num_row_tiles, out)
+
+
+# The registered op behind :func:`tile_spmm` (see ops/ell_expand.py's
+# ``LIB``); ``out(a!)`` declares the in-place accumulation, so an exported
+# graph keeps it in place and in order.
+LIB.define("tile_spmm(Tensor row_start, Tensor col_tile, Tensor masks, Tensor fw, "
+           "Tensor(a!) out, int num_row_tiles) -> ()")
+LIB.impl("tile_spmm", _tile_spmm_cuda, "CUDA")
+LIB.impl("tile_spmm", _tile_spmm_cpu, "CPU")
+torch.library.register_fake("tpu_bfs_torch::tile_spmm", _tile_spmm_fake, lib=LIB)
+tile_spmm_op = torch.ops.tpu_bfs_torch.tile_spmm.default
 
 
 tile_spmm.launches = 0

@@ -39,6 +39,7 @@ import torch
 from tpu_bfs_torch.algorithms._packed_common import (
     ExpandSpec,
     PackedRunProtocol,
+    gate_block_arrays,
     host_lane_mask,
     lazy_full_parent_ell,
     make_expand,
@@ -406,6 +407,7 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
             self.arrs["gate_fwd"] = torch.from_numpy(gate_forward_map(
                 hd["perm_s"][p], out_height, out_height - 1).astype(np.int64)).to(dev)
             self._heavy_rows = nh
+            self.arrs.update(gate_block_arrays(spec, self.arrs))
             self._gated_expand = make_gated_expand(spec, self.w)
             self._valid = torch.from_numpy(hd["valid_s"][p, :, 0] != 0).to(dev)
 

@@ -82,12 +82,12 @@ class MeshTableHost:
 
     def _init_mesh_state(self, rows_loc: int, in_deg_local: np.ndarray) -> None:
         self._rows_loc = rows_loc
-        _, self._stats_loc, self._extract_loc, self._ecc_loc = make_state_kernels(
+        _, self._stats_loc, self._extract_loc, self._ecc_loc, self._in_deg = make_state_kernels(
             rows_loc, rows_loc, self.w, self.num_planes, in_deg_host=in_deg_local,
             device=self.device)
 
-    def _lane_stats(self, vis):
-        r, d = self._stats_loc(vis)
+    def _lane_stats(self, vis, in_deg):
+        r, d = self._stats_loc(vis, in_deg)
         return self.mesh.all_reduce_(r, "sum"), self.mesh.all_reduce_(d, "sum")
 
     def _extract_word(self, planes, vis, src_bits, wi):

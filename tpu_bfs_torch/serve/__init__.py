@@ -23,8 +23,9 @@ a long-lived query service:
 
 ``devices > 1`` serves on a mesh of ranks (``parallel/mesh.serve_mesh``)
 with the failover ladder, the health probe and level-checkpointed resume
-of ``tpu_bfs_torch/resilience``. AOT preheat waits for a later slice
-(ROADMAP Queue 1 entry 6); its arguments raise ``NotImplementedError``.
+of ``tpu_bfs_torch/resilience``. ``aot_dir`` (the server's ``--preheat``)
+adopts single-device rungs' exported programs from an artifact store
+(``utils/aot.py``); on a mesh it raises ``NotImplementedError``.
 """
 
 from tpu_bfs_torch.serve.executor import CircuitBreaker  # noqa: F401

@@ -57,8 +57,11 @@ ranks, down to rank 0 alone, and re-admits the batch; with
 wider mesh answers, and ``resume_levels=K`` (dist2d) continues a
 re-admitted query from its last snapshot (``resilience/resume.py``).
 
-Not ported yet, raising ``NotImplementedError`` at construction with its
-ROADMAP item: AOT preheat (``aot_dir``).
+``aot_dir`` preheats from an artifact store (``utils/aot.py``): every
+single-device rung whose exported programs are there installs them instead
+of tracing, and ``export_aot`` fills a store from the warmed rungs (the
+server's ``--preheat`` and ``--export-aot``). A mesh service refuses the
+store (``utils/aot.MESH_AOT_ITEM``).
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ from tpu_bfs_torch.serve.scheduler import (
     PendingQuery,
     QueryResult,
 )
+from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM
 from tpu_bfs_torch.utils.recovery import (
     COUNTERS,
     is_mesh_fault,
@@ -126,8 +130,6 @@ MIN_LANES = 32
 # Auto ladder spacing: each rung 4x the previous (32/128/512 at a 512-lane
 # top), bounding pad waste per batch below 3/4 of the dispatched width.
 LADDER_FACTOR = 4
-
-AOT_ITEM = "ROADMAP Queue 1 item 5 (utils/aot.py preheat)"
 
 
 def ladder_bounds(lanes: int, *, devices: int = 1,
@@ -307,8 +309,9 @@ class BfsService:
         autostart: bool = True,
         log=None,
     ):
-        if aot_dir:
-            raise NotImplementedError(f"BfsService(aot_dir=...) waits for {AOT_ITEM}")
+        if aot_dir and devices > 1:
+            raise NotImplementedError(
+                f"BfsService(aot_dir=...) on {devices} devices waits for {MESH_AOT_ITEM}")
         self._log = log or (lambda msg: None)
         # Widths and the degrade cap share one lock: the scheduler routes
         # while the extraction worker may shrink the ladder after an OOM
@@ -325,9 +328,11 @@ class BfsService:
         )
         # An internally created registry holds the whole ladder (plus one
         # degrade slot); a caller-supplied registry keeps its own policy.
+        # ``aot_dir`` arms its artifact store: every rung whose artifacts
+        # are present adopts them instead of tracing.
         self._registry = registry or EngineRegistry(
             capacity=max(registry_capacity, len(self._ladder) + 1),
-            log=self._log, device=device,
+            log=self._log, device=device, aot_store=aot_dir,
         )
         if isinstance(graph, str):
             self._graph_key = graph
@@ -1219,10 +1224,23 @@ class BfsService:
             if self._staleness is not None:
                 dyn["staleness"] = self._staleness.stats()
             out["dynamic"] = dyn
+        store = self._registry.aot_store
+        if store is not None:
+            # The preheat's record: artifact hits against eager fallbacks.
+            out["aot"] = store.counts()
         if _faults.ACTIVE is not None:
             # Per-kind injected-fault counts: did every scheduled fault land.
             out["faults"] = _faults.ACTIVE.counts()
         return out
+
+    def export_aot(self, store=None) -> dict:
+        """Export every resident (warmed) engine's programs into an artifact
+        store (a path, an ArtifactStore, or None for the registry's own):
+        the ``--export-aot`` path, this warmed server filling the store a
+        successor ``--preheat``s from. Returns ``{"programs": total
+        exported, "engines": count}``."""
+        out = self._registry.export_resident(store)
+        return {"programs": sum(len(v) for v in out.values()), "engines": len(out)}
 
     def statsz(self) -> dict:
         out = self.metrics.snapshot(
@@ -2086,9 +2104,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="LRU bound on resident warmed engines (default 4, "
                     "raised to fit the ladder plus one degrade slot)")
     ap.add_argument("--preheat", default=None, metavar="DIR",
-                    help="AOT artifact store (refused: AOT preheat)")
+                    help="AOT artifact store to preheat from (utils/aot): "
+                    "every ladder rung whose exported programs are present "
+                    "installs them instead of tracing, so the server reaches "
+                    "the READY line without a torch.export trace; stale or "
+                    "corrupt artifacts fall back to the eager programs per "
+                    "program (corrupt files are quarantined). Single device")
     ap.add_argument("--export-aot", default=None, metavar="DIR",
-                    help="export AOT artifacts (refused: AOT preheat)")
+                    help="after warm-up, export every resident engine's "
+                    "programs into DIR so a successor started with --preheat "
+                    "DIR skips the trace (the warm handoff pair: "
+                    "python -m tpu_bfs_torch.tools.warm_handoff drives both ends)")
     return ap
 
 
@@ -2210,8 +2236,6 @@ def _mesh_from_args(args) -> tuple[tuple, tuple]:
 
 
 def _service_from_args(args, registry, log) -> BfsService:
-    if getattr(args, "export_aot", None):
-        raise NotImplementedError(f"--export-aot waits for {AOT_ITEM}")
     mesh_shape, delta_bits = _mesh_from_args(args)
     resume_dir = getattr(args, "resume_dir", None)
     if resume_dir:
@@ -2311,9 +2335,26 @@ def run_server(args, stdin=None, stdout=None, stderr=None,
         if xprof is not None:
             xprof.stop(check=False)
         raise
+    export_aot = getattr(args, "export_aot", None)
+    if export_aot:
+        # Fill the store from this warmed server (every rung is resident
+        # now) so a successor started with --preheat skips the trace.
+        try:
+            counts = service.export_aot(export_aot)
+            log(f"aot export -> {export_aot}: {counts['programs']} "
+                f"programs from {counts['engines']} engines")
+        except Exception as exc:  # noqa: BLE001 — export is an optimization
+            log(f"aot export failed ({exc!r}); continuing without")
+    # The readiness line: every rung is warmed (from artifacts when
+    # preheating); tools/warm_handoff.py keys the old server's SIGTERM on it.
+    store = service._registry.aot_store
+    ready_extra = ""
+    if store is not None:
+        c = store.counts()
+        ready_extra = f" aot_hits={c['aot_hits']} aot_fallbacks={c['aot_fallbacks']}"
     log(f"READY engine={args.engine} lanes={args.lanes} "
         f"ladder={service.width_ladder} "
-        f"kinds={','.join(service.kinds)}")
+        f"kinds={','.join(service.kinds)}{ready_extra}")
     out_lock = threading.Lock()
     outstanding = [0]
     drained = threading.Condition(out_lock)

@@ -3,6 +3,8 @@ the port of ``tpu_bfs/serve/registry.py``.
 
 An engine build costs an ELL and tile build plus, on the card, the first
 load of the CUDA kernel library; a server cannot pay that per query. The
+wide and packed rungs of one graph share one host ELL (``_shared_ell``:
+it does not depend on the lanes), so a ladder pays one ``build_ell``. The
 registry keys resident engines by ``EngineSpec`` (graph, engine, lanes,
 planes, pull gate, mesh span and exchange configuration, kind, graph
 generation, overlay capacity, resume cadence), warms each build with one
@@ -17,10 +19,18 @@ the k-hop and cc adapters run on rank 0 over such a handle, so their fault
 sites are rank 0's as in JAX; the p2p adapter, which steps the base's
 level loop on its device tables, is replicated with its base.
 
-Against JAX: there is no XLA compile cache to arm (the warm batch is the
-whole warm-up), no ``expand_impl`` axis (the port always runs its K1
-kernel, JAX's ``xla``/``pallas`` choice has no counterpart), and no
-artifact store (``aot_dir``, ROADMAP Queue 1 entry 6). The registry builds
+``aot_store`` (an ``utils.aot.ArtifactStore`` or a directory) turns
+single-device builds into adoptions where artifacts exist: the build still
+makes the tables, then installs the store's loaded programs over the
+engine's eager entries instead of tracing them (the ``--preheat`` path);
+``export_resident`` fills a store from the resident engines (the
+``--export-aot`` path). Construction resolves the kernel build cache
+(``utils/compile_cache``) once per process, as JAX arms its compile cache.
+A mesh spec refuses the store: the mesh engines' programs carry
+collectives, and their inventories are a later slice (``MESH_AOT_ITEM``).
+
+Against JAX: no ``expand_impl`` axis (the port always runs its K1 kernel,
+JAX's ``xla``/``pallas`` choice has no counterpart). The registry builds
 every single-device engine on one torch ``device`` (None is CUDA), and a
 mesh's ranks on the serving mesh's devices.
 """
@@ -28,6 +38,7 @@ mesh's ranks on the serving mesh's devices.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 import types
@@ -37,6 +48,8 @@ import numpy as np
 
 from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch import obs as _obs
+from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM, ArtifactStore
+from tpu_bfs_torch.utils.compile_cache import enable_compile_cache
 
 ENGINE_KINDS = ("wide", "hybrid", "packed", "dist2d")
 
@@ -354,26 +367,37 @@ def build_mesh_engine(rank, graph, spec: EngineSpec):
 class EngineRegistry:
     """LRU-bounded store of warmed engines over once-loaded graphs: the
     single-device ones on one torch ``device`` (None: CUDA, raising without
-    a card), the mesh ones on the serving mesh."""
+    a card), the mesh ones on the serving mesh. ``aot_store`` (a store or a
+    path) adopts single-device engines' programs from artifacts."""
 
     def __init__(self, *, capacity: int = 4, warm: bool = True, log=None,
-                 device=None):
+                 device=None, aot_store=None):
         if capacity < 1:
             raise ValueError(f"registry capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self.device = device
         self._warm = warm
         self._log = log or (lambda msg: None)
+        if isinstance(aot_store, (str, os.PathLike)):
+            aot_store = ArtifactStore(aot_store, log=self._log)
+        self.aot_store = aot_store
         self._graphs: dict = {}  # guarded-by: _lock
+        # graph key -> (graph, its build_ell): one ELL for the wide and
+        # packed rungs of a graph (it does not depend on the lanes).
+        self._ells: dict = {}  # guarded-by: _lock
         self._engines: OrderedDict = OrderedDict()  # guarded-by: _lock
         # One build at a time (builds allocate device tables); RLock so
         # get() -> _build() -> graph() nests.
         self._lock = threading.RLock()
         self.builds = 0  # guarded-by: _lock
+        self.adoptions = 0  # guarded-by: _lock
         self.evictions = 0  # guarded-by: _lock
-        # Seconds of each spec's last build and warm-up.
+        # Seconds of each spec's last build (its tables), adoption (loading
+        # its programs from the store) and warm-up.
         self.build_s: dict = {}  # guarded-by: _lock
+        self.adopt_s: dict = {}  # guarded-by: _lock
         self.warm_s: dict = {}  # guarded-by: _lock
+        enable_compile_cache(log=self._log)
 
     # --- graphs -----------------------------------------------------------
 
@@ -418,26 +442,54 @@ class EngineRegistry:
             while len(self._engines) > self.capacity:
                 old_spec, _ = self._engines.popitem(last=False)
                 self.evictions += 1
+                self._forget_ell(old_spec.graph_key)
                 self._log(f"evicted engine {old_spec}")
             return eng
 
     def _build(self, spec: EngineSpec):  # requires-lock: _lock
         rec = _obs.ACTIVE
+        store = self.aot_store
+        if store is not None and spec.devices > 1:
+            raise NotImplementedError(
+                f"AOT artifacts for a {spec.devices}-device engine wait for {MESH_AOT_ITEM}")
+        # The span says what the build costs: a spec whose core artifact
+        # probes valid is an engine_adopt (tables, then installed programs,
+        # no trace); only a from-scratch build is an engine_build.
+        adopting = store is not None and store.probe(spec)
+        span = "engine_adopt" if adopting else "engine_build"
         if rec is not None:
-            rec.begin("engine_build", f"w{spec.lanes}", cat="serve.registry",
+            rec.begin(span, f"w{spec.lanes}", cat="serve.registry",
                       engine=spec.engine, width=spec.lanes,
                       planes=spec.planes, devices=spec.devices)
+        adopted: list = []
         try:
             eng = self._build_inner(spec)
+            if store is not None:
+                from tpu_bfs_torch.utils.aot import adopt_engine_programs
+
+                t0 = time.perf_counter()
+                adopted = adopt_engine_programs(eng, spec, store, log=self._log)
+                self.adopt_s[spec] = time.perf_counter() - t0
+                if adopted:
+                    self.adoptions += 1
+                elif adopting:
+                    # The probe said adoptable but nothing was installed
+                    # (unloadable here, or quarantined meanwhile): flag it,
+                    # or the engine_adopt span would read as a phantom.
+                    self._log(f"aot adoption of {spec} installed nothing; "
+                              "this build runs the eager programs")
+                    if rec is not None:
+                        rec.event("aot_adopt_failed", cat="serve.registry",
+                                  width=spec.lanes, engine=spec.engine)
         except Exception as exc:
             if rec is not None:
-                rec.end("engine_build", f"w{spec.lanes}",
+                rec.end(span, f"w{spec.lanes}",
                         cat="serve.registry", width=spec.lanes,
                         error=f"{type(exc).__name__}: {str(exc)[:120]}")
             raise
         if rec is not None:
-            rec.end("engine_build", f"w{spec.lanes}", cat="serve.registry",
-                    width=spec.lanes)
+            rec.end(span, f"w{spec.lanes}", cat="serve.registry",
+                    width=spec.lanes, adopted=len(adopted))
         return eng
 
     def _build_inner(self, spec: EngineSpec):  # requires-lock: _lock
@@ -462,7 +514,8 @@ class EngineRegistry:
             if spec.engine == "packed":
                 from tpu_bfs_torch.algorithms.msbfs_packed import PackedMsBfsEngine
 
-                eng = PackedMsBfsEngine(g, lanes=spec.lanes, device=self.device)
+                eng = PackedMsBfsEngine(g, lanes=spec.lanes, device=self.device,
+                                        ell=self._shared_ell(spec.graph_key, g))
             elif spec.engine == "hybrid":
                 from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
 
@@ -476,7 +529,7 @@ class EngineRegistry:
                 eng = WidePackedMsBfsEngine(
                     g, lanes=spec.lanes, num_planes=spec.planes,
                     pull_gate=spec.pull_gate, overlay=spec.overlay,
-                    device=self.device,
+                    ell=self._shared_ell(spec.graph_key, g), device=self.device,
                 )
             if spec.kind != "bfs":
                 eng = build_workload_engine(spec.kind, eng, g, spec)
@@ -484,6 +537,23 @@ class EngineRegistry:
         self.build_s[spec] = time.perf_counter() - t0
         self._log(f"engine built {spec} in {self.build_s[spec]:.1f}s")
         return eng
+
+    def _shared_ell(self, key: str, g):  # requires-lock: _lock
+        """The wide and packed rungs' one ``build_ell`` of the graph under
+        ``key``, rebuilt when the key names another graph object (a
+        compaction's new base)."""
+        hit = self._ells.get(key)
+        if hit is None or hit[0] is not g:
+            from tpu_bfs_torch.graph.ell import build_ell
+
+            hit = self._ells[key] = (g, build_ell(g))
+        return hit[1]
+
+    def _forget_ell(self, key: str) -> None:  # requires-lock: _lock
+        """Drop the shared host ELL of ``key`` once no resident engine of
+        that graph is left (an evicted ladder frees its host tables too)."""
+        if not any(s.graph_key == key for s in self._engines):
+            self._ells.pop(key, None)
 
     def _build_mesh(self, spec: EngineSpec, g):  # requires-lock: _lock
         """A mesh spec's engine on the first ``spec.devices`` ranks of the
@@ -554,6 +624,7 @@ class EngineRegistry:
         flip). Returns the eviction count."""
         dropped = 0
         with self._lock:
+            self._ells.pop(graph_key, None)
             for spec in [s for s in self._engines if s.graph_key == graph_key]:
                 self._engines.pop(spec)
                 self.evictions += 1
@@ -569,6 +640,7 @@ class EngineRegistry:
             if self._engines.pop(spec, None) is None:
                 return False
             self.evictions += 1
+            self._forget_ell(spec.graph_key)
             self._log(f"evicted engine {spec} (explicit)")
             return True
 
@@ -593,3 +665,29 @@ class EngineRegistry:
             return list(self._engines.items())
         finally:
             self._lock.release()
+
+    def export_resident(self, store=None) -> dict:
+        """Export every resident engine's serving programs into ``store``
+        (default: the registry's own): the ``--export-aot`` path, a warmed
+        server filling the store a successor preheats from. Returns
+        ``{spec: [exported names]}``."""
+        from tpu_bfs_torch.utils.aot import export_engine_programs
+
+        if isinstance(store, (str, os.PathLike)):
+            store = ArtifactStore(store, log=self._log)
+        store = store or self.aot_store
+        if store is None:
+            raise ValueError(
+                "export_resident needs an artifact store (construct the "
+                "registry with aot_store=... or pass one here)"
+            )
+        out = {}
+        for spec, eng in self.resident_engines():
+            if spec.devices > 1:
+                raise NotImplementedError(
+                    f"AOT export of a {spec.devices}-device engine waits for {MESH_AOT_ITEM}")
+            names = export_engine_programs(eng, spec, store, log=self._log)
+            self._log(f"aot export {spec.engine}/w{spec.lanes}: "
+                      f"{len(names)} programs -> {store.root}")
+            out[spec] = names
+        return out
