@@ -6,7 +6,13 @@
 
 Phases, one JSON line each:
  1. device: the card and its power limit (nvidia-smi);
- 2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc;
+ 2. build: both CUDA kernels compiled from tpu_bfs_torch/csrc with nvcc, and
+    the native host library (tpu_bfs_torch/native: the RMAT generator, the
+    edge-list loader, the counting sort) with g++; a failed native build
+    ends the script: every RMAT graph it generates for itself (STREAM) comes
+    from the native generator, the stream of JAX's bench graphs, never the
+    NumPy one (the JSONL servers' and the obs CLI's ``rmat:`` specs and
+    run_graph500 generate as JAX's CLI and graph500.py do, with NumPy);
  3. parity: each kernel against its plain PyTorch twin, bit-exact, at small
     ragged shapes (K1 ell_expand: or/min/minplus, w 1/8/33/256, k 1/7/64/70,
     gated tiles, and min at w 128 over keys with bit 31 set and an all-ones
@@ -14,10 +20,12 @@ Phases, one JSON line each:
     a prior table from the row masks alone, empty and split row tiles); and
     a ParentScanner on RMAT scale 12, on the card, on CPU tensors and as
     validate.min_parent_from_dist, all equal;
- 4. wide: WidePackedMsBfsEngine, RMAT scale 17 (--wide-scale; 18 before,
-    cut to pay for the aot phase, as are the graph500 scales), 4096 lanes, 3 lanes
+ 4. wide: WidePackedMsBfsEngine, RMAT scale 16 (--wide-scale; 17 until the
+    fleet arm, 18 before the aot phase, cut to pay for them), 4096 lanes,
+    3 lanes
     validated against the SciPy oracle, K1 launches counted;
- 5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1), 8192 lanes,
+ 5. flagship: HybridMsBfsEngine, RMAT scale 21 (ef 16, seed 1, the native
+    stream, cached as build/rmat21_ef16_seed1_native.npz), 8192 lanes,
     the bench protocol (hub pilot as warm-up, sources from default_rng(7)
     among traversable vertices, one timed batch, 3 lanes validated: 5 until
     the aot phase), with
@@ -33,7 +41,8 @@ Phases, one JSON line each:
     there (timed); that lane's tree
     equals validate.min_parent_from_dist and passes certify_bfs; then the
     public parents_into(device="device") on a 32-lane batch (64 before
-    the aot phase). The K1 min
+    the aot phase): its lane 0, the same source, equals that checked tree,
+    and its last lane passes both checks. The K1 min
     entry of the kernels line is timed here, at the scan's shape;
  8. single: the reference's single-source BFS on the flagship graph,
     through BfsEngine with each of the scan, segment, scatter, delta and
@@ -70,7 +79,8 @@ Phases, one JSON line each:
     gated batch's K1 launches, replayed on their own masks, are the "K1 or,
     gated" kernels entry. After the single phase, TiledBfsEngine(pull_gate=
     True) from its sources, equal to SciPy and to its checked trees;
-12. ckpt (after packed): a 256-lane hybrid batch on the flagship graph,
+12. ckpt (after packed): a CKPT_LANES-lane (64; 256 before, cut to keep
+    the script's time) hybrid batch on the flagship graph,
     its first --ckpt-every levels (4) on the hybrid, saved, loaded and
     resumed to the end on the wide engine (one save, cut from one a chunk
     and then from one a mode to keep the script's time), equal on every
@@ -105,12 +115,13 @@ Phases, one JSON line each:
     beside the single-device batch's, the all-gather ms a level (CUDA
     events), host reads a level, the build seconds and peak memory. Its
     shard tables give the "K1 or, mesh shard" and "K2, mesh shard" kernels
-    entries. Then at the wide phase's scale (17) with 4096 lanes: the hybrid's
+    entries. Then at the wide phase's scale (16) with 4096 lanes: the hybrid's
     sparse and sliced exchanges against a single-device HybridMsBfsEngine
     and DistWideMsBfsEngine (dense, sparse) against the wide phase's
-    engine, every lane's distances compared on the device. Last, two gloo
-    ranks sharing cuda:0 (NCCL refuses two ranks on one device) run
-    DistHybridMsBfsEngine at the same scale, equal to a single-device batch.
+    engine, every lane's distances compared on the device. Last (a side
+    arm, 23), two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+    device) run DistHybridMsBfsEngine at the same scale, equal to a
+    single-device batch.
 15. mesh_single (after single): the single-source mesh engines on a
     one-rank NCCL group on cuda:0 at the flagship's full size, from the
     single phase's 2 sources: DistBfsEngine with the ring, allreduce and
@@ -124,9 +135,10 @@ Phases, one JSON line each:
     memory held just before the engine is built (its build and its checked
     runs). These engines are plain PyTorch: no kernel launches.
     One host partition a mesh shape is shared by its engines (its seconds
-    stated). Then gloo ranks sharing cuda:0 at the wide phase's scale (17): the 1D
-    engine on 2 ranks and the 2D engine on 2x2, ring and sparse, every
-    source's distances and tree equal to BfsEngine's on the card.
+    stated). Then (a side arm, 23) gloo ranks sharing cuda:0 at the wide
+    phase's scale (16): the 1D engine on 2 ranks and the 2D engine on 2x2,
+    ring and sparse, every source's distances and tree equal to BfsEngine's
+    on the card.
 16. mesh_kinds (after p2p): every workload kind on a one-rank NCCL group on
     cuda:0 at the flagship's full size, over one build_ell_sharded of the
     flagship graph (the weights do not change it) and one
@@ -144,8 +156,8 @@ Phases, one JSON line each:
     connected_components and k-hop (k = 3) over an 8192-lane
     DistWideMsBfsEngine on the flagship's sources, and p2p (the p2p phase's
     128 pairs) over a 256-lane one: equal to the single-device phases'
-    labels, counts and answers, every path walked. Last, two gloo ranks
-    sharing cuda:0 at RMAT scale 14 (--mesh-kinds-small-scale; 16 before
+    labels, counts and answers, every path walked. Last (a side arm, 23),
+    two gloo ranks sharing cuda:0 at RMAT scale 14 (--mesh-kinds-small-scale; 16 before
     the aot phase): the mesh
     SSSP (sparse, delta, prediction), DistBfsEngine with every planner knob
     and k-hop over the wide mesh engine with delta ids, equal to their
@@ -153,8 +165,8 @@ Phases, one JSON line each:
 17. serve (after mesh_kinds, the flagship graph still loaded): the serve
     tier (tpu_bfs_torch/serve). BfsService(engine="wide", lanes=256,
     width_ladder="auto" (32/64/256), linger_ms=2) on the flagship graph, the
-    JAX bench_serve protocol cut to 64 client threads x 4 queries (x 8
-    before, cut to pay for the aot phase), closed
+    JAX bench_serve protocol cut to 64 client threads x 2 queries (x 4
+    until the fleet arm, x 8 before the aot phase), closed
     loop, sources from default_rng(7) among the traversable vertices;
     pipelined, then unpipelined (64 clients x 2 queries since PR 13, to
     pay for the mesh_serve phase) in turns: on the warmed rungs, on the aot
@@ -164,8 +176,8 @@ Phases, one JSON line each:
     fill, routing, extract p50, peak memory, K1 launches, each rung's build
     and warm seconds and the dispatch's host reads a level. One 48-query
     batch routed to the 64-lane rung (w 2) gives the "K1 or, serve rung
-    w 2" kernels entry. Then `python -m tpu_bfs_torch.serve` on RMAT 16 as
-    a subprocess (three queries, a malformed line, an out-of-range source;
+    w 2" kernels entry. Then (a side arm, 23) `python -m
+    tpu_bfs_torch.serve` on RMAT 16 as a subprocess (three queries, a malformed line, an out-of-range source;
     SIGTERM drains it, exit 0); the chaos arm (the flagship service under
     seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4, 64 queries,
     the recovery counters exactly the fired faults); at the wide phase's
@@ -182,7 +194,7 @@ Phases, one JSON line each:
     (one finding, one quarantine, every later answer equal to SciPy's, a
     flight dump naming the query) and corrupt_wire (a checksum finding).
 18. obs (after ckpt): the operations surface. The port CLI as a
-    subprocess at the wide phase's scale: a gated hybrid batch with
+    subprocess at the wide phase's scale (a side arm, 23): a gated hybrid batch with
     --stats --trace-out, its trace line's levels equal to the batch's and
     the Perfetto file one level-track row a level; a 256-lane gated wide
     batch in turns with the recorder disarmed and armed (the overhead,
@@ -221,27 +233,32 @@ Phases, one JSON line each:
 20. mesh_serve (after serve): the serve tier on a mesh. This process joins
     as rank 0 of 4 gloo ranks sharing the card (``serve_mesh``; NCCL takes
     one rank a card, so this measures the mesh serving machinery, not
-    scaling) on RMAT --wide-scale (17, cut from the flagship's 21; every
+    scaling) on RMAT --wide-scale (16, cut from the flagship's 21; every
     rank builds its own shard tables and gloo stages rows through the
-    host). (a) BfsService(wide, devices=2, 256 lanes, ladder auto = 64/256)
-    under JAX's bench_serve loop, 64 clients x 4 queries: every answer's
+    host). The phase draws its own pool of 64 x 4 sources (MESH_SERVE_*).
+    (a) BfsService(wide, devices=2, 256 lanes, ladder auto = 64/256)
+    under JAX's bench_serve loop, 64 clients x 2 queries (SERVE_PER_CLIENT
+    of each pool row): every answer's
     reached and levels equal a single-device WidePackedMsBfsEngine batch,
     8 rows of distances too and 3 SciPy's, every traversal record devices
     2 with the engine's edges and a wire-bytes share; QPS, p50/p99, fill,
     routing; then a 192-query batch queued before start() takes the
     256-lane rung, and rank 0's shard of it gives the "K1 or, mesh serve
     rung w 8 (shard)" kernels entry. (b) That service under
-    device_lost@fetch@rank=1:n=1 armed after start: it degrades 2 -> 1
+    device_lost@fetch@rank=1:n=1 armed after start, 16 clients x 4
+    queries: it degrades 2 -> 1
     with no failed query, mesh_faults = mesh_degrades = 1; a probe fault
-    holds mesh_restore(2); cleared, it serves on 2 ranks again, answers
-    equal. (e) A hybrid service on 2 ranks, 4096 lanes, three batches
-    equal to a single-device HybridMsBfsEngine; rank 0's row tiles give the
+    holds mesh_restore(2); cleared, it serves on 2 ranks again (16 x 4
+    more queries), answers
+    equal. (e) A hybrid service on 2 ranks, 4096 lanes, three 64-query
+    batches equal to a single-device HybridMsBfsEngine; rank 0's row tiles give the
     "K2, mesh serve rung (shard)" entry. (c) dist2d on 2x2, 32 lanes,
     resume_levels=2, a resume spool, device_lost@fetch@level=2: the query
     answers from the degraded 1x2 mesh equal to SciPy, resumed at the
     level-2 snapshot, every spooled snapshot reloaded through its CRC.
-    (d) ``python -m tpu_bfs_torch.serve rmat:scale=16 --devices 2`` as a
-    subprocess: three answers with devices 2, SIGTERM drains, exit 0.
+    (d) (a side arm, 23) ``python -m tpu_bfs_torch.serve rmat:scale=16
+    --devices 2`` as a subprocess: three answers with devices 2, SIGTERM
+    drains, exit 0.
 21. adaptive (after pullgate): the flagship as JAX's bench runs it.
     (a) HybridMsBfsEngine(max_lanes=8192, adaptive_push=(8192, 64)) built
     from the flagship graph (its push table needs the edge list), on the
@@ -259,7 +276,7 @@ Phases, one JSON line each:
     are the plain batch's. (b) The roofline (tpu_bfs_torch/utils/roofline.py) on
     that engine: per-phase totals, shares, achieved GB/s, the binding term,
     the ceiling at 3.35 TB/s; its stepped level count equals the batch's
-    (the guard) and its push levels the loop's. (c) The wide phase's scale-17
+    (the guard) and its push levels the loop's. (c) The wide phase's scale-16
     engine with the same caps against its plain run: state equal.
     The obs phase's traced CLI run also writes a torch.profiler trace
     (--profile-dir) that must parse and name both CUDA kernels, and the
@@ -292,6 +309,23 @@ Phases, one JSON line each:
     which drains with exit 0; the successor answers the same lines bit for
     bit. (c) A copy of that store under corrupt_aot:n=1 in process: one
     quarantine, one fallback, four hits, answers equal to the engine's.
+    The fleet arm, on (d)'s graph and store and beside (d):
+    tools/fleet_supervisor.py over 2 --preheat replicas of that server on
+    the card; 24 queries, one
+    replica SIGKILLed once half are submitted (its unanswered queries
+    requeue onto the sibling): every query answered exactly once, equal to
+    the one-shot server's answers and the engine's; one restart, READY-
+    gated; each replica's seconds to READY.
+23. side (after serve): the arms that drive processes of their own run
+    side by side in threads while this process's own phases wait, so no
+    kernel timing of theirs overlaps them: the serve phase's JSONL act with
+    the aot phase's (c), (d) and fleet arm, the obs phase's traced CLI, the
+    mesh_serve phase's (d) and the gloo ranks sharing the card of the mesh,
+    mesh_single and mesh_kinds phases; the arms beside the JSONL act, the
+    longest chain, run at nice 10 with the processes they start. Each keeps
+    its checks and prints its line after all have ended; the seconds of each
+    were taken beside the others (a READY or an answer time includes the
+    shared host).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -310,6 +344,7 @@ import signal
 import subprocess
 import sys
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -331,6 +366,9 @@ PARENTS_INTO_LANES = 32
 # pullgate (tiled), packed and ckpt phases reuse: a source costs each of
 # them its warm and timed runs and its host checks at scale 21.
 SINGLE_SOURCES = 1
+# Lanes of the ckpt phase's checkpointed batch (256 before, cut to keep the
+# script's time: its one file save is host zlib, ~14 s at 256 lanes).
+CKPT_LANES = 64
 # Threads checking BFS trees on the host side by side (a lane's check is
 # a few O(E) numpy passes, some 2 GB of temporaries at scale 21).
 CHECK_THREADS = 4
@@ -340,18 +378,34 @@ REPEATS = 3
 # Turns of each mesh SSSP engine with SsspEngine in the mesh_kinds phase
 # (a ~0.7 s batch; one since PR 13, to pay for the mesh_serve phase).
 MESH_KINDS_TURNS = 1
-# The serve phase's closed loop (the JAX bench_serve's 64 clients, with 4
-# queries each, 8 before, cut to pay for the aot phase) and its
-# chaos arm's fault spec (scripts/chip_session.sh:203-204).
+# The serve phase's closed loop (the JAX bench_serve's 64 clients, with 2
+# queries each: 4 until the fleet arm, 8 before the aot phase, cut to pay
+# for them) and its chaos arm's fault spec (scripts/chip_session.sh:203-204).
 SERVE_CLIENTS = 64
-SERVE_PER_CLIENT = 4
+SERVE_PER_CLIENT = 2
 # Queries a client in the unpipelined and audited loops, which run beside
 # the pipelined one at its concurrency (8 until PR 13, cut to pay for the
 # mesh_serve phase).
 SERVE_SHORT_PER_CLIENT = 2
+# Sources a client in the mesh_serve phase's pool: (a)'s closed loop takes
+# SERVE_PER_CLIENT of each row; its w 8 burst and (e)'s 64-query batches take
+# MESH_SERVE_BURST of the pool, and (b)'s two 16-client loops whole rows.
+MESH_SERVE_PER_CLIENT = 4
+MESH_SERVE_BURST = 192
 SERVE_SPEC = "seed=7:transient@serve_batch:n=2,slow_extract:ms=50:n=4"
+# Queries through the aot phase's two-replica fleet (at most 32: the
+# arm's reference engine answers the rest in one 32-lane batch).
+FLEET_QUERIES = 24
 # The dynamic phase's overlay capacity (rows, kcap): JAX's bench default.
 DYN_CAP = (256, 32)
+# The edge stream of every RMAT graph the script generates for itself: the
+# native generator, whose stream JAX's bench graphs come from
+# (bench.py:686-710). The library is built at the start; a failed build
+# ends the script, never a fall back to the NumPy stream.
+STREAM = "native"
+# The edge stream of each graph the script made (id -> (weakref, stream)):
+# a kernels row names the stream of the graph its tables were built from.
+_STREAMS: dict = {}
 T0 = time.perf_counter()
 
 
@@ -514,21 +568,51 @@ def hub_component_sources(eng, lanes: int, *, seed: int, with_component: bool = 
     return (sources, traversable) if with_component else sources
 
 
-def validate_lanes(g, res, sources, picks) -> None:
+# SciPy's BFS on the graphs the script holds: one float64 matrix in
+# canonical form a graph (csgraph converts an int8 one on every call, most of
+# a call's time at scale 21) and each source's distances once. An entry lives
+# as long as its graph: id -> (weakref, matrix, {source: distances}).
+_ORACLE: dict = {}
+
+
+def oracle_matrix(g):
+    """``g.to_scipy()`` as csgraph takes it (float64, duplicate slots summed,
+    indices sorted), built once a graph."""
+    key = id(g)
+    hit = _ORACLE.get(key)
+    if hit is None or hit[0]() is not g:
+        mat = g.to_scipy().astype(np.float64)
+        mat.sum_duplicates()
+        hit = (weakref.ref(g, lambda _, key=key: _ORACLE.pop(key, None)), mat, {})
+        _ORACLE[key] = hit
+    return hit[1]
+
+
+def scipy_bfs(g, source: int) -> np.ndarray:
+    """``bfs_scipy(g, source)`` over :func:`oracle_matrix`, computed once a
+    (graph, source); the array is read-only."""
     from tpu_bfs_torch.reference import bfs_scipy
+
+    mat, s = oracle_matrix(g), int(source)
+    dists = _ORACLE[id(g)][2]
+    if s not in dists:
+        dists[s] = bfs_scipy(g, s, csr=mat)
+        dists[s].setflags(write=False)
+    return dists[s]
+
+
+def validate_lanes(g, res, sources, picks) -> None:
     from tpu_bfs_torch.validate import check_distances
 
-    csr = g.to_scipy()
     for i in picks:
-        check_distances(res.distances_int32(i), bfs_scipy(g, int(sources[i]), csr=csr))
+        check_distances(res.distances_int32(i), scipy_bfs(g, int(sources[i])))
 
 
 def phase_wide(dev, k1, k2, scale: int) -> None:
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
-    from tpu_bfs_torch.graph.generate import rmat_graph
 
     t0 = time.perf_counter()
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     eng = WidePackedMsBfsEngine(g, lanes=4096, device=dev)
     build_s = time.perf_counter() - t0
     sources = hub_component_sources(eng, 4096, seed=3)  # the run doubles as warm-up
@@ -539,18 +623,42 @@ def phase_wide(dev, k1, k2, scale: int) -> None:
     require(k2.tile_spmm.launches == 0, "wide engine launched tile_spmm")
     picks = [0, 2048, 4095]
     validate_lanes(g, res, sources, picks)
-    emit({"phase": "wide", "scale": scale, "edge_factor": 16, "lanes": 4096,
+    emit({"phase": "wide", "scale": scale, "edge_factor": 16, "edge_stream": STREAM,
+          "lanes": 4096,
           "host_build_s": build_s, "levels": res.num_levels,
           "batch_ms": res.elapsed_s * 1e3, "hmean_gteps": res.teps / 1e9,
           "ell_expand_launches": launches, "validated_lanes": picks})
     return g, eng, res, sources
 
 
+def tagged(g, stream: str):
+    """Record ``g``'s edge stream (see stream_of); returns ``g``."""
+    _STREAMS[id(g)] = (weakref.ref(g), stream)
+    return g
+
+
+def stream_of(g) -> str:
+    """The edge stream recorded for ``g`` by rmat, flagship_graph or
+    tagged; fails for a graph the script did not record."""
+    ref, stream = _STREAMS.get(id(g), (None, None))
+    require(ref is not None and ref() is g, "a kernels row's graph has no recorded edge stream")
+    return stream
+
+
+def rmat(scale: int, **kw):
+    """RMAT scale/ef16/seed1 from the script's edge stream (STREAM)."""
+    from tpu_bfs_torch.graph.generate import rmat_graph
+
+    return tagged(rmat_graph(scale, 16, seed=1, impl=STREAM, **kw), STREAM)
+
+
 def flagship_graph(scale: int):
-    """RMAT scale/ef16/seed1 (numpy generator), cached as .npz under build/."""
+    """RMAT scale/ef16/seed1 (native generator), cached as .npz under build/
+    with the stream in the file's name. Returns (graph, cached)."""
     from tpu_bfs_torch.tools.roofline import load_rmat
 
-    return load_rmat(scale, 16)
+    g, cached = load_rmat(scale, 16)
+    return tagged(g, "native"), cached
 
 
 def phase_flagship(dev, k1, k2, scale: int, lanes: int):
@@ -604,7 +712,7 @@ def phase_flagship(dev, k1, k2, scale: int, lanes: int):
     k2_bytes = k2.tile_spmm_hbm_bytes(hg.num_tiles, hg.vt, w)
     bodies = launches["tile_spmm"]
     emit({
-        "phase": "flagship", "graph": f"RMAT scale {scale}, ef 16, seed 1 (numpy)",
+        "phase": "flagship", "graph": f"RMAT scale {scale}, ef 16, seed 1 ({STREAM} stream)",
         "scale_cut": None if scale == 21 else f"scale {scale} instead of 21 (--scale)",
         "V": g.num_vertices, "edge_slots": g.num_edges, "active": hg.num_active,
         "dense_tiles": hg.num_tiles, "dense_edges": hg.num_dense_edges,
@@ -672,7 +780,7 @@ def flagship_operands(eng, res):
     return fw, prior
 
 
-def phase_kernels(eng, res, launches, k1, k2, ptxas):
+def phase_kernels(g, eng, res, launches, k1, k2, ptxas):
     """Each kernel at the flagship's shapes, on a frontier-sized table from
     the run (its visited table): against the twin, then timed. K1's unit is
     one level's residual pass (every bucket); K2's is its one launch, ORing
@@ -737,7 +845,7 @@ def phase_kernels(eng, res, launches, k1, k2, ptxas):
          "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None, "model_ms": model / HBM_BYTES_PER_S * 1e3, "unit": unit,
-         "ptxas": ptxas.get(Path(src).name, [])}
+         "ptxas": ptxas.get(Path(src).name, []), "edge_stream": stream_of(g)}
         for name, src, rep, err, ms, plain, nbytes, model, unit in rows
     ]
     return kernels
@@ -776,10 +884,11 @@ def k1_check(k1, arrs, names, fw, op: str, wsuf: str | None, name: str) -> float
     return err
 
 
-def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
+def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, g, name: str,
              unit: str, plain_reps: int = 1, wsuf: str | None = None) -> dict:
     """A kernels-line entry of K1 over one pass of every bucket ``names`` of
-    ``arrs`` with frontier (or key, or distance) table ``fw``: the kernel
+    ``arrs`` (built from graph ``g``, whose edge stream it names) with
+    frontier (or key, or distance) table ``fw``: the kernel
     against its twin, bit for bit, then both timed. The bound reads the
     rows the indices name, each bucket's gate and index slab (and weight
     slab ``{bucket}_{wsuf}_gt`` for minplus), and writes each output,
@@ -807,7 +916,7 @@ def k1_entry(k1, arrs, names, fw, op: str, launches: int, ptxas, *, name: str,
         "plain_ms": cuda_ms(lambda: k1_pass(k1.ell_expand_plain), plain_reps),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         "model_ms": model / HBM_BYTES_PER_S * 1e3, "unit": unit,
-        "ptxas": ptxas.get("ell_expand.cu", []),
+        "ptxas": ptxas.get("ell_expand.cu", []), "edge_stream": stream_of(g),
     }
     k1.ell_expand.launches = saved  # comparisons do not count
     return entry
@@ -886,9 +995,10 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     validate_s = time.perf_counter() - t0
     # K1 op=min at the scan's shape: one pass over a pass's real key table.
     entry = k1_entry(k1, scanner.arrs, bucket_names(ell), scanner.keys(res._scan_cols(
-        scanner, 0, lpp // 32, perm)), "min", launches["ell_expand"], ptxas,
+        scanner, 0, lpp // 32, perm)), "min", launches["ell_expand"], ptxas, g=g,
         name="ell_expand_min",
         unit=f"one parent-scan pass: every bucket of the full ELL, w {lpp}")
+    first_tree = trees[picks[0]]
     del scanner, buf, trees
 
     # The public export on a small batch of the same engine; it builds its
@@ -903,7 +1013,11 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     require(export_launches == -(-PARENTS_INTO_LANES // lpp) * buckets,
             f"parents_into launched {export_launches} K1")
     checked = [0, PARENTS_INTO_LANES - 1]
-    _check_trees(g, res2, sources, checked, out)
+    # Lane 0 is the scan's checked lane (the same source): its tree must be
+    # that one; the last lane is checked in full.
+    require(picks[0] == 0 and np.array_equal(out[0], first_tree),
+            "parents_into lane 0 != the scan's checked tree of the same source")
+    _check_trees(g, res2, sources, checked[1:], out)
     per_pass_s = scan_s / len(pass_ms)
     emit({
         "phase": "parents", "lanes": n, "passes": len(pass_ms), "passes_scanned": scanned,
@@ -939,7 +1053,6 @@ def phase_single(dev, k1, k2, g, traversable):
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
     from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
     from tpu_bfs_torch.graph.csr import DeviceGraph
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.validate import check_distances, check_parents
 
     hub = int(np.argmax(g.degrees))
@@ -947,8 +1060,7 @@ def phase_single(dev, k1, k2, g, traversable):
                                             replace=False)
     sources = [hub] + [int(x) for x in draws]
     t0 = time.perf_counter()
-    csr = g.to_scipy()
-    golden = {s: bfs_scipy(g, s, csr=csr) for s in sources}
+    golden = {s: scipy_bfs(g, s) for s in sources}
     golden_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     dg = DeviceGraph.from_graph(g)
@@ -998,9 +1110,10 @@ def phase_single(dev, k1, k2, g, traversable):
     return sources, golden, trees, dg
 
 
-def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: int):
+def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees):
     """The single-source mesh engines on a one-rank NCCL group (see the
-    module docstring, phase 15), then on gloo ranks sharing the card. Each
+    module docstring, phase 15; gloo ranks sharing the card are a side arm,
+    shared_card_single). Each
     engine's timed runs alternate with BfsEngine's of its backend on the
     single phase's DeviceGraph ``dg``."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
@@ -1128,7 +1241,6 @@ def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees, small_scale: i
           "phase's checked tree", "launches": launches, "partition_1d_s": partition_s,
           "partition_2d_s": partition_2d_s, "engines": out,
           "seconds": time.perf_counter() - t_phase})
-    phase_shared_card_single(dev, small_scale)
 
 
 def shared_card_single_rank(mesh, scale: int, shape, sources):
@@ -1136,12 +1248,11 @@ def shared_card_single_rank(mesh, scale: int, shape, sources):
     (ring and sparse) for an int ``shape``, Dist2DBfsEngine (ring and
     sparse) for an (R, C) one, on RMAT ``scale``; each source's distances
     and parents, and the backend and device."""
-    from tpu_bfs_torch.graph.generate import rmat_graph
     from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
     from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
     from tpu_bfs_torch.parallel.mesh import make_mesh_2d
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     m2 = make_mesh_2d(*shape, mesh=mesh) if isinstance(shape, tuple) else None
     out = {}
     for exchange in ("ring", "sparse"):
@@ -1153,25 +1264,27 @@ def shared_card_single_rank(mesh, scale: int, shape, sources):
     return out, mesh.backend, str(mesh.device)
 
 
-def phase_shared_card_single(dev, scale: int) -> None:
-    """Gloo ranks sharing the card (NCCL takes one rank a device): the 1D
-    engine on 2 ranks and the 2D engine on a 2x2 mesh, every source's
-    distances and tree equal to BfsEngine's on the card."""
+def shared_card_single(dev, scale: int) -> dict:
+    """The mesh_single phase's side arm: gloo ranks sharing the card (NCCL
+    takes one rank a device), the 1D engine on 2 ranks and the 2D engine on
+    a 2x2 mesh, the two groups side by side; every source's distances and
+    tree equal to BfsEngine's on the card. Returns the phase line."""
     from tpu_bfs_torch.algorithms.bfs import BfsEngine
-    from tpu_bfs_torch.graph.generate import rmat_graph
-    from tpu_bfs_torch.parallel.mesh import launch
+    from tpu_bfs_torch.parallel.mesh import start
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     hub = int(np.argmax(g.degrees))
     draws = np.random.default_rng(7).choice(np.flatnonzero(g.degrees > 0), size=2, replace=False)
     sources = [hub] + [int(x) for x in draws]
+    t0 = time.perf_counter()
+    groups = [(ranks, shape, start(ranks, shared_card_single_rank, scale, shape, sources,
+                                   device=f"cuda:{dev.index or 0}", backend="gloo"))
+              for ranks, shape in ((2, 2), (4, (2, 2)))]
     ref = BfsEngine(g, device=dev)
     want = {s: ref.run(s) for s in sources}
     runs = []
-    for ranks, shape in ((2, 2), (4, (2, 2))):
-        t0 = time.perf_counter()
-        got, backend, where = launch(ranks, shared_card_single_rank, scale, shape, sources,
-                                     device=f"cuda:{dev.index or 0}", backend="gloo")
+    for ranks, shape, group in groups:
+        got, backend, where = group.result()
         for (exchange, s), (dist, parent) in got.items():
             require(np.array_equal(dist, want[s].distance)
                     and np.array_equal(parent, want[s].parent),
@@ -1179,8 +1292,8 @@ def phase_shared_card_single(dev, scale: int) -> None:
         runs.append({"mesh": "x".join(map(str, shape)) if isinstance(shape, tuple) else shape,
                      "ranks": ranks, "backend": backend, "device": where,
                      "exchanges": ["ring", "sparse"], "seconds": time.perf_counter() - t0})
-    emit({"phase": "mesh_single", "shared_card": True, "scale": scale, "sources": sources,
-          "equal_to": "BfsEngine on the card: distances and trees", "runs": runs})
+    return {"phase": "mesh_single", "shared_card": True, "scale": scale, "sources": sources,
+            "equal_to": "BfsEngine on the card: distances and trees", "runs": runs}
 
 
 def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> list:
@@ -1223,7 +1336,7 @@ def phase_packed(dev, k1, k2, g, sources, golden, trees, traversable, ptxas) -> 
                             "k1_launches": launches, "tree_s": tree_s,
                             "validated_lanes": list(range(len(sources)))}
         entries.append(k1_entry(
-            k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2,
+            k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2, g=g,
             name=f"K1 or, packed w {eng.w}",
             unit=f"one level of the packed engine: every bucket of the full ELL, w {eng.w}"))
         del eng, res
@@ -1255,6 +1368,8 @@ def phase_graph500(dev, k1, k2, scale: int, small_scale: int) -> None:
     require(r.validated, "graph500 validated no search")
     emit({"phase": "graph500", "scale": scale, "edge_factor": 16,
           "scale_cut": None if scale == 21 else f"scale {scale} instead of 21 (--graph500-scale)",
+          "edge_stream": "numpy (run_graph500 generates its graph as tpu_bfs/graph500.py:85 "
+                         "does)",
           "mode": r.mode, "searches": r.num_searches, "validated_searches": 4,
           "validated": r.validated, "hmean_gteps": r.harmonic_mean_teps / 1e9,
           "launches": launches, "graph_s": r.graph_s, "engine_build_s": r.engine_s,
@@ -1317,7 +1432,7 @@ def captured_k1(pc):
         pc.ell_expand = real
 
 
-def k1_gated_entry(k1, calls, launches: int, ptxas) -> dict:
+def k1_gated_entry(k1, g, calls, launches: int, ptxas) -> dict:
     """The kernels-line entry of K1 under the pull gate: every launch of one
     gated flagship batch replayed on its own mask, index table and frontier,
     against the twin bit for bit, then both timed over the whole batch. The
@@ -1367,7 +1482,7 @@ def k1_gated_entry(k1, calls, launches: int, ptxas) -> dict:
         "model_ms": model / HBM_BYTES_PER_S * 1e3,
         "unit": f"one gated flagship batch: {len(calls)} launches, {active} of {tiles} tiles "
                 "active",
-        "ptxas": ptxas.get("ell_expand.cu", []),
+        "ptxas": ptxas.get("ell_expand.cu", []), "edge_stream": stream_of(g),
     }
     k1.ell_expand.launches = saved  # comparisons do not count
     return entry
@@ -1642,7 +1757,7 @@ def phase_pullgate(dev, k1, k2, g, eng, sources, picks, wide, ptxas) -> dict:
     out["k1_gated_ms"] = sum(out["k1_gated_ms_per_level"])
     out["k1_ungated_ms"] = sum(out["k1_ungated_ms_per_level"])
     require(n_gated == len(calls) == launches["ell_expand"], "K1 launches differ between batches")
-    entry = k1_gated_entry(k1, calls, launches["ell_expand"], ptxas)
+    entry = k1_gated_entry(k1, g, calls, launches["ell_expand"], ptxas)
     del calls, geng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1702,7 +1817,7 @@ def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees) -> None:
 
 
 def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> None:
-    """Checkpoint and resume on the flagship graph: a 256-lane hybrid batch
+    """Checkpoint and resume on the flagship graph: a CKPT_LANES-lane hybrid batch
     started, advanced ``every`` levels, saved, loaded and resumed on the
     wide engine to its end, its finish equal to an uninterrupted hybrid run
     on every lane; ungated, then gated, whose checkpoint resumes from
@@ -1717,11 +1832,13 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
     d = BUILD_DIR / "ckpt"
     d.mkdir(parents=True, exist_ok=True)
     path = str(d / "state.npz")
-    src = np.asarray(sources[:256])
+    src = np.asarray(sources[:CKPT_LANES])
     out = {}
     for gate in (False, True):
-        heng = HybridMsBfsEngine(hg, lanes=256, num_planes=5, pull_gate=gate, device=dev)
-        weng = WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, pull_gate=gate, device=dev)
+        heng = HybridMsBfsEngine(hg, lanes=CKPT_LANES, num_planes=5, pull_gate=gate,
+                                 device=dev)
+        weng = WidePackedMsBfsEngine(ell, lanes=CKPT_LANES, num_planes=5, pull_gate=gate,
+                                     device=dev)
         full = heng.run(src)
         reset_counts(k1, k2)
         t_all = time.perf_counter()
@@ -1729,8 +1846,8 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
         require(not st.done, "the batch ended in its first chunk: nothing resumed")
         save_s, sizes, load_s = [], [], []
         if not gate:
-            # The file round trip once (one host zlib save is ~13 s at
-            # this size); the gated mode resumes the same checkpoint class
+            # The file round trip once (one host zlib save was ~13 s at
+            # 256 lanes); the gated mode resumes the same checkpoint class
             # from memory.
             t0 = time.perf_counter()
             ck.save_packed_checkpoint(path, st)
@@ -1748,11 +1865,9 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
         require(launches["ell_expand"] > 0 and launches["tile_spmm"] > 0,
                 f"the chunked batch skipped a kernel: {launches}")
         require(res.num_levels == full.num_levels, "resumed levels != uninterrupted")
-        require(np.array_equal(res.reached, full.reached) and np.array_equal(res.ecc, full.ecc),
-                "resumed reached/ecc != uninterrupted")
-        for i in range(len(src)):
-            require(np.array_equal(res.distance_u8_lane(i), full.distance_u8_lane(i)),
-                    f"resumed lane {i} distances != uninterrupted")
+        # Reached, ecc, levels and every lane's distances, compared on the
+        # device word by word (lane by lane on the host took 13 s).
+        same_lanes(weng, res, heng, full, "resumed vs uninterrupted")
         out["gated" if gate else "ungated"] = {
             "chunk_levels": levels, "save_s": save_s, "load_s": load_s, "file_bytes": sizes,
             "table_bytes": int(st.frontier.nbytes) * (2 + len(st.planes)),
@@ -1793,7 +1908,7 @@ def phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_source, every: int) -> 
             and (got.reached, got.num_levels) == (want.reached, want.num_levels),
             "result round trip")
     shutil.rmtree(d)
-    emit({"phase": "ckpt", "graph": "the flagship graph", "lanes": 256, "every": every,
+    emit({"phase": "ckpt", "graph": "the flagship graph", "lanes": CKPT_LANES, "every": every,
           "packed": out, "single": {"backend": "scan", "source": int(single_source),
                                     "resumed_at": 2, "levels": r.num_levels,
                                     "equal_to_run": True},
@@ -1835,24 +1950,27 @@ def profile_kernels(prof_dir: Path, want) -> dict:
                                                if any(k in n for k in want)})}
 
 
-def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
-    """The operations surface (see the module docstring, phase 18)."""
-    from tpu_bfs_torch import faults, obs
-    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+def obs_sources(scale: int):
+    """The obs phase's graph spec and its 600 sources (default_rng(3) among
+    the vertices with an edge)."""
     from tpu_bfs_torch.cli import load_graph
-    from tpu_bfs_torch.ops._build import BUILD_DIR
-    from tpu_bfs_torch.utils.recovery import COUNTERS
 
-    t_phase = time.perf_counter()
-    d = BUILD_DIR / "obs"
-    d.mkdir(parents=True, exist_ok=True)
     spec = f"rmat:scale={scale}"
-    g = load_graph(spec)
-    live = np.flatnonzero(g.degrees > 0)
-    src = [int(x) for x in np.random.default_rng(3).choice(live, 600, replace=False)]
-    out = {"graph": spec}
+    live = np.flatnonzero(load_graph(spec).degrees > 0)
+    return spec, [int(x) for x in np.random.default_rng(3).choice(live, 600, replace=False)]
 
-    # The CLI as a subprocess: a gated hybrid batch, --stats --trace-out.
+
+def obs_cli(scale: int) -> dict:
+    """The obs phase's traced CLI run (a side arm): the port CLI as a
+    subprocess, a gated hybrid batch with --stats --trace-out and
+    --profile-dir; its trace line, its Perfetto level track and its
+    profiler trace checked."""
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+
+    spec, src = obs_sources(scale)
+    d = BUILD_DIR / "obs_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
     trace_path = d / "cli_trace.json"
     here = Path(__file__).resolve().parent
     prof_dir = d / "prof"
@@ -1877,10 +1995,27 @@ def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
     rows = [e for e in doc["traceEvents"] if e.get("cat") == "engine.level"]
     require([e["args"]["level"] for e in rows] == list(range(trace[0]["levels"])),
             f"Perfetto level track: {len(rows)} rows for {trace[0]['levels']} levels")
-    out["cli"] = {"engine": "hybrid", "lanes": 4096, "sources": len(src), "pull_gate": True,
-                  "seconds": cli_s, "trace": trace[0], "perfetto_level_rows": len(rows),
-                  "perfetto_events": len(doc["traceEvents"]),
-                  "profile": profile_kernels(prof_dir, ("ell_expand_kernel", "tile_spmm_kernel"))}
+    out = {"graph": spec, "engine": "hybrid", "lanes": 4096, "sources": len(src),
+           "pull_gate": True, "seconds": cli_s, "trace": trace[0],
+           "perfetto_level_rows": len(rows), "perfetto_events": len(doc["traceEvents"]),
+           "profile": profile_kernels(prof_dir, ("ell_expand_kernel", "tile_spmm_kernel"))}
+    shutil.rmtree(d)
+    return out
+
+
+def phase_obs(dev, k1, k2, ell, traversable, scale: int) -> None:
+    """The operations surface (see the module docstring, phase 18); the
+    traced CLI subprocess is a side arm (obs_cli)."""
+    from tpu_bfs_torch import faults, obs
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.utils.recovery import COUNTERS
+
+    t_phase = time.perf_counter()
+    d = BUILD_DIR / "obs"
+    d.mkdir(parents=True, exist_ok=True)
+    spec, src = obs_sources(scale)
+    out = {"graph": spec}
 
     # A 256-lane gated wide batch on the flagship ELL, recorder disarmed and
     # armed in turns (an armed fetch copies the gate counters off the card).
@@ -1979,7 +2114,7 @@ def phase_khop(dev, k1, k2, g, eng, sources) -> np.ndarray:
             f"khop: {res.num_levels} levels, {launches['tile_spmm']} K2 launches")
     picks = [0, len(sources) // 2, len(sources) - 1]
     t0 = time.perf_counter()
-    d = csgraph.dijkstra(g.to_scipy(), unweighted=True, indices=sources[picks], limit=3.0)
+    d = csgraph.dijkstra(oracle_matrix(g), unweighted=True, indices=sources[picks], limit=3.0)
     want = np.isfinite(d).sum(axis=1)
     require(np.array_equal(res.reached[picks], want),
             f"khop reached {res.reached[picks].tolist()} != SciPy {want.tolist()}")
@@ -2017,9 +2152,10 @@ def same_lanes(eng_a, res_a, eng_b, res_b, name: str) -> int:
     return n
 
 
-def k2_entry(k2, arrs, fw, prior, num_row_tiles: int, launches: int, ptxas, *, name: str,
+def k2_entry(k2, arrs, fw, prior, num_row_tiles: int, launches: int, ptxas, *, g, name: str,
              unit: str) -> dict:
-    """A kernels-line entry of K2 over ``arrs``' dense tiles against frontier
+    """A kernels-line entry of K2 over ``arrs``' dense tiles (built from
+    graph ``g``, whose edge stream it names) against frontier
     ``fw``, ORing into ``prior`` as the engines do: the kernel against its
     twin, bit for bit, then both timed. The bound reads the named column
     slabs, the tiles and the touched output rows and writes those rows,
@@ -2054,7 +2190,7 @@ def k2_entry(k2, arrs, fw, prior, num_row_tiles: int, launches: int, ptxas, *, n
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         "model_ms": k2.tile_spmm_hbm_bytes(nt, num_row_tiles, fw.shape[1])
         / HBM_BYTES_PER_S * 1e3,
-        "unit": unit, "ptxas": ptxas.get("tile_spmm.cu", []),
+        "unit": unit, "ptxas": ptxas.get("tile_spmm.cu", []), "edge_stream": stream_of(g),
     }
     k2.tile_spmm.launches = saved  # comparisons do not count
     return entry
@@ -2116,11 +2252,11 @@ def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas
     arrs, spec = meng.arrs, meng.hd["res_spec"]
     names = (["virtual"] if spec.heavy else []) + [f"light{i}" for i in
                                                    range(len(spec.light_meta))]
-    entries = [k1_entry(k1, arrs, names, fw, "or", launches["ell_expand"], ptxas,
+    entries = [k1_entry(k1, arrs, names, fw, "or", launches["ell_expand"], ptxas, g=g,
                         name="K1 or, mesh shard", unit="one level: every bucket of the "
                         "rank's residual shard (one rank)")]
     prior = meng._expand(arrs, fw).index_select(0, arrs["perm"])
-    entries.append(k2_entry(k2, arrs, fw, prior, meng._nrt, launches["tile_spmm"], ptxas,
+    entries.append(k2_entry(k2, arrs, fw, prior, meng._nrt, launches["tile_spmm"], ptxas, g=g,
                             name="K2, mesh shard", unit="one launch on the rank's row "
                             "tiles, out= form (one rank)"))
     del fw, prior
@@ -2170,7 +2306,6 @@ def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas
     del hyb, hres
     gc.collect()
     torch.cuda.empty_cache()
-    phase_shared_card(dev, wide_scale)
     return entries
 
 
@@ -2178,10 +2313,9 @@ def shared_card_rank(mesh, scale: int, lanes: int):
     """Rank entry of the shared-card check: DistHybridMsBfsEngine (dense
     exchange) at RMAT ``scale`` with the bench's hub sources; returns the
     reached counts, eccentricities and three lanes' distances."""
-    from tpu_bfs_torch.graph.generate import rmat_graph
     from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     eng = DistHybridMsBfsEngine(g, mesh, lanes=lanes)
     sources = np.random.default_rng(3).choice(np.flatnonzero(g.degrees > 0), size=lanes)
     res = eng.run(sources)
@@ -2190,29 +2324,27 @@ def shared_card_rank(mesh, scale: int, lanes: int):
             picks, mesh.backend, str(mesh.device))
 
 
-def phase_shared_card(dev, scale: int, ranks: int = 2) -> dict:
-    """Several gloo ranks on the one card (NCCL takes one rank a device):
-    their DistHybridMsBfsEngine run equals a single-device batch."""
+def shared_card(dev, scale: int, ranks: int = 2) -> dict:
+    """The mesh phase's side arm: several gloo ranks on the one card (NCCL
+    takes one rank a device); their DistHybridMsBfsEngine run equals a
+    single-device batch. Returns the phase line."""
     from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
-    from tpu_bfs_torch.graph.generate import rmat_graph
-    from tpu_bfs_torch.parallel.mesh import launch
+    from tpu_bfs_torch.parallel.mesh import start
 
     t0 = time.perf_counter()
-    sources, reached, ecc, dists, picks, backend, where = launch(
-        ranks, shared_card_rank, scale, 4096, device=f"cuda:{dev.index or 0}", backend="gloo")
+    group = start(ranks, shared_card_rank, scale, 4096, device=f"cuda:{dev.index or 0}",
+                  backend="gloo")
+    eng = HybridMsBfsEngine(rmat(scale), lanes=4096, num_planes=5, device=dev)
+    sources, reached, ecc, dists, picks, backend, where = group.result()
     mesh_s = time.perf_counter() - t0
-    eng = HybridMsBfsEngine(rmat_graph(scale, 16, seed=1), lanes=4096, num_planes=5,
-                            device=dev)
     res = eng.run(sources)
     require(np.array_equal(reached, res.reached) and np.array_equal(ecc, res.ecc),
             "shared card: reached or ecc != single-device")
     require(all(np.array_equal(d, res.distances_int32(i)) for d, i in zip(dists, picks)),
             "shared card: distances != single-device")
-    out = {"phase": "mesh", "shared_card": True, "ranks": ranks, "backend": backend,
-           "device": where, "scale": scale, "lanes": 4096, "seconds": mesh_s,
-           "validated_lanes": picks}
-    emit(out)
-    return out
+    return {"phase": "mesh", "shared_card": True, "ranks": ranks, "backend": backend,
+            "device": where, "scale": scale, "lanes": 4096, "seconds": mesh_s,
+            "validated_lanes": picks}
 
 
 def phase_sssp(dev, k1, k2, g, traversable, ptxas):
@@ -2229,7 +2361,8 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas):
     from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
 
     t0 = time.perf_counter()
-    gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
+    gw = tagged(dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8)),
+                stream_of(g))
     weights_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = SsspEngine(gw, lanes=256, device=dev)
@@ -2277,7 +2410,7 @@ def phase_sssp(dev, k1, k2, g, traversable, ptxas):
     fw = res._dist
     require(int(fw[-1].min()) == int(INF_W), "the sentinel row is not all INF")
     entry = k1_entry(k1, eng.arrs, names, fw, "minplus", launches["ell_expand"], ptxas,
-                     wsuf="wl", name="K1 minplus, sssp w 256",
+                     g=gw, wsuf="wl", name="K1 minplus, sssp w 256",
                      unit="one light sweep: every bucket of the full ELL, w 256, "
                           "the run's distances against its light-plane tables")
     # The heavy close runs K1 over the full-weight plane at the same shapes.
@@ -2308,7 +2441,7 @@ def phase_cc(dev, k1, k2, g, ell, lanes: int):
     launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
     require(launches["ell_expand"] > 0 and launches["tile_spmm"] == 0, f"cc: {launches}")
     t0 = time.perf_counter()
-    nc, lbl = csgraph.connected_components(g.to_scipy(), directed=False)
+    nc, lbl = csgraph.connected_components(oracle_matrix(g), directed=False)
     smallest = np.full(nc, g.num_vertices)
     np.minimum.at(smallest, lbl, np.arange(g.num_vertices))
     require(n == nc, f"cc: {n} components, SciPy {nc}")
@@ -2341,7 +2474,6 @@ def phase_p2p(dev, k1, k2, g, ell, traversable):
     SciPy's, and the levels expanded are below those sources' BFS depth.
     Returns the pairs and every pair's answer."""
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.workloads.p2p import P2pServeEngine
 
     eng = P2pServeEngine(WidePackedMsBfsEngine(ell, lanes=256, num_planes=5, device=dev))
@@ -2363,10 +2495,9 @@ def phase_p2p(dev, k1, k2, g, ell, traversable):
             f"p2p: {launches} K1 launches, not {buckets} x ({levels} levels + {passes} scans)")
     walk_paths(g, res, s, t, "p2p")
     t0 = time.perf_counter()
-    csr = g.to_scipy()
     depth = []
     for i in range(4):
-        d = bfs_scipy(g, int(s[i]), csr=csr)
+        d = scipy_bfs(g, int(s[i]))
         require(res.extras(i)["distance"] == int(d[t[i]]), f"p2p pair {i} != SciPy")
         depth.append(int(d[d != np.iinfo(np.int32).max].max()))
     require(levels < min(depth), f"p2p expanded {levels} levels, BFS depth {depth}")
@@ -2426,9 +2557,9 @@ def shared_card_kinds_rank(mesh, scale: int):
 
 def shared_kinds_inputs(scale: int):
     """The shared-card check's graph, weighted graph and 256 sources."""
-    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
+    from tpu_bfs_torch.graph.generate import edge_weights
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
     src = np.random.default_rng(7).choice(np.flatnonzero(g.degrees > 0), size=256,
                                           replace=False)
@@ -2436,21 +2567,18 @@ def shared_kinds_inputs(scale: int):
 
 
 def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p2p,
-                     ptxas, small_scale: int) -> dict:
+                     ptxas) -> dict:
     """Every workload kind on a one-rank NCCL group on cuda:0 at the
-    flagship's full size (see the module docstring, phase 16), then on gloo
-    ranks sharing the card. Returns the "K1 minplus, mesh shard, w 256"
-    kernels entry."""
-    from tpu_bfs_torch.algorithms.bfs import BfsEngine
-    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    flagship's full size (see the module docstring, phase 16; gloo ranks
+    sharing the card are a side arm, shared_card_kinds). Returns the "K1
+    minplus, mesh shard, w 256" kernels entry."""
     from tpu_bfs_torch.graph.ell import build_ell_sharded, build_ell_weights_sharded
     from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
     from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
-    from tpu_bfs_torch.parallel.mesh import close_mesh, launch, make_mesh
+    from tpu_bfs_torch.parallel.mesh import close_mesh, make_mesh
     from tpu_bfs_torch.workloads.cc import connected_components
     from tpu_bfs_torch.workloads.khop import KhopServeEngine
     from tpu_bfs_torch.workloads.p2p import P2pServeEngine
-    from tpu_bfs_torch.workloads.sssp import SsspEngine
 
     t_phase = time.perf_counter()
     gw, src, ref, ref_res = sssp["graph"], sssp["sources"], sssp["engine"], sssp["result"]
@@ -2523,7 +2651,7 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
                     "peak_above_start_gb": peak_gb})
         if entry is None:
             entry = k1_entry(k1, eng.arrs, names, res._dist, "minplus", launches["ell_expand"],
-                             ptxas, wsuf="wl", name="K1 minplus, mesh shard, w 256",
+                             ptxas, g=gw, wsuf="wl", name="K1 minplus, mesh shard, w 256",
                              unit="one light sweep: every bucket of the rank's shard, w 256, "
                                   "the run's distances against its light-plane tables")
             entry["heavy_close_max_abs_err"] = k1_check(
@@ -2584,29 +2712,40 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
           "validated": "sssp: every lane = SsspEngine's, 2 lanes = dijkstra; cc labels, khop "
                        "reached and p2p answers = the single-device phases'; every p2p path "
                        "walked", "seconds": time.perf_counter() - t_phase})
-    # Two gloo ranks sharing the card, correctness only.
+    return entry
+
+
+def shared_card_kinds(dev, small_scale: int) -> dict:
+    """The mesh_kinds phase's side arm: two gloo ranks sharing the card,
+    correctness only (see the module docstring, phase 16). Returns the
+    phase line."""
+    from tpu_bfs_torch.algorithms.bfs import BfsEngine
+    from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
+    from tpu_bfs_torch.parallel.mesh import start
+    from tpu_bfs_torch.workloads.khop import KhopServeEngine
+    from tpu_bfs_torch.workloads.sssp import SsspEngine
+
     t0 = time.perf_counter()
-    dists, rounds, trees, reached, backend, where = launch(
-        2, shared_card_kinds_rank, small_scale, device=f"cuda:{dev.index or 0}", backend="gloo")
-    mesh_s = time.perf_counter() - t0
+    group = start(2, shared_card_kinds_rank, small_scale, device=f"cuda:{dev.index or 0}",
+                  backend="gloo")
     g2, gw2, src2 = shared_kinds_inputs(small_scale)
     want = SsspEngine(gw2, lanes=64, device=dev).run(src2[:64])
+    bfs = BfsEngine(g2, device=dev)
+    kw = KhopServeEngine(WidePackedMsBfsEngine(g2, lanes=256, device=dev)).run(src2, k=3)
+    dists, rounds, trees, reached, backend, where = group.result()
+    mesh_s = time.perf_counter() - t0
     require(rounds == want.rounds and all(
         np.array_equal(d, want.distances_int32(i)) for i, d in enumerate(dists)),
         "shared card: DistSsspEngine != SsspEngine")
-    bfs = BfsEngine(g2, device=dev)
     for s0, (dist, parent) in trees.items():
         r = bfs.run(s0)
         require(np.array_equal(dist, r.distance) and np.array_equal(parent, r.parent),
                 f"shared card: DistBfsEngine planner from {s0} != BfsEngine")
-    kw = KhopServeEngine(WidePackedMsBfsEngine(g2, lanes=256, device=dev)).run(src2, k=3)
     require(np.array_equal(reached, kw.reached), "shared card: mesh khop != wide khop")
-    emit({"phase": "mesh_kinds", "shared_card": True, "ranks": 2, "backend": backend,
-          "device": where, "scale": small_scale, "seconds": mesh_s,
-          "equal_to": "SsspEngine (64 lanes), BfsEngine (3 sources, trees), "
-                      "WidePackedMsBfsEngine k-hop (256 lanes)",
-          "phase_seconds": time.perf_counter() - t_phase})
-    return entry
+    return {"phase": "mesh_kinds", "shared_card": True, "ranks": 2, "backend": backend,
+            "device": where, "scale": small_scale, "seconds": mesh_s,
+            "equal_to": "SsspEngine (64 lanes), BfsEngine (3 sources, trees), "
+                        "WidePackedMsBfsEngine k-hop (256 lanes)"}
 
 
 def closed_loop(svc, picks) -> tuple[list, float]:
@@ -2716,7 +2855,6 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
     """bench_serve's closed loop on the flagship graph, pipelined then not,
     every answer held to the 256-lane rung engine's direct batches (8 rows
     of distances too, 3 to SciPy's)."""
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.serve import BfsService
 
     picks = np.random.default_rng(7).choice(
@@ -2773,9 +2911,8 @@ def serve_flagship(dev, k1, k2, g, traversable, reg) -> dict:
             levels = direct[int(batch[0])][2].num_levels
             split = extract_split(eng, direct[int(batch[0])][2])
         compared = same_as_direct(flat, direct, f"serve loop ({key})", sample=8)
-        csr = g.to_scipy()
         for r in [r for r in flat if r.distances is not None][:3]:
-            require(np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+            require(np.array_equal(r.distances, scipy_bfs(g, r.source)),
                     f"serve loop ({key}): source {r.source} != SciPy")
         if preheated:
             aot_b.update(qps=len(flat) / seconds, queries=len(flat),
@@ -2884,13 +3021,10 @@ def serve_corruption(dev, k1, k2, scale: int) -> dict:
     dump naming the query, every later answer equal to SciPy's), then
     corrupt_wire caught by the checksum of the audited row's copy."""
     from tpu_bfs_torch import faults, obs
-    from tpu_bfs_torch.graph.generate import rmat_graph
     from tpu_bfs_torch.ops._build import BUILD_DIR
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.serve import BfsService, EngineRegistry
 
-    g = rmat_graph(scale, 16, seed=1)
-    csr = g.to_scipy()
+    g = rmat(scale)
     live = np.flatnonzero(g.degrees > 0)
     src = [int(x) for x in np.random.default_rng(5).choice(live, 10, replace=False)]
     reg = EngineRegistry(capacity=8, device=dev)
@@ -2931,14 +3065,14 @@ def serve_corruption(dev, k1, k2, scale: int) -> dict:
         require(after["audit_failures"] == 1 and after["quarantines"] == 1,
                 f"{name}: findings after the quarantine: {after}")
         for r in later:
-            require(r.ok and np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+            require(r.ok and np.array_equal(r.distances, scipy_bfs(g, r.source)),
                     f"{name}: a later answer ({r.source}) != SciPy")
         entry = {"spec": spec, **kw, "fired": fired, "audit_failures": snap["audit_failures"],
                  "quarantines": snap["quarantines"], "breaker_open": snap["breaker_open"],
                  "later_answers_equal_scipy": len(later), "audits_run": after["audits_run"],
                  "seconds": time.perf_counter() - t0}
         if name == "corrupt_result":
-            require(not np.array_equal(first.distances, bfs_scipy(g, src[0], csr=csr)),
+            require(not np.array_equal(first.distances, scipy_bfs(g, src[0])),
                     "the corrupted answer equals SciPy's")
             dumped = "\n".join(p.read_text() for p in sorted(dump.glob("*.jsonl")))
             require('"corruption"' in dumped and f'"{name}-0"' in dumped,
@@ -2978,7 +3112,7 @@ def serve_w2_batch(dev, k1, k2, g, reg, picks, direct, ptxas) -> dict:
     names = bucket_names(eng.ell)
     require(launches == len(names) * (run.num_levels + 1),
             f"w 2 batch: {launches} K1 launches, not {len(names)} x {run.num_levels + 1}")
-    entry = k1_entry(k1, eng.arrs, names, run._vis, "or", launches, ptxas, plain_reps=2,
+    entry = k1_entry(k1, eng.arrs, names, run._vis, "or", launches, ptxas, plain_reps=2, g=g,
                      name="K1 or, serve rung w 2",
                      unit="one level of the serve ladder's 64-lane rung: every bucket "
                           "of the full ELL, w 2, the batch's visited table")
@@ -3040,11 +3174,16 @@ def serve_jsonl(dev) -> tuple[dict, dict]:
 
     killers = [threading.Timer(420, proc.kill)]
     killers[0].start()
+    fleet_pool, fleet_f = ThreadPoolExecutor(1), None
     try:
         proc.stdin.write("\n".join(lines) + "\n")
         proc.stdin.flush()
         got = [json.loads(proc.stdout.readline()) for _ in lines]
         answered_s = time.perf_counter() - t0
+        # The fleet arm beside (d): both only read the store the first
+        # server exported before it answered.
+        fleet_f = fleet_pool.submit(serve_fleet, dev, eng, server, store,
+                                    [dict(r) for r in got], lines)
         # (d) The warm handoff: the successor preheats from the first
         # server's store; the handoff drains the first server only once the
         # successor is READY.
@@ -3075,6 +3214,7 @@ def serve_jsonl(dev) -> tuple[dict, dict]:
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait()
+        fleet_pool.shutdown(wait=True)  # the fleet closes its replicas itself
     require(proc.returncode == 0, f"serve subprocess exited {proc.returncode}: {err[-2000:]}")
     require("SIGTERM received: draining" in err, "no SIGTERM drain in the server's log")
     final = [ln for ln in err.splitlines() if ln.startswith("statsz ")]
@@ -3117,10 +3257,83 @@ def serve_jsonl(dev) -> tuple[dict, dict]:
              "successor_ready_s": record["value"], "handoff_s": handoff_s,
              "answers_equal": len(got2), "old_server": "SIGTERM after READY, drained, exit 0"}
     aot_c = aot_corrupt_arm(dev, spec, store, want, (0, 5, 9))
+    fleet = fleet_f.result()
     shutil.rmtree(store, ignore_errors=True)
     return ({"graph": spec, "V": v, "lines": len(lines), "answered_s": answered_s,
              "drain": "SIGTERM (the warm handoff), final statsz, exit 0", "xprof": profile},
-            {"c": aot_c, "d": aot_d})
+            {"c": aot_c, "d": aot_d, "fleet": fleet})
+
+
+def serve_fleet(dev, eng, server, store, one_shot, lines) -> dict:
+    """The aot phase's fleet arm, on (d)'s graph and store:
+    ``tools.fleet_supervisor`` over 2 ``--preheat`` replicas of the JSONL
+    server on the card. FLEET_QUERIES queries, one replica SIGKILLed once
+    half of them are submitted (its unanswered ones requeue onto the
+    sibling): every query answered exactly once, the JSON lines among them
+    equal to the first server's one-shot answers, the rest's reached and
+    levels equal to the 32-lane engine's; one restart, the replacement
+    READY-gated; each replica's seconds to READY."""
+    from tpu_bfs_torch.tools.fleet_supervisor import FleetSupervisor
+
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    queries = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    shown = {q["id"] for q in queries}
+    rng = np.random.default_rng(17)
+    extra = rng.choice(eng.ell.num_vertices, FLEET_QUERIES - len(queries), replace=False)
+    queries += [{"id": f"x{i}", "source": int(s), "want_distances": False}
+                for i, s in enumerate(extra)]
+    direct = eng.run(extra)
+    responses, logs = [], []
+    fleet = FleetSupervisor(["env", f"PYTHONPATH={here}", *server, "--preheat", str(store)],
+                            replicas=2, ready_timeout=300.0, term_wait=60.0,
+                            emit=responses.append, log=logs.append)
+    try:
+        fleet.start()
+        half = len(queries) // 2
+        for q in queries[:half]:
+            fleet.submit(q)
+        first = list(fleet._replicas)
+        victim = first[0]
+        victim.proc.kill()  # SIGKILL, its queries in flight
+        for q in queries[half:]:
+            fleet.submit(q)
+        require(fleet.wait_drained(300.0), "the fleet left queries unanswered: "
+                + " | ".join(logs[-10:]))
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline and not (
+                fleet.restarts == 1
+                and sum(r.ready.is_set() and r.alive() for r in fleet._replicas) == 2):
+            time.sleep(0.1)
+        replacement = [r for r in fleet._replicas if r not in first and r.ready_s is not None]
+        summary = fleet.summary()
+    finally:
+        fleet.close()
+    require(summary["restarts"] == 1 and len(replacement) == 1,
+            f"fleet restarts {summary}; " + " | ".join(logs[-10:]))
+    ids = [r.get("id") for r in responses]
+    require(len(ids) == len(queries) and len(set(map(str, ids))) == len(queries),
+            f"fleet: {len(ids)} responses for {len(queries)} queries, not exactly once")
+    require(summary["served"] == len(queries) and summary["failed"] == 0,
+            f"fleet summary {summary}")
+    by_id = {r["id"]: dict(r) for r in responses}
+    for r in list(by_id.values()) + list(one_shot):
+        for key in ("latency_ms", "batch_lanes"):  # the batch it rode in, not the answer
+            r.pop(key, None)
+    for r in one_shot:
+        if r.get("id") in shown:
+            require(by_id[r["id"]] == r, f"fleet answer {r['id']} != the one-shot answer")
+    for i in range(len(extra)):
+        r = by_id[f"x{i}"]
+        require(r["status"] == "ok" and (r["reached"], r["levels"])
+                == (int(direct.reached[i]), int(direct.ecc[i])),
+                f"fleet query x{i}: {r} != the engine's")
+    return {"replicas": 2, "queries": len(queries), "killed": "SIGKILL, queries in flight",
+            "requeues": summary["requeues"], "restarts": summary["restarts"],
+            "served": summary["served"], "failed": summary["failed"],
+            "first_ready_s": sorted(r.ready_s for r in first), "replacement_ready_s": replacement[0].ready_s,
+            "one_shot_equal": len(shown), "engine_equal": len(extra),
+            "seconds": time.perf_counter() - t0}
 
 
 def serve_chaos(dev, g, reg, picks, direct) -> dict:
@@ -3159,11 +3372,10 @@ def serve_kinds(dev, k1, k2, scale: int) -> dict:
     kind's engine run directly; a hybrid service (K2 on the serve path),
     64 queries; and the answer tier (a repeat is a cache hit, a
     landmark-exact p2p pair resolves without a dispatch)."""
-    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
-    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.graph.generate import edge_weights
     from tpu_bfs_torch.serve import BfsService, EngineRegistry
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     gw = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
     rng = np.random.default_rng(7)
     live = np.flatnonzero(g.degrees > 0)
@@ -3246,7 +3458,7 @@ def serve_kinds(dev, k1, k2, scale: int) -> dict:
     pair = csvc.query(lm, kind="p2p", target=src[1], timeout=600)
     snap = csvc.statsz()
     csvc.close()
-    want = int(bfs_scipy(g, lm)[src[1]])
+    want = int(scipy_bfs(g, lm)[src[1]])
     require(pair.ok and pair.extras.get("landmark") and pair.extras["distance"] == want
             and pair.batch_lanes == 0 and snap["batches"] == before,
             f"landmark pair: {pair.extras}, batches {before} -> {snap['batches']}")
@@ -3259,9 +3471,10 @@ def serve_kinds(dev, k1, k2, scale: int) -> dict:
             "landmark_exact": snap["landmark_exact"], "answer_tier_s": time.perf_counter() - t0}
 
 
-def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
-    """The serve tier (see the module docstring, phase 17). Returns the
-    "K1 or, serve rung w 2" kernels entry."""
+def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> tuple:
+    """The serve tier in this process (see the module docstring, phase 17;
+    its JSONL act is a side arm). Returns the "K1 or, serve rung w 2"
+    kernels entry and the aot phase's (b)."""
     from tpu_bfs_torch.serve import EngineRegistry
 
     t_phase = time.perf_counter()
@@ -3281,16 +3494,65 @@ def phase_serve(dev, k1, k2, g, traversable, wide_scale: int, ptxas) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    jsonl, aot_cd = serve_jsonl(dev)
-    jsonl["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     kinds = serve_kinds(dev, k1, k2, wide_scale)
     kinds["seconds"] = time.perf_counter() - t0
-    emit({"phase": "serve", "jsonl": jsonl, "small": kinds,
-          "phase_seconds": time.perf_counter() - t_phase})
+    # The JSONL act (with the aot phase's (c), (d) and fleet arm) is a side arm.
+    emit({"phase": "serve", "small": kinds, "phase_seconds": time.perf_counter() - t_phase})
     gc.collect()
     torch.cuda.empty_cache()
-    return entry, {"b": aot_b, **aot_cd}
+    return entry, aot_b
+
+
+def phase_side(dev, wide_scale: int, kinds_scale: int) -> dict:
+    """The side arms, each driving processes of its own (servers, a CLI,
+    gloo ranks), run side by side in threads while this process's own
+    phases wait, so no kernel timing of theirs overlaps them: the serve
+    phase's JSONL act with the aot phase's (c), (d) and fleet arm
+    (serve_jsonl), the obs phase's traced CLI (obs_cli), the mesh_serve
+    phase's (d) (mesh_serve_jsonl) and the gloo ranks sharing the card of
+    the mesh, mesh_single and mesh_kinds phases. One line each, in that
+    order; the seconds of every arm run beside the others (their ready and
+    answer times include the shared host). Returns the aot arms (c), (d) and
+    fleet."""
+    def yielding(fn):
+        def run():
+            # The JSONL act is the longest chain (three process starts one
+            # after another): this arm's thread, and the processes it starts,
+            # take the cores it leaves (Linux sets a thread's nice value).
+            os.nice(10)
+            return fn()
+        return run
+
+    t0 = time.perf_counter()
+    arms = {
+        "jsonl": lambda: serve_jsonl(dev),
+        "obs_cli": yielding(lambda: obs_cli(wide_scale)),
+        "mesh_serve_jsonl": yielding(lambda: mesh_serve_jsonl(dev)),
+        "shared_card": yielding(lambda: shared_card(dev, wide_scale)),
+        "shared_card_single": yielding(lambda: shared_card_single(dev, wide_scale)),
+        "shared_card_kinds": yielding(lambda: shared_card_kinds(dev, kinds_scale)),
+    }
+
+    def timed(fn):
+        t1 = time.perf_counter()
+        return fn(), time.perf_counter() - t1
+
+    with ThreadPoolExecutor(len(arms)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in arms.items()}
+        # Every arm ends (its own timeouts bound it) before a failure is raised.
+        done = {name: f.exception() or f.result() for name, f in futures.items()}
+    failed = [(name, x) for name, x in done.items() if isinstance(x, BaseException)]
+    if failed:
+        raise failed[0][1]
+    seconds = time.perf_counter() - t0
+    side = {"arms_seconds": {name: x[1] for name, x in done.items()}, "seconds": seconds}
+    (jsonl, aot_cd), _ = done["jsonl"]
+    emit({"phase": "serve", "jsonl": {**jsonl, "seconds": done["jsonl"][1]}, "side": side})
+    emit({"phase": "obs", "cli": done["obs_cli"][0], "side": side})
+    emit({"phase": "mesh_serve", **done["mesh_serve_jsonl"][0], "side": side})
+    for name in ("shared_card", "shared_card_single", "shared_card_kinds"):
+        emit({**done[name][0], "side": side})
+    return aot_cd
 
 
 # --- the aot phase --------------------------------------------------------------
@@ -3335,7 +3597,7 @@ def aot_flagship(dev, k1, k2, eng, sources, flagship_entries) -> tuple[dict, lis
     root = BUILD_DIR / "aot_flagship"
     shutil.rmtree(root, ignore_errors=True)
     store = aot.ArtifactStore(root)
-    spec = {"graph_key": "rmat:scale=21,ef=16,seed=1", "engine": "hybrid",
+    spec = {"graph_key": "rmat:scale=21,ef=16,seed=1,impl=native", "engine": "hybrid",
             "lanes": eng.lanes, "planes": eng.num_planes}
     inventory = eng.export_programs()
     require([n for n, *_ in inventory] == AOT_NAMES, f"inventory {inventory}")
@@ -3561,14 +3823,14 @@ def mesh_serve_tables(rank, eng, sources):
     return (eng._exchange_rows(res._vis, 0),)
 
 
-def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
+def mesh_serve_wide(dev, k1, k2, ctl, g, pool, ptxas):
     """(a) BfsService(devices=2) on the wide engine, 256 lanes, ladder
-    auto (64/256 at 2 ranks): JAX's bench_serve closed loop, every answer
-    held to a single-device WidePackedMsBfsEngine batch; then a 192-query
-    batch on the 256-lane rung and the "K1 or, mesh serve rung w 8
-    (shard)" entry on rank 0's own tables."""
+    auto (64/256 at 2 ranks): JAX's bench_serve closed loop over the first
+    SERVE_PER_CLIENT sources of each ``pool`` row, every answer held to a
+    single-device WidePackedMsBfsEngine batch of the whole pool; then a
+    MESH_SERVE_BURST-query batch on the 256-lane rung and the "K1 or, mesh
+    serve rung w 8 (shard)" entry on rank 0's own tables."""
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.serve import BfsService, EngineRegistry
 
     reg = EngineRegistry(capacity=8, device=dev)
@@ -3579,7 +3841,7 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
     require(svc.width_ladder == [64, 256], f"mesh ladder {svc.width_ladder}")
     reset_counts(k1, k2)
     commands = ctl.commands
-    flat, seconds = closed_loop(svc, picks)
+    flat, seconds = closed_loop(svc, pool[:, :SERVE_PER_CLIENT])
     launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
     commands = ctl.commands - commands
     snap = svc.statsz()
@@ -3589,11 +3851,10 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
     require(snap["completed"] == len(flat) and snap["errors"] == 0 and snap["devices"] == 2,
             f"statsz {snap}")
     single = WidePackedMsBfsEngine(g, lanes=256, num_planes=8, device=dev)
-    direct = direct_answers(single, picks.reshape(-1))
+    direct = direct_answers(single, pool.reshape(-1))
     compared = same_as_direct(flat, direct, "mesh serve loop", sample=8)
-    csr = g.to_scipy()
     for r in [r for r in flat if r.distances is not None][:3]:
-        require(np.array_equal(r.distances, bfs_scipy(g, r.source, csr=csr)),
+        require(np.array_equal(r.distances, scipy_bfs(g, r.source)),
                 f"mesh serve loop: source {r.source} != SciPy")
     for r in flat:
         _, _, res, i = direct[r.source]
@@ -3603,12 +3864,13 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
                 f"{r.edges} {r.wire_bytes}")
     rec = [{"source": r.source, "devices": r.devices, "edges": r.edges, "gteps": r.gteps,
             "wire_bytes": r.wire_bytes} for r in flat[:3]]
-    # The closed loop's batches fit the 64-lane rung: a 192-query batch
-    # queued before start() takes the 256-lane rung (w 8), whose K1 launches
-    # on rank 0's shard give the kernels entry.
+    # The closed loop's batches fit the 64-lane rung: a MESH_SERVE_BURST-query
+    # batch queued before start() takes the 256-lane rung (w 8), whose K1
+    # launches on rank 0's shard give the kernels entry.
     burst = BfsService(g, engine="wide", devices=2, lanes=256, width_ladder="auto",
                        registry=reg, device=dev, autostart=False)
-    batch = picks.reshape(-1)[:192]
+    batch = pool.reshape(-1)[:MESH_SERVE_BURST]
+    require(len(batch) == MESH_SERVE_BURST, f"a {len(batch)}-query burst")
     pend = [burst.submit(int(s)) for s in batch]
     reset_counts(k1, k2)
     burst.start()
@@ -3616,7 +3878,7 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
     w8_launches = k1.ell_expand.launches
     burst_routing = burst.statsz()["routing"]
     burst.close()
-    require(burst_routing == {"256": 1}, f"the 192-query batch routed {burst_routing}")
+    require(burst_routing == {"256": 1}, f"the {len(batch)}-query batch routed {burst_routing}")
     same_as_direct(wide_res, direct, "mesh serve w 8 batch", sample=2)
     # K1 on rank 0's shard of the 256-lane rung, its frontier the batch's
     # replicated visited table.
@@ -3628,18 +3890,19 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
     require(eng.w == 8 and fw.shape[1] == 8, f"the 256-lane rung has w {eng.w}")
     require(w8_launches > 0 and w8_launches % len(names) == 0,
             f"w 8 batch: {w8_launches} K1 launches over {len(names)} buckets")
-    entry = k1_entry(k1, eng.arrs, names, fw, "or", w8_launches, ptxas,
+    entry = k1_entry(k1, eng.arrs, names, fw, "or", w8_launches, ptxas, g=g,
                      name="K1 or, mesh serve rung w 8 (shard)",
                      unit="one level of the 2-rank serve ladder's 256-lane rung: every "
                           "bucket of rank 0's shard, w 8, the batch's visited table")
-    entry["launches_per"] = "one 192-query batch at the 256-lane rung (rank 0's launches)"
+    entry["launches_per"] = (f"one {len(batch)}-query batch at the 256-lane rung "
+                             f"(rank 0's launches)")
     out = {"arm": "a", "engine": "wide", "devices": 2, "lanes": 256, "ladder": [64, 256],
            "service_up_s": up_s, "queries": len(flat), "seconds": seconds,
            "qps": len(flat) / seconds, "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
            "fill_ratio": snap["fill_ratio"], "routing": snap["routing"],
            "batches": snap["batches"], "extract_p50_ms": snap["extract_p50_ms"],
            "launches_rank0": launches, "mesh_commands": commands,
-           "w8_batch": {"queries": 192, "routing": burst_routing,
+           "w8_batch": {"queries": len(batch), "routing": burst_routing,
                         "k1_launches_rank0": w8_launches},
            "rows_equal_direct": compared, "rows_equal_scipy": 3,
            "traversal_record_first3": rec,
@@ -3647,10 +3910,11 @@ def mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas):
     return entry, out, reg, direct
 
 
-def mesh_serve_chaos(dev, ctl, g, reg, picks, direct) -> dict:
+def mesh_serve_chaos(dev, ctl, g, reg, pool, direct) -> dict:
     """(b) The (a) service under device_lost@fetch@rank=1:n=1 armed after
-    start: it degrades 2 -> 1 with no failed query; a probe fault holds
-    mesh_restore(2) at 1; cleared, the service returns to 2 ranks."""
+    start, 16 clients on ``pool``'s first rows: it degrades 2 -> 1 with no
+    failed query; a probe fault holds mesh_restore(2) at 1; cleared, the
+    service returns to 2 ranks and 16 clients on the next rows."""
     from tpu_bfs_torch import faults
     from tpu_bfs_torch.serve import BfsService
     from tpu_bfs_torch.utils.recovery import COUNTERS
@@ -3661,7 +3925,7 @@ def mesh_serve_chaos(dev, ctl, g, reg, picks, direct) -> dict:
     try:
         faults.arm_from_spec("device_lost@fetch@rank=1:n=1")
         t0 = time.perf_counter()
-        hit, hit_s = closed_loop(svc, picks[:16, :4])
+        hit, hit_s = closed_loop(svc, pool[:16])
         snap1 = svc.statsz()
         require(snap1["devices"] == 1 and snap1["mesh_faults"] == 1
                 and snap1["mesh_degrades"] == 1 and snap1["errors"] == 0,
@@ -3673,7 +3937,7 @@ def mesh_serve_chaos(dev, ctl, g, reg, picks, direct) -> dict:
         faults.disarm()
         restored = svc.mesh_restore(2)
         require(restored and svc.statsz()["devices"] == 2, "restore after the probe cleared")
-        back, back_s = closed_loop(svc, picks[16:32, :4])
+        back, back_s = closed_loop(svc, pool[16:32])
         require(all(r.devices == 2 for r in back), "answers after the restore")
         snap2 = svc.statsz()
         chaos_s = time.perf_counter() - t0
@@ -3698,7 +3962,6 @@ def mesh_serve_dist2d(dev, ctl, g, src: int, spool: Path) -> dict:
     snapshot written to the spool reloads through the CRC check."""
     from tpu_bfs_torch import faults
     from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.resilience import resume
     from tpu_bfs_torch.serve import BfsService
     from tpu_bfs_torch.utils.checkpoint import load_checkpoint
@@ -3737,7 +4000,7 @@ def mesh_serve_dist2d(dev, ctl, g, src: int, spool: Path) -> dict:
         resume.ResumeCache.put, Dist2DBfsEngine.advance = put, advance
         resume.set_default_dir(None)
     require(r.ok and r.devices == 2, f"dist2d resume query: {r.status} {r.error} {r.devices}")
-    require(np.array_equal(r.distances, bfs_scipy(g, src)), "dist2d resume answer != SciPy")
+    require(np.array_equal(r.distances, scipy_bfs(g, src)), "dist2d resume answer != SciPy")
     require(snap["devices"] == 2 and snap["mesh_degrades"] == 1 and snap["errors"] == 0
             and snap["query_resumes"] >= 1, f"dist2d statsz {snap}")
     # The faulted chunk began at level 2 on the 4-rank mesh; the degraded
@@ -3760,11 +4023,11 @@ def mesh_serve_dist2d(dev, ctl, g, src: int, spool: Path) -> dict:
             "recompute_levels_at_most": 2}
 
 
-def mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas):
+def mesh_serve_hybrid(dev, k1, k2, ctl, g, pool, ptxas):
     """(e) BfsService(engine="hybrid", devices=2, lanes 4096, ladder auto):
-    three batches, every answer held to a single-device HybridMsBfsEngine
-    batch; then the "K2, mesh serve rung (shard)" entry on rank 0's row
-    tiles."""
+    MESH_SERVE_BURST of ``pool``'s sources in 64-query batches, every answer
+    held to a single-device HybridMsBfsEngine batch; then the "K2, mesh
+    serve rung (shard)" entry on rank 0's row tiles."""
     from tpu_bfs_torch.algorithms.msbfs_hybrid import HybridMsBfsEngine
     from tpu_bfs_torch.serve import BfsService, EngineRegistry
 
@@ -3774,7 +4037,8 @@ def mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas):
                      linger_ms=2.0, registry=reg, device=dev)
     up_s = time.perf_counter() - t0
     require(svc.width_ladder == [4096], f"hybrid mesh ladder {svc.width_ladder}")
-    srcs = picks.reshape(-1)[:192]
+    srcs = pool.reshape(-1)[:MESH_SERVE_BURST]
+    nbatch = -(-len(srcs) // 64)
     reset_counts(k1, k2)
     t0 = time.perf_counter()
     flat = []
@@ -3793,14 +4057,16 @@ def mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas):
     rung = reg.get(svc._spec(4096))
     fw, prior = ctl.build(2, mesh_serve_tables, rung, srcs)._local
     eng = rung._local
-    entry = k2_entry(k2, eng.arrs, fw, prior, eng._nrt, launches["tile_spmm"], ptxas,
+    entry = k2_entry(k2, eng.arrs, fw, prior, eng._nrt, launches["tile_spmm"], ptxas, g=g,
                      name="K2, mesh serve rung (shard)",
                      unit="one launch on rank 0's row tiles of the 2-rank serve ladder's "
                           "4096-lane hybrid rung, out= form")
-    entry["launches_per"] = "three batches of the 2-rank hybrid service (rank 0's launches)"
+    entry["launches_per"] = (f"{len(srcs)} queries in {nbatch} batches of the 2-rank hybrid "
+                             f"service (rank 0's launches)")
     del fw, prior
     return entry, {"arm": "e", "engine": "hybrid", "devices": 2, "lanes": 4096,
-                   "service_up_s": up_s, "queries": len(flat), "batches": snap["batches"],
+                   "service_up_s": up_s, "queries": len(flat), "submitted_batches": nbatch,
+                   "batches": snap["batches"],
                    "seconds": seconds, "launches_rank0": launches,
                    "rows_equal_direct": compared}
 
@@ -3854,43 +4120,42 @@ def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
     Returns the "K1 or, mesh serve rung w 8 (shard)" and "K2, mesh serve
     rung (shard)" kernels entries."""
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
-    from tpu_bfs_torch.graph.generate import rmat_graph
     from tpu_bfs_torch.ops._build import BUILD_DIR
     from tpu_bfs_torch.parallel.mesh import serve_mesh
 
     t_phase = time.perf_counter()
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     pilot = WidePackedMsBfsEngine(g, lanes=32, num_planes=8, device=dev)
     _, traversable = hub_component_sources(pilot, 32, seed=7, with_component=True)
     del pilot
-    picks = np.random.default_rng(7).choice(
-        traversable, size=(SERVE_CLIENTS, SERVE_PER_CLIENT), replace=False)
+    pool = np.random.default_rng(7).choice(
+        traversable, size=(SERVE_CLIENTS, MESH_SERVE_PER_CLIENT), replace=False)
     t0 = time.perf_counter()
     ctl = serve_mesh(4, device=str(dev))
     mesh_up_s = time.perf_counter() - t0
     note = (f"gloo ranks sharing {dev} (NCCL takes one rank a card): this measures the "
             f"mesh serving machinery, not multi-card scaling")
     try:
-        k1e, wide, reg, direct = mesh_serve_wide(dev, k1, k2, ctl, g, picks, ptxas)
+        k1e, wide, reg, direct = mesh_serve_wide(dev, k1, k2, ctl, g, pool, ptxas)
         emit({"phase": "mesh_serve", "graph": f"RMAT {scale} (cut from the flagship's 21)",
               "ranks_started": 4, "backend": ctl.backend, "mesh_up_s": mesh_up_s,
               "note": note, **wide})
-        chaos = mesh_serve_chaos(dev, ctl, g, reg, picks, direct)
+        chaos = mesh_serve_chaos(dev, ctl, g, reg, pool, direct)
         del reg, direct
         gc.collect()
         emit({"phase": "mesh_serve", **chaos})
-        k2e, hyb = mesh_serve_hybrid(dev, k1, k2, ctl, g, picks, ptxas)
+        k2e, hyb = mesh_serve_hybrid(dev, k1, k2, ctl, g, pool, ptxas)
         emit({"phase": "mesh_serve", **hyb})
         gc.collect()
         # A drawn source, not vertex 0: the registry's warm-up batch runs
         # from vertex 0 (and would drop a snapshot of it).
-        d2 = mesh_serve_dist2d(dev, ctl, g, int(picks[0, 0]), BUILD_DIR / "mesh_serve_spool")
+        d2 = mesh_serve_dist2d(dev, ctl, g, int(pool[0, 0]), BUILD_DIR / "mesh_serve_spool")
         emit({"phase": "mesh_serve", **d2})
     finally:
         ctl.close()
     torch.cuda.empty_cache()
-    jsonl = mesh_serve_jsonl(dev)
-    emit({"phase": "mesh_serve", **jsonl, "phase_seconds": time.perf_counter() - t_phase})
+    # (d), the JSONL subprocess, is a side arm (mesh_serve_jsonl).
+    emit({"phase": "mesh_serve", "phase_seconds": time.perf_counter() - t_phase})
     return [k1e, k2e]
 
 
@@ -3948,7 +4213,6 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
     materialize()."""
     from tpu_bfs_torch.algorithms.msbfs_wide import WidePackedMsBfsEngine
     from tpu_bfs_torch.graph.dynamic import DynamicGraph, make_overlay_fold
-    from tpu_bfs_torch.reference import bfs_scipy
     from tpu_bfs_torch.validate import check_distances
 
     t0 = time.perf_counter()
@@ -3997,9 +4261,8 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
         t0 = time.perf_counter()
         mat = dyn.materialize()
         mat_s = time.perf_counter() - t0
-        csr = mat.to_scipy()
         for i in picks:
-            check_distances(res.distances_int32(i), bfs_scipy(mat, int(src[i]), csr=csr))
+            check_distances(res.distances_int32(i), scipy_bfs(mat, int(src[i])))
         changed = changed_lanes(eng, prev, res)
         require(changed > 0, f"dynamic wide, {label}: no lane's distances changed")
         fold_ms = timed_fold(lambda e: make_overlay_fold(e, op="or"), eng, res._vis)
@@ -4011,7 +4274,7 @@ def dynamic_wide(dev, k1, k2, g, ell, traversable, ptxas):
             "k1_ms_per_level": k1_ev / (res.num_levels + 1), "fold_ms_per_level": fold_ms,
             "lanes_changed": changed, "validated_lanes": picks})
         prev = res
-    entry = k1_entry(k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2,
+    entry = k1_entry(k1, eng.arrs, names, res._vis, "or", launches, ptxas, plain_reps=2, g=g,
                      name="K1 or, dynamic wide w 8",
                      unit="one level of the overlay wide engine: every bucket of the full "
                           "ELL, w 8, before the plain-torch overlay fold")
@@ -4080,8 +4343,8 @@ def dynamic_sssp(dev, k1, k2, sssp, ptxas):
            "k1_launches": launches, "k1_ms_per_expansion": k1_ev / k1_n,
            "fold_ms_per_light_sweep": fold_ms, "lanes_changed": changed,
            "validated_lanes": picks, "validate_s": validate_s}
-    entry = k1_entry(k1, eng.arrs, names, res._dist, "minplus", launches, ptxas, wsuf="wl",
-                     name="K1 minplus, dynamic sssp w 256",
+    entry = k1_entry(k1, eng.arrs, names, res._dist, "minplus", launches, ptxas, g=gw,
+                     wsuf="wl", name="K1 minplus, dynamic sssp w 256",
                      unit="one light sweep of the overlay SsspEngine: every bucket of the "
                           "full ELL, w 256, before the plain-torch overlay fold")
     entry["heavy_close_max_abs_err"] = k1_check(
@@ -4103,11 +4366,10 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
 
     from tpu_bfs_torch import faults
     from tpu_bfs_torch.graph.csr import INF_DIST
-    from tpu_bfs_torch.graph.generate import edge_weights, rmat_graph
-    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.graph.generate import edge_weights
     from tpu_bfs_torch.serve import BfsService
 
-    g = rmat_graph(scale, 16, seed=1)
+    g = rmat(scale)
     g = dataclasses.replace(g, weights=edge_weights(*g.coo, seed=1, wmax=8))
     logs = []
     t0 = time.perf_counter()
@@ -4126,7 +4388,7 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
         def exact(s, name):
             mat = svc._dynamic.materialize()
             r = svc.query(int(s), timeout=600)
-            require(r.ok and np.array_equal(r.distances, bfs_scipy(mat, int(s))),
+            require(r.ok and np.array_equal(r.distances, scipy_bfs(mat, int(s))),
                     f"dynamic serve: {name}, source {s} != SciPy")
             return r
 
@@ -4199,7 +4461,7 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
                 and st["unmatched"] == len(unmatched), f"dynamic serve soak: staleness {st}")
         for served_gen, kind, src, dist in unmatched:
             require(kind == "bfs" and served_gen in kept
-                    and np.array_equal(dist, bfs_scipy(kept[served_gen], src)),
+                    and np.array_equal(dist, scipy_bfs(kept[served_gen], src)),
                     f"dynamic serve soak: a {kind} answer for source {src} stamped "
                     f"generation {served_gen} matches no ringed generation and is not "
                     f"exact for its own")
@@ -4229,7 +4491,7 @@ def dynamic_serve(dev, k1, k2, scale: int) -> dict:
             svc.apply_edge_updates(add=[(u, v)])
         finally:
             faults.disarm()
-        truth = bfs_scipy(svc._dynamic.materialize(), u)
+        truth = scipy_bfs(svc._dynamic.materialize(), u)
         torn, tries = 0, 0
         while svc.statsz()["dynamic"]["staleness"]["over_bound"] == 0 and tries < 200:
             r = svc.query(u, timeout=600)
@@ -4308,8 +4570,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
     ap.add_argument("--lanes", type=int, default=8192, help="flagship lanes (8192)")
-    # 17 (18 before), cut to pay for the aot phase.
-    ap.add_argument("--wide-scale", type=int, default=17, help="wide-engine RMAT scale (17)")
+    # 16 (17 until the fleet arm, 18 before the aot phase), cut to pay for them.
+    ap.add_argument("--wide-scale", type=int, default=16, help="wide-engine RMAT scale (16)")
     ap.add_argument("--graph500-scale", type=int, default=17,
                     help="RMAT scale of the graph500 phase (17; the flagship's is 21)")
     ap.add_argument("--graph500-small-scale", type=int, default=17,
@@ -4320,7 +4582,14 @@ def main(argv=None) -> int:
                     help="RMAT scale of the mesh_kinds phase's shared-card ranks (14)")
     ap.add_argument("--parity-only", action="store_true",
                     help="stop after the build and the small-shape parity checks")
+    ap.add_argument("--stack-sample", metavar="PATH",
+                    help="sample the main thread's stack every 50 ms, the counts written to "
+                         "PATH at exit (tpu_bfs_torch/tools/stack_sample.py)")
     args = ap.parse_args(argv)
+    if args.stack_sample:
+        from tpu_bfs_torch.tools import stack_sample
+
+        stack_sample.start(args.stack_sample, script=Path(__file__).name)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4330,6 +4599,7 @@ def main(argv=None) -> int:
     from tpu_bfs_torch.ops import _build
     from tpu_bfs_torch.ops import ell_expand as k1
     from tpu_bfs_torch.ops import tile_spmm as k2
+    from tpu_bfs_torch.utils import native
 
     here = Path(__file__).resolve().parent
     require(Path(tpu_bfs_torch.__file__).resolve().parent == here / "tpu_bfs_torch",
@@ -4348,8 +4618,18 @@ def main(argv=None) -> int:
     _build.build(force=True, log=log.append)
     _build.load_library()
     ptxas = ptxas_report(log)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc": _build.find_nvcc(), "ptxas": ptxas})
+    cuda_s = time.perf_counter() - t0
+    # The native host library (the RMAT generator, the loader, the counting
+    # sort), built afresh from tpu_bfs_torch/native: no NumPy fallback here.
+    t0 = time.perf_counter()
+    nlog = []
+    native.library_path().unlink(missing_ok=True)
+    native.ensure_built(log=nlog.append)
+    require(native.has_rmat(), f"the native host library did not build: {nlog}")
+    emit({"phase": "build", "seconds": cuda_s, "nvcc": _build.find_nvcc(), "ptxas": ptxas,
+          "native_s": time.perf_counter() - t0,
+          "native_library": str(native.library_path().relative_to(here))
+          if native.library_path().is_relative_to(here) else str(native.library_path())})
     print("\n".join(log), file=sys.stderr, flush=True)
 
     phase_parity(dev, k1, k2)
@@ -4358,7 +4638,7 @@ def main(argv=None) -> int:
     wide = phase_wide(dev, k1, k2, args.wide_scale)
     g, eng, res, sources, picks, launches, traversable = phase_flagship(
         dev, k1, k2, args.scale, args.lanes)
-    kernels = phase_kernels(eng, res, launches, k1, k2, ptxas)
+    kernels = phase_kernels(g, eng, res, launches, k1, k2, ptxas)
     kernels.append(phase_parents(k1, k2, g, eng, res, sources, picks, ptxas))
     del res
     gc.collect()
@@ -4379,7 +4659,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     single_sources, golden, trees, dg = phase_single(dev, k1, k2, g, traversable)
-    phase_mesh_single(dev, k1, k2, g, dg, single_sources, golden, trees, args.wide_scale)
+    phase_mesh_single(dev, k1, k2, g, dg, single_sources, golden, trees)
     phase_pullgate_tiled(dev, k1, k2, g, single_sources, golden, trees)
     entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
     kernels += entries
@@ -4403,18 +4683,20 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_mesh_kinds(dev, k1, k2, g, sssp, sources, khop_reached, cc, p2p,
-                                    ptxas, args.mesh_kinds_small_scale))
+                                    ptxas))
     del sssp, sources
     gc.collect()
     torch.cuda.empty_cache()
-    entry, aot_arms = phase_serve(dev, k1, k2, g, traversable, args.wide_scale, ptxas)
+    entry, aot_b = phase_serve(dev, k1, k2, g, traversable, args.wide_scale, ptxas)
     kernels.append(entry)
-    # The aot phase's line: (a) ran after adaptive, (b) in the serve loop, (c)
-    # and (d) with the serve phase's JSONL act.
-    aot_arms["a"] = aot_a
+    aot_cd = phase_side(dev, args.wide_scale, args.mesh_kinds_small_scale)
+    # The aot phase's line: (a) ran after adaptive, (b) in the serve loop, (c),
+    # (d) and the fleet with the serve phase's JSONL act, a side arm.
+    aot_arms = {"a": aot_a, "b": aot_b, **aot_cd}
     emit({"phase": "aot", **aot_arms,
           "phase_seconds": aot_a["seconds"] + aot_arms["b"]["seconds"]
-          + aot_arms["c"]["seconds"] + aot_arms["d"]["handoff_s"]})
+          + aot_arms["c"]["seconds"] + aot_arms["d"]["handoff_s"]
+          + aot_arms["fleet"]["seconds"]})
     del g
     gc.collect()
     torch.cuda.empty_cache()
@@ -4423,6 +4705,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)
 
+    require(all(row.get("edge_stream") for row in kernels),
+            "a kernels row does not name its graph's edge stream")
+    emit({"phase": "script", "seconds": time.perf_counter() - T0, "edge_stream": STREAM})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

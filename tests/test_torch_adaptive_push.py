@@ -41,6 +41,10 @@ from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.reference import bfs_scipy
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _directed():
     rng = np.random.default_rng(2)

@@ -38,6 +38,10 @@ from tpu_bfs_torch.reference.cpu_bfs import bfs_scipy
 from tpu_bfs_torch.serve.registry import EngineRegistry, EngineSpec
 from tpu_bfs_torch.utils import aot, compile_cache
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 SPEC = {"graph_key": "t", "engine": "wide", "lanes": 64, "planes": 4,
         "pull_gate": False, "devices": 1}
 LANES = 64

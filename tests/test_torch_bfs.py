@@ -20,6 +20,10 @@ from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.reference import bfs_python
 from torch_bfs_cases import NAMES, assert_same_result, graphs, sources
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 BACKENDS = ["scan", "segment", "scatter", "delta", "dopt"]
 
 

@@ -20,6 +20,10 @@ from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine, make_tiles_expand
 from tpu_bfs_torch.reference import bfs_python
 from torch_bfs_cases import NAMES, assert_same_result, graphs, sources
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.mark.parametrize("tile_thr", [32, 2])
 @pytest.mark.parametrize("name", NAMES)

@@ -29,6 +29,10 @@ from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.utils import checkpoint as tck
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 LANES, PLANES, KCAP, TILE_THR = 64, 5, 8, 8
 
 

@@ -22,6 +22,10 @@ from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.utils import checkpoint as tck
 from tpu_bfs_torch.utils.recovery import COUNTERS as TCOUNTERS
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 PKGS = {"torch": tck, "jax": jck}
 
 

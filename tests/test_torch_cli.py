@@ -21,6 +21,10 @@ import pytest
 
 from tpu_bfs_torch import cli
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -281,7 +285,10 @@ def test_port_imports_no_jax():
             "tpu_bfs_torch.parallel.dist_msbfs_wide",
             "tpu_bfs_torch.parallel.dist_msbfs_hybrid",
             "tpu_bfs_torch.parallel.dist_sssp", "tpu_bfs_torch.graph.dynamic",
-            "tpu_bfs_torch.integrity.staleness"} <= set(mods)
+            "tpu_bfs_torch.integrity.staleness", "tpu_bfs_torch.utils.native",
+            "tpu_bfs_torch.analysis", "tpu_bfs_torch.analysis.locks",
+            "tpu_bfs_torch.analysis.lifecycle", "tpu_bfs_torch.analysis.faultcov",
+            "tpu_bfs_torch.tools.fleet_supervisor", "tpu_bfs_torch.tools.sort_probe"} <= set(mods)
     code = (
         f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_bfs.')) "

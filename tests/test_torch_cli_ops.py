@@ -31,6 +31,10 @@ from tpu_bfs_torch.utils.recovery import COUNTERS as TCOUNTERS
 from tpu_bfs_torch.utils.recovery import advance_with_recovery
 from tpu_bfs_torch.utils.stats import recovery_stats_line
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 GRAPH = "rmat:scale=9,ef=8,seed=2"
 HUB = int(np.argmax(tgen.rmat_graph(9, 8, seed=2).degrees))  # a source with a deep BFS
 MS = ["--multi-source", "1,2,200,77"]

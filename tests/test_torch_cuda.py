@@ -20,6 +20,10 @@ from tpu_bfs_torch.graph.generate import rmat_graph
 from tpu_bfs_torch.ops import ell_expand as k1
 from tpu_bfs_torch.ops import tile_spmm as k2
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1073,3 +1077,42 @@ def test_adopted_programs_on_cuda_equal_the_eager_engine(cuda, engine, tmp_path)
     np.testing.assert_array_equal(a.ecc, b.ecc)
     for i in (0, 100, 255):
         np.testing.assert_array_equal(a.distances_int32(i), b.distances_int32(i))
+
+
+# --- the native host library on the card's host ----------------------------------
+
+def test_native_library_builds_and_loads_on_the_card_host(cuda):
+    from pathlib import Path
+
+    from tpu_bfs_torch.utils import native
+
+    errs = []
+    native.ensure_built(log=errs.append)
+    assert native.available() and native.has_rmat(), errs
+    path = native.library_path()
+    assert path.is_file() and native.source_hash() in path.name
+    assert Path(native._find_lib()._name) == path
+    u, v = native.rmat_edges_native(10, 8 << 10, 3, 0.57, 0.19, 0.19)
+    assert len(u) == 8 << 10 and 0 <= u.min() and u.max() < 1 << 10
+    perm = native.lexsort_pairs(v, u, 1 << 10, 1 << 10)
+    np.testing.assert_array_equal(perm, np.lexsort((u, v)))
+
+
+@pytest.mark.parametrize("engine", [HybridMsBfsEngine, WidePackedMsBfsEngine])
+def test_native_stream_batch_on_cuda_equals_scipy(cuda, engine):
+    from tpu_bfs_torch.reference import bfs_scipy
+    from tpu_bfs_torch.validate import check_distances
+
+    g = rmat_graph(12, 16, seed=1, impl="native")
+    kw = {"kcap": 16, "tile_thr": 8} if engine is HybridMsBfsEngine else {}
+    eng = engine(g, lanes=64, num_planes=5, device=cuda, **kw)
+    sources = np.random.default_rng(5).choice(np.flatnonzero(g.degrees > 0), 64,
+                                              replace=False)
+    k1.ell_expand.launches = k2.tile_spmm.launches = 0
+    res = eng.run(sources)
+    assert k1.ell_expand.launches > 0
+    if engine is HybridMsBfsEngine:
+        assert k2.tile_spmm.launches > 0
+    csr = g.to_scipy()
+    for i in (0, 31, 63):
+        check_distances(res.distances_int32(i), bfs_scipy(g, int(sources[i]), csr=csr))

@@ -34,6 +34,10 @@ from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.parallel import partition2d as tpart2d
 from tpu_bfs_torch.parallel.mesh import launch, start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 CASES = {c[0]: c for c in cases.DIST2D_CASES}
 #: The case whose mesh rows may split on rungs (see the module docstring).
 SPLIT = "sparse_rungs"

@@ -34,6 +34,10 @@ from tpu_bfs_torch.parallel import partition as tpart
 from tpu_bfs_torch.parallel.mesh import launch, start
 from tpu_bfs_torch.utils.checkpoint import BfsCheckpoint
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 CASES = {c[0]: c for c in cases.DIST_CASES}
 
 

@@ -38,6 +38,10 @@ from tpu_bfs_torch.workloads.cc import CcServeEngine
 from tpu_bfs_torch.workloads.khop import KhopServeEngine
 from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # The graph of tests/test_dynamic.py, and its overlay capacity (the override
 # row carries a vertex's full adjacency, so kcap clears the max degree).
 GRAPH = dict(num_vertices=96, num_edges=480, seed=3, weights=5)

@@ -14,6 +14,10 @@ from tpu_bfs.ops import ell_expand as jk
 
 from tpu_bfs_torch.ops import ell_expand as tk
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def make_inputs(op, w, k, n_rows, nb, *, gated, seed):
     rng = np.random.default_rng(seed)

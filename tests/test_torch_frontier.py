@@ -25,6 +25,10 @@ from tpu_bfs_torch.utils import stats as tstats
 from tpu_bfs_torch.utils.timing import run_timed
 from torch_bfs_cases import NAMES, graphs
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 _dgs = {}
 
 

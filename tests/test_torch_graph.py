@@ -32,6 +32,10 @@ from tpu_bfs_torch.validate import ValidationError, check_distances
 
 from conftest import TOY_TEXT
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # (name, JAX builder, port builder): the same seeded inputs on both sides.
 GRAPHS = {
     "toy": (lambda: jio.read_edge_list_text(TOY_TEXT),

@@ -19,6 +19,10 @@ from tpu_bfs_torch import validate as tval
 from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.reference import bfs_scipy
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.mark.parametrize("scale,ef,n", [(9, 4, 16), (10, 8, 64), (6, 2, 100)])
 def test_search_keys_and_traversed_edges_match_jax(scale, ef, n):

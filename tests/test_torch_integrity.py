@@ -62,6 +62,10 @@ from tpu_bfs_torch.serve.executor import breaker_key
 from tpu_bfs_torch.serve.scheduler import QueryResult as TResult
 from tpu_bfs_torch.utils.recovery import COUNTERS as TCOUNTERS
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.fixture(autouse=True)
 def _disarmed():

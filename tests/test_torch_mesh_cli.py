@@ -15,6 +15,10 @@ import pytest
 
 from tpu_bfs_torch import cli, graph500
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _run_cli(main, argv):
     """stdout lines of ``main(argv)``, which must return 0."""

@@ -33,6 +33,10 @@ from tpu_bfs_torch.parallel.dist_msbfs_hybrid import build_dist_hybrid
 from tpu_bfs_torch.parallel.mesh import start
 from tpu_bfs_torch.utils.checkpoint import PackedCheckpoint
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 MESH_SIZES = [1, 2, 4, 8]
 CASES = {c[0]: c for c in cases.HYBRID_CASES}
 

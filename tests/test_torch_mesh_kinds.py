@@ -29,6 +29,10 @@ from tpu_bfs_torch.graph.csr import INF_DIST
 from tpu_bfs_torch.parallel.mesh import start
 from tpu_bfs_torch.reference import bfs_scipy
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 KINDS = {c[0]: c for c in cases.MESH_KINDS}
 
 

@@ -30,6 +30,10 @@ from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.parallel import collectives as tcoll
 from tpu_bfs_torch.parallel.mesh import start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 DIST = {c[0]: c for c in cases.PLANNER_DIST_CASES}
 WIDE = {c[0]: c for c in cases.PLANNER_WIDE_CASES}
 HYBRID = {c[0]: c for c in cases.PLANNER_HYBRID_CASES}

@@ -28,6 +28,10 @@ from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.parallel import collectives as tcoll
 from tpu_bfs_torch.parallel.mesh import start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 CASES = {c[0]: c for c in cases.PLANNER_DIST2D_CASES}
 #: The cases whose mesh rows may split (see the module docstring).
 SPLIT = ("planner", "planner_ckpt")

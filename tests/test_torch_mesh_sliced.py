@@ -21,6 +21,10 @@ from tpu_bfs.parallel.dist_msbfs_hybrid import build_dist_hybrid as jbuild
 import torch_mesh_cases as cases
 from tpu_bfs_torch.parallel.mesh import start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 MESH_SIZES = [1, 2, 4, 8]
 CASES = {c[0]: c for c in cases.SLICED_CASES}
 

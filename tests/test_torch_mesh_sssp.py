@@ -30,6 +30,10 @@ from tpu_bfs_torch.graph.ell import build_ell_sharded, build_ell_weights_sharded
 from tpu_bfs_torch.parallel.mesh import start
 from tpu_bfs_torch.workloads.sssp import SsspEngine
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _dijkstra(g, sources):
     import scipy.sparse as sp

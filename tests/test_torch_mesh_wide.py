@@ -31,6 +31,10 @@ from tpu_bfs_torch.parallel import collectives as tcoll
 from tpu_bfs_torch.parallel.mesh import launch, start
 from tpu_bfs_torch.utils.checkpoint import PackedCheckpoint
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 MESH_SIZES = [1, 2, 4, 8]
 CASES = {c[0]: c for c in cases.WIDE_CASES}
 

@@ -27,6 +27,10 @@ from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.ops import ell_expand as k1
 from tpu_bfs_torch.reference import bfs_python
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 LANES, PLANES, KCAP, TILE_THR = 64, 6, 8, 2
 
 GRAPHS = {

@@ -30,6 +30,10 @@ from tpu_bfs_torch.graph.ell import build_ell
 from tpu_bfs_torch.ops import ell_expand as k1
 from torch_bfs_cases import NAMES, graphs, sources
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def batch_sources(g, n=6):
     # The shared picks (isolated source included) plus seeded repeats.

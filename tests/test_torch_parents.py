@@ -40,6 +40,10 @@ from tpu_bfs_torch.graph.ell import build_ell
 from tpu_bfs_torch.ops import ell_expand as k1
 from tpu_bfs_torch.reference import bfs_scipy
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 KCAP = 8  # heavy rows at these sizes: the fold pyramid runs under umin
 
 # name -> JAX graph builder; the port gets the same arrays through convert.

@@ -26,6 +26,10 @@ import torch_mesh_cases as cases
 from tpu_bfs_torch.parallel import collectives as tcoll
 from tpu_bfs_torch.parallel.mesh import start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)

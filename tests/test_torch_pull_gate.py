@@ -39,6 +39,10 @@ from tpu_bfs_torch.graph import io as tio
 from tpu_bfs_torch.reference import bfs_scipy
 from tpu_bfs_torch.utils import stats as tstats
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 LANES, PLANES = 64, 6
 
 

@@ -24,6 +24,10 @@ from tpu_bfs_torch.resilience import resume as tres
 from tpu_bfs_torch.utils import checkpoint as tckpt
 from tpu_bfs_torch.utils.recovery import COUNTERS
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.fixture(autouse=True)
 def _disarmed():

@@ -32,6 +32,10 @@ from tpu_bfs_torch.parallel.collectives import dense_rows_wire_bytes
 from tpu_bfs_torch.reference import bfs_scipy
 from tpu_bfs_torch.utils import roofline as troof
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 KW = dict(lanes=64, num_planes=4)
 CAPS = (64, 32)
 

@@ -32,6 +32,10 @@ from tpu_bfs_torch.integrity.staleness import oracle_bfs, oracle_sssp
 from tpu_bfs_torch.serve import BfsService as TService
 from tpu_bfs_torch.serve.registry import EngineSpec as TSpec
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = pytest.mark.serve
 
 GRAPH = dict(num_vertices=96, num_edges=480, seed=3, weights=5)

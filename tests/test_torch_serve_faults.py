@@ -27,6 +27,10 @@ from tpu_bfs_torch.serve import BfsService as TService
 from tpu_bfs_torch.serve import EngineRegistry as TRegistry
 from tpu_bfs_torch.utils.recovery import COUNTERS as TCOUNTERS
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = [pytest.mark.serve, pytest.mark.chaos]
 
 KEY = "serve-faults-random96"

@@ -30,6 +30,10 @@ from tpu_bfs_torch.serve import registry as tregistry
 from tpu_bfs_torch.serve import scheduler as tsched
 from tpu_bfs_torch.utils import recovery as trec
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = pytest.mark.serve
 
 

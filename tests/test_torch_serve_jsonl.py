@@ -11,7 +11,6 @@ SIGTERM with a final statsz line and exit code 0.
 
 import io
 import json
-import os
 import signal
 import subprocess
 import sys
@@ -32,6 +31,10 @@ from tpu_bfs_torch.cli import load_graph
 from tpu_bfs_torch.reference import bfs_scipy
 from tpu_bfs_torch.serve import EngineRegistry as TRegistry
 from tpu_bfs_torch.serve import frontend as tfront
+
+from torch_threads import cap_torch_threads, subprocess_env
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.serve
 
@@ -270,7 +273,7 @@ def test_mutations_flag_parses_as_in_jax(flag):
 def test_server_subprocess_drains_on_sigterm(tmp_path):
     """``python -m tpu_bfs_torch.serve`` on the CPU: answers, then a
     SIGTERM drains it with a final statsz line and exit code 0."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = subprocess_env(PYTHONPATH=str(ROOT))
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpu_bfs_torch.serve", SPEC, "--lanes", "32",
          "--device", "cpu", "--statsz-interval-s", "0"],

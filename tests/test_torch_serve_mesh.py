@@ -48,6 +48,10 @@ from tpu_bfs_torch.serve.scheduler import PendingQuery as TQuery
 from tpu_bfs_torch.utils import checkpoint as tckpt
 from tpu_bfs_torch.utils.recovery import COUNTERS as TCOUNTERS
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = pytest.mark.serve
 
 P = 4

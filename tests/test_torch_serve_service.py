@@ -22,6 +22,10 @@ from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.serve import BfsService as TService
 from tpu_bfs_torch.serve import EngineRegistry as TRegistry
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 pytestmark = pytest.mark.serve
 
 KEY = "serve-parity-rmat9"

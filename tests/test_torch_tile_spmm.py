@@ -16,6 +16,10 @@ from tpu_bfs.ops import tile_spmm as jk
 
 from tpu_bfs_torch.ops import tile_spmm as tk
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def make_inputs(vt, w, *, density, seed, empty_rows=()):
     """Random dense tiles over a vt x vt tile grid; ``empty_rows`` row tiles

@@ -39,6 +39,10 @@ from tpu_bfs_torch.graph import generate as tgen
 from tpu_bfs_torch.obs import engine_trace as tet
 from tpu_bfs_torch.parallel.mesh import start
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.fixture(autouse=True)
 def _disarmed():

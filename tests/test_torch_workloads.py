@@ -39,6 +39,10 @@ from tpu_bfs_torch.workloads.khop import KhopServeEngine
 from tpu_bfs_torch.workloads.p2p import P2pServeEngine
 from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # The weighted graphs of tests/test_workloads.py, built by both packages.
 WEIGHTED = {
     "random": (lambda m: m.random_graph(200, 900, seed=11, weights=7)),

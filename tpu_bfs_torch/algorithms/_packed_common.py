@@ -195,11 +195,9 @@ def pallas_expand_arrays(ell_like, sentinel: int) -> dict:
     the same arrays as the JAX package's ``pallas_expand_arrays``."""
     arrs = {}
     if ell_like.virtual is not None:
-        arrs["virtual_gt"] = pad_gate_blocks(
-            np.ascontiguousarray(ell_like.virtual.idx.T), sentinel
-        )
+        arrs["virtual_gt"] = pad_gate_blocks(ell_like.virtual.idx.T, sentinel)
     for i, b in enumerate(ell_like.light):
-        arrs[f"light{i}_gt"] = pad_gate_blocks(np.ascontiguousarray(b.idx.T), sentinel)
+        arrs[f"light{i}_gt"] = pad_gate_blocks(b.idx.T, sentinel)
     return arrs
 
 

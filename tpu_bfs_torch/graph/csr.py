@@ -29,10 +29,22 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _lexsort_pairs(major: np.ndarray, minor: np.ndarray) -> np.ndarray:
-    """Permutation ordering by (major, minor). Any stable order gives the
-    same sorted keys, so the arrays built from it equal the JAX package's
-    (which may take a native counting sort instead)."""
+def _lexsort_pairs(
+    major: np.ndarray, minor: np.ndarray, n: int, n_minor: int | None = None
+) -> np.ndarray:
+    """Permutation ordering by (major, minor): the native O(E) counting sort
+    when built (native/loader.cpp), np.lexsort otherwise. ``n``/``n_minor``
+    bound the key value ranges (both default n); undersized bounds make the
+    native path reject and fall back to the O(E log E) sort. Both are
+    stable, so the permutation is the same either way."""
+    try:
+        from tpu_bfs_torch.utils.native import lexsort_pairs
+
+        perm = lexsort_pairs(major, minor, n, n if n_minor is None else n_minor)
+        if perm is not None:
+            return perm
+    except Exception:
+        pass
     return np.lexsort((minor, major))
 
 
@@ -42,7 +54,9 @@ def _sorted_pairs(major: np.ndarray, minor: np.ndarray, n_minor: int):
     packed int64 keys (several times faster than the two-key lexsort). For
     callers that need the sorted values, not the permutation. Both arrays
     are non-negative, ``minor < n_minor`` and ``major * n_minor < 2**63``."""
-    key = major.astype(np.int64) * n_minor + minor
+    key = major.astype(np.int64)
+    key *= n_minor
+    key += minor
     key.sort()
     return key // n_minor, key % n_minor
 
@@ -51,7 +65,9 @@ def _stable_argsort(keys: np.ndarray) -> np.ndarray:
     """``np.argsort(keys, kind="stable")`` for non-negative int keys below
     2**31 and fewer than 2**32 of them, from one sort of (key << 32 | index)
     int64 words, which is several times faster."""
-    packed = (keys.astype(np.int64) << 32) | np.arange(len(keys), dtype=np.int64)
+    packed = keys.astype(np.int64)
+    packed <<= 32
+    packed |= np.arange(len(keys), dtype=np.int64)
     packed.sort()
     return packed & 0xFFFFFFFF
 
@@ -156,7 +172,8 @@ def build_csr(
         src_sorted, col_idx = _sorted_pairs(src, dst, num_vertices)
         col_idx = col_idx.astype(np.int32)
     else:
-        order = _lexsort_pairs(src, dst) if sort_neighbors else np.argsort(src, kind="stable")
+        order = (_lexsort_pairs(src, dst, num_vertices) if sort_neighbors
+                 else np.argsort(src, kind="stable"))
         src_sorted = src[order]
         col_idx = dst[order].astype(np.int32)
         if weights is not None:

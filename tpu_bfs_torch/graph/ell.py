@@ -68,12 +68,19 @@ class EllGraph:
 
 
 def pad_gate_blocks(idx_t: np.ndarray, sentinel: int, tile: int = 128) -> np.ndarray:
-    """Pad a transposed [k, n] bucket table to [k, ceil(n/tile)*tile] with
-    ``sentinel`` (which must name the engine's identity frontier row)."""
+    """Pad a transposed [k, n] bucket table (an array or a view such as
+    ``idx.T``) to an int32 [k, ceil(n/tile)*tile] with ``sentinel`` (which
+    must name the engine's identity frontier row)."""
     k, n = idx_t.shape
     nb = max(-(-n // tile), 1)
-    out = np.full((k, nb * tile), sentinel, dtype=np.int32)
-    out[:, :n] = idx_t
+    out = np.empty((k, nb * tile), dtype=np.int32)
+    out[:, n:] = sentinel
+    # A block of columns at a time: a transposed view (``idx.T``) is copied
+    # several times faster than by one strided copy of the whole table.
+    step = max((1 << 16) // max(k, 1), 1)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        out[:, lo:hi] = idx_t[:, lo:hi]
     return out
 
 

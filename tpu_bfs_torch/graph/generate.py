@@ -2,8 +2,12 @@
 
 - ``random_graph``: the reference's seeded generator (readGraph,
   bfs.cu:892-907): m uniform edges, undirected double-insert.
-- ``rmat_graph``: the Graph500 RMAT generator. Only the NumPy stream is
-  ported; the JAX package's native C++ generator draws a different stream.
+- ``rmat_graph``: the Graph500 RMAT generator, with ``impl=``: the NumPy
+  stream (the default) or the port's native C++ generator
+  (``utils/native.py``), which draws a different stream, the one JAX's
+  bench graphs come from.
+- ``lj_standin_edges``: a directed stand-in with soc-LiveJournal1's exact
+  vertex and edge counts; ``write_mtx`` writes it as MatrixMarket.
 - ``edge_weights``: the SSSP weight plane, a hash of each edge's unordered
   endpoint pair and the seed; ``weights=W`` attaches it in both generators.
 """
@@ -76,30 +80,140 @@ def rmat_edges(
     a: float = 0.57,
     b: float = 0.19,
     c: float = 0.19,
+    impl: str = "numpy",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Graph500 RMAT edge list: 2**scale vertices, edge_factor * 2**scale
-    edges, vertex ids permuted as the Graph500 spec requires. The same
-    stream as ``tpu_bfs.graph.generate.rmat_edges(impl="numpy")``."""
+    """Graph500 RMAT edge list: 2^scale vertices, edge_factor * 2^scale edges.
+
+    Each of the `scale` bits of (u, v) is drawn from the quadrant
+    distribution (a, b, c, d); vertex ids are then permuted, as the Graph500
+    spec requires, to destroy the locality the recursion creates.
+
+    ``impl``: 'numpy' (default — reproducible everywhere), 'native' (the
+    threaded generator in native/rmat.cpp; raises if the library cannot be
+    built), or 'auto' (native when built, else numpy). The
+    two implementations are deterministic in the seed but are DIFFERENT
+    streams: the same seed yields a different (equally distributed) graph per
+    impl — callers that persist or compare results should pin one.
+    """
+    return _rmat_edges_m(
+        scale, edge_factor << scale, seed=seed, impl=impl, a=a, b=b, c=c
+    )
+
+
+# Published soc-LiveJournal1 shape (SNAP): the reference's one named
+# real-world workload (README.md:22). The real file is not fetched (see
+# NONETWORK.md), so lj_standin_edges generates a clearly-labeled synthetic
+# stand-in with the exact V/E counts.
+LJ_V = 4_847_571
+LJ_E = 68_993_773
+
+
+def lj_standin_edges(
+    *, seed: int = 1, impl: str = "auto"
+) -> tuple[np.ndarray, np.ndarray]:
+    """Directed power-law edge list with soc-LiveJournal1's exact shape.
+
+    NOT the real graph — a deterministic stand-in: Graph500-parameter RMAT
+    drawn on the enclosing 2^23 grid, restricted to ids < LJ_V by rejection
+    (keeps the RMAT degree structure intact — no modulo folding artifacts),
+    trimmed/topped-up to exactly LJ_E directed edges. Self-loops stay, as in
+    the real SNAP file's reference treatment (bfs.cu:860-861 inserts
+    whatever it reads).
+    """
+    scale = 23  # smallest power of two covering LJ_V
+    p_keep = (LJ_V / (1 << scale)) ** 2
+    # ONE vertex permutation shared by every top-up batch: raw recursion ids
+    # from all batches refer to the same underlying RMAT node, so hubs keep
+    # one identity across draws and the degree structure stays intact. The
+    # permutation comes from a DISTINCT rng stream (seed sequence spawn key)
+    # so the relabeling is independent of batch 1's quadrant draws — both
+    # would otherwise replay the same PCG64 stream.
+    perm = np.random.default_rng((seed, 0x4C4A)).permutation(1 << scale)
+    u_parts, v_parts, total = [], [], 0
+    s = seed
+    while total < LJ_E:
+        want = LJ_E - total
+        draw = int(want / p_keep * 1.02) + 1024
+        u, v = _rmat_edges_m(scale, draw, seed=s, impl=impl, permute=False)
+        u, v = perm[u], perm[v]
+        keep = (u < LJ_V) & (v < LJ_V)
+        u, v = u[keep], v[keep]
+        u_parts.append(u)
+        v_parts.append(v)
+        total += len(u)
+        s += 1
+    u = np.concatenate(u_parts)[:LJ_E]
+    v = np.concatenate(v_parts)[:LJ_E]
+    return u, v
+
+
+def _rmat_edges_m(
+    scale: int, m: int, *, seed: int, impl: str,
+    a: float = 0.57, b: float = 0.19, c: float = 0.19,
+    permute: bool = True,
+):
+    """RMAT draw of exactly ``m`` edges — the core behind ``rmat_edges``
+    (which sizes by edge_factor). ``permute=False`` returns raw recursion
+    ids so callers drawing multiple batches can apply ONE shared vertex
+    permutation over all of them (lj_standin_edges)."""
+    if impl not in ("auto", "numpy", "native"):
+        raise ValueError(f"unknown impl {impl!r}")
     if not (a > 0 and b >= 0 and c >= 0 and a + b + c < 1):
+        # d = 1-a-b-c must stay positive; a+b >= 1 makes c_norm a division
+        # by zero. Phrased positively so NaN quadrants fail too (NaN makes
+        # every comparison False). Same guard as native/rmat.cpp rc=3.
         raise ValueError(f"invalid RMAT quadrants a={a} b={b} c={c}")
-    m = edge_factor << scale
     rng = np.random.default_rng(seed)
-    u = np.zeros(m, dtype=np.int64)
-    v = np.zeros(m, dtype=np.int64)
-    ab = a + b
-    a_norm = a / ab
-    c_norm = c / (1.0 - ab)
-    for _ in range(scale):
-        u <<= 1
-        v <<= 1
-        r_u = rng.random(m)
-        r_v = rng.random(m)
-        u_bit = r_u > ab
-        v_bit = np.where(u_bit, r_v > c_norm, r_v > a_norm)
-        u |= u_bit
-        v |= v_bit
+    uv = None
+    if impl in ("auto", "native"):
+        from tpu_bfs_torch.utils.native import rmat_edges_native
+
+        uv = rmat_edges_native(scale, m, seed, a, b, c)
+        if uv is None and impl == "native":
+            raise RuntimeError(
+                "native library not built (g++ at first use: tpu_bfs_torch/utils/native.py)")
+    if uv is None:
+        u = np.zeros(m, dtype=np.int64)
+        v = np.zeros(m, dtype=np.int64)
+        ab = a + b
+        a_norm = a / ab
+        c_norm = c / (1.0 - ab)
+        for _ in range(scale):
+            u <<= 1
+            v <<= 1
+            r_u = rng.random(m)
+            r_v = rng.random(m)
+            u_bit = r_u > ab
+            v_bit = np.where(u_bit, r_v > c_norm, r_v > a_norm)
+            u |= u_bit
+            v |= v_bit
+        uv = u, v
+    if not permute:
+        return uv
     perm = rng.permutation(1 << scale)
-    return perm[u], perm[v]
+    return perm[uv[0]], perm[uv[1]]
+
+
+def write_mtx(path: str, u: np.ndarray, v: np.ndarray, n: int,
+              comment: str = "") -> None:
+    """Write a 1-indexed MatrixMarket coordinate-pattern file — the format
+    of the reference's named workload (soc-LiveJournal1.mtx, README.md:22),
+    consumed here by the native loader's .mtx path."""
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate pattern general\n")
+        if comment:
+            f.write(f"% {comment}\n")
+        f.write(f"{n} {n} {len(u)}\n")
+        # Chunked vectorized int->text: ~50x faster than np.savetxt.
+        chunk = 4_000_000
+        for i in range(0, len(u), chunk):
+            a = (u[i : i + chunk] + 1).astype(np.int64)
+            b = (v[i : i + chunk] + 1).astype(np.int64)
+            pairs = np.char.add(
+                np.char.add(a.astype("U10"), " "), b.astype("U10")
+            )
+            f.write("\n".join(pairs))
+            f.write("\n")
 
 
 def rmat_graph(
@@ -109,13 +223,15 @@ def rmat_graph(
     seed: int = 1,
     drop_self_loops: bool = True,
     dedup: bool = False,
+    impl: str = "numpy",
     weights: int | None = None,
     **quadrants,
 ) -> Graph:
-    """RMAT graph, undirected (the Graph500 topology). ``weights=W``
-    attaches the :func:`edge_weights` plane, values in [1, W]; dedup keeps
-    shortest paths, since parallel edges hash to one weight."""
-    u, v = rmat_edges(scale, edge_factor, seed=seed, **quadrants)
+    """RMAT graph, undirected (the Graph500 topology), from the ``impl``
+    stream (:func:`rmat_edges`). ``weights=W`` attaches the
+    :func:`edge_weights` plane, values in [1, W]; dedup keeps shortest
+    paths, since parallel edges hash to one weight."""
+    u, v = rmat_edges(scale, edge_factor, seed=seed, impl=impl, **quadrants)
     m = len(u)
     if drop_self_loops:
         keep = u != v

@@ -4,7 +4,8 @@
   (readGraphFromFile, bfs.cu:829-880): a header ``n m`` then m lines ``u v``
   (0-indexed), inserted in both directions (bfs.cu:860-861). ``%``/``#``
   comment lines are skipped and a 3-int MatrixMarket header (``rows cols
-  nnz``, 1-indexed body) is detected.
+  nnz``, 1-indexed body) is detected. ``load_edge_list`` takes the native
+  loader first, as the JAX package does.
 - ``read_stdin``: directed single-insert edge list on stdin (bfs.cu:898-903).
 - ``save_npz`` / ``load_npz``: the CSR arrays as one ``.npz``.
 """
@@ -110,7 +111,16 @@ def from_edges(
 
 
 def load_edge_list(path: str, **kw) -> Graph:
-    """Load the reference's text format from a file (bfs.cu:829)."""
+    """Load the reference's text format from a file (bfs.cu:829): the native
+    C++ loader when it builds (``utils/native.py``), else the text parser."""
+    try:
+        from tpu_bfs_torch.utils.native import load_edge_list_native
+
+        g = load_edge_list_native(path, **kw)
+        if g is not None:
+            return g
+    except Exception:
+        pass  # fall back to the Python parser, whose error names the fault
     with open(path, "r") as f:
         return read_edge_list_text(f.read(), **kw)
 

@@ -94,8 +94,8 @@ class AnswerCache:
         self._generation = 0  # guarded-by: _lock
         self._quarantines = 0  # guarded-by: _lock
 
-    def _key(self, kind, source, k, target, want_distances) -> tuple:
-        # Callers hold _lock (both generations are part of the key).
+    def _key(self, kind, source, k, target, want_distances) -> tuple:  # requires-lock: _lock
+        # Both generations are part of the key.
         return (self.graph_key, self.graph_generation, self._generation,
                 kind, int(source),
                 None if k is None else int(k),

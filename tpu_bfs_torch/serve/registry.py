@@ -584,7 +584,7 @@ class EngineRegistry:
             eng = build_workload_engine(spec.kind, eng, g, spec)
         return eng
 
-    def _warm_up(self, spec: EngineSpec, eng) -> None:
+    def _warm_up(self, spec: EngineSpec, eng) -> None:  # requires-lock: _lock
         """One full-width batch (the serving executor pads every batch to
         ``lanes``), then the engine's ``warm_residency`` hook (the p2p
         adapter's parent scanner), before the first real dispatch. Vertex

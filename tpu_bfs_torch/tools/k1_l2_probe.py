@@ -101,13 +101,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def flagship_graph(scale: int):
-    """RMAT scale/ef16/seed1, shared with chip_smoke.py's cache under build/."""
-    from tpu_bfs_torch.graph.generate import rmat_graph
-    from tpu_bfs_torch.graph.io import load_npz
-    from tpu_bfs_torch.ops._build import BUILD_DIR
+    """RMAT scale/ef16/seed1 (native stream), shared with chip_smoke.py's
+    cache under build/."""
+    from tpu_bfs_torch.tools.roofline import load_rmat
 
-    path = BUILD_DIR / f"rmat{scale}_ef16_seed1.npz"
-    return load_npz(str(path)) if path.is_file() else rmat_graph(scale, 16, seed=1)
+    return load_rmat(scale, 16)[0]
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,7 @@
     python3 -m tpu_bfs_torch.tools.roofline --scale 10 --lanes 64 --device cpu
 
 Builds ``HybridMsBfsEngine`` on RMAT ``--scale`` (ef ``--ef``, seed 1, the
-numpy generator; cached under ``build/``, the file ``chip_smoke.py``
+native generator; cached under ``build/``, the file ``chip_smoke.py``
 shares) with ``max_lanes=--lanes`` and ``adaptive_push=--adaptive``
 (default ``8192,64``, the caps JAX's bench runs by default), draws the
 bench's sources (a pilot BFS from the highest in-degree vertex, then
@@ -37,16 +37,20 @@ def log(msg: str) -> None:
 
 
 def load_rmat(scale: int, ef: int):
-    """``(graph, cached)``: RMAT scale/ef/seed 1, cached as ``.npz`` under
-    ``build/`` (``chip_smoke.py``'s flagship graph is this file at ef 16)."""
+    """``(graph, cached)``: RMAT scale/ef/seed 1 from the native generator,
+    the stream JAX's bench generates (``bench.py:686-710``), cached as
+    ``.npz`` under ``build/`` with the stream in its name, so a NumPy-stream
+    file is never taken for it (``chip_smoke.py``'s flagship graph is this
+    file at ef 16). Raises when the native library does not build: there
+    is no fallback to the NumPy stream."""
     from tpu_bfs_torch.graph.generate import rmat_graph
     from tpu_bfs_torch.graph.io import load_npz, save_npz
     from tpu_bfs_torch.ops._build import BUILD_DIR
 
-    path = BUILD_DIR / f"rmat{scale}_ef{ef}_seed1.npz"
+    path = BUILD_DIR / f"rmat{scale}_ef{ef}_seed1_native.npz"
     if path.is_file():
         return load_npz(str(path)), True
-    g = rmat_graph(scale, ef, seed=1)
+    g = rmat_graph(scale, ef, seed=1, impl="native")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(path.stem + ".tmp.npz")
     save_npz(str(tmp), g)

@@ -193,11 +193,10 @@ class SsspEngine:
         planes = ([("virtual", vw)] if vw is not None else []) + [
             (f"light{i}", w) for i, w in enumerate(lw)]
         for name, w in planes:
-            wt = np.ascontiguousarray(w.T).astype(np.int32)
+            wt = pad_gate_blocks(w.T, 0)  # pad weight 0 stays 0 in wl (0 <= delta)
             wl = np.where(wt <= self.delta, wt, INF_W).astype(np.int32)
             for suf, plane in (("w", wt), ("wl", wl)):
-                arrs[f"{name}_{suf}_gt"] = torch.from_numpy(
-                    pad_gate_blocks(plane, 0)).to(self.device)
+                arrs[f"{name}_{suf}_gt"] = torch.from_numpy(plane).to(self.device)
         return arrs
 
     def set_overlay(self, tables) -> None:
