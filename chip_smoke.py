@@ -42,7 +42,8 @@ Phases, one JSON line each:
     equals validate.min_parent_from_dist and passes certify_bfs; then the
     public parents_into(device="device") on a 32-lane batch (64 before
     the aot phase): its lane 0, the same source, equals that checked tree,
-    and its last lane passes both checks. The K1 min
+    and its last lane passes both checks (the two tree checks side by
+    side once the device work is done). The K1 min
     entry of the kernels line is timed here, at the scan's shape;
  8. single: the reference's single-source BFS on the flagship graph,
     through BfsEngine with each of the scan, segment, scatter, delta and
@@ -78,7 +79,8 @@ Phases, one JSON line each:
     the wide engine at the wide phase's scale, gated against ungated. The
     gated batch's K1 launches, replayed on their own masks, are the "K1 or,
     gated" kernels entry. After the single phase, TiledBfsEngine(pull_gate=
-    True) from its sources, equal to SciPy and to its checked trees;
+    True) over the single phase's tiled engine's tables (one host build)
+    from its sources, equal to SciPy and to its checked trees;
 12. ckpt (after packed): a CKPT_LANES-lane (64; 256 before, cut to keep
     the script's time) hybrid batch on the flagship graph,
     its first --ckpt-every levels (4) on the hybrid, saved, loaded and
@@ -115,7 +117,14 @@ Phases, one JSON line each:
     beside the single-device batch's, the all-gather ms a level (CUDA
     events), host reads a level, the build seconds and peak memory. Its
     shard tables give the "K1 or, mesh shard" and "K2, mesh shard" kernels
-    entries. Then at the wide phase's scale (16) with 4096 lanes: the hybrid's
+    entries. Mesh AOT: its rank-local dist_core exported and
+    adopted into the same engine (no second table build; torch.export
+    made to raise while it adopts), the adopted graph naming K1 and K2 and
+    no collective, the batch run again on it: visited, planes, levels,
+    reached, ecc and both kernels' launches equal the eager batch's; K1
+    and K2 through the registered ops on the shard entries' operands, the
+    "K1 or, adopted mesh shard" and "K2, adopted mesh shard" entries.
+    Then at the wide phase's scale (16) with 4096 lanes: the hybrid's
     sparse and sliced exchanges against a single-device HybridMsBfsEngine
     and DistWideMsBfsEngine (dense, sparse) against the wide phase's
     engine, every lane's distances compared on the device. Last (a side
@@ -152,7 +161,12 @@ Phases, one JSON line each:
     lanes SciPy's dijkstra; rounds, closes, host reads a round, the exchange
     ms a round (CUDA events) and peak memory per engine. The ring engine's
     shard tables give the "K1 minplus, mesh shard, w 256" kernels entry
-    (light plane, and the heavy close's plane held to the twin too). Then
+    (light plane, and the heavy close's plane held to the twin too). Its
+    light sweep (dist_sssp_core) and heavy close (dist_sssp_close)
+    exported and adopted into the same engine, its batch run
+    again: the distance table, rounds and launches equal, each program run
+    once a round or a close; K1 minplus through the registered op, the "K1
+    minplus, adopted mesh shard" entry. Then
     connected_components and k-hop (k = 3) over an 8192-lane
     DistWideMsBfsEngine on the flagship's sources, and p2p (the p2p phase's
     128 pairs) over a 256-lane one: equal to the single-device phases'
@@ -216,7 +230,8 @@ Phases, one JSON line each:
     plain-torch fold's ms a level and the batch ms with and without the
     overlay. (b) SsspEngine(lanes=256, overlay=...) on the sssp phase's
     weighted graph and sources after a batch of 48 adds and 16 re-weights:
-    1 lane equal to Dijkstra on materialize() (5, then 2, before); K1 minplus and the fold's
+    1 lane equal to Dijkstra on materialize() (5, then 2, before), built
+    over the sssp phase's host ELL and weight slabs; K1 minplus and the fold's
     ms a light sweep. Their K1 launches give the "K1 or, dynamic wide w 8"
     and "K1 minplus, dynamic sssp w 256" kernels entries, each bit-exact
     against its twin on the engine's own tables. (c) At the wide phase's
@@ -256,9 +271,21 @@ Phases, one JSON line each:
     resume_levels=2, a resume spool, device_lost@fetch@level=2: the query
     answers from the degraded 1x2 mesh equal to SciPy, resumed at the
     level-2 snapshot, every spooled snapshot reloaded through its CRC.
+    (f) Mesh AOT: (a)'s registry's two 2-rank wide rungs, exported
+    before (b) degrades the ladder, and (e)'s hybrid rung, each rank its
+    own dist_core; a fresh registry preheated from the store
+    (torch.export made to raise) serves 64 queries on the wide and 64 on
+    the hybrid service: every rung an engine_adopt and no engine_build,
+    one hit a mesh program (3) and no fallback, answers equal the
+    single-device engines'; then a copy of the store with rank 1's wide
+    artifacts corrupted: rank 1 quarantines both and runs eagerly, rank 0
+    adopts, 2 fallbacks, answers equal.
     (d) (a side arm, 23) ``python -m tpu_bfs_torch.serve rmat:scale=16
-    --devices 2`` as a subprocess: three answers with devices 2, SIGTERM
-    drains, exit 0.
+    --devices 2 --export-aot`` as a subprocess: three answers with devices
+    2; then a ``--preheat --devices 2`` successor through
+    tools/warm_handoff.py, READY with one hit a rung and no fallback, the
+    first server drained by SIGTERM with exit 0, the successor's answers
+    equal.
 21. adaptive (after pullgate): the flagship as JAX's bench runs it.
     (a) HybridMsBfsEngine(max_lanes=8192, adaptive_push=(8192, 64)) built
     from the flagship graph (its push table needs the edge list), on the
@@ -990,16 +1017,13 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     require(launches["ell_expand"] == len(pass_ms) * buckets,
             f"parent scan launched {launches['ell_expand']} K1, not {len(pass_ms)} x {buckets}")
     require(launches["tile_spmm"] == 0, "the parent scan launched tile_spmm")
-    t0 = time.perf_counter()
-    _check_trees(g, res, sources, picks, trees)
-    validate_s = time.perf_counter() - t0
     # K1 op=min at the scan's shape: one pass over a pass's real key table.
     entry = k1_entry(k1, scanner.arrs, bucket_names(ell), scanner.keys(res._scan_cols(
         scanner, 0, lpp // 32, perm)), "min", launches["ell_expand"], ptxas, g=g,
         name="ell_expand_min",
         unit=f"one parent-scan pass: every bucket of the full ELL, w {lpp}")
     first_tree = trees[picks[0]]
-    del scanner, buf, trees
+    del scanner, buf
 
     # The public export on a small batch of the same engine; it builds its
     # own scanner (the hybrid's is not cached) and an [S, V] host array.
@@ -1017,7 +1041,17 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
     # that one; the last lane is checked in full.
     require(picks[0] == 0 and np.array_equal(out[0], first_tree),
             "parents_into lane 0 != the scan's checked tree of the same source")
-    _check_trees(g, res2, sources, checked[1:], out)
+    # The two tree checks (the scan's lane, the export's last lane), some
+    # seconds of host work each, side by side once the device work is done.
+    g.coo  # built once, before the threads share it
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        checks = [pool.submit(_check_trees, g, res, sources, picks, trees),
+                  pool.submit(_check_trees, g, res2, sources, checked[1:], out)]
+        for f in checks:
+            f.result()  # re-raises a failed check
+    validate_s = time.perf_counter() - t0
+    del trees
     per_pass_s = scan_s / len(pass_ms)
     emit({
         "phase": "parents", "lanes": n, "passes": len(pass_ms), "passes_scanned": scanned,
@@ -1036,7 +1070,8 @@ def phase_parents(k1, k2, g, eng, res, sources, picks, ptxas) -> dict:
         "d2h_bytes_per_pass": ell.num_active * lpp * 4,
         "host_decode_ms_per_pass": sum(decode_ms) / len(decode_ms),
         "host_decode_passes_timed": len(decode_ms),
-        "validated_lanes": sorted(picks), "validate_s": validate_s,
+        "validated_lanes": sorted(picks),
+        "validate_s": validate_s, "validate": "both tree checks side by side",
         f"parents_into_{PARENTS_INTO_LANES}": {
             "seconds": export_s, "ell_expand_launches": export_launches,
             "checked_lanes": checked, "host_bytes": out.nbytes},
@@ -1099,6 +1134,7 @@ def phase_single(dev, k1, k2, g, traversable):
         }
         if backend == "tiled":
             backends[backend].update(tiles=eng.num_tiles, dense_edges=eng.num_dense_edges)
+            tiled = eng  # its tables serve the gated engine after mesh_single
         del eng
     launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
     require(launches == {"ell_expand": 0, "tile_spmm": 0},
@@ -1107,7 +1143,7 @@ def phase_single(dev, k1, k2, g, traversable):
           "edge_slots": g.num_edges, "vp": dg.vp, "ep": dg.ep, "sources": sources,
           "golden_s": golden_s, "device_graph_s": dg_s, "validated": "every run",
           "launches": launches, "backends": backends})
-    return sources, golden, trees, dg
+    return sources, golden, trees, dg, tiled
 
 
 def phase_mesh_single(dev, k1, k2, g, dg, sources, golden, trees):
@@ -1789,13 +1825,14 @@ def phase_pullgate(dev, k1, k2, g, eng, sources, picks, wide, ptxas) -> dict:
     return entry
 
 
-def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees) -> None:
-    """TiledBfsEngine(pull_gate=True) from the single phase's sources:
+def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees, tiled) -> None:
+    """TiledBfsEngine(pull_gate=True) from the single phase's sources, over
+    the single phase's tiled engine's tables (one host build of them):
     distances equal SciPy's, trees the single phase's checked ones."""
     from tpu_bfs_torch.algorithms.bfs_tiled import TiledBfsEngine
 
     t0 = time.perf_counter()
-    eng = TiledBfsEngine(g, pull_gate=True, device=dev)
+    eng = TiledBfsEngine(g, pull_gate=True, device=dev, tables=tiled)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     reset_counts(k1, k2)
@@ -1812,6 +1849,7 @@ def phase_pullgate_tiled(dev, k1, k2, g, sources, golden, trees) -> None:
             "the tiled engine is plain PyTorch, yet launched a kernel")
     emit({"phase": "pullgate", "engine": "TiledBfsEngine(pull_gate=True)",
           "graph": "the flagship graph", "tiles": eng.num_tiles, "build_s": build_s,
+          "tables": "the single phase's tiled engine's",
           "validated": "every run", "runs": runs,
           "mean_ms": sum(x["ms"] for x in runs) / len(runs)})
 
@@ -2259,6 +2297,9 @@ def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas
     entries.append(k2_entry(k2, arrs, fw, prior, meng._nrt, launches["tile_spmm"], ptxas, g=g,
                             name="K2, mesh shard", unit="one launch on the rank's row "
                             "tiles, out= form (one rank)"))
+    aot_line, aot_entries = mesh_aot_hybrid(k1, k2, meng, sources, res, launches, fw, prior,
+                                            entries)
+    entries += aot_entries
     del fw, prior
     emit({"phase": "mesh", "engine": "DistHybridMsBfsEngine", "exchange": "dense",
           "ranks": 1, "backend": mesh.backend, "graph": "the flagship graph",
@@ -2270,7 +2311,8 @@ def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas
           "host_reads": syncs, "host_reads_per_level": syncs / bodies,
           "peak_mem_gb": peak_gb, "peak_above_start_gb": peak_above_gb,
           "launches": launches, "validated_lanes": picks,
-          "equal_to_single_device": "visited, planes, every lane's distances, reached, ecc"})
+          "equal_to_single_device": "visited, planes, every lane's distances, reached, ecc",
+          "aot": aot_line})
     del res, single, meng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2307,6 +2349,140 @@ def phase_mesh(dev, k1, k2, g, eng, sources, picks, wide, wide_scale: int, ptxas
     gc.collect()
     torch.cuda.empty_cache()
     return entries
+
+
+def mesh_aot_store(name: str):
+    """A fresh artifact store under the build directory, and its root."""
+    from tpu_bfs_torch.ops._build import BUILD_DIR
+    from tpu_bfs_torch.utils import aot
+
+    root = BUILD_DIR / name
+    shutil.rmtree(root, ignore_errors=True)
+    return aot.ArtifactStore(root), root
+
+
+def mesh_aot_adopt(eng, key: dict, names: list) -> dict:
+    """A mesh engine's rank-local programs exported into a fresh store and
+    adopted back into the same engine (its own tables: no second build),
+    with ``torch.export.export`` made to raise while it adopts. Each
+    adopted graph names its kernel ops and no collective; one artifact
+    hit a program, no fallback. Returns the arm's fields, the eager
+    callables (``eager``) and the store's root (``root``)."""
+    from tpu_bfs_torch.utils import aot
+
+    store, root = mesh_aot_store("aot_mesh")
+    inventory = eng.export_programs()
+    eager = {attr: getattr(eng, attr) for _, attr, _, _ in inventory}
+    t0 = time.perf_counter()
+    got = aot.export_engine_programs(eng, key, store)
+    export_s = time.perf_counter() - t0
+    require(got == names, f"exported {got}, not {names}")
+    t0 = time.perf_counter()
+    with no_export_trace():
+        adopted = aot.adopt_engine_programs(eng, key, store)
+    adopt_s = time.perf_counter() - t0
+    counts = store.counts()
+    require(adopted == names and counts["aot_hits"] == len(names)
+            and counts["aot_fallbacks"] == 0, f"adopted {adopted}: {counts}")
+    targets = {}
+    for name, attr, _, _ in inventory:
+        t = getattr(eng, attr).graph_targets()
+        require(not any("c10d" in x or "all_reduce" in x or "all_gather" in x for x in t),
+                f"{name}: a collective in the adopted graph")
+        targets[name] = sorted({x for x in t if x.startswith("tpu_bfs_torch.")})
+    return {"programs": names, "export_s": export_s, "adopt_s": adopt_s, "counts": counts,
+            "kernel_ops": targets,
+            "artifact_bytes": sum(p.stat().st_size for p in root.glob("*.aot")),
+            "eager": eager, "root": root}
+
+
+def op_k1_rows(k1, arrs, names, fw, op: str, wsuf) -> tuple:
+    """K1 over every bucket ``names`` of ``arrs`` through the registered op
+    (the adopted graph's route) against its twin: (max abs error, ms)."""
+    saved = k1.ell_expand.launches
+    op1 = torch.ops.tpu_bfs_torch.ell_expand
+
+    def level(fn):
+        return [fn(arrs[f"{n}_need"], arrs[f"{n}_gt"], fw,
+                   None if wsuf is None else arrs[f"{n}_{wsuf}_gt"], op) for n in names]
+
+    got = level(op1)
+    want = level(lambda need, gt, x, wt, o: k1.ell_expand_plain(need, gt, x, wt, op=o))
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(err == 0, f"K1 {op} through the op != twin ({err})")
+    del got, want
+    ms = cuda_ms(lambda: level(op1), 5)
+    k1.ell_expand.launches = saved  # comparisons do not count
+    return err, ms
+
+
+def op_k2_row(k2, arrs, fw, prior, nrt: int) -> tuple:
+    """K2 through the registered op, out= form into a copy of ``prior``,
+    against ``prior`` | its twin: (max abs error, ms)."""
+    saved = k2.tile_spmm.launches
+    op2 = torch.ops.tpu_bfs_torch.tile_spmm
+    buf = prior.clone()
+
+    def launch():
+        op2(arrs["row_start"], arrs["col_tile"], arrs["a_masks"], fw, buf, nrt)
+
+    launch()
+    want = prior | k2.tile_spmm_plain(arrs["row_start"], arrs["col_tile"], None, fw,
+                                      num_row_tiles=nrt, masks=arrs["a_masks"])
+    torch.cuda.synchronize()
+    err = max_abs_err(buf, want)
+    require(err == 0, f"K2 through the op != twin ({err})")
+    del want
+    ms = cuda_ms(launch, 5)
+    k2.tile_spmm.launches = saved
+    return err, ms
+
+
+def mesh_aot_hybrid(k1, k2, meng, sources, eager, eager_launches, fw, prior, shard_entries):
+    """The mesh phase's AOT arm: the one-rank flagship engine's dist_core
+    exported and adopted into the same engine, the batch run again on it:
+    visited and planes equal the eager batch's on the device, levels,
+    reached, ecc and both kernels' launches too; then K1 and K2 through
+    the registered ops on the shard entries' operands (the "adopted mesh
+    shard" kernels entries). Returns (the arm's fields, the entries)."""
+    t_arm = time.perf_counter()
+    key = {"graph_key": "rmat:flagship", "engine": "hybrid", "lanes": meng.lanes,
+           "planes": meng.num_planes, "devices": 1}
+    arm = mesh_aot_adopt(meng, key, ["dist_core"])
+    root, _eager_fns = arm.pop("root"), arm.pop("eager")
+    require(arm["kernel_ops"]["dist_core"] == ["tpu_bfs_torch.ell_expand.default",
+                                              "tpu_bfs_torch.tile_spmm.default"],
+            f"the adopted dist_core names {arm['kernel_ops']}")
+    t = timed_batch(k1, k2, meng, sources)
+    res = t.pop("res")
+    step = meng._dist_core
+    require(step.calls >= res.num_levels and step.fallback_calls == 0,
+            f"adopted dist_core ran {step.calls} times, {step.fallback_calls} fell back")
+    same_state(res, eager, "adopted mesh flagship against the eager one")
+    require(res.num_levels == eager.num_levels and np.array_equal(res.reached, eager.reached)
+            and np.array_equal(res.ecc, eager.ecc), "adopted mesh levels, reached or ecc")
+    launches = {"ell_expand": t["ell_expand"], "tile_spmm": t["tile_spmm"]}
+    require(launches == eager_launches, f"adopted launches {launches} != {eager_launches}")
+    del res
+    arrs, spec = meng.arrs, meng.hd["res_spec"]
+    names = (["virtual"] if spec.heavy else []) + [f"light{i}" for i in
+                                                   range(len(spec.light_meta))]
+    err1, ms1 = op_k1_rows(k1, arrs, names, fw, "or", None)
+    err2, ms2 = op_k2_row(k2, arrs, fw, prior, meng._nrt)
+    k1e, k2e = shard_entries
+    entries = [
+        dict(k1e, name="K1 or, adopted mesh shard", launches=launches["ell_expand"],
+             max_abs_err=err1, ms=ms1, unit=k1e["unit"] + ", through the registered op "
+             "the adopted dist_core calls"),
+        dict(k2e, name="K2, adopted mesh shard", launches=launches["tile_spmm"],
+             max_abs_err=err2, ms=ms2, unit=k2e["unit"] + ", through the registered op "
+             "the adopted dist_core calls")]
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(arm, batch_ms=t["batch_ms"], hmean_gteps=t["hmean_gteps"],
+                step_calls=step.calls, launches=launches,
+                equal_to_eager="visited, planes, levels, reached, ecc, launches",
+                seconds=time.perf_counter() - t_arm), entries
 
 
 def shared_card_rank(mesh, scale: int, lanes: int):
@@ -2571,7 +2747,8 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
     """Every workload kind on a one-rank NCCL group on cuda:0 at the
     flagship's full size (see the module docstring, phase 16; gloo ranks
     sharing the card are a side arm, shared_card_kinds). Returns the "K1
-    minplus, mesh shard, w 256" kernels entry."""
+    minplus, mesh shard, w 256" and "K1 minplus, adopted mesh shard"
+    kernels entries."""
     from tpu_bfs_torch.graph.ell import build_ell_sharded, build_ell_weights_sharded
     from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
     from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
@@ -2658,6 +2835,8 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
                 k1, eng.arrs, names, res._dist, "minplus", "w", "K1 minplus, mesh heavy close")
             require(entry["max_abs_err"] == entry["heavy_close_max_abs_err"] == 0,
                     "mesh shard minplus != twin")
+            aot_line, aot_entry = mesh_aot_sssp(k1, k2, eng, src, res, launches, entry, names)
+            out[-1]["aot"] = aot_line
         del eng, res
     del ref, ref_res, sssp
     gc.collect()
@@ -2712,7 +2891,46 @@ def phase_mesh_kinds(dev, k1, k2, g, sssp, flagship_sources, khop_reached, cc, p
           "validated": "sssp: every lane = SsspEngine's, 2 lanes = dijkstra; cc labels, khop "
                        "reached and p2p answers = the single-device phases'; every p2p path "
                        "walked", "seconds": time.perf_counter() - t_phase})
-    return entry
+    return [entry, aot_entry]
+
+
+def mesh_aot_sssp(k1, k2, eng, src, eager, eager_launches, shard_entry, names):
+    """The mesh_kinds phase's AOT arm: the one-rank ring DistSsspEngine's
+    light sweep and heavy close exported and adopted into the same engine,
+    its batch run again: the distance table equal to the eager batch's on
+    the device, rounds and K1 launches too; then K1 minplus through the
+    registered op on the shard entry's operands (the "K1 minplus, adopted
+    mesh shard" kernels entry). Returns (the arm's fields, the entry)."""
+    t_arm = time.perf_counter()
+    key = {"graph_key": "rmat:flagship,wmax=8", "engine": "wide", "lanes": eng.lanes,
+           "planes": 8, "devices": 1, "kind": "sssp", "exchange": "ring"}
+    arm = mesh_aot_adopt(eng, key, ["dist_sssp_core", "dist_sssp_close"])
+    root, _eager_fns = arm.pop("root"), arm.pop("eager")
+    require(all(v == ["tpu_bfs_torch.ell_expand.default"] for v in arm["kernel_ops"].values()),
+            f"the adopted sssp programs name {arm['kernel_ops']}")
+    reset_counts(k1, k2)
+    res = eng.run(src, time_it=True)
+    launches = {"ell_expand": k1.ell_expand.launches, "tile_spmm": k2.tile_spmm.launches}
+    core, close = eng._dist_core, eng._dist_close
+    require(core.calls == res.rounds and close.calls == eng.last_closes > 0
+            and core.fallback_calls == close.fallback_calls == 0,
+            f"adopted sssp programs ran {core.calls}/{close.calls} times over {res.rounds} "
+            f"rounds, {eng.last_closes} closes")
+    require(torch.equal(res._dist, eager._dist) and res.rounds == eager.rounds,
+            "adopted mesh sssp distances or rounds != the eager batch's")
+    require(launches == eager_launches, f"adopted launches {launches} != {eager_launches}")
+    err, ms = op_k1_rows(k1, eng.arrs, names, eager._dist, "minplus", "wl")
+    entry = dict(shard_entry, name="K1 minplus, adopted mesh shard",
+                 launches=launches["ell_expand"], max_abs_err=err, ms=ms,
+                 unit=shard_entry["unit"] + ", through the registered op the adopted "
+                 "dist_sssp_core calls")
+    entry.pop("heavy_close_max_abs_err", None)
+    del res
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(arm, rounds=eager.rounds, closes=eng.last_closes, launches=launches,
+                core_calls=core.calls, close_calls=close.calls,
+                equal_to_eager="distance table, rounds, launches",
+                seconds=time.perf_counter() - t_arm), entry
 
 
 def shared_card_kinds(dev, small_scale: int) -> dict:
@@ -4068,38 +4286,176 @@ def mesh_serve_hybrid(dev, k1, k2, ctl, g, pool, ptxas):
                    "service_up_s": up_s, "queries": len(flat), "submitted_batches": nbatch,
                    "batches": snap["batches"],
                    "seconds": seconds, "launches_rank0": launches,
-                   "rows_equal_direct": compared}
+                   "rows_equal_direct": compared}, reg, direct
+
+
+def mesh_serve_preheat(dev, g, root: Path, engines, wide_src, hyb_src) -> tuple:
+    """Services on a fresh registry preheated from the store at ``root``
+    (``torch.export.export`` made to raise, the recorder armed): each of
+    ``engines`` ('wide' on the 64/256 ladder, 'hybrid' at 4096 lanes) on
+    2 ranks, its sources queued before start(). Returns (the registry, the
+    recorder's span counts, {engine: answers})."""
+    from tpu_bfs_torch import obs
+    from tpu_bfs_torch.serve import BfsService, EngineRegistry
+
+    preg = EngineRegistry(capacity=8, device=dev, aot_store=str(root))
+    rec = obs.arm(capacity=8192)
+    answers = {}
+    try:
+        with no_export_trace():
+            for engine in engines:
+                lanes, srcs = (256, wide_src) if engine == "wide" else (4096, hyb_src)
+                svc = BfsService(g, engine=engine, devices=2, lanes=lanes,
+                                 width_ladder="auto", registry=preg, device=dev,
+                                 autostart=False)
+                pend = [svc.submit(int(s)) for s in srcs]
+                svc.start()
+                try:
+                    answers[engine] = [p.result(600) for p in pend]
+                finally:
+                    svc.close()
+        spans = rec.counts_by_name()
+    finally:
+        obs.disarm()
+    return preg, spans, answers
+
+
+def mesh_serve_aot(dev, g, root: Path, exported: dict, export_s: float, pool, direct,
+                   hdirect) -> dict:
+    """(f) Mesh AOT on the serving mesh: the 2-rank wide rungs (64, 256) and
+    the hybrid rung (4096) exported by their warmed registries, each rank
+    its own dist_core; a fresh registry preheated from the store serves a
+    64-query batch on each, every rung an engine_adopt and no
+    engine_build, one hit a mesh program and no fallback, the answers equal
+    to the single-device engines'. Then a copy of the store with rank 1's
+    wide artifacts corrupted: rank 1 quarantines and runs its eager step,
+    rank 0 adopts, each rung counts one fallback, the answers equal."""
+    t_arm = time.perf_counter()
+    mesh = {f"{s.engine}/{s.lanes}": v for s, v in exported.items() if s.devices == 2}
+    require(sorted(mesh) == ["hybrid/4096", "wide/256", "wide/64"]
+            and all(v == ["dist_core"] for v in mesh.values()) and len(exported) == 3,
+            f"exported {exported}")
+    files = sorted(p.name for p in root.glob("*.aot"))
+    require(len(files) == 2 * len(mesh) and sum(".r1-" in f for f in files) == len(mesh),
+            f"the store's files {files}")
+    wide_src = pool.reshape(-1)[:64]
+    hyb_src = pool.reshape(-1)[:MESH_SERVE_BURST][:64]
+    t0 = time.perf_counter()
+    preg, spans, answers = mesh_serve_preheat(dev, g, root, ("wide", "hybrid"), wide_src,
+                                              hyb_src)
+    preheat_s = time.perf_counter() - t0
+    counts = preg.aot_store.counts()
+    require(spans.get("engine_adopt", 0) >= len(mesh) and not spans.get("engine_build"),
+            f"mesh preheat spans {spans}")
+    require(counts["aot_hits"] == len(mesh) and counts["aot_fallbacks"] == 0
+            and counts["aot_runtime_fallbacks"] == 0 and preg.adoptions == len(mesh),
+            f"mesh preheat counts {counts}, adoptions {preg.adoptions}")
+    require(all(r.ok and r.devices == 2 for v in answers.values() for r in v),
+            "preheated mesh answers")
+    same_as_direct(answers["wide"], direct, "preheated mesh wide", sample=4)
+    same_as_direct(answers["hybrid"], hdirect, "preheated mesh hybrid", sample=2)
+    adopt_s = {f"{s.engine}/{s.lanes}": v for s, v in preg.adopt_s.items()}
+    del preg, answers
+    gc.collect()
+    # The corrupt arm: rank 1's wide artifacts flipped in a copy.
+    t0 = time.perf_counter()
+    bad = root.with_name(root.name + "_corrupt")
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.copytree(root, bad)
+    hit = [p for p in bad.glob("wide-*.r1-*.aot")]
+    for p in hit:
+        with open(p, "r+b") as f:
+            f.seek(-10, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-10, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    creg, _, canswers = mesh_serve_preheat(dev, g, bad, ("wide",), wide_src, hyb_src)
+    ccounts = creg.aot_store.counts()
+    quarantined = sorted(p.name for p in bad.glob("*.corrupt"))
+    require(len(hit) == 2 and len(quarantined) == 2
+            and all(".r1-" in q for q in quarantined), f"corrupt arm {hit} {quarantined}")
+    require(ccounts["aot_hits"] == 0 and ccounts["aot_fallbacks"] == 2,
+            f"corrupt arm counts {ccounts}")
+    require(all(r.ok and r.devices == 2 for r in canswers["wide"]), "corrupt arm answers")
+    same_as_direct(canswers["wide"], direct, "corrupt-rank mesh wide", sample=4)
+    corrupt_s = time.perf_counter() - t0
+    del creg, canswers
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"arm": "f", "exported": mesh, "export_s": export_s,
+            "artifact_files": len(files), "preheat_s": preheat_s, "counts": counts,
+            "engine_adopt_events": spans.get("engine_adopt", 0), "adopt_s": adopt_s,
+            "queries": {"wide": len(wide_src), "hybrid": len(hyb_src)},
+            "corrupt_rank1": {"quarantined": quarantined, "counts": ccounts,
+                              "seconds": corrupt_s},
+            "seconds": time.perf_counter() - t_arm}
 
 
 def mesh_serve_jsonl(dev) -> dict:
     """(d) ``python -m tpu_bfs_torch.serve rmat:scale=16 --devices 2`` as a
-    subprocess (its own two gloo ranks on the card): three queries answered
-    with ``devices`` 2, then SIGTERM drains it with exit code 0."""
+    subprocess (its own two gloo ranks on the card) with ``--export-aot``:
+    three queries answered with ``devices`` 2. Then a ``--preheat --devices
+    2`` successor started through ``tools.warm_handoff``: READY with one
+    artifact hit a mesh rung and no fallback, after which the handoff
+    SIGTERMs the first server, which drains with exit code 0; the successor
+    answers the same lines and exits 0 at EOF."""
     import threading
+
+    from tpu_bfs_torch.ops._build import BUILD_DIR
 
     spec = "rmat:scale=16"
     here = Path(__file__).resolve().parent
+    store = BUILD_DIR / "aot_mesh_jsonl"
+    shutil.rmtree(store, ignore_errors=True)
+    server = [sys.executable, "-m", "tpu_bfs_torch.serve", spec, "--lanes", "256",
+              "--devices", "2", "--device", str(dev), "--statsz-interval-s", "0"]
+    popen = dict(stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                 text=True, cwd=here, env=dict(os.environ, PYTHONPATH=str(here)))
+    queries = "".join(json.dumps({"id": i, "source": s}) + "\n" for i, s in enumerate((0, 5, 9)))
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "tpu_bfs_torch.serve", spec, "--lanes", "256",
-         "--devices", "2", "--device", str(dev), "--statsz-interval-s", "0"],
-        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=here, env=dict(os.environ, PYTHONPATH=str(here)))
-    killer = threading.Timer(300, proc.kill)
-    killer.start()
+    proc = subprocess.Popen(server + ["--export-aot", str(store)], **popen)
+    hand, hand_err, sigterm = None, [], threading.Event()
+
+    def watch(stream):
+        for line in stream:
+            hand_err.append(line)
+            if "SIGTERM -> old server" in line:
+                sigterm.set()
+
+    killers = [threading.Timer(420, proc.kill)]
+    killers[0].start()
     try:
-        proc.stdin.write("".join(json.dumps({"id": i, "source": s}) + "\n"
-                                 for i, s in enumerate((0, 5, 9))))
+        proc.stdin.write(queries)
         proc.stdin.flush()
         got = [json.loads(proc.stdout.readline()) for _ in range(3)]
         answered_s = time.perf_counter() - t0
-        proc.send_signal(signal.SIGTERM)
+        t_d = time.perf_counter()
+        hand = subprocess.Popen(
+            [sys.executable, "-m", "tpu_bfs_torch.tools.warm_handoff", "--old-pid",
+             str(proc.pid), "--ready-timeout", "300", "--term-wait", "120", "--", *server,
+             "--preheat", str(store)], **popen)
+        killers.append(threading.Timer(420, hand.kill))
+        killers[-1].start()
+        watcher = threading.Thread(target=watch, args=(hand.stderr,), daemon=True)
+        watcher.start()
+        require(sigterm.wait(360), "the mesh handoff never drained the first server: "
+                + "".join(hand_err)[-2000:])
         _, err = proc.communicate(timeout=120)
+        hand.stdin.write(queries)
+        hand.stdin.flush()
+        got2 = [json.loads(hand.stdout.readline()) for _ in range(3)]
+        hand.stdin.close()
+        tail = hand.stdout.read()
+        hand.wait(timeout=120)
+        watcher.join(timeout=30)
+        handoff_s = time.perf_counter() - t_d
     finally:
-        killer.cancel()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for k in killers:
+            k.cancel()
+        for p in (proc, hand):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
     require(proc.returncode == 0, f"mesh serve subprocess exited {proc.returncode}: "
                                   f"{err[-2000:]}")
     require("SIGTERM received: draining" in err, "no SIGTERM drain in the server's log")
@@ -4108,11 +4464,32 @@ def mesh_serve_jsonl(dev) -> dict:
     final = [ln for ln in err.splitlines() if ln.startswith("statsz ")]
     stat = json.loads(final[-1][7:]) if final else {}
     require(stat.get("completed") == 3 and stat.get("devices") == 2, f"final statsz {stat}")
+    exported = [ln for ln in err.splitlines() if "aot export -> " in ln]
+    m = re.search(r"(\d+) programs from (\d+) engines", exported[0]) if exported else None
+    require(m is not None and int(m.group(1)) == int(m.group(2)) > 0,
+            f"the first mesh server's export: {exported}")
+    hand_log = "".join(hand_err)
+    ready = [ln.strip() for ln in hand_log.splitlines() if "READY engine=" in ln]
+    r = re.search(r"aot_hits=(\d+) aot_fallbacks=(\d+)", ready[0]) if ready else None
+    require(r is not None and int(r.group(1)) == int(m.group(1)) and int(r.group(2)) == 0,
+            f"the mesh successor's READY line: {ready}")
+    for x in got + got2:
+        x.pop("latency_ms", None)
+        x.pop("gteps", None)
+    require(got2 == got, f"the preheated mesh successor's answers != the first server's: "
+                         f"{got2} {got}")
+    record = json.loads(tail.strip().splitlines()[-1])
+    require(hand.returncode == 0 and record["successor_rc"] == 0 and record["old_drained"],
+            f"mesh warm handoff rc {hand.returncode}: {record}")
+    shutil.rmtree(store, ignore_errors=True)
     return {"arm": "d", "graph": spec, "devices": 2, "answered_s": answered_s,
             "seconds": time.perf_counter() - t0,
-            "answers": [{k: r.get(k) for k in ("id", "levels", "reached", "devices", "edges",
-                                               "wire_bytes")} for r in got],
-            "drain": "SIGTERM, final statsz, exit 0"}
+            "answers": [{k: x.get(k) for k in ("id", "levels", "reached", "devices", "edges",
+                                               "wire_bytes")} for x in got],
+            "drain": "SIGTERM (the warm handoff), final statsz, exit 0",
+            "export": exported[0].split("# ", 1)[-1], "successor_ready_line": ready[0],
+            "successor_ready_s": record["value"], "handoff_s": handoff_s,
+            "answers_equal": len(got2)}
 
 
 def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
@@ -4140,12 +4517,26 @@ def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
         emit({"phase": "mesh_serve", "graph": f"RMAT {scale} (cut from the flagship's 21)",
               "ranks_started": 4, "backend": ctl.backend, "mesh_up_s": mesh_up_s,
               "note": note, **wide})
+        # (f)'s export of the warmed 2-rank wide rungs, before (b) degrades
+        # the ladder onto one-device rungs.
+        store, root = mesh_aot_store("aot_mesh_serve")
+        t0 = time.perf_counter()
+        exported = dict(reg.export_resident(store))
+        export_s = time.perf_counter() - t0
         chaos = mesh_serve_chaos(dev, ctl, g, reg, pool, direct)
-        del reg, direct
+        del reg
         gc.collect()
         emit({"phase": "mesh_serve", **chaos})
-        k2e, hyb = mesh_serve_hybrid(dev, k1, k2, ctl, g, pool, ptxas)
+        k2e, hyb, hreg, hdirect = mesh_serve_hybrid(dev, k1, k2, ctl, g, pool, ptxas)
         emit({"phase": "mesh_serve", **hyb})
+        t0 = time.perf_counter()
+        exported.update(hreg.export_resident(store))
+        export_s += time.perf_counter() - t0
+        del hreg
+        gc.collect()
+        emit({"phase": "mesh_serve", **mesh_serve_aot(dev, g, root, exported, export_s,
+                                                      pool, direct, hdirect)})
+        del direct, hdirect
         gc.collect()
         # A drawn source, not vertex 0: the registry's warm-up batch runs
         # from vertex 0 (and would drop a snapshot of it).
@@ -4291,7 +4682,10 @@ def dynamic_sssp(dev, k1, k2, sssp, ptxas):
 
     gw, src = sssp["graph"], sssp["sources"]
     t0 = time.perf_counter()
-    eng = SsspEngine(gw, lanes=256, overlay=DYN_CAP, device=dev)
+    # The sssp phase's host ELL and weight slabs: the graph is the same.
+    base = sssp["engine"]
+    eng = SsspEngine(gw, lanes=256, overlay=DYN_CAP, device=dev, ell=base.ell,
+                     weights=base.ell_weights)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     dyn = DynamicGraph(gw, capacity=DYN_CAP)
@@ -4658,9 +5052,10 @@ def main(argv=None) -> int:
     del eng, wide  # free the flagship's device state; its graph stays
     gc.collect()
     torch.cuda.empty_cache()
-    single_sources, golden, trees, dg = phase_single(dev, k1, k2, g, traversable)
+    single_sources, golden, trees, dg, tiled = phase_single(dev, k1, k2, g, traversable)
     phase_mesh_single(dev, k1, k2, g, dg, single_sources, golden, trees)
-    phase_pullgate_tiled(dev, k1, k2, g, single_sources, golden, trees)
+    phase_pullgate_tiled(dev, k1, k2, g, single_sources, golden, trees, tiled)
+    del tiled
     entries, ell = phase_packed(dev, k1, k2, g, single_sources, golden, trees, traversable, ptxas)
     kernels += entries
     phase_ckpt(dev, k1, k2, hg, ell, dg, sources, single_sources[0], args.ckpt_every)
@@ -4682,8 +5077,7 @@ def main(argv=None) -> int:
     del ell
     gc.collect()
     torch.cuda.empty_cache()
-    kernels.append(phase_mesh_kinds(dev, k1, k2, g, sssp, sources, khop_reached, cc, p2p,
-                                    ptxas))
+    kernels += phase_mesh_kinds(dev, k1, k2, g, sssp, sources, khop_reached, cc, p2p, ptxas)
     del sssp, sources
     gc.collect()
     torch.cuda.empty_cache()

@@ -133,9 +133,12 @@ def test_program_key_digest_and_file_name_equal_jax(spec, tmp_path):
     key = aot.program_key(spec)
     assert key == jaot.program_key(jspec)
     assert aot._key_digest(key) == jaot._key_digest(key)
-    tpath = aot.ArtifactStore(tmp_path / "t").path_for(spec, "core")
-    jpath = jaot.ArtifactStore(tmp_path / "j").path_for(jspec, "core")
-    assert os.path.basename(tpath) == os.path.basename(jpath)
+    # Rank 0 of a mesh stores its programs under JAX's names, so its files
+    # are JAX's file names.
+    for name in ("core", "dist_core", aot.rank_program_name("dist_sssp_core", 0)):
+        tpath = aot.ArtifactStore(tmp_path / "t").path_for(spec, name)
+        jpath = jaot.ArtifactStore(tmp_path / "j").path_for(jspec, name)
+        assert os.path.basename(tpath) == os.path.basename(jpath)
     # The port has no expand_impl axis: JAX's default key is its key.
     assert aot.program_key(dict(jspec if isinstance(jspec, dict) else key,
                                 expand_impl="pallas")) == jaot.program_key(
@@ -305,9 +308,30 @@ def test_registry_names_adopt_and_build_spans(graphs, tmp_path):
     assert counts.get("engine_adopt") and not counts.get("engine_build")
     assert counts.get("aot_load", 0) >= 5
     assert warm.adoptions == 1 and len(eng._aot_adopted) == 5
-    # A mesh spec refuses the store, naming where mesh AOT waits.
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6 \(mesh AOT"):
-        warm.get(EngineSpec(graph_key="g", engine="wide", lanes=64, planes=4, devices=2))
+    # A mesh spec takes the store as well: its ranks each export their own
+    # dist_core, and a fresh registry on the serving mesh adopts on every
+    # rank (one mesh program, as JAX counts it).
+    from tpu_bfs_torch.parallel.mesh import serve_mesh
+
+    mesh_spec = EngineSpec(graph_key="g", engine="wide", lanes=64, planes=4, devices=2)
+    ctl = serve_mesh(2, device="cpu")
+    try:
+        warm.get(mesh_spec)
+        # Nothing of it in the store yet: a build, no adoption.
+        assert rec.counts_by_name().get("engine_build") and warm.adoptions == 1
+        assert warm.export_resident()[mesh_spec] == ["dist_core"]
+        succ = EngineRegistry(warm=False, aot_store=str(tmp_path / "store"), device="cpu")
+        succ.add_graph("g", graphs[1])
+        rec = tobs.arm(capacity=512)
+        meng = succ.get(mesh_spec)
+        assert rec.counts_by_name().get("engine_adopt") and succ.adoptions == 1
+        assert meng._aot_adopted == ("dist_core",)
+        assert succ.aot_store.counts()["aot_hits"] == 1
+        src = sources_of(graphs[1])
+        np.testing.assert_array_equal(meng.run(src).distances_int32(7),
+                                      eng.run(src).distances_int32(7))
+    finally:
+        ctl.close()
 
 
 def test_a_rebuilt_graph_with_moved_buckets_does_not_adopt_the_old_programs(graphs, tmp_path):
@@ -476,6 +500,35 @@ def test_cli_aot_lines_equal_jax_and_the_refusal(tmp_path, capsys):
             main(["0", "rmat:scale=8", "--aot", td])
         msgs.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1])
     assert msgs[0] == msgs[1] and msgs[0].startswith("--aot pairs with --multi-source")
+
+
+@pytest.mark.parametrize("engine", ["hybrid", "wide"])
+def test_cli_mesh_aot_lines_equal_jax(tmp_path, capfd, engine):
+    # --aot with --multi-source --devices 2: JAX's [aot] lines on the first
+    # run (nothing to adopt, one program exported) and the second (adopted),
+    # the port's ranks each storing their own program.
+    from tpu_bfs import cli as jcli
+    from tpu_bfs_torch import cli as tcli
+
+    argv = ["0", "rmat:scale=8,ef=8,seed=5", "--multi-source", "1,2,3", "--skip-cpu",
+            "--devices", "2", "--engine", engine]
+    jd, td = str(tmp_path / "jstore"), str(tmp_path / "tstore")
+
+    def aot_lines(main, extra):
+        assert main(argv + extra) in (0, None)
+        err = capfd.readouterr().err
+        return [ln.replace(jd, "DIR").replace(td, "DIR") for ln in err.splitlines()
+                if ln.startswith("[aot]")]
+
+    for rep in range(2):
+        want = aot_lines(jcli.main, ["--aot", jd])
+        got = aot_lines(tcli.main, ["--aot", td, "--device", "cpu"])
+        assert got == want, rep
+        assert want[-1] == "[aot] exported 1 programs -> DIR"
+        if rep:
+            assert want[0].startswith("[aot] aot adopted ['dist_core'] for Dist")
+    files = sorted(os.listdir(td))
+    assert len(files) == 2 and sum("-dist_core.r1-" in f for f in files) == 1
 
 
 def test_op_dispatch_tool_times_every_layer_on_the_cpu():

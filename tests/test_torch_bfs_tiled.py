@@ -64,6 +64,24 @@ def test_make_tiles_expand_equals_jax(name):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("name", ["rmat12", "directed"])
+def test_a_gated_engine_over_shared_tables_equals_jax(name):
+    # The gated engine built over an ungated one's tables (one host build
+    # for both) answers as JAX's gated engine, skipping the same tiles.
+    jg, tg = graphs(name)
+    plain = TiledBfsEngine(tg, tile_thr=2, device="cpu")
+    gated = TiledBfsEngine(tg, tile_thr=2, pull_gate=True, tables=plain, device="cpu")
+    assert gated._a is plain._a and gated._edges is plain._edges and gated._gated
+    jeng = JTiled(jg, tile_thr=2, pull_gate=True)
+    for s in sources(tg):
+        got, want = gated.run(int(s)), jeng.run(int(s))
+        assert_same_result(got, want)
+        assert gated.last_gate_skipped_tiles == jeng.last_gate_skipped_tiles
+        assert_same_result(plain.run(int(s)), want)
+    with pytest.raises(ValueError, match="same graph, tile_thr"):
+        TiledBfsEngine(tg, tile_thr=32, tables=plain, device="cpu")
+
+
 def test_time_it_max_levels_and_errors():
     jg, tg = graphs("path200")
     teng = TiledBfsEngine(tg, device="cpu")

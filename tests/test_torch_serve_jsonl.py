@@ -169,11 +169,21 @@ def _no_flip(lines):
     return _canon(out)
 
 
-def test_jsonl_refuses_unported_flags_and_ops(regs):
-    # The AOT preheat is ported on one device; on a mesh it stays refused by
-    # name.
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6 \(mesh AOT"):
-        _run(tfront, regs[1], "", ["--preheat", "d", "--devices", "2"])
+def _ready_run(front, requests: str, extra):
+    """A server run's response lines and its READY line."""
+    argv = list(COMMON) + list(extra) + (["--device", "cpu"] if front is tfront else [])
+    out, err = io.StringIO(), io.StringIO()
+    assert front.run_server(front.build_arg_parser().parse_args(argv),
+                            stdin=io.StringIO(requests), stdout=out, stderr=err) == 0
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+    for r in lines:  # timings are each package's own
+        r["gteps"] = r.get("gteps", 0) > 0
+    ready = [ln for ln in err.getvalue().splitlines() if "READY" in ln]
+    assert len(ready) == 1, err.getvalue()
+    return _canon(lines), ready[0]
+
+
+def test_jsonl_refuses_unported_flags_and_ops(regs, tmp_path):
     # The mesh flags are ported: --engine dist2d on one device raises JAX's
     # ValueError, and --devices 2 serves (the port on two gloo ranks this
     # process starts) the lines JAX serves on two virtual devices.
@@ -193,8 +203,20 @@ def test_jsonl_refuses_unported_flags_and_ops(regs):
     try:
         runs = [(_run(tfront, None, queries, flag), _run(jfront, None, queries, flag))
                 for flag in (["--devices", "2"], ["--devices", "2", "--audit-rate", "0.1"])]
+        # The AOT preheat on a mesh: each package's --export-aot on two
+        # devices, then a --preheat --devices 2 successor, whose READY line
+        # carries JAX's extras (one mesh program a rung, every rank's).
+        aot = {}
+        for name, front in (("t", tfront), ("j", jfront)):
+            d = str(tmp_path / name)
+            first = _ready_run(front, queries, ["--devices", "2", "--export-aot", d])
+            aot[name] = (first, _ready_run(front, queries, ["--devices", "2", "--preheat", d]))
     finally:
         ctl.close()
+    (t_first, t_pre), (j_first, j_pre) = aot["t"], aot["j"]
+    assert t_pre[1] == j_pre[1] and t_pre[1].endswith(" aot_hits=1 aot_fallbacks=0")
+    assert t_first[1] == j_first[1] and "aot_" not in t_first[1]
+    assert t_pre[0] == t_first[0] == j_pre[0] == j_first[0]
     for (got, tstat), (want, jstat) in runs:
         for lines in (got, want):
             for r in lines:  # timings are each package's own; an isolated

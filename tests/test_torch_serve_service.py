@@ -212,15 +212,11 @@ def test_answer_tier_equal_jax(regs):
     {"aot_dir": "a"},
 ])
 def test_unported_arguments_raise_naming_their_roadmap_item(regs, kw):
-    if "aot_dir" in kw and kw.get("devices", 1) > 1:
-        # AOT preheat on a mesh is not ported (ROADMAP Queue 1 item 6).
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6 \(mesh AOT"):
-            TService(KEY, registry=regs[1], autostart=False, device="cpu", **kw)
-        return
-    # The mesh knobs and dynamic graphs are ported: construction goes as in
-    # JAX (a mesh knob on one device, dist2d without a mesh and a
-    # generation_dir without dynamic raise JAX's ValueError; devices=2 and
-    # the probe cadence construct, and nothing starts before start()).
+    # The mesh knobs, dynamic graphs and the AOT preheat (on a mesh too)
+    # are ported: construction goes as in JAX (a mesh knob on one device,
+    # dist2d without a mesh and a generation_dir without dynamic raise JAX's
+    # ValueError; devices=2, with or without aot_dir, and the probe cadence
+    # construct, and nothing starts before start()).
     outs = []
     for cls, reg in ((JService, regs[0]), (TService, regs[1])):
         extra = {"device": "cpu"} if cls is TService else {}

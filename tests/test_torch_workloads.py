@@ -203,6 +203,26 @@ def test_sssp_equals_jax_and_dijkstra(name, delta, impl):
     assert res.extras(0) == {"weighted": True, "sssp_rounds": want.rounds}
 
 
+def test_sssp_engines_share_one_ell_and_its_weights():
+    # A second engine over the first one's host ELL and weight slabs (the
+    # overlay engine of a dynamic graph beside the static one) builds no
+    # tables of its own and answers as JAX's engine.
+    jg, tg = weighted("rmat")
+    sources = sssp_sources(tg)
+    _jeng, want = jax_sssp("rmat", "xla", 0, 8, sources)
+    a = SsspEngine(tg, lanes=8, device="cpu")
+    b = SsspEngine(tg, lanes=8, overlay=(16, 4), device="cpu", ell=a.ell,
+                   weights=a.ell_weights)
+    assert b.ell is a.ell and b.ell_weights is a.ell_weights
+    for eng in (a, b):
+        res = eng.run(sources)
+        assert res.rounds == want.rounds
+        for i in range(len(sources)):
+            np.testing.assert_array_equal(res.distances_int32(i), want.distances_int32(i))
+    with pytest.raises(ValueError, match="kcap=64, the engine asks 8"):
+        SsspEngine(tg, lanes=8, kcap=8, ell=a.ell, device="cpu")
+
+
 def test_sssp_weight_planes_equal_jax_kernel_tables():
     """The padded weight planes K1 reads are the JAX Pallas route's."""
     jg, tg = weighted("rmat")

@@ -914,3 +914,154 @@ def fail_dispatch_on_rank(rank, target: int) -> None:
         raise RuntimeError(f"rank {target} alone cannot dispatch")
 
     DistWideMsBfsEngine.dispatch = dispatch
+
+
+# --- mesh AOT (tests/test_torch_mesh_aot.py) ------------------------------------
+
+#: (name, engine family, graph, engine keywords, sources, mesh sizes): each
+#: case's engine exports its rank-local programs, and a fresh engine on
+#: every rank adopts them.
+MESH_AOT_CASES = [
+    ("wide", "wide", "rmat_small", dict(lanes=64), ("rng", 64), (1, 2, 4)),
+    ("wide_sparse", "wide", "rmat_small",
+     dict(lanes=64, exchange="sparse", delta_bits=(8, 16)), ("active", 40), (2, 4)),
+    ("hybrid", "hybrid", "rmat_small", dict(tile_thr=16), ("rng", 64), (1, 2, 4)),
+    ("hybrid_gated", "hybrid", "rmat_small", dict(tile_thr=300, kcap=8, pull_gate=True),
+     ("active", 40), (1, 2, 4)),
+    ("sliced", "hybrid", "rmat_small", dict(tile_thr=16, exchange="sliced"), ("rng", 64),
+     (2, 4)),
+    ("sliced_gated", "hybrid", "rmat_small", dict(tile_thr=8, exchange="sliced",
+                                                  pull_gate=True), ("active", 40), (4,)),
+    ("sssp", "sssp", "sssp", dict(lanes=32), None, (1, 2, 4)),
+    ("sssp_sparse", "sssp", "sssp", dict(lanes=32, exchange="sparse", predict=True), None,
+     (4,)),
+]
+#: (name, (rows, cols), Dist2DBfsEngine keywords, sources): the 2D cases,
+#: each on the mesh of its rows x cols ranks.
+MESH_AOT_2D = [
+    ("2d_1x2", (1, 2), dict(exchange="ring", backend="dopt"), [0, 3, 77]),
+    ("2d_2x2", (2, 2), dict(exchange="allreduce", backend="scan"), [0, 3, 77]),
+]
+
+
+def mesh_aot_key(name: str, p: int) -> dict:
+    """The program key a case's store is written under."""
+    return {"graph_key": name, "engine": name, "lanes": 64, "planes": 5, "devices": p}
+
+
+def mesh_aot_engine(case, mesh, pkg_engines, gen, io):
+    """``(make, run)`` of a 1D case for either package: ``make()`` builds
+    its engine on ``mesh``, ``run(eng)`` its record."""
+    name, family, gname, kw, src_spec, _sizes = case
+    cls = pkg_engines[family]
+    if family == "sssp":
+        g = sssp_graph(gen)
+        src = np.asarray(SSSP_SOURCES)
+        return (lambda: cls(g, mesh, **kw)), (lambda eng: sssp_fields(eng, eng.run(src)))
+    g = graph_of(gname, gen, io)
+    src = sources_of(src_spec, g)
+    tables = _gathered if pkg_engines.get("port") else (lambda eng, t: np.asarray(t))
+    return (lambda: cls(g, mesh, **kw)), (lambda eng: record(eng, eng.run(src), tables))
+
+
+def _adopt_case(make, run, root: str, key: dict, aot) -> dict:
+    """Eager run, export, a fresh engine adopting, its run: the record."""
+    import os
+
+    eng = make()
+    eager = run(eng)
+    store = aot.ArtifactStore(os.path.join(root, key["graph_key"]))
+    names = aot.export_engine_programs(eng, key, store)
+    fresh = make()
+    adopted = aot.adopt_engine_programs(fresh, key, store)
+    got = run(fresh)
+    calls = {n: (getattr(fresh, attr).calls, getattr(fresh, attr).fallback_calls)
+             for n, attr, *_ in fresh.export_programs() if n in adopted}
+    return {"eager": eager, "adopted": got, "names": names, "adopted_names": adopted,
+            "calls": calls, "counts": store.counts(), "layout": aot.layout_digest(fresh)}
+
+
+def _rank_flags(mesh, values) -> np.ndarray:
+    """[P, n] int64: every rank's ``values`` (n ints), in rank order."""
+    import torch
+
+    t = torch.tensor([list(values)], dtype=torch.int64, device=mesh.device)
+    return mesh.all_gather_rows(t).cpu().numpy()
+
+
+def _fault_arms(mesh, root: str, make, run, key: dict, aot) -> dict:
+    """On a copy of a case's store: rank 1's artifact corrupted (rank 1
+    quarantines it and runs eagerly, the others adopt), then rank 1's
+    artifact copied over rank 0's (stale for rank 0: not quarantined).
+    Every rank's (adopted, fallbacks, quarantined) and the runs' records."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    src_dir = os.path.join(root, key["graph_key"])
+    out = {}
+    for arm in ("corrupt", "stale"):
+        arm_dir = os.path.join(root, f"{key['graph_key']}_{arm}")
+        r0 = aot.ArtifactStore(src_dir).path_for(key, "dist_core")
+        r1 = aot.ArtifactStore(src_dir).path_for(key, aot.rank_program_name("dist_core", 1))
+        if mesh.rank == 0:
+            shutil.copytree(src_dir, arm_dir)
+            if arm == "corrupt":
+                with open(os.path.join(arm_dir, os.path.basename(r1)), "r+b") as f:
+                    f.seek(-10, os.SEEK_END)
+                    byte = f.read(1)
+                    f.seek(-10, os.SEEK_END)
+                    f.write(bytes([byte[0] ^ 0xFF]))
+            else:
+                shutil.copyfile(os.path.join(arm_dir, os.path.basename(r1)),
+                                os.path.join(arm_dir, os.path.basename(r0)))
+        dist.barrier(group=mesh.group)
+        store = aot.ArtifactStore(arm_dir)
+        fresh = make()
+        adopted = aot.adopt_engine_programs(fresh, key, store)
+        own = store.path_for(key, aot.rank_program_name("dist_core", mesh.rank))
+        c = store.counts()
+        out[arm] = {"ranks": _rank_flags(mesh, (len(adopted), c["aot_fallbacks"],
+                                                c["aot_hits"], os.path.exists(own + ".corrupt"))),
+                    "record": run(fresh)}
+    return out
+
+
+def mesh_aot_rank(mesh, root: str) -> dict:
+    """Rank entry: every ``MESH_AOT_CASES`` case that runs on this mesh's
+    size, exported and adopted (:func:`_adopt_case`), the fault arms on the
+    wide case, the 2D case of this size, and every rank's layout digest of
+    the wide case (rank constants enter it)."""
+    from tpu_bfs_torch.graph import generate as tgen
+    from tpu_bfs_torch.graph import io as tio
+    from tpu_bfs_torch.parallel.dist_bfs2d import Dist2DBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+    from tpu_bfs_torch.parallel.mesh import make_mesh_2d
+    from tpu_bfs_torch.utils import aot
+
+    p = mesh.num_shards
+    engines = {"wide": DistWideMsBfsEngine, "hybrid": DistHybridMsBfsEngine,
+               "sssp": DistSsspEngine, "port": True}
+    out = {}
+    for case in MESH_AOT_CASES:
+        if p not in case[5]:
+            continue
+        make, run = mesh_aot_engine(case, mesh, engines, tgen, tio)
+        key = mesh_aot_key(case[0], p)
+        out[case[0]] = _adopt_case(make, run, root, key, aot)
+        if case[0] == "wide" and p > 1:
+            out["faults"] = _fault_arms(mesh, root, make, run, key, aot)
+            out["layouts"] = _rank_flags(mesh, [int(out["wide"]["layout"][:15], 16)])
+    g = graph_of("rmat_small", tgen, tio)
+    for name, shape, kw, sources in MESH_AOT_2D:
+        if shape[0] * shape[1] != p:
+            continue
+        m2 = make_mesh_2d(*shape, mesh=mesh)
+        case = (name, "rmat_small", kw, sources, "run")
+        out[name] = _adopt_case(lambda: Dist2DBfsEngine(g, m2, **kw),
+                                lambda eng: dist_case_record(case, g, lambda g_, **k: eng)[0],
+                                root, mesh_aot_key(name, p), aot)
+    return out

@@ -1712,6 +1712,11 @@ def finish_packed_batch(engine, ckpt) -> PackedBatchResult:
     )
 
 
+def plain_ints(x):
+    """A nest of tuples of ints (an :class:`ExpandSpec`) as JSON lists of ints."""
+    return [plain_ints(v) for v in x] if isinstance(x, (tuple, list)) else int(x)
+
+
 def packed_layout(engine, spec: ExpandSpec, **extra) -> dict:
     """The engine's static layout (``aot_layout()``, checked by the AOT
     store through ``utils/aot.layout_digest``): every Python constant its
@@ -1721,10 +1726,7 @@ def packed_layout(engine, spec: ExpandSpec, **extra) -> dict:
     vertex count, words and planes, and the engine's own (``extra``). A
     compaction that moves vertices between buckets keeps every table's
     padded shape but changes this."""
-    def plain(x):
-        return [plain(v) for v in x] if isinstance(x, (tuple, list)) else int(x)
-
-    return {"expand": plain(spec), "act": int(engine._act),
+    return {"expand": plain_ints(spec), "act": int(engine._act),
             "table_rows": int(engine._table_rows),
             "num_vertices": int(engine.num_vertices), "w": int(engine.w),
             "planes": int(engine.num_planes), **{k: int(v) for k, v in extra.items()}}
@@ -1775,7 +1777,8 @@ class PackedRunProtocol(PullGateHost, AdaptivePushHost, AotProgramProtocol):
     ``advance`` / ``finish`` for every packed engine, plus the shared
     seeding and lane-map hooks, the pull gate's and the adaptive push's
     bookkeeping, and the AOT program inventory (:func:`packed_aot_programs`;
-    the mesh engines have none yet).
+    the mesh engines' own are rank-local, ``parallel/dist_msbfs_wide.
+    MeshAotHost``).
     ``result_cls`` is the class of a batch's result."""
 
     result_cls = PackedBatchResult
@@ -1792,10 +1795,8 @@ class PackedRunProtocol(PullGateHost, AdaptivePushHost, AotProgramProtocol):
         return self._aot_layout
 
     def export_programs(self):
-        if not hasattr(self, "_step"):
-            # The mesh engines step their own loops, collectives inside: no
-            # inventory yet (utils/aot.MESH_AOT_ITEM).
-            return super().export_programs()
+        # The mesh engines' rank-local inventories come first in their MRO
+        # (parallel/dist_msbfs_wide.MeshAotHost).
         return packed_aot_programs(self)
 
     def _call_step(self, *args):

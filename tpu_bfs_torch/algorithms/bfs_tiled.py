@@ -115,16 +115,39 @@ class TiledBfsEngine:
     first, padded to 128-row tiles); distances map back to vertex ids at
     extraction. ``device`` is CUDA unless named. With ``pull_gate``,
     ``last_gate_skipped_tiles`` is the skipped-tile total of the latest
-    loop: a whole ``run``, or one ``advance`` chunk."""
+    loop: a whole ``run``, or one ``advance`` chunk. ``tables`` is another
+    engine over the same graph, tile threshold and budget on the same
+    device, whose tables this one shares instead of building its own (a
+    gated and an ungated engine of one graph)."""
 
     def __init__(self, graph: Graph, *, tile_thr: int = 32, a_budget_bytes: int = int(0.8e9),
                  dopt_caps: tuple[int, ...] | None = None, pull_gate: bool = False,
-                 device=None):
+                 device=None, tables=None):
         self.device = dev = resolve_device(device)
         g = graph
         self.host_graph = g  # parent extraction (min_parent_from_dist)
         self.undirected = g.undirected
         self._degrees = g.degrees
+        self._table_args = (tile_thr, int(a_budget_bytes))
+        if dopt_caps is None:
+            dopt_caps = default_dopt_caps(g.num_edges)
+        self.dopt_caps = tuple(sorted(set(dopt_caps)))
+        self.pull_gate = pull_gate
+        self.last_gate_skipped_tiles = None
+        self._skipped = 0
+        self.last_host_syncs = 0
+        self._warmed = False
+        if tables is not None:
+            if (tables.host_graph is not g or tables._table_args != self._table_args
+                    or tables.device != dev):
+                raise ValueError("tables must come from an engine over the same graph, "
+                                 "tile_thr and a_budget_bytes on the same device")
+            for name in ("_rank", "_act", "num_vertices", "vt", "rows", "num_tiles",
+                         "num_dense_edges", "_a", "_col_t_host", "_seg_host", "_col_t",
+                         "_seg", "_tiles_expand", "_out_rp_host", "_edges", "_out_deg"):
+                setattr(self, name, getattr(tables, name))
+            self._arm_gate()
+            return
         src, dst = g.coo
         _, act, _, rank = rank_vertices(src, dst, g.num_vertices)
         self._rank, self._act = rank, act
@@ -150,12 +173,7 @@ class TiledBfsEngine:
         self._col_t = put(self._col_t_host)
         self._seg = put(self._seg_host)
         self._tiles_expand = make_tiles_expand(vt)
-        self.pull_gate = pull_gate
-        self.last_gate_skipped_tiles = None
-        self._gated = pull_gate and self.num_tiles > 0
-        self._gated_tiles_expand = (make_gated_tiles_expand(vt, self.num_tiles)
-                                    if self._gated else None)
-        self._skipped = 0
+        self._arm_gate()
 
         # Full adjacency, src-major: the sparse top-down rungs.
         _, nbr_sm = _sorted_pairs(c, r, rows)
@@ -175,11 +193,11 @@ class TiledBfsEngine:
             nbr_sm=put(nbr_sm.astype(np.int32)),
         )
         self._out_deg = out_degrees(self._edges)
-        if dopt_caps is None:
-            dopt_caps = default_dopt_caps(g.num_edges)
-        self.dopt_caps = tuple(sorted(set(dopt_caps)))
-        self.last_host_syncs = 0
-        self._warmed = False
+
+    def _arm_gate(self) -> None:
+        self._gated = self.pull_gate and self.num_tiles > 0
+        self._gated_tiles_expand = (make_gated_tiles_expand(self.vt, self.num_tiles)
+                                    if self._gated else None)
 
     def _step(self, frontier, visited, nfront: int, fsum: int, nz: int | None = None):
         """One level: the dopt rung ladder over every edge (the dense step

@@ -330,7 +330,10 @@ def _timed_runs(args, run, device=None, **span):
 
 
 def _aot_log(msg: str) -> None:
-    print(f"[aot] {msg}", file=sys.stderr, flush=True)
+    # Every rank of a mesh run adopts and exports its own programs; rank 0
+    # speaks for them, as JAX's single controller does.
+    if _rank0():
+        print(f"[aot] {msg}", file=sys.stderr, flush=True)
 
 
 def _run_multi_source(args, g, golden, sources, resume_st=None) -> int:
@@ -626,18 +629,15 @@ def main(argv=None) -> int:
                     "programs from DIR when exported there before (skipping the "
                     "torch.export trace), and export them back after the run: the "
                     "one-shot analog of the server's --preheat/--export-aot "
-                    "(multi-source packed engines on one device; stale or corrupt "
-                    "artifacts fall back to the eager programs)")
+                    "(multi-source packed engines; with --devices N each rank adopts "
+                    "and exports its own programs; stale or corrupt artifacts fall "
+                    "back to the eager programs)")
     args = ap.parse_args(argv)
     multi, on_mesh = args.multi_source is not None, bool(args.mesh) or args.devices > 1
     if args.aot is not None and not multi:
         ap.error("--aot pairs with --multi-source (the packed MS engines "
                  "are the AOT-exportable family; single-source engines "
                  "compile in seconds)")
-    if args.aot is not None and on_mesh:
-        from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM
-
-        ap.error(f"--aot on a mesh waits for {MESH_AOT_ITEM}")
     # The JAX CLI's guards and texts.
     if args.adaptive_push is not None:
         if args.engine not in ("wide", "hybrid") or args.devices > 1 or not multi:

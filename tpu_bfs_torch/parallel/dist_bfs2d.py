@@ -9,6 +9,11 @@ A level, on every rank (``parallel/partition2d.py`` lays out the edges):
     row OR-reduce-scatter ('c')  ->  claim of the owned slice  ->
     termination sum over the whole mesh
 
+The claim of the owned slice is a fixed-shape rank-local program between
+the row exchange and the column all-gather (``dist_core``, the engine's AOT
+inventory, ``utils/aot.py``); the exchanges, the sparse rung and the
+direction choice of ``backend='dopt'`` stay in the host loop.
+
 Both exchanges move O(vp / mesh dimension) per rank, against the 1D
 exchange's O(vp). The level loop runs on the host, one host read a level,
 as in ``dist_bfs.py``; the column all-gather of a level's new frontier
@@ -58,8 +63,10 @@ from tpu_bfs_torch.parallel.dist_bfs import (
     _put,
     check_engine_args,
 )
+from tpu_bfs_torch.parallel.dist_msbfs_wide import MeshAotHost
 from tpu_bfs_torch.parallel.mesh import Mesh2D, make_mesh_2d
 from tpu_bfs_torch.parallel.partition2d import out_csr_2d_rank, partition_2d_rank
+from tpu_bfs_torch.utils.aot import AotProgramProtocol, ArgSpec
 
 
 def partition_shard_2d(graph: Graph, mesh: Mesh2D):
@@ -67,7 +74,8 @@ def partition_shard_2d(graph: Graph, mesh: Mesh2D):
     return partition_2d_rank(graph, mesh.rows, mesh.cols, mesh.r.rank, mesh.c.rank)
 
 
-class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
+class Dist2DBfsEngine(MeshAotHost, AotProgramProtocol, PlannedExchange, VertexCheckpointMixin,
+                      DistTraceHost):
     """BFS over an R x C mesh (a :class:`~tpu_bfs_torch.parallel.mesh.Mesh2D`,
     default ``make_mesh_2d(1, 1)``) with 2D edge
     partitioning; the API of ``DistBfsEngine``. ``exchange`` is the row
@@ -121,6 +129,38 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
         self._parent_impl = "ring" if exchange == "sparse" else exchange
         self.last_host_syncs = 0
         self._warmed = False
+        self._dist_core = self._claim_step
+        self._level_t = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # --- the rank-local program (the AOT inventory) ---------------------------
+
+    @property
+    def _aot_world(self):
+        return self.mesh.world
+
+    def _aot_layout_of(self) -> dict:
+        return {"w": int(self.part.w), "vp": int(self.part.vp), "rows": self.rows,
+                "cols": self.cols}
+
+    def _aot_programs(self):
+        """The AOT inventory, JAX's name: ``dist_core``, the claim of this
+        rank's [w] slice (:meth:`_claim_step`)."""
+        w, dev = self.part.w, self.device
+        flag = ArgSpec((w,), torch.bool, dev)
+        fn = getattr(self._dist_core, "_aot_original", self._dist_core)
+        return [("dist_core", "_dist_core", fn,
+                 (flag, flag, ArgSpec((w,), torch.int32, dev), ArgSpec((), torch.int32, dev)))]
+
+    @staticmethod
+    def _claim_step(hit, visited, dist, level):
+        """The claim of the owned slice: ``new = hit & ~visited`` labeled
+        ``level`` (a 0-d device int32) in ``dist`` and ORed into ``visited``
+        (both in place). Returns ``(new, count)``, ``count`` the [1] int64
+        new-frontier size for the host's all-reduce."""
+        new = hit & ~visited
+        dist.masked_fill_(new, level)
+        visited |= new
+        return new, new.sum(dtype=torch.int64).reshape(1)
 
     def wire_bytes_per_level(self) -> list[float]:
         """Modeled bytes one rank moves a level, per row-exchange branch,
@@ -167,12 +207,11 @@ class Dist2DBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
             contrib = self._expand(col_frontier, *info)
             hit, branch, reads = self._exchange_step(contrib, mesh.c, visited, plan, count,
                                                      self.rows)
-            new = hit & ~visited
-            dist.masked_fill_(new, level + 1)
-            visited |= new
+            # Read anew each level: an adopted dist_core takes over.
+            new, nnew = self._dist_core(hit, visited, dist, self._level_t.fill_(level + 1))
             frontier = new
             col_frontier = self._gather_col(new)
-            parts = [mesh.world.all_reduce_(new.sum(dtype=torch.int64).reshape(1), "sum")]
+            parts = [mesh.world.all_reduce_(nnew, "sum")]
             if dopt:
                 parts.append(self._expand.sums(col_frontier))
             if sparse:
@@ -409,6 +448,22 @@ class Dist2DServeEngine:
     @property
     def last_run_trace(self):
         return self.engine.last_run_trace
+
+    @property
+    def aot_engine(self):
+        """The engine whose ``dist_core`` serves this adapter (``utils/aot``
+        exports and adopts it, on every rank when it is a mesh handle)."""
+        return self.engine
+
+    @property
+    def _aot_adopted(self):
+        return getattr(self.engine, "_aot_adopted", ())
+
+    def export_programs(self):
+        return self.engine.export_programs()
+
+    def adopt_programs(self, programs: dict) -> list:
+        return self.engine.adopt_programs(programs)
 
     def exchange_branch_labels(self):
         return self.engine.exchange_branch_labels()

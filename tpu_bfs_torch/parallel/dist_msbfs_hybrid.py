@@ -29,6 +29,15 @@ gate values ride the same host read. The gather and sparse layouts with
 contributions on a level whose resident frontier shard is empty (counted
 in contributions, P a rank), as in JAX. A row is settled when every lane
 of the batch has visited it (``host_lane_mask``).
+
+The rank-local work of a level is fixed-shape programs between the host's
+collectives (the AOT inventory, ``utils/aot.py``): in the gather layout
+``dist_core`` is K1 on the gathered frontier, K2 into it and the settle
+(the gated form carries ``needed`` and the lane mask, as JAX's does); in
+the sliced layout ``dist_core`` is one ring step's contribution, called
+once a step with that step's tables between the ring shifts, and
+``dist_settle`` the settle. The gather, the sparse exchange's rung and the
+ring shifts stay in the host loop.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     lazy_full_parent_ell,
     make_expand,
     make_gated_expand,
+    packed_layout,
     ripple_increment_,
     seed_scatter_args,
 )
@@ -60,6 +70,7 @@ from tpu_bfs_torch.parallel.collectives import (
     sparse_rows_gather,
 )
 from tpu_bfs_torch.parallel.dist_msbfs_wide import (
+    MeshAotHost,
     MeshTableHost,
     check_packed_mesh_knobs,
     resolve_mesh,
@@ -67,6 +78,7 @@ from tpu_bfs_torch.parallel.dist_msbfs_wide import (
     shard_expand_arrays,
 )
 from tpu_bfs_torch.parallel.mesh import Mesh
+from tpu_bfs_torch.utils.aot import ArgSpec
 
 W = 128
 LANES = 32 * W
@@ -299,7 +311,8 @@ def build_dist_hybrid(g: Graph, num_shards: int, *, kcap: int = 64, tile_thr: in
     }
 
 
-class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunProtocol):
+class DistHybridMsBfsEngine(MeshAotHost, MeshTableHost, RowGatherExchangeAccounting,
+                            PackedRunProtocol):
     """Mesh hybrid multi-source BFS: dense tiles through K2, the residual
     through K1, every table sharded [rows_loc, w] a rank (tau order). Built
     inside every rank of ``mesh`` (default: this process's rank group, CUDA
@@ -390,8 +403,10 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         if self._sliced:  # one group a ring step, sentinel = the appended zero row
             self._steps = [group_arrs((p, s), rows_loc) for s in range(p_count)]
             self.arrs = self._steps[0]
+            self._dist_core, self._dist_settle = self._ring_step, self._sliced_settle
         else:
             self.arrs = group_arrs(p, rows - 1)
+            self._dist_core = self._gated_step if pull_gate else self._gather_step
 
         self.sparse_caps = resolve_row_caps(sparse_caps, rows_loc, self.w, self.delta_bits)
         self._nb = (rows_gather_branch_count(self.sparse_caps, self.delta_bits)
@@ -409,7 +424,7 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
             self._heavy_rows = nh
             self.arrs.update(gate_block_arrays(spec, self.arrs))
             self._gated_expand = make_gated_expand(spec, self.w)
-            self._valid = torch.from_numpy(hd["valid_s"][p, :, 0] != 0).to(dev)
+            self.arrs["valid"] = torch.from_numpy(hd["valid_s"][p, :, 0] != 0).to(dev)
 
         self._rank = hd["tau_of_vertex"]
         self._table_rows = self._act = rows
@@ -475,21 +490,114 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
                       num_row_tiles=self._nrt, masks=arrs["a_masks"], out=hit)
         return hit, skipped
 
+    # --- the rank-local programs (the AOT inventory) -------------------------
+
+    def _row_flags(self, nxt):
+        """The level's device flags for the host's all-reduce (MAX):
+        ``alive`` and, for the sparse exchange, the next level's row count
+        (and widest id gap)."""
+        flags = nxt.any().to(torch.int32).reshape(1)
+        if self._nb > 1:
+            flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1), self.delta_bits)])
+        return flags
+
+    def _settle(self, hit, vis, planes):
+        """The claim ``hit & ~vis``, the visited OR and the plane ripple on
+        own rows (``vis`` and ``planes`` in place): ``(nxt, flags)``."""
+        hit &= ~vis
+        vis |= hit
+        ripple_increment_(planes, ~vis)
+        return hit, self._row_flags(hit)
+
+    def _gather_step(self, arrs, fw_g, vis, planes):
+        """The gather layout's ``dist_core``: the rank's hits from the
+        gathered frontier (K1's residual, K2 ORed in), then the settle."""
+        return self._settle(self._contrib(arrs, fw_g, fw_g)[0], vis, planes)
+
+    def _gated_step(self, arrs, fw_g, vis, planes, needed, lane_mask, heavy=True):
+        """The gated gather layout's level: the expansion gated by
+        ``needed`` (bucket order) and ``heavy``, the settle, and the next
+        level's ``needed`` and this rank's heavy flag from the new visited
+        table. Returns ``(nxt, flags, gate, needed, skipped)``. With the heavy
+        section on it is the ``dist_core`` program; a level whose gate skips
+        the heavy section runs it eagerly, as the single-device gate does."""
+        hit, skipped = self._contrib(arrs, fw_g, fw_g, needed, heavy)
+        nxt, flags = self._settle(hit, vis, planes)
+        needed = self._needed(arrs, vis, lane_mask)
+        gate = needed[: self._heavy_rows].any().to(torch.int32).reshape(1)
+        return nxt, flags, gate, needed, skipped
+
+    def _ring_step(self, arrs, fw, fw_ext):
+        """The sliced layout's ``dist_core``: one ring step's contribution
+        to the accumulator, from that step's tables (``arrs``) and the
+        resident frontier shard (``fw_ext`` with its appended zero row)."""
+        return self._contrib(arrs, fw, fw_ext)[0]
+
+    def _sliced_settle(self, hit, vis, planes):
+        """The sliced layout's ``dist_settle``: the settle of the rotated-home
+        accumulator and this rank's gate value for the next level (its new
+        resident frontier is empty): ``(nxt, flags, gate)``."""
+        nxt, flags = self._settle(hit, vis, planes)
+        return nxt, flags, (nxt == 0).all().to(torch.int32).reshape(1)
+
+    @property
+    def _aot_world(self) -> Mesh:
+        return self.mesh
+
+    def _aot_layout_of(self) -> dict:
+        return dict(packed_layout(self, self.hd["res_spec"], rows_loc=self._rows_loc,
+                                  nrt=self._nrt, dense=self._has_dense, sliced=self._sliced,
+                                  heavy_rows=getattr(self, "_heavy_rows", 0),
+                                  gated=self.pull_gate),
+                    delta_bits=list(self.delta_bits))
+
+    def _aot_programs(self):
+        """The AOT inventory, JAX's names: ``dist_core``, this rank's step
+        (the gather layout's :meth:`_gather_step`, or :meth:`_gated_step`
+        carrying ``needed`` and the lane mask; the sliced layout's
+        :meth:`_ring_step`, called once a ring step with that step's
+        tables), and in the sliced layout ``dist_settle``
+        (:meth:`_sliced_settle`). The state tables are :class:`ArgSpec`."""
+        dev, w = self.device, self.w
+        own = ArgSpec((self._rows_loc, w), torch.int32, dev)
+        planes = (own,) * self.num_planes
+
+        def orig(attr):
+            fn = getattr(self, attr)
+            return getattr(fn, "_aot_original", fn)
+
+        if self._sliced:
+            ext = ArgSpec((self._rows_loc + 1, w), torch.int32, dev)
+            return [("dist_core", "_dist_core", orig("_dist_core"), (self.arrs, own, ext)),
+                    ("dist_settle", "_dist_settle", orig("_dist_settle"), (own, own, planes))]
+        fw_g = ArgSpec((self.hd["rows"], w), torch.int32, dev)
+        args = (self.arrs, fw_g, own, planes)
+        if self.pull_gate:
+            args += (ArgSpec((self.arrs["gate_fwd"].shape[0],), torch.bool, dev),
+                     ArgSpec((w,), torch.int32, dev))
+        return [("dist_core", "_dist_core", orig("_dist_core"), args)]
+
+    # --- the level loop -------------------------------------------------------
+
     def _hit(self, fw, vis, branch: int, gate):
-        """(own hits, skipped) of one level. ``gate`` is the host's view of
-        this level's gate: the heavy flag (gather layout) or whether the
-        resident frontier is empty (sliced), None ungated."""
+        """(own hits, skipped) of one level, eagerly (the truncation probe).
+        ``gate`` is the host's view of this level's gate: the heavy flag
+        (gather layout) or whether the resident frontier is empty (sliced),
+        None ungated."""
         if self._sliced:
             return self._hit_sliced(fw, gate)
         fw_g = self._gather(fw, branch)
         if gate is None:
             return self._contrib(self.arrs, fw_g, fw_g)[0], 0
-        return self._contrib(self.arrs, fw_g, fw_g, self._needed(vis), gate)
+        return self._contrib(self.arrs, fw_g, fw_g,
+                             self._needed(self.arrs, vis, self._lane_mask), gate)
 
     def _hit_sliced(self, fw, empty):
         """The ring: at step s this rank adds its group (rank, s) to the
         accumulator and passes it to rank + 1; after P steps its own is home.
-        Gated, a rank whose resident frontier is empty adds nothing (its P
+        Each step's contribution is one call of ``_dist_core`` (read anew, so
+        an adopted program takes over) with that step's tables. Gated, a
+        rank whose resident frontier is empty adds nothing (its P
         contributions are skipped); the rotation always runs."""
         p_count = self.mesh.num_shards
         fw_ext = torch.cat([fw, torch.zeros((1, self.w), dtype=fw.dtype, device=fw.device)])
@@ -497,7 +605,7 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         def step(s):
             if empty:
                 return torch.zeros_like(fw)
-            return self._contrib(self._steps[s], fw, fw_ext)[0]
+            return self._dist_core(self._steps[s], fw, fw_ext)
 
         acc = step(0)
         for s in range(1, p_count):
@@ -505,34 +613,53 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
             acc |= step(s)
         return acc, (p_count if empty else 0)
 
-    def _needed(self, vis):
+    def _needed(self, arrs, vis, lane_mask):
         """Bucket-order needed rows: own real rows that a batch lane has
         not visited."""
-        m = self._lane_mask[None, :]
-        need = ((vis & m) != m).any(dim=1) & self._valid
-        return torch.cat([need, need.new_zeros(1)]).index_select(0, self.arrs["gate_fwd"])
+        m = lane_mask[None, :]
+        need = ((vis & m) != m).any(dim=1) & arrs["valid"]
+        return torch.cat([need, need.new_zeros(1)]).index_select(0, arrs["gate_fwd"])
 
-    def _gate_flags(self, fw, vis):
-        """This rank's device gate value for the next level (see _hit)."""
-        if self._sliced:
-            return (fw == 0).all().to(torch.int32).reshape(1)
-        return self._needed(vis)[: self._heavy_rows].any().to(torch.int32).reshape(1)
+    def _flags_of(self, nxt, vis):
+        """Eager ``(flags, gate, needed)`` of a frontier ``nxt`` and its
+        visited table: the first level's read, and the truncation probe's."""
+        gate = needed = None
+        if self.pull_gate and self._sliced:
+            gate = (nxt == 0).all().to(torch.int32).reshape(1)
+        elif self.pull_gate:
+            needed = self._needed(self.arrs, vis, self._lane_mask)
+            gate = needed[: self._heavy_rows].any().to(torch.int32).reshape(1)
+        return self._row_flags(nxt), gate, needed
 
-    def _read(self, nxt, vis, gated: bool):
+    def _read(self, flags, gate):
         """The level's one host read: ``alive`` and the next level's
         exchange branch (from the largest row count and id gap over the
-        ranks, all-reduced), and this rank's gate value."""
-        flags = nxt.any().to(torch.int32).reshape(1)
-        if self._nb > 1:  # the sparse exchange's rung
-            flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1), self.delta_bits)])
+        ranks, all-reduced), and this rank's gate value (None ungated)."""
         self.mesh.all_reduce_(flags, "max")
         nf = flags.shape[0]
-        if gated:
-            flags = torch.cat([flags, self._gate_flags(nxt, vis)])
+        if gate is not None:
+            flags = torch.cat([flags, gate])
         vals = flags.tolist()
         branch = (rows_gather_branch(vals[1], vals[nf - 1], self.sparse_caps, self.delta_bits)
                   if self._nb > 1 else 0)
-        return bool(vals[0]), branch, bool(vals[-1]) if gated else None
+        return bool(vals[0]), branch, bool(vals[-1]) if gate is not None else None
+
+    def _level(self, fw, vis, planes, branch: int, gate, needed):
+        """One level through the rank-local programs (read anew each level,
+        so adopted ones take over); the exchanges and the ring stay here.
+        Returns ``(nxt, flags, gate, needed, skipped)``."""
+        if self._sliced:
+            hit, skipped = self._hit_sliced(fw, gate)
+            nxt, flags, g = self._dist_settle(hit, vis, planes)
+            return nxt, flags, g if self.pull_gate else None, None, skipped
+        fw_g = self._gather(fw, branch)
+        if not self.pull_gate:
+            nxt, flags = self._dist_core(self.arrs, fw_g, vis, planes)
+            return nxt, flags, None, None, 0
+        if gate or not self._heavy_rows:
+            return self._dist_core(self.arrs, fw_g, vis, planes, needed, self._lane_mask)
+        return self._gated_step(self.arrs, fw_g, vis, planes, needed, self._lane_mask,
+                                heavy=False)
 
     def _loop(self, fw, vis, planes, level0, max_levels):
         """The level loop. Returns the state, the branch counts, the skipped
@@ -540,23 +667,20 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         gated = self.pull_gate
         counts = np.zeros(self._nb, dtype=np.int32)
         skips = np.zeros(self.max_levels_cap, dtype=np.int64)
-        branch, gate, syncs = 0, None, 0
+        branch, gate, needed, syncs = 0, None, None, 0
         if self._nb > 1 or gated:
             # The first level's rung and gate come from the starting state.
-            _, branch, gate = self._read(fw, vis, gated)
+            flags, g, needed = self._flags_of(fw, vis)
+            _, branch, gate = self._read(flags, g)
             syncs += 1
         level, alive = int(level0), True
         while alive and level < max_levels:
             counts[branch] += 1
-            hit, skipped = self._hit(fw, vis, branch, gate)
+            fw, flags, g, needed, skipped = self._level(fw, vis, planes, branch, gate, needed)
             if gated:
                 skips[min(level, self.max_levels_cap - 1)] = int(skipped)
-            hit &= ~vis
-            vis |= hit
-            ripple_increment_(planes, ~vis)
-            alive, branch, gate = self._read(hit, vis, gated)
+            alive, branch, gate = self._read(flags, g)
             syncs += 1
-            fw = hit
             level += 1
         self.last_host_syncs = syncs
         return fw, vis, planes, level, alive, counts, skips, (branch, gate)
@@ -589,7 +713,8 @@ class DistHybridMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRu
         return self._any(self._hit(fw, vis, branch, gate)[0] & ~vis)
 
     def _deeper(self, arrs, fw, vis) -> bool:
-        _, branch, gate = self._read(fw, vis, self.pull_gate)
+        flags, g, _ = self._flags_of(fw, vis)
+        _, branch, gate = self._read(flags, g)
         return self._probe(fw, vis, (branch, gate))
 
     def _full_parent_ell(self):

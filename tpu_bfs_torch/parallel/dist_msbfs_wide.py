@@ -10,6 +10,9 @@ Each rank runs, per level:
 - K1 over its shard's buckets against the replicated frontier, giving its
   own rows' hits; the claim ``hit & ~visited`` and the plane ripple on its
   own [v_loc, w] rows;
+- these and the level's device flags below are one fixed-shape
+  rank-local step (``_dist_core``, the ``dist_core`` program of the
+  engine's AOT inventory, ``utils/aot.py``);
 - one ``all_reduce`` (max) of the ``alive`` flag and, for the sparse
   exchange, its new-frontier row count (and, with ``delta_bits``, the
   widest gap between its row ids): the level's one host read;
@@ -39,6 +42,7 @@ from tpu_bfs_torch.algorithms._packed_common import (
     make_expand,
     make_state_kernels,
     min_lane,
+    packed_layout,
     ripple_increment_,
     seed_scatter_args,
 )
@@ -57,6 +61,7 @@ from tpu_bfs_torch.parallel.collectives import (
     sparse_rows_gather,
 )
 from tpu_bfs_torch.parallel.mesh import Mesh, make_mesh
+from tpu_bfs_torch.utils.aot import ArgSpec
 
 W = 128
 LANES = 32 * W
@@ -114,6 +119,30 @@ class MeshTableHost:
         return bool(self.mesh.all_reduce_(t.any().to(torch.int32).reshape(1), "max").item())
 
 
+class MeshAotHost:
+    """The AOT view of a mesh engine (``utils/aot.py``): its inventory holds
+    rank-local fixed-shape programs, every collective stays in the host
+    loop, and :meth:`aot_mesh` names the rank that stores and loads them.
+    Hosts define ``_aot_world`` (the mesh over every rank of the engine),
+    ``_aot_programs()`` (the inventory) and ``_aot_layout_of()`` (their
+    Python constants, without the rank)."""
+
+    def aot_mesh(self) -> dict:
+        """The rank's place in the mesh and the group's backend."""
+        w = self._aot_world
+        return {"rank": int(w.rank), "world": int(w.num_shards), "backend": w.backend,
+                "device": w.device.type}
+
+    def aot_layout(self) -> dict:
+        """The programs' Python constants with the rank's place: shard
+        shapes, bucket boundaries and rank constants differ per rank, so
+        an artifact another rank wrote is stale here."""
+        return {**self._aot_layout_of(), **self.aot_mesh()}
+
+    def export_programs(self):
+        return self._aot_programs()
+
+
 def resolve_mesh(mesh: Mesh | None, device) -> Mesh:
     """The engine's mesh: ``mesh``, or this process's (``make_mesh``)."""
     if mesh is None:
@@ -142,7 +171,8 @@ def resolve_row_caps(caps, rows_loc: int, w: int, delta_bits) -> tuple[int, ...]
     return normalize_caps((caps,) if isinstance(caps, int) else caps)
 
 
-class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunProtocol):
+class DistWideMsBfsEngine(MeshAotHost, MeshTableHost, RowGatherExchangeAccounting,
+                          PackedRunProtocol):
     """Mesh multi-source BFS: sharded ELL, replicated frontier, up to
     ``lanes`` sources a batch (a multiple of 32). Built inside every rank
     of ``mesh`` (default: this process's rank group, CUDA unless
@@ -217,12 +247,14 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
             None if sell.virtual is None else sell.fold_pad_map[p],
             None if sell.virtual is None else sell.heavy_pick[p],
             [blocks[p].T for _k, blocks in sell.light], sell.v_pad, self.device)
-        self._expand = make_expand(ExpandSpec(
+        self._spec = ExpandSpec(
             kcap=sell.kcap, heavy=sell.heavy_per_shard > 0, num_virtual=sell.num_virtual,
             fold_steps=sell.fold_steps,
             light_meta=tuple((k, b.shape[1]) for k, b in sell.light),
             tail_rows=sell.tail_rows,
-        ), self.w)
+        )
+        self._expand = make_expand(self._spec, self.w)
+        self._dist_core = self._level_step
 
         self._exchange = exchange
         self.sparse_caps = resolve_row_caps(sparse_caps, sell.v_loc, self.w, self.delta_bits)
@@ -241,6 +273,42 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
     @property
     def num_vertices(self) -> int:
         return self.sell.num_vertices
+
+    @property
+    def _aot_world(self) -> Mesh:
+        return self.mesh
+
+    def _aot_layout_of(self) -> dict:
+        return dict(packed_layout(self, self._spec, rows_loc=self.sell.v_loc,
+                                  sparse=self._exchange == "sparse"),
+                    delta_bits=list(self.delta_bits))
+
+    def _aot_programs(self):
+        """The AOT inventory, JAX's name: ``dist_core``, this rank's level
+        step (:meth:`_level_step`) over its shard's tables and the
+        replicated frontier, with the state tables as :class:`ArgSpec`."""
+        sell, dev = self.sell, self.device
+        own = ArgSpec((sell.v_loc, self.w), torch.int32, dev)
+        fw = ArgSpec((sell.v_pad + 1, self.w), torch.int32, dev)
+        fn = getattr(self._dist_core, "_aot_original", self._dist_core)
+        return [("dist_core", "_dist_core", fn,
+                 (self.arrs, fw, own, (own,) * self.num_planes))]
+
+    def _level_step(self, arrs, fw, vis, planes):
+        """One level on this rank, ``(nxt, flags)``: K1 over the shard
+        against the replicated frontier ``fw``, the claim ``hit & ~vis``,
+        the visited OR and the plane ripple (``vis`` and ``planes`` in
+        place), and the level's device flags for the host's all-reduce:
+        ``alive`` and, sparse, the rung's row count (and widest id gap)."""
+        nxt = self._expand(arrs, fw)
+        nxt &= ~vis
+        vis |= nxt
+        ripple_increment_(planes, ~vis)
+        flags = nxt.any().to(torch.int32).reshape(1)
+        if self._exchange == "sparse":
+            flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1),
+                                                       self.delta_bits)])
+        return nxt, flags
 
     def _iso_of(self, sources: np.ndarray) -> np.ndarray:
         return self._iso_mask[np.asarray(sources, dtype=np.int64)]
@@ -278,19 +346,14 @@ class DistWideMsBfsEngine(MeshTableHost, RowGatherExchangeAccounting, PackedRunP
 
     def _loop(self, fw, vis, planes, level0, max_levels):
         """The level loop: one host read a level (``alive`` and, sparse,
-        the rung's row count). Returns the state and the branch counts."""
+        the rung's row count). The step is read anew each level, so an
+        adopted ``dist_core`` takes over; the all-reduce and the exchange
+        stay here. Returns the state and the branch counts."""
         sparse = self._exchange == "sparse"
         counts = np.zeros(self._nb, dtype=np.int32)
         level, alive = int(level0), True
         while alive and level < max_levels:
-            nxt = self._expand(self.arrs, fw)
-            nxt &= ~vis
-            vis |= nxt
-            ripple_increment_(planes, ~vis)
-            flags = nxt.any().to(torch.int32).reshape(1)
-            if sparse:
-                flags = torch.cat([flags, row_gather_flags((nxt != 0).any(dim=1),
-                                                           self.delta_bits)])
+            nxt, flags = self._dist_core(self.arrs, fw, vis, planes)
             alive, *rows = self.mesh.all_reduce_(flags, "max").tolist()
             branch = (rows_gather_branch(rows[0], rows[-1], self.sparse_caps, self.delta_bits)
                       if sparse else 0)

@@ -25,6 +25,13 @@ one of the (min, +) exchanges of ``collectives.py``:
   scatter-MINed into a copy of the previous table, or every rank's rows
   all-gathered when no rung holds them.
 
+The rank-local work of a round is two fixed-shape programs between the
+host's collectives (the AOT inventory, ``utils/aot.py``):
+``dist_sssp_core``, the light sweep (the bucket mask, own rows, K1
+``minplus`` over the light weights, the min and the changed flag), and
+``dist_sssp_close``, the heavy close over every edge. The exchanges stay in
+the host loop.
+
 JAX runs the loop as one ``lax.while_loop`` with a ``lax.cond`` for the
 close. Here the host steers it, as ``SsspEngine`` does: a light round
 reads once, the light sweep's changed count after an ``all_reduce`` SUM (a
@@ -40,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_bfs_torch.algorithms._packed_common import ExpandSpec, make_expand
+from tpu_bfs_torch.algorithms._packed_common import ExpandSpec, make_expand, plain_ints
 from tpu_bfs_torch.graph.csr import Graph
 from tpu_bfs_torch.graph.ell import build_ell_sharded, build_ell_weights_sharded, pad_gate_blocks
 from tpu_bfs_torch.parallel.collectives import (
@@ -56,11 +63,13 @@ from tpu_bfs_torch.parallel.collectives import (
     sparse_rows_exchange_min,
 )
 from tpu_bfs_torch.parallel.dist_msbfs_wide import (
+    MeshAotHost,
     resolve_mesh,
     resolve_row_caps,
     shard_expand_arrays,
 )
 from tpu_bfs_torch.parallel.mesh import Mesh2D
+from tpu_bfs_torch.utils.aot import AotProgramProtocol, ArgSpec
 from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine, _check_kernel_ident
 
 #: Exchanges of the mesh delta-stepping engine. ``sparse`` and ``ring`` are
@@ -68,7 +77,7 @@ from tpu_bfs_torch.workloads.sssp import INF_W, SsspEngine, _check_kernel_ident
 EXCHANGES = ("ring", "allreduce", "sparse")
 
 
-class DistSsspEngine(SsspEngine):
+class DistSsspEngine(MeshAotHost, AotProgramProtocol, SsspEngine):
     """Delta-stepping SSSP on a mesh: sharded ELL and weights, replicated
     distance table. Built inside every rank of ``mesh`` (a 1D ``Mesh`` or a
     ``Mesh2D``; default: this process's rank group, CUDA unless ``device``
@@ -162,8 +171,10 @@ class DistSsspEngine(SsspEngine):
             fold_steps=sell.fold_steps, light_meta=tuple((k, b.shape[1]) for k, b in sell.light),
             tail_rows=sell.tail_rows,
         )
+        self._spec = spec
         self._expand_light = make_expand(spec, self.lanes, op="minplus", wsuf="wl")
         self._expand_full = make_expand(spec, self.lanes, op="minplus", wsuf="w")
+        self._dist_core, self._dist_close = self._light_step, self._close_step
         self.last_host_reads = None
         self.last_closes = None
         self.last_exchange_level_counts = None
@@ -191,6 +202,56 @@ class DistSsspEngine(SsspEngine):
             for suf, plane in (("w", wt), ("wl", wl)):
                 arrs[f"{name}_{suf}_gt"] = torch.from_numpy(plane).to(self.device)
         return arrs
+
+    # --- the rank-local programs (the AOT inventory) -------------------------
+
+    @property
+    def _aot_world(self):
+        return self._world
+
+    def _aot_layout_of(self) -> dict:
+        sell = self.sell
+        return {"expand": plain_ints(self._spec), "v_loc": int(sell.v_loc),
+                "v_pad": int(sell.v_pad), "lanes": self.lanes, "delta": self.delta}
+
+    def _aot_programs(self):
+        """The AOT inventory: ``dist_sssp_core`` (JAX's name), the light
+        sweep :meth:`_light_step`, and ``dist_sssp_close``, the heavy close
+        :meth:`_close_step`, over this rank's tables; the distance tables
+        are :class:`ArgSpec`."""
+        sell, dev, lanes = self.sell, self.device, self.lanes
+        table = ArgSpec((sell.v_pad + 1, lanes), torch.int32, dev)
+        own = ArgSpec((sell.v_loc, lanes), torch.int32, dev)
+
+        def orig(attr):
+            fn = getattr(self, attr)
+            return getattr(fn, "_aot_original", fn)
+
+        return [("dist_sssp_core", "_dist_core", orig("_dist_core"),
+                 (self.arrs, table, ArgSpec((), torch.int32, dev))),
+                ("dist_sssp_close", "_dist_close", orig("_dist_close"),
+                 (self.arrs, table, own))]
+
+    def _light_step(self, arrs, dist, hi):
+        """The light sweep on this rank: the current bucket and the settled
+        rows of the replicated ``dist`` relax out (later buckets masked to
+        INF, the delta-stepping invariant) over the light edges into the
+        rank's own rows. Returns ``(masked, new_loc, changed)``: the masked
+        table (the heavy close reads it), the own rows' new distances
+        (never above the old), and whether any own row changed ([1] int32,
+        for the host's all-reduce). ``hi`` is the bucket bound, a 0-d
+        device int32."""
+        masked = dist.masked_fill(dist >= hi, int(INF_W))
+        own_prev = self._own(dist)
+        new_loc = self._expand_light(arrs, masked)
+        torch.minimum(own_prev, new_loc, out=new_loc)
+        return masked, new_loc, (new_loc < own_prev).any().to(torch.int32).reshape(1)
+
+    def _close_step(self, arrs, masked, new_loc):
+        """The heavy close: one relaxation of the masked table over every
+        edge into the own rows, min'd with the light sweep's."""
+        full = self._expand_full(arrs, masked)
+        return torch.minimum(new_loc, full, out=full)
 
     def wire_bytes_per_level(self) -> list[float]:
         """Modeled bytes one rank moves a round, per exchange branch."""
@@ -276,15 +337,12 @@ class DistSsspEngine(SsspEngine):
         # counts them on its copy of the table).
         prev_biggest = 0
         pc = ppc = torch.zeros((), dtype=torch.int32, device=self.device)
+        hi_t = torch.full((), hi, dtype=torch.int32, device=self.device)
         while alive and rounds < max_rounds:
-            # The current bucket and the settled rows relax out; later
-            # buckets are masked to INF (the delta-stepping invariant).
-            masked = dist.masked_fill(dist >= hi, inf)
+            # The programs are read anew each round: adopted ones take over.
+            masked, new_loc, changed = self._dist_core(self.arrs, dist, hi_t)
             own_prev = self._own(dist)
-            new_loc = self._expand_light(self.arrs, masked)
-            torch.minimum(own_prev, new_loc, out=new_loc)
-            flags = world.all_reduce_((new_loc < own_prev).any().to(torch.int32).reshape(1),
-                                      "sum")
+            flags = world.all_reduce_(changed, "sum")
             if self.predict:
                 flags = torch.cat([flags, (pc > ppc).to(torch.int32).reshape(1)])
             changed_l, *grow = flags.tolist()  # the round's first read
@@ -293,8 +351,7 @@ class DistSsspEngine(SsspEngine):
                 # The bucket is stable everywhere, so ``masked`` is the
                 # post-light table's: one relaxation over ALL edges (the
                 # heavy close) before the bound advances.
-                full = self._expand_full(self.arrs, masked)
-                new_loc = torch.minimum(new_loc, full, out=full)
+                new_loc = self._dist_close(self.arrs, masked, new_loc)
             del masked
             nxt, branch, prev_biggest, xreads = self._exchange_round(
                 new_loc, dist, own_prev, prev_biggest, bool(grow and grow[0]))
@@ -305,6 +362,7 @@ class DistSsspEngine(SsspEngine):
                 ppc, pc = pc, (nxt < dist).any(dim=1).sum(dtype=torch.int32)
             if not changed_l:
                 hi += delta
+                hi_t = hi_t + delta
                 # Finite distances at or above the bound still need
                 # bucketing; with none and no change, the loop is done.
                 alive = bool(torch.stack([

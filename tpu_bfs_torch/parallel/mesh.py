@@ -554,6 +554,11 @@ def _run_op(ctx: RankContext, objs: dict, op: str, payload):
     if op == "beat":
         t = torch.ones(1, dtype=torch.int32, device=ctx.device)
         return int(ctx.mesh(payload).all_reduce_(t, "sum").item())
+    if op == "aot":
+        from tpu_bfs_torch.utils.aot import rank_aot
+
+        target, what, store, key, log = payload
+        return rank_aot(_resolve(target, objs), what, store, key, log)
     if op == "build":
         hid, fn, args, kw = payload
         out = fn(ctx, *_resolve(args, objs), **_resolve(kw, objs))
@@ -811,6 +816,20 @@ class MeshController:
         out = self._command("getattr", obj._devices, (hid, _Ref(obj._hid), name),
                             (hid, obj._local, name))
         return self._wrap(out, hid, obj._devices)
+
+    def aot(self, obj: Remote, op: str, store, key: dict, log=None) -> list:
+        """Export (``op`` 'export') or adopt ('adopt') the programs of
+        ``obj``'s replicas under the program key ``key``, each rank its own
+        (``utils/aot.rank_aot``): rank 0 with ``store`` (an
+        ``ArtifactStore``) and ``log``, the followers with stores of their
+        own over its directory. One command, so every rank of the rung does
+        it at the same point of the stream. Returns the names every rank
+        exported or adopted. A rank that falls back keeps its eager step and
+        joins every later collective as before."""
+        if op not in ("export", "adopt"):
+            raise ValueError(f"unknown AOT command {op!r}; have 'export', 'adopt'")
+        return self._command("aot", obj._devices, (_Ref(obj._hid), op, store.root, key, None),
+                             (obj._local, op, store, key, log))
 
     def share(self, value) -> Remote:
         """Send ``value`` (a graph) to every follower once; later calls

@@ -57,11 +57,12 @@ ranks, down to rank 0 alone, and re-admits the batch; with
 wider mesh answers, and ``resume_levels=K`` (dist2d) continues a
 re-admitted query from its last snapshot (``resilience/resume.py``).
 
-``aot_dir`` preheats from an artifact store (``utils/aot.py``): every
-single-device rung whose exported programs are there installs them instead
-of tracing, and ``export_aot`` fills a store from the warmed rungs (the
-server's ``--preheat`` and ``--export-aot``). A mesh service refuses the
-store (``utils/aot.MESH_AOT_ITEM``).
+``aot_dir`` preheats from an artifact store (``utils/aot.py``): every rung
+whose exported programs are there installs them instead of tracing, and
+``export_aot`` fills a store from the warmed rungs (the server's
+``--preheat`` and ``--export-aot``). A mesh rung's ranks each export and
+adopt their own programs; a mesh program counts once in the store's
+counters, as JAX's one program does.
 """
 
 from __future__ import annotations
@@ -112,7 +113,6 @@ from tpu_bfs_torch.serve.scheduler import (
     PendingQuery,
     QueryResult,
 )
-from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM
 from tpu_bfs_torch.utils.recovery import (
     COUNTERS,
     is_mesh_fault,
@@ -309,9 +309,6 @@ class BfsService:
         autostart: bool = True,
         log=None,
     ):
-        if aot_dir and devices > 1:
-            raise NotImplementedError(
-                f"BfsService(aot_dir=...) on {devices} devices waits for {MESH_AOT_ITEM}")
         self._log = log or (lambda msg: None)
         # Widths and the degrade cap share one lock: the scheduler routes
         # while the extraction worker may shrink the ladder after an OOM
@@ -2109,7 +2106,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     "installs them instead of tracing, so the server reaches "
                     "the READY line without a torch.export trace; stale or "
                     "corrupt artifacts fall back to the eager programs per "
-                    "program (corrupt files are quarantined). Single device")
+                    "program (corrupt files are quarantined). With --devices N "
+                    "every rank adopts its own programs")
     ap.add_argument("--export-aot", default=None, metavar="DIR",
                     help="after warm-up, export every resident engine's "
                     "programs into DIR so a successor started with --preheat "

@@ -20,14 +20,16 @@ sites are rank 0's as in JAX; the p2p adapter, which steps the base's
 level loop on its device tables, is replicated with its base.
 
 ``aot_store`` (an ``utils.aot.ArtifactStore`` or a directory) turns
-single-device builds into adoptions where artifacts exist: the build still
-makes the tables, then installs the store's loaded programs over the
-engine's eager entries instead of tracing them (the ``--preheat`` path);
+builds into adoptions where artifacts exist: the build still makes the
+tables, then installs the store's loaded programs over the engine's eager
+entries instead of tracing them (the ``--preheat`` path);
 ``export_resident`` fills a store from the resident engines (the
-``--export-aot`` path). Construction resolves the kernel build cache
+``--export-aot`` path). A mesh spec's engine exports and adopts on every
+rank of its rung, each rank its own programs, through one command of the
+mesh's stream (``parallel/mesh.MeshController.aot``); a mesh program
+counts once in the store's counters, as JAX's one program does.
+Construction resolves the kernel build cache
 (``utils/compile_cache``) once per process, as JAX arms its compile cache.
-A mesh spec refuses the store: the mesh engines' programs carry
-collectives, and their inventories are a later slice (``MESH_AOT_ITEM``).
 
 Against JAX: no ``expand_impl`` axis (the port always runs its K1 kernel,
 JAX's ``xla``/``pallas`` choice has no counterpart). The registry builds
@@ -48,7 +50,7 @@ import numpy as np
 
 from tpu_bfs_torch import faults as _faults
 from tpu_bfs_torch import obs as _obs
-from tpu_bfs_torch.utils.aot import MESH_AOT_ITEM, ArtifactStore
+from tpu_bfs_torch.utils.aot import ArtifactStore
 from tpu_bfs_torch.utils.compile_cache import enable_compile_cache
 
 ENGINE_KINDS = ("wide", "hybrid", "packed", "dist2d")
@@ -449,13 +451,11 @@ class EngineRegistry:
     def _build(self, spec: EngineSpec):  # requires-lock: _lock
         rec = _obs.ACTIVE
         store = self.aot_store
-        if store is not None and spec.devices > 1:
-            raise NotImplementedError(
-                f"AOT artifacts for a {spec.devices}-device engine wait for {MESH_AOT_ITEM}")
         # The span says what the build costs: a spec whose core artifact
-        # probes valid is an engine_adopt (tables, then installed programs,
-        # no trace); only a from-scratch build is an engine_build.
-        adopting = store is not None and store.probe(spec)
+        # probes valid (on every rank of a mesh spec) is an engine_adopt
+        # (tables, then installed programs, no trace); only a from-scratch
+        # build is an engine_build.
+        adopting = store is not None and store.probe(spec, mesh=self._mesh_fingerprint(spec))
         span = "engine_adopt" if adopting else "engine_build"
         if rec is not None:
             rec.begin(span, f"w{spec.lanes}", cat="serve.registry",
@@ -491,6 +491,20 @@ class EngineRegistry:
             rec.end(span, f"w{spec.lanes}", cat="serve.registry",
                     width=spec.lanes, adopted=len(adopted))
         return eng
+
+    @staticmethod
+    def _mesh_fingerprint(spec: EngineSpec) -> dict | None:
+        """The serving mesh's part of a mesh spec's artifact fingerprint
+        (``utils/aot.mesh_fingerprint``: its backend and device type), None
+        on one device or with no serving mesh yet."""
+        if spec.devices <= 1:
+            return None
+        from tpu_bfs_torch.parallel.mesh import active_controller
+
+        ctl = active_controller()
+        if ctl is None:
+            return None
+        return {"backend": ctl.backend, "device": ctl.device.type}
 
     def _build_inner(self, spec: EngineSpec):  # requires-lock: _lock
         if _faults.ACTIVE is not None:
@@ -683,9 +697,6 @@ class EngineRegistry:
             )
         out = {}
         for spec, eng in self.resident_engines():
-            if spec.devices > 1:
-                raise NotImplementedError(
-                    f"AOT export of a {spec.devices}-device engine waits for {MESH_AOT_ITEM}")
             names = export_engine_programs(eng, spec, store, log=self._log)
             self._log(f"aot export {spec.engine}/w{spec.lanes}: "
                       f"{len(names)} programs -> {store.root}")

@@ -19,6 +19,24 @@ instead of tracing: ``--preheat`` reaches ready with no ``torch.export``
 trace at all, and its kernel library is a cache hit
 (``utils/compile_cache``).
 
+A mesh engine exports rank-local programs under JAX's names (``dist_core``,
+``dist_sssp_core``): each rank's fixed-shape step between the host's
+collectives, which stay in the host loop, so no process group is baked into
+a graph. Shard shapes and rank constants differ per rank, so every rank
+stores its own program, told apart in the program's stored name
+(:func:`rank_program_name`: JAX's name on rank 0, ``name.r{rank}`` above),
+never in the key: ``program_key`` and rank 0's file name equal JAX's. A
+mesh spec probes ready only when every rank's core is there and valid. The
+mesh's backend and the rank's device type enter the fingerprint
+(:func:`mesh_fingerprint`), so gloo CPU ranks, gloo ranks sharing a card
+and NCCL ranks never adopt each other's artifacts. A serving mesh's
+rank 0 exports and adopts through one command of the mesh's stream
+(``parallel/mesh.MeshController.aot``): every rank runs :func:`rank_aot`
+in the same order. A rank whose artifact is missing, stale or corrupt
+keeps its eager step and joins every collective as before. A mesh program
+counts once in the store's counters, as JAX's one sharded program does: a
+hit when every rank loaded it, a fallback when any rank fell back.
+
 Artifacts are defensive by construction, as in JAX:
 
 - **keyed like the registry**: ``(graph_key, engine, lanes, planes,
@@ -63,14 +81,25 @@ from tpu_bfs_torch.ops import tile_spmm as _k2  # noqa: F401
 MAGIC = b"TBFSAOT1"
 FORMAT = 1
 
-#: Where AOT artifacts of the mesh engines wait: their programs carry
-#: collectives, and their inventories are a later slice.
-MESH_AOT_ITEM = "ROADMAP Queue 1 item 6 (mesh AOT: the dist engines' program inventories)"
-
 # Program names every packed serving engine exports (JAX's dist engines
 # export "dist_core" instead of "core"); the core is what
 # ArtifactStore.probe keys readiness on.
 CORE_NAMES = ("core", "dist_core")
+
+
+def rank_program_name(name: str, rank: int) -> str:
+    """The stored name of rank ``rank``'s program ``name``: JAX's name on
+    rank 0 (and on one device), ``name.r{rank}`` on the others."""
+    return name if rank == 0 else f"{name}.r{rank}"
+
+
+def mesh_fingerprint(engine) -> dict | None:
+    """The mesh part of a mesh engine's fingerprint (``engine.aot_mesh()``:
+    the group's backend and the rank's device type), None on one device."""
+    if not hasattr(engine, "aot_mesh"):
+        return None
+    m = engine.aot_mesh()
+    return {"backend": m["backend"], "device": m["device"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +190,12 @@ def env_fingerprint() -> dict:
     compute capability, the kernel sources' hash and the registered ops'
     schemas. ``format`` versions the artifact layout."""
     return json.loads(_fingerprint())
+
+
+def _fingerprint_with(mesh: dict | None) -> dict:
+    """:func:`env_fingerprint`, with a mesh program's :func:`mesh_fingerprint`."""
+    fp = env_fingerprint()
+    return fp if mesh is None else dict(fp, mesh=mesh)
 
 
 def program_key(spec) -> dict:
@@ -269,16 +304,19 @@ class ArtifactStore:
     # --- write ------------------------------------------------------------
 
     def put(self, key: dict, name: str, payload: bytes, *, donate_argnums=(),
-            layout: str | None = None) -> str:
+            layout: str | None = None, mesh: dict | None = None) -> str:
         """Atomically write one program artifact; returns its path.
         ``donate_argnums`` is recorded only when non-empty (JAX's header
         rule); the port's programs donate nothing, so it never is.
-        ``layout`` (:func:`layout_digest`) is recorded when given."""
+        ``layout`` (:func:`layout_digest`) is recorded when given, and a
+        mesh program's ``mesh`` (:func:`mesh_fingerprint`) in its
+        fingerprint. The temporary file is the writer's own (process and
+        thread), so writers of one store never share it."""
         key = program_key(key)
         meta = {
             "key": key,
             "name": name,
-            "fingerprint": env_fingerprint(),
+            "fingerprint": _fingerprint_with(mesh),
             "payload_crc32": _crc32(payload),
         }
         if layout is not None:
@@ -287,7 +325,7 @@ class ArtifactStore:
             meta["donate_argnums"] = [int(i) for i in donate_argnums]
         header = json.dumps(meta, sort_keys=True).encode()
         path = self.path_for(key, name)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "wb") as f:
             f.write(MAGIC)
             f.write(struct.pack("<I", len(header)))
@@ -318,13 +356,14 @@ class ArtifactStore:
             raise CorruptAotArtifact(f"unparsable header in {path}: {exc}") from None
         return meta, len(MAGIC) + 4 + hlen
 
-    def _validate(self, meta: dict, key: dict, name: str, layout: str | None = None) -> None:
+    def _validate(self, meta: dict, key: dict, name: str, layout: str | None = None,
+                  mesh: dict | None = None) -> None:
         if meta.get("key") != key or meta.get("name") != name:
             raise StaleAotArtifact(
                 f"artifact keyed {meta.get('key')}/{meta.get('name')}, "
                 f"wanted {key}/{name}"
             )
-        fp = env_fingerprint()
+        fp = _fingerprint_with(mesh)
         if meta.get("fingerprint") != fp:
             raise StaleAotArtifact(
                 f"environment fingerprint {meta.get('fingerprint')} != current {fp}"
@@ -335,40 +374,44 @@ class ArtifactStore:
                 "graph under this key was rebuilt: its buckets or rows differ)"
             )
 
-    def probe(self, key: dict, name: str | None = None) -> bool:
+    def probe(self, key: dict, name: str | None = None, *, mesh: dict | None = None) -> bool:
         """Read-only readiness check: does a fingerprint-current core
-        artifact with an intact payload exist? The registry names its build
-        span ``engine_adopt`` or ``engine_build`` off this, before the
-        engine (and so its layout) exists: an artifact of another layout
+        artifact with an intact payload exist, for every rank of a mesh key
+        (``devices`` ranks, each under :func:`rank_program_name`; ``mesh``
+        the serving mesh's :func:`mesh_fingerprint`)? The registry names
+        its build span ``engine_adopt`` or ``engine_build`` off this, before
+        the engine (and so its layout) exists: an artifact of another layout
         probes ready, then :meth:`get` refuses it and the registry records
         ``aot_adopt_failed``. No quarantine, no counter: :meth:`get` takes
         the consequential actions."""
         key = program_key(key)
         names = CORE_NAMES if name is None else (name,)
-        for n in names:
-            path = self.path_for(key, n)
-            if not os.path.exists(path):
-                continue
-            try:
-                meta, off = self._read_header(path)
-                self._validate(meta, key, n)
-                with open(path, "rb") as f:
-                    f.seek(off)
-                    payload = f.read()
-                if _crc32(payload) != meta.get("payload_crc32"):
-                    continue
-                return True
-            except (AotArtifactError, OSError):
-                continue
-        return False
+        ranks = range(key["devices"]) if key["devices"] > 1 else (0,)
+        return any(all(self._intact(key, rank_program_name(n, r), mesh) for r in ranks)
+                   for n in names)
+
+    def _intact(self, key: dict, name: str, mesh: dict | None) -> bool:
+        path = self.path_for(key, name)
+        if not os.path.exists(path):
+            return False
+        try:
+            meta, off = self._read_header(path)
+            self._validate(meta, key, name, mesh=mesh)
+            with open(path, "rb") as f:
+                f.seek(off)
+                payload = f.read()
+        except (AotArtifactError, OSError):
+            return False
+        return _crc32(payload) == meta.get("payload_crc32")
 
     def get(self, key: dict, name: str, *, with_meta: bool = False,
-            layout: str | None = None):
+            layout: str | None = None, mesh: dict | None = None):
         """The validated payload (or ``(payload, meta)`` under
         ``with_meta``), or None with the degrade applied: missing/stale
-        (another environment, or, given ``layout``, another engine layout)
-        -> fallback counted; corrupt -> quarantined + fallback counted.
-        Never raises on a bad artifact: the eager path always serves."""
+        (another environment or mesh backend, or, given ``layout``, another
+        engine layout) -> fallback counted; corrupt -> quarantined +
+        fallback counted. Never raises on a bad artifact: the eager path
+        always serves."""
         key = program_key(key)
         path = self.path_for(key, name)
         if not os.path.exists(path):
@@ -376,7 +419,7 @@ class ArtifactStore:
             return None
         try:
             meta, off = self._read_header(path)
-            self._validate(meta, key, name, layout)
+            self._validate(meta, key, name, layout, mesh)
             with open(path, "rb") as f:
                 f.seek(off)
                 payload = f.read()
@@ -538,12 +581,80 @@ def export_available() -> bool:
         return False
 
 
+def _aot_target(engine):
+    """The engine whose inventory serves ``engine``: itself, or what a serve
+    adapter names as its ``aot_engine`` (the 2D serve adapter's replicated
+    engine)."""
+    if isinstance(getattr(type(engine), "aot_engine", None), property):
+        return engine.aot_engine
+    return engine
+
+
+def _remote(engine):
+    """``engine`` when it is a serving mesh's handle (``parallel/mesh.Remote``),
+    else None."""
+    from tpu_bfs_torch.parallel.mesh import Remote
+
+    return engine if isinstance(engine, Remote) else None
+
+
+def _mesh_command(remote, op: str, spec, store: ArtifactStore, log) -> list:
+    """``op`` ('export' or 'adopt') on every rank of ``remote``'s rung, in
+    the mesh's command order (:func:`rank_aot` on each, rank 0 with
+    ``store`` and ``log``): the names every rank exported or adopted."""
+    return remote._ctl.aot(remote, op, store, program_key(spec), log)
+
+
+def rank_aot(engine, op: str, store, key: dict, log=None) -> list:
+    """One rank's part of a mesh command (``parallel/mesh``): export or
+    adopt this rank's programs (rank 0 passes its own ``store`` and
+    ``log``; a follower gets the store's directory and prints its log
+    lines), then agree over the engine's mesh which programs every rank
+    exported or adopted: a MIN over the ranks, one collective each, since
+    every rank of the rung runs this at one point of the stream. Returns
+    those names. A mesh program counts once in rank 0's store, as JAX's one
+    program does: an adoption or export that failed on another rank moves
+    rank 0's hit to a fallback (or takes back its export)."""
+    import sys
+
+    if not isinstance(store, ArtifactStore):
+        rank = engine.aot_mesh()["rank"] if hasattr(engine, "aot_mesh") else "?"
+
+        def log(msg, rank=rank):
+            print(f"# mesh rank {rank}: {msg}", file=sys.stderr, flush=True)
+
+        store = ArtifactStore(store, log=log)
+    inventory = ([n for n, *_ in engine.export_programs()]
+                 if hasattr(engine, "export_programs") else [])
+    fn = export_engine_programs if op == "export" else adopt_engine_programs
+    names = fn(engine, key, store, log=log)
+    world = getattr(engine, "_aot_world", None)
+    if not inventory or world is None:
+        return list(names)
+    ok = torch.tensor([n in names for n in inventory], dtype=torch.int32, device=world.device)
+    ok = world.all_reduce_(ok, "min").tolist()
+    agreed = [n for n, f in zip(inventory, ok) if f]
+    lost = len(names) - len(agreed)
+    if lost:
+        if op == "export":
+            store._bump("exports", -lost)
+        else:
+            store._bump("hits", -lost)
+            store._bump("fallbacks", lost)
+    return agreed
+
+
 def export_engine_programs(engine, spec, store: ArtifactStore, *, log=None) -> list:
     """Export every program in ``engine.export_programs()`` into the store
     under the registry key for ``spec``. A program that fails to export
     logs and is skipped: the store holds what it can, the eager path serves
-    the rest. Returns the exported names."""
+    the rest. Returns the exported names. A mesh engine's rank stores its
+    programs under :func:`rank_program_name`; a serving mesh's handle
+    exports on every rank (:func:`rank_aot`)."""
     log = log or (lambda msg: None)
+    engine = _aot_target(engine)
+    if _remote(engine) is not None:
+        return _mesh_command(engine, "export", spec, store, log)
     if not hasattr(engine, "export_programs"):
         # Workload adapters carry no inventory (their base's programs export
         # under the kind="bfs" key): nothing to export.
@@ -551,18 +662,21 @@ def export_engine_programs(engine, spec, store: ArtifactStore, *, log=None) -> l
     key = program_key(spec)
     programs = engine.export_programs()
     layout = layout_digest(engine)
+    mesh = mesh_fingerprint(engine)
+    rank = engine.aot_mesh()["rank"] if mesh is not None else 0
     done = []
     for name, _attr, fn, args in programs:
         fn = getattr(fn, "_aot_original", fn)
+        stored = rank_program_name(name, rank)
         with _obs.maybe_span(
-            "aot_export", f"{key['engine']}-w{key['lanes']}-{name}",
-            cat="aot", program=name, width=key["lanes"],
+            "aot_export", f"{key['engine']}-w{key['lanes']}-{stored}",
+            cat="aot", program=stored, width=key["lanes"],
         ):
             try:
-                store.put(key, name, serialize_program(export_program(fn, args)),
-                          layout=layout)
+                store.put(key, stored, serialize_program(export_program(fn, args)),
+                          layout=layout, mesh=mesh)
             except Exception as exc:  # noqa: BLE001 — per-program degrade
-                log(f"aot export of {name!r} failed "
+                log(f"aot export of {stored!r} failed "
                     f"({type(exc).__name__}: {str(exc)[:160]}); skipped")
                 continue
         done.append(name)
@@ -573,20 +687,28 @@ def adopt_engine_programs(engine, spec, store: ArtifactStore, *, log=None) -> li
     """Load the store's programs and install them over the engine's eager
     entries (``engine.adopt_programs``). Missing, stale or corrupt
     artifacts are skipped (the store counts the fallback and the engine
-    keeps its eager entry). Returns the adopted names."""
+    keeps its eager entry). Returns the adopted names. A mesh engine's rank
+    loads its own (:func:`rank_program_name`); a serving mesh's handle
+    adopts on every rank (:func:`rank_aot`)."""
     log = log or (lambda msg: None)
+    engine = _aot_target(engine)
+    if _remote(engine) is not None:
+        return _mesh_command(engine, "adopt", spec, store, log)
     if not hasattr(engine, "export_programs"):
         return []  # a workload adapter: no inventory
     key = program_key(spec)
     inventory = engine.export_programs()
     layout = layout_digest(engine)
+    mesh = mesh_fingerprint(engine)
+    rank = engine.aot_mesh()["rank"] if mesh is not None else 0
     programs = {}
     for name, _attr, fn, _args in inventory:
+        stored = rank_program_name(name, rank)
         with _obs.maybe_span(
-            "aot_load", f"{key['engine']}-w{key['lanes']}-{name}",
-            cat="aot", program=name, width=key["lanes"],
+            "aot_load", f"{key['engine']}-w{key['lanes']}-{stored}",
+            cat="aot", program=stored, width=key["lanes"],
         ):
-            payload = store.get(key, name, layout=layout)
+            payload = store.get(key, stored, layout=layout, mesh=mesh)
             if payload is None:
                 continue
             try:
@@ -594,7 +716,7 @@ def adopt_engine_programs(engine, spec, store: ArtifactStore, *, log=None) -> li
                 programs[name] = AdoptedProgram(name, exported, fn, store=store)
             except Exception as exc:  # noqa: BLE001 — CRC-clean but unloadable
                 store._quarantine(
-                    store.path_for(key, name),
+                    store.path_for(key, stored),
                     f"load failed: {type(exc).__name__}: {str(exc)[:160]}",
                 )
                 store._bump("fallbacks")

@@ -13,6 +13,12 @@ file, never a handle cached from before.
 
 Every entry point returns ``None`` when the library cannot be built or
 loaded, and callers fall back to the NumPy paths, as in the JAX package.
+No failure is final for the process: a library file that is there loads
+on the next call (another process built it, or the build directory moved
+back), a failed load of a present file is tried again on the next call,
+and a failed build is tried again once :data:`RETRY_BUILD_S` seconds have
+passed (``ensure_built`` tries at once). Between those retries a failed
+build costs a call one ``stat``, not a compiler run.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,8 +38,12 @@ NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 SOURCES = ("loader.cpp", "rmat.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
+#: Seconds before a failed build of one library path is tried again.
+RETRY_BUILD_S = 30.0
+
 _LIBS: dict[str, ctypes.CDLL] = {}  # loaded handles by library path
-_FAILED: dict[str, str] = {}  # library path -> why its build failed
+# Library path -> (monotonic time, why) of its last failed build.
+_FAILED: dict[str, tuple[float, str]] = {}
 
 
 def source_hash() -> str:
@@ -82,7 +93,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _find_lib(log=None):
     """The loaded library of the current sources, built first if missing;
-    None if it cannot be built or loaded (the reason goes to ``log``)."""
+    None if it cannot be built or loaded now (the reason goes to ``log``).
+    A present file is always tried; a missing one is built unless a build
+    of the same path failed less than :data:`RETRY_BUILD_S` seconds ago
+    (``log`` given: at once)."""
     try:
         path = library_path()
     except OSError as exc:
@@ -92,16 +106,21 @@ def _find_lib(log=None):
     key = str(path)
     if key in _LIBS:
         return _LIBS[key]
-    if key in _FAILED and log is None:
+    failed = _FAILED.get(key)
+    if (not path.is_file() and failed is not None and log is None
+            and time.monotonic() - failed[0] < RETRY_BUILD_S):
         return None
     try:
         if not path.is_file():
-            _build(path)
+            try:
+                _build(path)
+            except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+                _FAILED[key] = (time.monotonic(), str(exc))
+                raise
         _LIBS[key] = _declare(ctypes.CDLL(key))
         _FAILED.pop(key, None)
         return _LIBS[key]
     except (OSError, AttributeError, RuntimeError, subprocess.SubprocessError) as exc:
-        _FAILED[key] = str(exc)
         if log is not None:
             log(f"native build failed; falling back to numpy paths: {exc}")
         return None

@@ -133,13 +133,17 @@ class SsspEngine:
     CUDA unless named. ``overlay=(rows, kcap)`` arms the dynamic-graph
     delta overlay (``graph/dynamic.py``): the light sweep folds the
     overlay's light plane ``ov_wl`` and the heavy close its full plane
-    ``ov_w`` after K1, as the base tables split ``wl``/``w``."""
+    ``ov_w`` after K1, as the base tables split ``wl``/``w``. ``ell`` is
+    ``build_ell`` of ``graph`` and ``weights`` its
+    ``build_ell_weights`` (another engine's ``ell`` and ``ell_weights``),
+    to build several engines over one graph without repeating the host
+    builds."""
 
     kind = "sssp"
 
     def __init__(self, graph: Graph, *, lanes: int = 32, kcap: int = 64,
                  delta: int = 0, max_rounds: int = 4096, overlay: tuple = (),
-                 device=None):
+                 device=None, ell=None, weights=None):
         self.overlay = tuple(int(x) for x in overlay) if overlay else ()
         if graph.weights is None:
             raise ValueError(
@@ -151,7 +155,13 @@ class SsspEngine:
         _check_kernel_ident()
         self.device = resolve_device(device)
         self.host_graph = graph
-        self.ell = build_ell(graph, kcap=kcap)
+        if ell is None:
+            ell = build_ell(graph, kcap=kcap)
+        elif ell.kcap != kcap:
+            raise ValueError(f"ell was built with kcap={ell.kcap}, the engine asks {kcap}")
+        self.ell = ell
+        #: The host weight slabs of ``ell`` (``build_ell_weights``).
+        self.ell_weights = build_ell_weights(graph, ell) if weights is None else weights
         self.lanes = int(lanes)
         self.num_vertices = graph.num_vertices
         self.undirected = graph.undirected
@@ -189,7 +199,7 @@ class SsspEngine:
         their candidates absorb under min). Pad weight 0: INF + 0 is the
         min identity."""
         arrs = expand_arrays(self.ell, self._act, self.device)
-        vw, lw = build_ell_weights(self.host_graph, self.ell)
+        vw, lw = self.ell_weights
         planes = ([("virtual", vw)] if vw is not None else []) + [
             (f"light{i}", w) for i, w in enumerate(lw)]
         for name, w in planes:
