@@ -353,6 +353,24 @@ Phases, one JSON line each:
     its checks and prints its line after all have ended; the seconds of each
     were taken beside the others (a READY or an answer time includes the
     shared host).
+24. analysis (tpu_bfs_torch/analysis, utils/wirecheck.py), its pieces in
+    the arms that already build what they read: the program passes over
+    the aot phase's (a) five flagship programs and the mesh AOT arms'
+    one-rank hybrid dist_core and ring SSSP dist_sssp_core and
+    dist_sssp_close (their exports): the dtype and host-op scans, the
+    in-place certificate, and each program, adopted, driven on the card on
+    zero tables of its exported shapes, once with its peak device memory
+    measured (beside the FX walk's estimate) and once under
+    torch.cuda.set_sync_debug_mode("error") (the guard drive); the wire
+    tap on in the gloo arms that already run, no new process group: the
+    shared-card hybrid's and kinds' engines book every exchange call to
+    its branch (counted against modeled bytes, branch for branch), and the
+    4-rank serving mesh runs the wire audits on small graphs; every rank's
+    ordered collectives gathered and compared. The line, after graph500:
+    each program's estimated and measured peak, the findings (new,
+    suppressed by the port's baseline, stale), the wire reports; 0 new
+    findings, every guard drive clean, every count equal to its model,
+    every group's signatures equal, or the script fails.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero; it also exits non-zero without a CUDA device.
 """
@@ -2361,13 +2379,14 @@ def mesh_aot_store(name: str):
     return aot.ArtifactStore(root), root
 
 
-def mesh_aot_adopt(eng, key: dict, names: list) -> dict:
+def mesh_aot_adopt(eng, key: dict, names: list, prefix: str) -> dict:
     """A mesh engine's rank-local programs exported into a fresh store and
     adopted back into the same engine (its own tables: no second build),
     with ``torch.export.export`` made to raise while it adopts. Each
     adopted graph names its kernel ops and no collective; one artifact
-    hit a program, no fallback. Returns the arm's fields, the eager
-    callables (``eager``) and the store's root (``root``)."""
+    hit a program, no fallback. The analysis phase's program passes run
+    over the adopted programs (as ``prefix``). Returns the arm's fields,
+    the eager callables (``eager``) and the store's root (``root``)."""
     from tpu_bfs_torch.utils import aot
 
     store, root = mesh_aot_store("aot_mesh")
@@ -2390,6 +2409,8 @@ def mesh_aot_adopt(eng, key: dict, names: list) -> dict:
         require(not any("c10d" in x or "all_reduce" in x or "all_gather" in x for x in t),
                 f"{name}: a collective in the adopted graph")
         targets[name] = sorted({x for x in t if x.startswith("tpu_bfs_torch.")})
+    analyse_programs(prefix, [(name, fn, args, getattr(eng, attr), None)
+                              for name, attr, fn, args in inventory], eng.device)
     return {"programs": names, "export_s": export_s, "adopt_s": adopt_s, "counts": counts,
             "kernel_ops": targets,
             "artifact_bytes": sum(p.stat().st_size for p in root.glob("*.aot")),
@@ -2449,7 +2470,7 @@ def mesh_aot_hybrid(k1, k2, meng, sources, eager, eager_launches, fw, prior, sha
     t_arm = time.perf_counter()
     key = {"graph_key": "rmat:flagship", "engine": "hybrid", "lanes": meng.lanes,
            "planes": meng.num_planes, "devices": 1}
-    arm = mesh_aot_adopt(meng, key, ["dist_core"])
+    arm = mesh_aot_adopt(meng, key, ["dist_core"], "mesh-hybrid")
     root, _eager_fns = arm.pop("root"), arm.pop("eager")
     require(arm["kernel_ops"]["dist_core"] == ["tpu_bfs_torch.ell_expand.default",
                                               "tpu_bfs_torch.tile_spmm.default"],
@@ -2491,13 +2512,19 @@ def shared_card_rank(mesh, scale: int, lanes: int):
     reached counts, eccentricities and three lanes' distances."""
     from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
 
+    from tpu_bfs_torch.analysis.graph import WireTap
+    from tpu_bfs_torch.utils.wirecheck import ExchangeTap, branch_arg, gather_signatures
+
     g = rmat(scale)
     eng = DistHybridMsBfsEngine(g, mesh, lanes=lanes)
     sources = np.random.default_rng(3).choice(np.flatnonzero(g.degrees > 0), size=lanes)
-    res = eng.run(sources)
+    with WireTap() as tap:  # the analysis phase's wire tap
+        xt = ExchangeTap(tap, eng, "_gather", branch_arg)
+        res = eng.run(sources)
     picks = [0, lanes // 2, lanes - 1]
     return (sources, res.reached, res.ecc, [res.distances_int32(i) for i in picks],
-            picks, mesh.backend, str(mesh.device))
+            picks, mesh.backend, str(mesh.device),
+            ([xt.report()], gather_signatures(mesh, tap.signature())))
 
 
 def shared_card(dev, scale: int, ranks: int = 2) -> dict:
@@ -2511,8 +2538,9 @@ def shared_card(dev, scale: int, ranks: int = 2) -> dict:
     group = start(ranks, shared_card_rank, scale, 4096, device=f"cuda:{dev.index or 0}",
                   backend="gloo")
     eng = HybridMsBfsEngine(rmat(scale), lanes=4096, num_planes=5, device=dev)
-    sources, reached, ecc, dists, picks, backend, where = group.result()
+    sources, reached, ecc, dists, picks, backend, where, wire = group.result()
     mesh_s = time.perf_counter() - t0
+    wire_row("shared_card", *wire)
     res = eng.run(sources)
     require(np.array_equal(reached, res.reached) and np.array_equal(ecc, res.ecc),
             "shared card: reached or ecc != single-device")
@@ -2719,16 +2747,30 @@ def shared_card_kinds_rank(mesh, scale: int):
     from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
     from tpu_bfs_torch.workloads.khop import KhopServeEngine
 
+    from tpu_bfs_torch.analysis.graph import WireTap
+    from tpu_bfs_torch.utils.wirecheck import (
+        ExchangeTap,
+        branch_arg,
+        branch_result,
+        gather_signatures,
+    )
+
     g, gw, src = shared_kinds_inputs(scale)
-    sssp = DistSsspEngine(gw, mesh, lanes=64, exchange="sparse", delta_bits=(8, 16),
-                          predict=True).run(src[:64])
-    bfs = DistBfsEngine(g, mesh, exchange="sparse", wire_pack=True, delta_bits=(8, 16),
-                        sieve=True, predict=True)
-    trees = {int(s): (r.distance, r.parent) for s in src[:3] for r in [bfs.run(int(s))]}
-    khop = KhopServeEngine(DistWideMsBfsEngine(g, mesh, lanes=256, exchange="sparse",
-                                               delta_bits=(8, 16))).run(src, k=3)
+    with WireTap() as tap:  # the analysis phase's wire tap, each engine's exchange booked
+        eng = DistSsspEngine(gw, mesh, lanes=64, exchange="sparse", delta_bits=(8, 16),
+                             predict=True)
+        taps = [ExchangeTap(tap, eng, "_exchange_round", branch_result)]
+        sssp = eng.run(src[:64])
+        bfs = DistBfsEngine(g, mesh, exchange="sparse", wire_pack=True, delta_bits=(8, 16),
+                            sieve=True, predict=True)
+        taps.append(ExchangeTap(tap, bfs, "_exchange_step", branch_result))
+        trees = {int(s): (r.distance, r.parent) for s in src[:3] for r in [bfs.run(int(s))]}
+        wide = DistWideMsBfsEngine(g, mesh, lanes=256, exchange="sparse", delta_bits=(8, 16))
+        taps.append(ExchangeTap(tap, wide, "_exchange_rows", branch_arg, measure_in_flags=True))
+        khop = KhopServeEngine(wide).run(src, k=3)
     return ([sssp.distances_int32(i) for i in range(64)], int(sssp.rounds), trees,
-            np.asarray(khop.reached), mesh.backend, str(mesh.device))
+            np.asarray(khop.reached), mesh.backend, str(mesh.device),
+            ([t.report() for t in taps], gather_signatures(mesh, tap.signature())))
 
 
 def shared_kinds_inputs(scale: int):
@@ -2904,7 +2946,7 @@ def mesh_aot_sssp(k1, k2, eng, src, eager, eager_launches, shard_entry, names):
     t_arm = time.perf_counter()
     key = {"graph_key": "rmat:flagship,wmax=8", "engine": "wide", "lanes": eng.lanes,
            "planes": 8, "devices": 1, "kind": "sssp", "exchange": "ring"}
-    arm = mesh_aot_adopt(eng, key, ["dist_sssp_core", "dist_sssp_close"])
+    arm = mesh_aot_adopt(eng, key, ["dist_sssp_core", "dist_sssp_close"], "mesh-sssp")
     root, _eager_fns = arm.pop("root"), arm.pop("eager")
     require(all(v == ["tpu_bfs_torch.ell_expand.default"] for v in arm["kernel_ops"].values()),
             f"the adopted sssp programs name {arm['kernel_ops']}")
@@ -2950,8 +2992,9 @@ def shared_card_kinds(dev, small_scale: int) -> dict:
     want = SsspEngine(gw2, lanes=64, device=dev).run(src2[:64])
     bfs = BfsEngine(g2, device=dev)
     kw = KhopServeEngine(WidePackedMsBfsEngine(g2, lanes=256, device=dev)).run(src2, k=3)
-    dists, rounds, trees, reached, backend, where = group.result()
+    dists, rounds, trees, reached, backend, where, wire = group.result()
     mesh_s = time.perf_counter() - t0
+    wire_row("shared_card_kinds", *wire)
     require(rounds == want.rounds and all(
         np.array_equal(d, want.distances_int32(i)) for i, d in enumerate(dists)),
         "shared card: DistSsspEngine != SsspEngine")
@@ -3819,10 +3862,11 @@ def aot_flagship(dev, k1, k2, eng, sources, flagship_entries) -> tuple[dict, lis
             "lanes": eng.lanes, "planes": eng.num_planes}
     inventory = eng.export_programs()
     require([n for n, *_ in inventory] == AOT_NAMES, f"inventory {inventory}")
-    export_s, nbytes = {}, {}
+    export_s, nbytes, exported = {}, {}, {}
     for name, _attr, fn, args in inventory:
         t0 = time.perf_counter()
-        path = store.put(spec, name, aot.serialize_program(aot.export_program(fn, args)),
+        exported[name] = aot.export_program(fn, args)
+        path = store.put(spec, name, aot.serialize_program(exported[name]),
                          layout=aot.layout_digest(eng))
         export_s[name] = time.perf_counter() - t0
         nbytes[name] = os.path.getsize(path)
@@ -3890,6 +3934,11 @@ def aot_flagship(dev, k1, k2, eng, sources, flagship_entries) -> tuple[dict, lis
         host = step_host_ms(eng, eager["_step"], adopted["_step"], sources)
         k1.ell_expand.launches, k2.tile_spmm.launches = saved  # comparisons do not count
         del fw, prior, buf, re_, ra
+        # The analysis phase's program passes over these five (its line at
+        # the end); their drives do not count as launches.
+        analyse_programs("flagship", [(name, fn, args, adopted[attr], exported[name])
+                                      for name, attr, fn, args in inventory], eng.device)
+        k1.ell_expand.launches, k2.tile_spmm.launches = saved
     finally:
         use(eager)
     gc.collect()
@@ -4492,6 +4541,33 @@ def mesh_serve_jsonl(dev) -> dict:
             "answers_equal": len(got2)}
 
 
+#: The wire audits the serving mesh runs on its ranks (small graphs: the
+#: audits drive every exchange branch, whose bytes the graph size sets).
+MESH_SERVE_AUDITS = [
+    ("check_planned_sparse", ("random", 500, 2000, 12345), {}),
+    ("check_rows_delta", ("random", 500, 2000, 12345), {"lanes": 64}),
+    ("check_minplus_exchange", ("random", 96, 480, 3, 5), {"lanes": 32}),
+    ("check_sliced_hybrid", ("rmat", 10, 8, 3), {}),
+    ("check_wire_checksum", None, {"words": 64}),
+]
+
+
+def mesh_serve_wire(ctl) -> None:
+    """The analysis phase's piece on the serving mesh: the wire audits on its
+    4 ranks (the rung's group: no new process group), every branch's
+    counted bytes against the model, and the ranks' collectives compared."""
+    from tpu_bfs_torch.utils.wirecheck import serve_rank_audits
+
+    t0 = time.perf_counter()
+    out = ctl.build(4, serve_rank_audits, 4, MESH_SERVE_AUDITS)
+    reports = [{"audit": name, "config": r["config"], "agree": bool(r["agree"]),
+                "modeled_per_level": r.get("modeled_per_level"),
+                "counted_per_level": r.get("counted_per_level")}
+               for (name, _, _), r in zip(MESH_SERVE_AUDITS, out["reports"])]
+    wire_row("mesh_serve", reports, out["signatures"])
+    ANALYSIS["seconds"]["mesh_serve_wire"] = time.perf_counter() - t0
+
+
 def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
     """The serve tier on a mesh (see the module docstring, phase 20).
     Returns the "K1 or, mesh serve rung w 8 (shard)" and "K2, mesh serve
@@ -4542,6 +4618,7 @@ def phase_mesh_serve(dev, k1, k2, scale: int, ptxas) -> list:
         # from vertex 0 (and would drop a snapshot of it).
         d2 = mesh_serve_dist2d(dev, ctl, g, int(pool[0, 0]), BUILD_DIR / "mesh_serve_spool")
         emit({"phase": "mesh_serve", **d2})
+        mesh_serve_wire(ctl)
     finally:
         ctl.close()
     torch.cuda.empty_cache()
@@ -4960,6 +5037,101 @@ def phase_dynamic(dev, k1, k2, g, ell, traversable, sssp, wide_scale: int, ptxas
     return [wide_entry, sssp_entry]
 
 
+# --- the analysis phase ----------------------------------------------------------
+
+# What the analysis phase's pieces found, in the arms that ran them: a row a
+# program, the program passes' findings, the gloo arms' wire reports, and
+# each piece's seconds.
+ANALYSIS = {"programs": [], "findings": [], "wire": [], "seconds": {}}
+
+
+def analyse_programs(prefix: str, programs, dev) -> None:
+    """The program passes over ``programs`` (``[(label, fn, args, run,
+    exported or None)]``, ``fn`` the original and ``run`` the adopted
+    callable): the dtype and host-op scans and the in-place certificate
+    over the FX walk of each export, then ``run`` driven once on zero
+    tables of the exported shapes with its peak device memory measured
+    (beside the walk's estimate of the intermediates' peak), and once
+    under the sync guard. Rows and findings go to ANALYSIS."""
+    from tpu_bfs_torch.analysis import dtypes, memory, transfer
+    from tpu_bfs_torch.analysis.graph import user_input_names, walk_program
+    from tpu_bfs_torch.utils import aot
+
+    t0 = time.perf_counter()
+    for label, fn, args, run, ep in programs:
+        name = f"{prefix}/{label}"
+        ep = ep if ep is not None else aot.export_program(fn, args)
+        walk = walk_program(ep)
+        found = (dtypes.check_walk(name, walk) + transfer.check_host_ops(name, walk)
+                 + memory.check_in_place(name, walk, memory.documented_in_place(fn),
+                                         user_input_names(ep)))
+        real = transfer.materialize(args, dev)
+        counters = (run.calls, run.fallback_calls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        run(*real)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated(dev) - base
+        guard = transfer.check_guard_drive(name, run, real, warm=False)
+        # Both drives took the adopted program; the arm's counters stay its own.
+        require(run.fallback_calls == counters[1], f"{name}: the drive fell back to eager")
+        run.calls = counters[0]
+        ANALYSIS["findings"] += found + guard
+        ANALYSIS["programs"].append({
+            "program": name, "argument_bytes": walk.input_bytes,
+            "estimated_bytes": walk.temp_peak_bytes, "measured_bytes": measured,
+            "measured_over_estimated": measured / walk.temp_peak_bytes
+            if walk.temp_peak_bytes else None,
+            "in_place": sorted(walk.mutated_inputs), "guard_clean": not guard,
+            "findings": [f.fingerprint for f in found + guard]})
+        del real
+        gc.collect()
+        torch.cuda.empty_cache()
+    ANALYSIS["seconds"][prefix] = time.perf_counter() - t0
+
+
+def wire_row(arm: str, reports, signatures) -> None:
+    """A gloo arm's wire reports and whether every group's ranks issued the
+    same collectives, into ANALYSIS."""
+    from tpu_bfs_torch.analysis.uniformity import check_rank_signatures
+
+    bad = check_rank_signatures(arm, signatures)
+    ANALYSIS["findings"] += bad
+    ANALYSIS["wire"].append({"arm": arm, "ranks": len(signatures),
+                             "collectives_a_rank": [len(s) for s in signatures],
+                             "signatures_equal": not bad, "reports": reports})
+
+
+def phase_analysis() -> None:
+    """The analysis line: the findings judged against the port's baseline,
+    the programs' peaks, the wire reports; fails on a new finding, an
+    unclean guard drive, a count off its model or unequal signatures."""
+    from tpu_bfs_torch.analysis import (
+        DEFAULT_BASELINE,
+        SOURCE_PASSES,
+        apply_baseline,
+        load_baseline,
+    )
+    from tpu_bfs_torch.analysis.cli import judged_baseline
+
+    programs = [r["program"] for r in ANALYSIS["programs"]]
+    new, suppressed, stale = apply_baseline(ANALYSIS["findings"], judged_baseline(
+        load_baseline(DEFAULT_BASELINE), set(SOURCE_PASSES), programs))
+    wire_ok = all(r["agree"] for w in ANALYSIS["wire"] for r in w["reports"])
+    emit({"phase": "analysis", "programs": ANALYSIS["programs"],
+          "findings": {"new": [f.render() for f in new], "suppressed": len(suppressed),
+                       "stale": sorted(stale)},
+          "wire": ANALYSIS["wire"], "seconds": ANALYSIS["seconds"]})
+    require(not new, f"analysis: {len(new)} new finding(s): {[f.render() for f in new]}")
+    require(len(programs) == 8, f"analysis: analysed {programs}")
+    require(all(r["guard_clean"] for r in ANALYSIS["programs"]), "analysis: a guard drive")
+    require(len(ANALYSIS["wire"]) == 3 and wire_ok,
+            f"analysis: wire counts against the models: {ANALYSIS['wire']}")
+    require(all(w["signatures_equal"] for w in ANALYSIS["wire"]),
+            "analysis: ranks issued different collectives")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21, help="flagship RMAT scale (21)")
@@ -5098,6 +5270,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph500(dev, k1, k2, args.graph500_scale, args.graph500_small_scale)
+    phase_analysis()
 
     require(all(row.get("edge_stream") for row in kernels),
             "a kernels row does not name its graph's edge stream")

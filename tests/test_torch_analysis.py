@@ -259,7 +259,10 @@ def test_faultcov_clean_on_port():
 # --- the runner ---------------------------------------------------------------
 
 def test_runner_reads_zero_findings_over_the_port():
-    proc = subprocess.run([sys.executable, "-m", "tpu_bfs_torch.analysis"], cwd=ROOT,
+    # --fast: the passes that need no device (the full run exports the
+    # programs on the card, or on the CPU with --device cpu:
+    # tests/test_torch_analysis_programs.py).
+    proc = subprocess.run([sys.executable, "-m", "tpu_bfs_torch.analysis", "--fast"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=subprocess_env(PYTHONPATH=str(ROOT)))
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -284,4 +287,4 @@ def test_runner_exits_1_on_a_finding(tmp_path, capsys):
     assert analysis_main(["--root", str(tmp_path), "--pass", "lifecycle",
                           "--pass", "faultcov"]) == 0
     with pytest.raises(ValueError, match="unknown pass"):
-        run_pass("uniformity", str(tmp_path))
+        run_pass("nonesuch", str(tmp_path))

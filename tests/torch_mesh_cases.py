@@ -1065,3 +1065,86 @@ def mesh_aot_rank(mesh, root: str) -> dict:
                                 lambda eng: dist_case_record(case, g, lambda g_, **k: eng)[0],
                                 root, mesh_aot_key(name, p), aot)
     return out
+
+
+# --- the checksummed ring of integrity/wire.py (tests/test_torch_wirecheck.py) ---
+
+
+class CorruptingMesh:
+    """A mesh whose ``ring_shift`` flips bit ``bit`` of word ``word`` of
+    what rank ``rank`` receives at hop ``hop``: a corrupted wire."""
+
+    def __init__(self, mesh, rank: int, hop: int, word: int, bit: int):
+        self.mesh, self.num_shards, self.rank = mesh, mesh.num_shards, mesh.rank
+        self._at, self._word, self._bit, self._calls = (rank, hop), word, bit, 0
+
+    def ring_shift(self, t):
+        out = self.mesh.ring_shift(t)
+        if (self.rank, self._calls) == self._at:
+            out = out.clone()
+            # The bit as an int32 value (bit 31 is the sign).
+            out[self._word] ^= (1 << self._bit) - ((1 << 32) if self._bit == 31 else 0)
+        self._calls += 1
+        return out
+
+
+def checksummed_ring_rank(mesh, chunks_i32, wire_check: bool, corrupt):
+    """Every rank's ``(own, bad_hops)`` of ``checksummed_ring_or`` over its
+    ``chunks_i32[rank]`` ([P, words] int32), gathered to rank 0;
+    ``corrupt`` is ``(rank, hop, word, bit)`` or None."""
+    import torch
+
+    from tpu_bfs_torch.integrity.wire import checksummed_ring_or
+
+    m = mesh if corrupt is None else CorruptingMesh(mesh, *corrupt)
+    own, bad = checksummed_ring_or(torch.from_numpy(chunks_i32[mesh.rank]), m,
+                                   wire_check=wire_check)
+    every = mesh.all_gather_rows(own[None]).numpy()
+    bads = mesh.all_gather_rows(bad.reshape(1)).numpy()
+    return every, bads
+
+
+def engine_wire_rank(mesh):
+    """The mesh engines' own runs under the wire tap, each exchange call
+    booked to its branch (``utils/wirecheck.ExchangeTap``): the dense and
+    sparse hybrids, the delta-row wide engine (k-hop), the 1D planner and
+    the sparse SSSP engine; the reports and every rank's signature."""
+    from tpu_bfs_torch.analysis.graph import WireTap
+    from tpu_bfs_torch.graph.generate import random_graph, rmat_graph
+    from tpu_bfs_torch.parallel.dist_bfs import DistBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_hybrid import DistHybridMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_msbfs_wide import DistWideMsBfsEngine
+    from tpu_bfs_torch.parallel.dist_sssp import DistSsspEngine
+    from tpu_bfs_torch.utils.wirecheck import (
+        ExchangeTap,
+        branch_arg,
+        branch_result,
+        gather_signatures,
+    )
+
+    g = rmat_graph(10, 8, seed=3)
+    gw = random_graph(96, 480, seed=3, weights=5)
+    src = np.flatnonzero(g.degrees > 0)[:64]
+    reports = []
+    with WireTap() as tap:
+        for exchange in ("dense", "sparse"):
+            eng = DistHybridMsBfsEngine(g, mesh, lanes=64, exchange=exchange)
+            xt = ExchangeTap(tap, eng, "_gather", branch_arg,
+                             measure_in_flags=exchange == "sparse")
+            eng.run(src)
+            reports.append(xt.report())
+        eng = DistWideMsBfsEngine(g, mesh, lanes=64, exchange="sparse", delta_bits=(8, 16))
+        xt = ExchangeTap(tap, eng, "_exchange_rows", branch_arg, measure_in_flags=True)
+        eng.run(src)
+        reports.append(xt.report())
+        eng = DistBfsEngine(g, mesh, exchange="sparse", delta_bits=(8, 16), sieve=True,
+                            predict=True)
+        xt = ExchangeTap(tap, eng, "_exchange_step", branch_result)
+        eng.run(int(src[0]))
+        reports.append(xt.report())
+        eng = DistSsspEngine(gw, mesh, lanes=32, exchange="sparse", delta_bits=(8, 16),
+                             predict=True)
+        xt = ExchangeTap(tap, eng, "_exchange_round", branch_result)
+        eng.run(np.arange(32) % 96)
+        reports.append(xt.report())
+    return reports, gather_signatures(mesh, tap.signature())

@@ -1767,7 +1767,7 @@ def packed_aot_programs(engine):
           ArgSpec((lanes,), torch.int32, dev))),
         ("lane_stats", "_lane_stats", orig("_lane_stats"), (table, engine._in_deg)),
         ("extract_word", "_extract_word", orig("_extract_word"),
-         (planes, table, table, ArgSpec((), torch.int64, dev))),
+         (planes, table, table, ArgSpec((), torch.int32, dev))),
         ("lane_ecc", "_lane_ecc", orig("_lane_ecc"), (planes, table, table)),
     ]
 
@@ -1810,7 +1810,7 @@ class PackedRunProtocol(PullGateHost, AdaptivePushHost, AotProgramProtocol):
         ids = self.__dict__.get("_word_ids")
         if ids is None:
             ids = self.__dict__.setdefault(
-                "_word_ids", torch.arange(self.w, device=self.device))
+                "_word_ids", torch.arange(self.w, dtype=torch.int32, device=self.device))
         return ids[wi]
 
     def start(self, sources):

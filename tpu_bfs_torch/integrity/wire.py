@@ -1,5 +1,6 @@
-"""Wire checksums, the checksum half of ``tpu_bfs/integrity/wire.py``: an
-order-sensitive 32-bit fold over a row's words.
+"""Wire checksums, the port of ``tpu_bfs/integrity/wire.py``: an
+order-sensitive 32-bit fold over a row's words, and the +1-word frame of
+an exchange chunk.
 
 A multiply-accumulate fold with per-position odd multipliers
 (splitmix-derived): position-dependent, so swapped words are caught, and
@@ -11,9 +12,15 @@ row's device (plain PyTorch). The serve tier's ``audit_checksum`` flag
 folds both sides of the audited distance row's host-to-device copy
 (``integrity/structural.py``).
 
-The exchange frame codec (``append_checksum``, ``split_verify``,
-``checksummed_ring_or``) is not ported: its only readers are the
-exchanges and ``utils/wirecheck.py`` (ROADMAP Queue 1 entry 6).
+The frame codec: :func:`make_words_checksum` (the fold of a flat word
+array on its device), :func:`append_checksum` / :func:`split_verify` (the
+sender appends the fold, the receiver strips and recomputes it: 4 bytes
+a chunk a hop) and :func:`checksummed_ring_or`, the packed ring
+reduce-scatter OR with every hop's chunk framed, over
+``parallel/mesh.Mesh.ring_shift``. Words are int32 here, bit for bit
+JAX's uint32 words; the fold's value travels as the int32 with the same
+bits. ``utils/wirecheck.check_wire_checksum`` counts the frame's bytes on
+the wire.
 """
 
 from __future__ import annotations
@@ -57,6 +64,73 @@ def _fold(w: torch.Tensor, mults: torch.Tensor) -> torch.Tensor:
     hi = ((w >> 16) * mults) & 0xFFFF
     terms = (lo + (hi << 16)) & _MASK32
     return terms.sum() & _MASK32
+
+
+def _fold_i32(w: torch.Tensor, mults: torch.Tensor) -> torch.Tensor:
+    """The fold of int32 words (their bits read as uint32) as a 0-d int32
+    tensor with the fold's 32 bits, on the words' device, no host read."""
+    x = _fold(w.to(torch.int64) & _MASK32, mults)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def make_words_checksum(n_words: int, device=None):
+    """The device twin of :func:`words_checksum_np` over a flat int32
+    ``[n_words]`` array: a function of the words returning a 0-d int32
+    tensor whose bits are the uint32 fold (JAX's ``make_words_checksum``).
+    Built a length at a time, so the multiplier table is made once."""
+    mults = torch.from_numpy(_mults_np(n_words).astype(np.int64)).to(device)
+
+    def checksum(words: torch.Tensor) -> torch.Tensor:
+        if words.shape != (n_words,):
+            raise ValueError(f"checksum of {tuple(words.shape)} words, built for ({n_words},)")
+        return _fold_i32(words, mults.to(words.device))
+
+    return checksum
+
+
+def append_checksum(words: torch.Tensor) -> torch.Tensor:
+    """Frame one exchange chunk: ``[n]`` int32 words -> ``[n + 1]`` with
+    the fold in the last word. The +1 word is the whole wire cost (4
+    bytes a chunk a hop)."""
+    return torch.cat([words, make_words_checksum(words.shape[-1], words.device)(words)[None]])
+
+
+def split_verify(framed: torch.Tensor):
+    """Strip one frame: ``[n + 1] -> ([n] payload, ok)``, ``ok`` a 0-d bool
+    tensor, False exactly when the wire changed any bit of the frame
+    (payload or checksum word): the receiver refolds what it received."""
+    payload = framed[:-1]
+    return payload, make_words_checksum(payload.shape[-1], framed.device)(payload) == framed[-1]
+
+
+def checksummed_ring_or(chunks: torch.Tensor, mesh, *, wire_check: bool = True):
+    """Packed ring reduce-scatter OR with per-hop chunk checksums.
+
+    ``chunks``: ``[P, words]`` int32, this rank's piece for every
+    destination. Returns ``(own [words] int32, bad_hops 0-d int32)``:
+    ``own`` is the OR over every rank of its piece for this rank,
+    ``bad_hops`` the hops whose received frame failed verification (0 on
+    a healthy wire). ``wire_check=False`` skips the frames: the plain
+    packed ring, byte for byte.
+
+    The ring is JAX's: the piece for destination ``d`` starts at rank
+    ``d + 1`` and takes in each visited rank's piece over ``P - 1`` hops
+    of :meth:`Mesh.ring_shift` (to rank + 1, from rank - 1). With
+    checksums a rank sends ``(P - 1) * 4`` more bytes an exchange, one
+    word a hop."""
+    p, idx = chunks.shape[0], mesh.rank
+    buf = chunks[(idx - 1) % p]
+    bad = torch.zeros((), dtype=torch.int32, device=chunks.device)
+    for k in range(p - 1):
+        if wire_check:
+            received, ok = split_verify(mesh.ring_shift(append_checksum(buf)))
+            bad = bad + (~ok).to(torch.int32)
+        else:
+            received = mesh.ring_shift(buf)
+        # The partial for destination idx - k - 2: fold in this rank's own
+        # piece for it; at the last hop that destination is idx itself.
+        buf = received | chunks[(idx - k - 2) % p]
+    return buf, bad
 
 
 def make_i32_checksum(n: int, device=None):

@@ -299,8 +299,8 @@ def _gathered_row_ids(mesh, ids: torch.Tensor, rows_loc: int, out_rows: int, gid
     the receiver decodes them and maps each sender's (``gid_of_src(ids,
     src)``); decoded tail duplicates are masked to ``out_rows`` too."""
     ok = ids < rows_loc
-    if bits is None:
-        return mesh.all_gather_rows(torch.where(ok, gid_of(ids), out_rows))
+    if bits is None:  # int32 on the wire, as the byte models price an id
+        return mesh.all_gather_rows(torch.where(ok, gid_of(ids), out_rows).to(torch.int32)).long()
     cap = ids.shape[0]
     words = delta_encode_ids(ids.to(torch.int32)[None], rows_loc, bits)
     ag = mesh.all_gather_rows(words)  # [P, delta_words(cap, bits)]
@@ -473,7 +473,7 @@ def sparse_exchange_or(x_full: torch.Tensor, mesh, *, caps, wire_pack: bool = Fa
     chunks = x_full.view(p, n)
     remote = chunks.clone()
     remote[i] = False
-    counts = remote.sum(dim=1, dtype=torch.int64)
+    counts = remote.sum(dim=1, dtype=torch.int32)  # the model's 4-byte phase-1 scalar
     biggest = int(mesh.all_reduce_(counts.max().reshape(1), "max").item())
     branch = cap_ladder_select(biggest, ladder)
     if branch == len(ladder):

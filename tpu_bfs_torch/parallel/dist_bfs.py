@@ -73,6 +73,7 @@ from tpu_bfs_torch.parallel.partition import (
     out_csr_1d_rank,
     partition_1d_rank,
 )
+from tpu_bfs_torch.utils.aot import ArgSpec
 from tpu_bfs_torch.utils.timing import run_timed
 
 #: The expansion backends of the mesh engines: the dense edge-centric
@@ -247,6 +248,17 @@ def _mesh_of(mesh, device) -> Mesh:
     return mesh
 
 
+def claim_step(hit, visited, dist, level):
+    """The claim of a rank's slice: ``new = hit & ~visited`` labeled
+    ``level`` in ``dist`` and ORed into ``visited`` (both in place).
+    Returns ``(new, count)``, ``count`` the [1] int32 size of ``new`` for
+    the host's all-reduce."""
+    new = hit & ~visited
+    dist.masked_fill_(new, level)
+    visited |= new
+    return new, new.sum(dtype=torch.int32).reshape(1)
+
+
 class PlannerCarry:
     """The planner's values carried from level to level, the same on every
     rank: the last measured count (-1 before the first), the frontier
@@ -357,7 +369,7 @@ class DistBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
             active = frontier.index_select(0, self._src_local)
             return expand_or(active, self.dst, self.rp, vp, backend=dense_backend)
 
-        self._expand = dense
+        self._expand = self._dense_expand = dense
         self.dopt_caps = ()
         if dopt:
             self._expand = self._dopt_expand(
@@ -374,6 +386,18 @@ class DistBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
         """Modeled bytes one rank moves a level, per exchange branch
         (aligned with ``exchange_branch_labels`` and the counters)."""
         return self._exchange_model(self.p, self.part.vloc)
+
+    def analysis_programs(self):
+        """This rank's programs of a level for ``analysis/`` (JAX's
+        ``analysis_programs``, whose one program is the level loop): the
+        dense expansion of the [vloc] frontier into the [vp] contribution
+        (dopt's dense fallback; its sparse rungs are host-sized), and the
+        claim. The exchange between them is the host's."""
+        vloc, dev = self.part.vloc, self.device
+        flag = ArgSpec((vloc,), torch.bool, dev)
+        return [("level_expand", self._dense_expand, (flag,)),
+                ("claim", claim_step, (flag, flag, ArgSpec((vloc,), torch.int32, dev),
+                                       ArgSpec((), torch.int32, dev)))]
 
     def _first(self, nfront: int, own) -> tuple:
         """The loop's first host values: the global frontier count and,
@@ -400,11 +424,9 @@ class DistBfsEngine(PlannedExchange, VertexCheckpointMixin, DistTraceHost):
             contrib = self._expand(frontier, *info)
             hit, branch, reads = self._exchange_step(contrib, mesh, visited, plan, count)
             counts[branch] += 1
-            new = hit & ~visited
-            dist.masked_fill_(new, level + 1)
-            visited |= new
+            new, nnew = claim_step(hit, visited, dist, level + 1)
             frontier = new
-            sums = self._expand.sums(new) if dopt else new.sum(dtype=torch.int64).reshape(1)
+            sums = self._expand.sums(new) if dopt else nnew
             total = mesh.all_reduce_(sums[:1].clone(), "sum")
             front = count
             count, *info = torch.cat([total, sums] if dopt else [total]).tolist()

@@ -62,6 +62,7 @@ from tpu_bfs_torch.parallel.dist_bfs import (
     VertexCheckpointMixin,
     _put,
     check_engine_args,
+    claim_step,
 )
 from tpu_bfs_torch.parallel.dist_msbfs_wide import MeshAotHost
 from tpu_bfs_torch.parallel.mesh import Mesh2D, make_mesh_2d
@@ -155,12 +156,9 @@ class Dist2DBfsEngine(MeshAotHost, AotProgramProtocol, PlannedExchange, VertexCh
     def _claim_step(hit, visited, dist, level):
         """The claim of the owned slice: ``new = hit & ~visited`` labeled
         ``level`` (a 0-d device int32) in ``dist`` and ORed into ``visited``
-        (both in place). Returns ``(new, count)``, ``count`` the [1] int64
+        (both in place). Returns ``(new, count)``, ``count`` the [1] int32
         new-frontier size for the host's all-reduce."""
-        new = hit & ~visited
-        dist.masked_fill_(new, level)
-        visited |= new
-        return new, new.sum(dtype=torch.int64).reshape(1)
+        return claim_step(hit, visited, dist, level)
 
     def wire_bytes_per_level(self) -> list[float]:
         """Modeled bytes one rank moves a level, per row-exchange branch,
@@ -216,7 +214,7 @@ class Dist2DBfsEngine(MeshAotHost, AotProgramProtocol, PlannedExchange, VertexCh
                 parts.append(self._expand.sums(col_frontier))
             if sparse:
                 parts.append(mesh.r.all_reduce_(
-                    torch.full((1,), branch, dtype=torch.int64, device=self.device), "max"))
+                    torch.full((1,), branch, dtype=torch.int32, device=self.device), "max"))
             vals = torch.cat(parts).tolist()
             front = count
             count, info = vals[0], vals[1:3] if dopt else ()

@@ -365,9 +365,11 @@ class DistSsspEngine(MeshAotHost, AotProgramProtocol, SsspEngine):
                 hi_t = hi_t + delta
                 # Finite distances at or above the bound still need
                 # bucketing; with none and no change, the loop is done.
-                alive = bool(torch.stack([
+                # The close round's second read, of tables every rank holds
+                # replicated after the exchange.
+                alive = bool(torch.stack([  # uniform: nxt and dist are replicated tables
                     (nxt < dist).any(), ((nxt < inf) & (nxt >= hi)).any(),
-                ]).any())  # the close round's second read
+                ]).any())
                 reads += 1
                 closes += 1
             dist = nxt

@@ -50,6 +50,12 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather
 
 _OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
 
+#: The wire tap of this process (``analysis/graph.WireTap``), or None: when
+#: set, each of :class:`Mesh`'s four collectives records one
+#: ``analysis/graph.Collective`` before it runs; when None, it costs one
+#: check a call.
+_TAP = None
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -80,6 +86,8 @@ class Mesh:
         """[P * n, ...]: every rank's ``t`` ([n, ...], the same shape on
         every rank) stacked in rank order (the JAX ``lax.all_gather``
         flattened on its leading axis), into ``out`` (contiguous) if given."""
+        if _TAP is not None:
+            _TAP.record(self, "all-gather", t)
         if out is None:
             out = torch.empty((self.num_shards * t.shape[0],) + tuple(t.shape[1:]),
                               dtype=t.dtype, device=t.device)
@@ -92,6 +100,8 @@ class Mesh:
     def all_reduce_(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """``t`` reduced in place over the ranks (``op`` 'max', 'sum' or
         'min'; the JAX ``lax.pmax``/``psum``/``pmin``); returns ``t``."""
+        if _TAP is not None:
+            _TAP.record(self, "all-reduce", t)
         if self.num_shards == 1 and self.group is not None:
             return t
         dist.all_reduce(t, op=_OPS[op], group=self.group)
@@ -100,11 +110,16 @@ class Mesh:
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """The JAX ``lax.all_to_all`` of a [P, ...] tensor: row j goes to
         rank j, and row j of the result came from rank j."""
+        if _TAP is not None:
+            _TAP.record(self, "all-to-all", t)
         if self.num_shards == 1:
             return t.clone()
         src = t.contiguous()
-        if self._staged(src):
-            return self.all_to_all(src.cpu()).to(t.device)
+        if self._staged(src):  # one payload on the wire, recorded once above
+            return self._all_to_all(src.cpu()).to(t.device)
+        return self._all_to_all(src)
+
+    def _all_to_all(self, src: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.group)
         return out
@@ -113,11 +128,16 @@ class Mesh:
         """The ring rotation of the JAX ``lax.ppermute`` with pairs
         (i, i + 1): ``t`` goes to rank + 1 and the returned tensor came
         from rank - 1. The identity on one rank."""
-        p = self.num_shards
-        if p == 1:
+        if _TAP is not None:
+            _TAP.record(self, "collective-permute", t)
+        if self.num_shards == 1:
             return t
-        if self._staged(t):
-            return self.ring_shift(t.cpu()).to(t.device)
+        if self._staged(t):  # one payload on the wire, recorded once above
+            return self._ring_shift(t.cpu()).to(t.device)
+        return self._ring_shift(t)
+
+    def _ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        p = self.num_shards
         out = torch.empty_like(t)
         ops = [dist.P2POp(dist.isend, t.contiguous(), self._peer((self.rank + 1) % p),
                           self.group),

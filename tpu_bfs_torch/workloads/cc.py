@@ -106,6 +106,17 @@ class CcServeEngine(ExchangeRecordDelegate):
                 self._index = CcIndex(labels, n, sweeps)
             return self._index
 
+    def analysis_programs(self):
+        """The label fold for ``analysis/`` (JAX's ``cc_min_lane``): the
+        smallest visiting lane of every row of a visited table."""
+        from tpu_bfs_torch.utils.aot import ArgSpec
+
+        base = self.base
+        rows = int(getattr(base, "_table_rows", base._act + 1))
+        act = base._act
+        return [("cc_min_lane", lambda vis: min_lane(vis, act),
+                 (ArgSpec((rows, base.w), torch.int32, base.device),))]
+
     def set_overlay(self, tables) -> None:
         """A dynamic-graph flip: swap the overlay on the base sweep engine
         AND drop the cached component index (an added edge can merge

@@ -24,6 +24,13 @@ class KhopServeEngine(ExchangeRecordDelegate):
         self.lanes = base.lanes
         self.num_vertices = base.num_vertices
 
+    def analysis_programs(self):
+        """The base engine's programs (JAX's: the hop bound is the level
+        cap of the same level step, so the kind adds no program)."""
+        if getattr(self.base, "pull_gate", False):
+            return []
+        return [(name, fn, args) for name, _attr, fn, args in self.base.export_programs()]
+
     def set_overlay(self, tables) -> None:
         """A dynamic-graph flip: pure delegation (the adapter caches nothing
         derived from the edge set)."""

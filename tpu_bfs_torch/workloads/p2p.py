@@ -196,6 +196,18 @@ class P2pServeEngine(ExchangeRecordDelegate):
         self.last_host_reads = None
         self.last_paths_s = None
 
+    def analysis_programs(self):
+        """The meet check and the per-pair reduction for ``analysis/``
+        (JAX's ``p2p_pair_met``, ``p2p_pair_dist``)."""
+        from tpu_bfs_torch.utils.aot import ArgSpec
+
+        base = self.base
+        rows = base._rows_loc if self._mesh is not None else int(
+            getattr(base, "_table_rows", base._act + 1))
+        table = ArgSpec((rows, base.w), torch.int32, base.device)
+        return [("p2p_pair_met", self._pair_met, (table,)),
+                ("p2p_pair_dist", self._pair_dist, ((table,) * base.num_planes, table, table))]
+
     def warm_residency(self) -> None:
         """The serve registry's warm-up hook: build and cache the base
         engine's parent scanner now, so the first path walk of a served

@@ -250,17 +250,13 @@ class SsspEngine:
         while alive and rounds < max_rounds:
             # The current bucket and the settled rows relax out; later
             # buckets are masked to INF (the delta-stepping invariant).
-            masked = dist.masked_fill(dist >= hi, inf)
-            new = torch.minimum(dist, self._expand_light(self.arrs, masked))
-            del masked
+            new = self._light_round(self.arrs, dist, hi)
             changed_l = bool((new < dist).any())  # the round's first read
             reads += 1
             if not changed_l:
                 # The bucket is stable: one relaxation over ALL edges (the
                 # heavy close), then the bound advances.
-                masked = new.masked_fill(new >= hi, inf)
-                new2 = torch.minimum(new, self._expand_full(self.arrs, masked))
-                del masked
+                new2 = self._close_round(self.arrs, new, hi)
                 hi += delta
                 # Finite distances at or above the bound still need
                 # bucketing; with none and no change, the loop is done.
@@ -274,6 +270,28 @@ class SsspEngine:
             rounds += 1
         self.last_host_reads, self.last_closes = reads, closes
         return dist, rounds, alive
+
+    def _light_round(self, arrs, dist: torch.Tensor, hi):
+        """One light round: the rows below the bound ``hi`` (an int or a
+        0-d int32 tensor) relax over the light edges."""
+        masked = dist.masked_fill(dist >= hi, int(INF_W))
+        return torch.minimum(dist, self._expand_light(arrs, masked))
+
+    def _close_round(self, arrs, dist: torch.Tensor, hi):
+        """The heavy close: the rows below ``hi`` relax over every edge."""
+        masked = dist.masked_fill(dist >= hi, int(INF_W))
+        return torch.minimum(dist, self._expand_full(arrs, masked))
+
+    def analysis_programs(self):
+        """The rank-free programs of a batch for ``analysis/`` (JAX's
+        ``analysis_programs``): the light round and the heavy close over
+        a [rows, lanes] table, ``(name, fn, example args)``."""
+        from tpu_bfs_torch.utils.aot import ArgSpec
+
+        table = ArgSpec((self._table_rows, self.lanes), torch.int32, self.device)
+        hi = ArgSpec((), torch.int32, self.device)
+        return [("sssp_light", self._light_round, (self.arrs, table, hi)),
+                ("sssp_close", self._close_round, (self.arrs, table, hi))]
 
     def _summaries(self, dist: torch.Tensor):
         """Per-lane reached count and weighted eccentricity, [L] each."""
